@@ -3,23 +3,23 @@
 // Replaces: brpc_tpu/ops/flash_attention.py:104 `_flash_pallas_2d` (the
 // repo's one Pallas TPU kernel), generalised to the parameters its lax
 // twin `_flash_lax` (:66) already has: a per-row-block query offset (0 for
-// flash_attention, lengths - 1 for decode_attention, whose causal mask then
-// admits exactly cache rows 0 .. lengths-1), a causal flag and a scale.
+// flash_attention; lengths - 1 gives decode's mask, rows 0 .. lengths-1,
+// which decode_attention ran through this kernel before flash_decode.cu),
+// a causal flag and a scale.
 // Numerics follow `_online_softmax_step` (:34) and `_finalize` (:58):
 // fp32 (m, l, o) per row, masked scores set to NEG_INF = -1e30 (not -inf)
 // and their probabilities forced to 0, rows with l == 0 written as 0.
 //
-// What bounds it on an H100. On the serving path (decode: 8 sequences,
-// one query row each, a 160-row fp32 cache of width 32) the kernel reads
-// at most 327,680 bytes of K/V: about 0.1 us at 3.35 TB/s, so the launch
-// itself dominates. At long sequences (8 heads x 2048 x 64) it is bound by
-// operations: 4 * sq * sk * d FLOPs done here in fp32 on the CUDA cores
-// (67 TFLOP/s), not on the tensor cores.
+// What bounds it on an H100. At long sequences (8 heads x 2048 x 64) it is
+// bound by operations: 4 * sq * sk * d FLOPs, done here in fp32 on the
+// CUDA cores (67 TFLOP/s) with two shared-memory reads per FMA, which
+// holds it near an eighth of that peak. TF32 stays off, so fp32 never
+// takes the tensor cores.
 //
 // Design. The TPU kernel keeps the whole K/V of a head in VMEM; 2048 x 64
-// fp32 is 512 KB, beyond one block's 227 KB of shared memory. So the grid
-// is (ceil(sq / 16), batch*heads); each block stages its 16-row q tile in
-// shared memory once and streams K and V through shared memory in 32-row
+// fp32 is 512 KB, beyond one block's 227 KB of shared memory. So there is
+// one block per 16 query rows of a head; it stages its q tile in shared
+// memory once and streams K and V through shared memory in 32-row
 // tiles, converted to fp32 on load (fp32, fp16 and bf16 inputs). Eight
 // threads share a query row: each scores four keys of the tile and owns
 // d/8 output columns, and row max and row sum are reduced with warp
@@ -27,16 +27,21 @@
 // per row so that the q.k and p.v loops read distinct banks. Under a
 // causal mask the loop stops at the last tile the block's last row can
 // see: a fully masked tile leaves (m, l, o) unchanged in the reference, so
-// the skip is exact. The kernel allocates nothing and launches on the
-// caller's stream; the C entry returns cudaGetLastError().
+// the skip is exact. The grid is (batch*heads, q tiles): bh on gridDim.x
+// has no 65,535 limit, and the blocks launch in `causal_tile` order
+// (tile_order.cuh), heaviest q tile first under a causal mask, so the
+// longest blocks do not trail the run. The kernel allocates nothing and
+// launches on the caller's stream; the C entry returns cudaGetLastError().
 //
-// Later work: wgmma/TMA tiles on the tensor cores for long sequences, and
-// split-K over the cache for decode, where one query row per block leaves
-// 15 of the 16 staged rows idle and only batch*heads blocks are launched.
+// Routing (ops/flash_attention.py `_plan`): this kernel takes fp32, and
+// fp16/bf16 at head dim 16/32. fp16/bf16 at head dim 64/128 go to the
+// tensor-core kernel (flash_attention_tc.cu), decode to flash_decode.cu.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
+
+#include "tile_order.cuh"
 
 namespace {
 
@@ -93,8 +98,8 @@ flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __shared__ float vs[kBK][D];
   __shared__ float ps[kBQ][kBK + 1];
 
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * kBQ;
+  const int bh = blockIdx.x;
+  const int q0 = causal_tile(blockIdx.y, gridDim.y, causal) * kBQ;
   const int tid = threadIdx.x;
   const int row = tid / kRowThreads;
   const int lane8 = tid % kRowThreads;
@@ -196,7 +201,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    const int* q_offset, int q_offset_add, int bh, int sq,
                    int sk, int d, float scale, int causal,
                    cudaStream_t stream) {
-  const dim3 grid((sq + kBQ - 1) / kBQ, bh);
+  const dim3 grid(bh, (sq + kBQ - 1) / kBQ);
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);

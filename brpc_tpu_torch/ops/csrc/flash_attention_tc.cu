@@ -21,7 +21,7 @@
 //   softmax overlaps another's wgmma, and a grid of one wave or less (8
 //   heads x 2048) still fills the SMs and balances under a causal mask.
 //   BRPC_TC_WARPGROUPS=2 builds blocks of 128 rows (two warpgroups share
-//   each K/V tile); ops/tc_block_rows.py times the two shapes (128 rows
+//   each K/V tile); ops/kernel_ab.py times the two shapes (128 rows
 //   won only where the grid spans several waves, non-causal, by ~1%).
 // - The producer's lane 0 issues TMA loads: the q tile once, then K and V
 //   tiles of 64 keys into a ring of kStages shared-memory stages, each
@@ -70,7 +70,7 @@
 namespace {
 
 // Consumer warpgroups a block, 64 query rows each. The library is built
-// with 1; tc_block_rows.py builds 2 beside it to time the two shapes.
+// with 1; ops/kernel_ab.py builds 2 beside it to time the two shapes.
 #ifndef BRPC_TC_WARPGROUPS
 #define BRPC_TC_WARPGROUPS 1
 #endif

@@ -11,7 +11,9 @@ One online-softmax recurrence, four versions:
     tiles on the tensor cores (``wgmma``), K/V streamed by TMA through a
     ring of shared-memory stages, head dim 64 or 128;
   * ``flash_attn_fwd`` (``csrc/flash_attention.cu``): fp32 (or head dim
-    16/32) tiles on the CUDA cores;
+    16/32) tiles on the CUDA cores, 64 query rows a block whose key range
+    two groups of 4 warps split, register tiles fed by 16-byte shared
+    loads, K/V streamed by ``cp.async`` through a two-stage ring;
   * ``_flash_plain``, the plain PyTorch version: the ``_flash_lax``
     recurrence with ``q_offset``/``k_offset``, step for step. Tensors on
     the CPU go to it, and ``chip_smoke.py`` holds every kernel against it.
@@ -47,6 +49,9 @@ SM_COUNT = 132
 DECODE_MIN_KEYS_PER_SPLIT = 128
 DECODE_MAX_SPLITS = 64
 GRID_Y_MAX = 65535
+# query rows a block of each tile kernel (``kBQ`` in its source, which the
+# CPU tests read): the launch's q tiles, gridDim.y, come from it
+TILE_BLOCK_Q = {"flash_attn_fwd": 64, "flash_attn_fwd_tc": 64}
 # fp32 summation-order slack of the 16-bit kernels' checks (_rounding_bound)
 LOWP_ATOL = 1e-5
 
@@ -282,8 +287,7 @@ def _launch_tile(kernel: str, q3: torch.Tensor, k3: torch.Tensor,
                                           or d not in TC_HEAD_DIMS):
         raise ValueError(f"flash_attn_fwd_tc takes fp16/bf16 with head dim "
                          f"in {TC_HEAD_DIMS}, not {q3.dtype} d {d}")
-    block_q = 64 if kernel == "flash_attn_fwd_tc" else 16
-    if -(-sq // block_q) > GRID_Y_MAX:
+    if -(-sq // TILE_BLOCK_Q[kernel]) > GRID_Y_MAX:
         raise ValueError(f"{kernel}: sq {sq} needs more than {GRID_Y_MAX} "
                          f"q tiles")
     if q_offset is not None and (q_offset.dtype != torch.int32
@@ -358,8 +362,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     block_q: int = 128, block_k: int = 128) -> torch.Tensor:
     """Blockwise attention over [..., seq, head_dim] operands. On the CPU
     ``block_k`` sets the plain version's k blocks; the kernels' tiles are
-    their own (``flash_attn_fwd`` 16 query rows x 32 keys,
-    ``flash_attn_fwd_tc`` 64 x 64), which changes only the fp32
+    their own (``flash_attn_fwd`` 64 query rows x 64 keys, 32 at head
+    dim 128; ``flash_attn_fwd_tc`` 64 x 64), which changes only the fp32
     summation order. ``block_q`` is kept for the reference's signature."""
     del block_q
     sq, d = q.shape[-2:]

@@ -15,10 +15,15 @@ Phases, one JSON line each:
    the card, at the serving shape, a split decode cache, and long,
    ragged and sq != sk shapes, in fp32, fp16 and bf16: fp32 within
    FP32_TOL, fp16/bf16 element by element within ``_rounding_bound``
-   (the error the kernel's own roundings explain), and two controls, a
-   split decode with one split dropped and an attention with its last K
-   tile dropped, that this bound must reject; each case names the kernel
-   ``_plan`` chose and checks that it was the one launched;
+   (the error the kernel's own roundings explain), and three controls, a
+   split decode with one split dropped and a bf16 and an fp32 attention
+   with their last K tile dropped, that these bounds must reject; each
+   case names the kernel ``_plan`` chose and checks that it was the one
+   launched. ``flash_attn_fwd`` is also held at its 64-row block's edges
+   (sq < 64, sq and sk off the tile sizes, head dims 16/32/128, causal
+   with sq != sk), in bf16 at d 32 and fp16 at d 16, and through
+   ``_launch_tile`` with a per-head device ``q_offset`` (lengths 0, 1, L
+   and between, ``q_offset_add`` -1);
 3. serving (the main path): a port Server on tcp://127.0.0.1:0 with the
    default GenerateService on cuda:0 answers a burst of 16 unary
    Generate calls from 8 client threads; every token list must equal the
@@ -34,9 +39,11 @@ Phases, one JSON line each:
 4. kernel times: device times of each kernel, its plain version and one
    PyTorch call (``scaled_dot_product_attention``, a yardstick the port
    never calls), from CUDA events and from the profiler, beside the bound
-   from bytes and operations, and, in the same run, the SIMT design that
-   served every path before the redesign (``flash_attn_fwd`` through its
-   private launcher) as ``ms_pr1``.
+   from bytes and operations, and, in the same run, the CUDA-core tile
+   kernel (``flash_attn_fwd`` through ``_launch_tile``) on the same
+   inputs as ``ms_simt`` where another kernel serves the call (decode, and
+   bf16 at d 64); ``flash_attn_fwd`` itself at 8 x 2048 x 64 and
+   x 128 fp32 and 8 x 2048 x 32 bf16, causal and not.
 
 The last lines are the card line, the kernels line and the result line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without the
@@ -288,6 +295,28 @@ def phase_kernel_check(dev):
            ["flash_decode_combine"], got, want,
            fa._rounding_bound(want, q.dtype))
 
+    # flash_attn_fwd with a per-head device q_offset, as decode_attention
+    # used it before flash_decode: row r of head b at lengths[b] - 1 + r
+    for name, (bh, sq, sk, d), lens in (
+            ("q_offset sq1 sk160 d32 fp32 lengths 0/1/160",
+             (8, 1, 160, 32), [0, 1, 160, 37, 80, 5, 159, 100]),
+            ("q_offset sq100 sk300 d64 fp32 lengths 0/1/300",
+             (8, 100, 300, 64), [0, 1, 300, 37, 150, 299, 64, 200])):
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        q = _rand(rng, (bh, sq, d), torch.float32, dev)
+        k = _rand(rng, (bh, sk, d), torch.float32, dev)
+        v = _rand(rng, (bh, sk, d), torch.float32, dev)
+        before = dict(fa.launches)
+        got = fa._launch_tile("flash_attn_fwd", q, k, v, d ** -0.5, True,
+                              q_offset=lengths, q_offset_add=-1)
+        launched = _launched(fa, before)
+        check(launched == ["flash_attn_fwd"], f"{name}: launched {launched}")
+        want = fa._flash_plain(q, k, v, d ** -0.5, True, 64,
+                               q_offset=lengths - 1)
+        record(name, launched, got, want, FP32_TOL)
+        check(not got[lengths == 0, 0].any().item(),
+              f"{name}: row 0 of a length-0 head must be zeros")
+
     cases = [
         # (name, shape q, sk, dtype, causal, block_k)
         ("8x2048x64 fp32", (8, 2048, 64), 2048, torch.float32, False, 128),
@@ -308,6 +337,24 @@ def phase_kernel_check(dev):
          True, 128),
         ("ragged 2x1000x128 fp16 causal", (2, 1000, 128), 1000,
          torch.float16, True, 128),
+        # flash_attn_fwd at its tile edges: 64-row blocks, 64-key tiles
+        # (32 at d 128)
+        ("sq50 sk50 d64 fp32", (3, 50, 64), 50, torch.float32, False, 64),
+        ("sq130 sk97 d64 fp32 causal", (2, 130, 64), 97, torch.float32,
+         True, 64),
+        ("sq70 sk200 d128 fp32 causal", (2, 70, 128), 200, torch.float32,
+         True, 64),
+        ("sq200 sk161 d128 fp32", (2, 200, 128), 161, torch.float32, False,
+         64),
+        ("sq100 sk77 d32 fp32 causal", (3, 100, 32), 77, torch.float32, True,
+         64),
+        ("sq65 sk129 d16 fp32", (2, 65, 16), 129, torch.float32, False, 64),
+        # the 16-bit inputs the routing table sends to flash_attn_fwd
+        ("4x257x32 bf16", (4, 257, 32), 257, torch.bfloat16, False, 64),
+        ("4x257x32 bf16 causal", (4, 257, 32), 257, torch.bfloat16, True,
+         64),
+        ("3x190x16 fp16", (3, 190, 16), 190, torch.float16, False, 64),
+        ("3x190x16 fp16 causal", (3, 190, 16), 190, torch.float16, True, 64),
     ]
     for name, qshape, sk, dtype, causal, block_k in cases:
         kshape = qshape[:-2] + (sk, qshape[-1])
@@ -334,8 +381,8 @@ def phase_kernel_check(dev):
                       if plan.kernel == "flash_attn_fwd_tc" else None)
             bound = fa._rounding_bound(want, dtype, pv_abs)
         record(name, launched, got, want, bound)
-        if name == "8x2048x64 bf16":
-            control("8x2048x64 bf16 without the last K tile",
+        if name in ("8x2048x64 bf16", "8x2048x64 fp32"):
+            control(f"{name} without the last K tile",
                     fa._flash_plain(qf, kf[:, :-64], vf[:, :-64], scale,
                                     causal, block_k), want, bound)
     torch.cuda.synchronize()
@@ -546,18 +593,19 @@ def _bound(nbytes: float, flops: float, kind: str):
 
 def _timed(kernel, plain, library, simt, iters):
     """Device ms per call of each function (CUDA events), in turns
-    (kernel, the SIMT design, plain, library), and the profiler's device
-    time per call of the kernel and the SIMT design. ``iters``: events
-    iterations of (kernel, simt, plain, library); None skips a function."""
+    (kernel, the CUDA-core tile kernel through ``_launch_tile``, plain,
+    library), and the profiler's device time per call of the kernel and
+    the tile kernel. ``iters``: events iterations of (kernel, simt, plain,
+    library); None skips a function."""
     out = {}
-    for key, fn, n in (("ms", kernel, iters[0]), ("ms_pr1", simt, iters[1]),
+    for key, fn, n in (("ms", kernel, iters[0]), ("ms_simt", simt, iters[1]),
                        ("plain_ms", plain, iters[2]),
                        ("library_ms", library, iters[3])):
         out[key] = cuda_time_ms(fn, n)[0] if fn is not None else None
     out["call_ms"] = cuda_time_ms(kernel, 20)[1]
     out["ms_profiled"] = profiled_device_ms(kernel, 50)
-    out["ms_pr1_profiled"] = (profiled_device_ms(simt, 20)
-                              if simt is not None else None)
+    out["ms_simt_profiled"] = (profiled_device_ms(simt, 20)
+                               if simt is not None else None)
     return out
 
 
@@ -653,20 +701,24 @@ def phase_times(decode_inputs, split_inputs):
 
     long_cases = []
     rng = np.random.RandomState(1)
-    n, d = 2048, 64
+    n = 2048
     # 8 heads: examples/long_context's shape, one wave of tc blocks or
-    # less; 32 heads: several waves, where the causal tile order pays
-    for heads, dtype in ((8, torch.float32), (8, torch.bfloat16),
-                         (32, torch.bfloat16)):
+    # less; 32 heads: several waves, where the causal tile order pays;
+    # d 128 fp32 and d 32 bf16 take flash_attn_fwd's other tile shapes
+    for heads, d, dtype in ((8, 64, torch.float32), (8, 64, torch.bfloat16),
+                            (32, 64, torch.bfloat16),
+                            (8, 128, torch.float32),
+                            (8, 32, torch.bfloat16)):
         kind = _kind(dtype)
+        kernel = fa._plan("attention", q.device, dtype, d).kernel
         x = [_rand(rng, (heads, n, d), dtype, q.device) for _ in range(3)]
         for causal in (False, True):
             pairs = n * (n + 1) / 2 if causal else n * n
             flops = 4.0 * heads * pairs * d
             nbytes = 4 * heads * n * d * x[0].element_size()
             bms, bby = _bound(nbytes, flops, kind)
-            # the SIMT kernel is what bf16 ran on before the redesign
-            simt = None if dtype == torch.float32 else (
+            # the CUDA-core tile kernel on inputs another kernel serves
+            simt = None if kernel == "flash_attn_fwd" else (
                 lambda: fa._launch_tile("flash_attn_fwd", *x, d ** -0.5,
                                         causal))
             t = _timed(
@@ -674,11 +726,12 @@ def phase_times(decode_inputs, split_inputs):
                 lambda: fa._flash_plain(*x, d ** -0.5, causal, 128),
                 lambda: F.scaled_dot_product_attention(
                     *[t[None] for t in x], is_causal=causal),
-                simt, (50 if kind == "bf16" else 20, 20, 3, 20))
+                simt, (50 if kernel == "flash_attn_fwd_tc" else 20, 20, 3,
+                       20))
             t.update(case=f"{heads}x{n}x{d} {kind}"
                           f"{' causal' if causal else ''}",
-                     kernel=fa._plan("attention", q.device, dtype, d).kernel,
-                     bound_ms=bms, bound_by=bby, bytes=nbytes, flops=flops)
+                     kernel=kernel, bound_ms=bms, bound_by=bby,
+                     bytes=nbytes, flops=flops)
             long_cases.append(t)
             emit(dict(phase="kernel_times", **t))
     for c in long_cases:
@@ -698,7 +751,7 @@ def _row(name, path, launches, serving_launches, per_step, err, t, **kw):
             "launches_per_decode_step": per_step, "max_abs_err": err,
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"], "ms_pr1": t.get("ms_pr1"), **kw}
+            "library_ms": t["library_ms"], "ms_simt": t.get("ms_simt"), **kw}
 
 
 def main() -> int:

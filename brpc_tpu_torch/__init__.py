@@ -1,8 +1,9 @@
 """brpc_tpu_torch: the PyTorch/CUDA port of brpc_tpu's serving lane.
 
-A unary ``GenerateService.Generate`` over tpu_std framing on TCP, whose
-decode step runs a hand-written CUDA flash-attention kernel
-(``ops/csrc/flash_attention.cu``) on an NVIDIA Hopper card.
+``GenerateService.Generate`` over tpu_std streams, HTTP chunked transfer
+and unary calls on one TCP port, whose decode step runs a hand-written
+CUDA decode-attention kernel (``ops/csrc/flash_decode.cu``) on an NVIDIA
+Hopper card.
 
     from brpc_tpu_torch.rpc import Channel, Server
     from brpc_tpu_torch.serving import add_generate_service
@@ -13,6 +14,8 @@ decode step runs a hand-written CUDA flash-attention kernel
     ch = Channel(f"tcp://127.0.0.1:{ep.port}")
     cntl = ch.call_sync("GenerateService", "Generate",
                         b'{"prompt": "hi", "max_tokens": 8}')
+    # tokens as they decode: stream_options=StreamOptions(on_received=..)
+    # or: curl -N -d '{"prompt":"hi"}' http://HOST:PORT/GenerateService/Generate
 
 The package imports torch and numpy only: nothing of JAX, nothing of
 ``brpc_tpu`` and not ``google.protobuf`` (the tpu_std meta codec is

@@ -1,5 +1,4 @@
-"""Base utilities of the port (device selection)."""
-
-from .device import resolve_device
-
-__all__ = ["resolve_device"]
+"""Base utilities of the port: device selection (``device.py``, which
+imports torch) and the thread-backed ExecutionQueue
+(``execution_queue.py``). Nothing is imported here, so that the RPC
+layers load without torch."""

@@ -1,4 +1,4 @@
-"""tpu_std framing for the unary path, with a hand-written RpcMeta codec.
+"""tpu_std framing with a hand-written RpcMeta codec.
 
 Wire layout (the same bytes brpc_tpu puts on the wire):
 
@@ -7,9 +7,10 @@ Wire layout (the same bytes brpc_tpu puts on the wire):
 ``body_size = meta_size + len(payload) + len(attachment)``. ``meta`` is a
 proto3 ``RpcMeta`` (brpc_tpu/protocol/proto/tpu_rpc_meta.proto). The port
 does not depend on ``google.protobuf``: this module encodes and decodes
-the fields the unary path uses and reads past every other field, of any
-wire type, so a brpc_tpu peer's trace ids (8-10), stream settings (6),
-device payloads (7) or admission threshold are skipped, not rejected.
+the fields of unary calls and of streams (``stream_settings``, field 6)
+and reads past every other field, of any wire type, so a brpc_tpu
+peer's trace ids (8-10), device payloads (7) or admission threshold are
+skipped, not rejected.
 
 Encoding follows protobuf's own rules, so frames are byte-identical to
 ``RpcMeta.SerializeToString()``: fields in number order, proto3 scalars
@@ -215,11 +216,56 @@ class RpcResponseMeta:
 
 
 @dataclass
+class StreamSettings:
+    """Stream setup on a request or response, and the header of a bare
+    stream frame (tpu_rpc_meta.proto:51-57). ``frame_seq`` is nonzero on
+    DATA frames only; ``credits`` grants send budget back to the peer."""
+    stream_id: int = 0
+    need_feedback: bool = False
+    frame_seq: int = 0
+    credits: int = 0
+    close: bool = False
+
+    def encode(self) -> bytes:
+        out = b""
+        if self.stream_id:
+            out += b"\x08" + _varint(self.stream_id)
+        if self.need_feedback:
+            out += b"\x10\x01"
+        if self.frame_seq:
+            out += b"\x18" + _varint(self.frame_seq)
+        if self.credits:
+            out += b"\x20" + _varint(self.credits)
+        if self.close:
+            out += b"\x28\x01"
+        return out
+
+    @classmethod
+    def decode(cls, buf: bytes) -> "StreamSettings":
+        m = cls()
+        for f, wt, s in _fields(buf):
+            if wt != _WT_VARINT:
+                continue
+            if f == 1:
+                m.stream_id = _scalar(buf, s)
+            elif f == 2:
+                m.need_feedback = _scalar(buf, s) != 0
+            elif f == 3:
+                m.frame_seq = _scalar(buf, s)
+            elif f == 4:
+                m.credits = _as_int32(_scalar(buf, s))
+            elif f == 5:
+                m.close = _scalar(buf, s) != 0
+        return m
+
+
+@dataclass
 class RpcMeta:
     request: Optional[RpcRequestMeta] = None
     response: Optional[RpcResponseMeta] = None
     correlation_id: int = 0
     attachment_size: int = 0
+    stream_settings: Optional[StreamSettings] = None
 
     def encode(self) -> bytes:
         out = b""
@@ -231,7 +277,14 @@ class RpcMeta:
             out += _key(4, _WT_VARINT) + _varint(self.correlation_id)
         if self.attachment_size:
             out += _key(5, _WT_VARINT) + _varint(self.attachment_size)
+        if self.stream_settings is not None:
+            out += _len_field(6, self.stream_settings.encode())
         return out
+
+    def is_stream_frame(self) -> bool:
+        """A bare stream frame: stream settings and nothing of a call."""
+        return (self.stream_settings is not None and self.request is None
+                and self.response is None and not self.correlation_id)
 
     @classmethod
     def decode(cls, buf: bytes) -> "RpcMeta":
@@ -245,6 +298,9 @@ class RpcMeta:
                 m.correlation_id = _scalar(buf, s)
             elif (f, wt) == (5, _WT_VARINT):
                 m.attachment_size = _as_int32(_scalar(buf, s))
+            elif (f, wt) == (6, _WT_LEN):
+                m.stream_settings = StreamSettings.decode(
+                    _submessage(buf, s))
         return m
 
 
@@ -262,6 +318,17 @@ def pack_small_frame(meta_prefix: bytes, cid: int, payload: bytes,
     body = len(meta) + len(payload) + len(attachment)
     return b"".join((_HDR.pack(magic, body, len(meta)), meta, payload,
                      attachment))
+
+
+def pack_stream_frame(peer_id: int, seq: int = 0, credits: int = 0,
+                      close: bool = False, payload: bytes = b"") -> bytes:
+    """A bare stream frame to the peer's stream ``peer_id``: its meta is
+    ``stream_settings`` alone, encoded by hand (the same bytes as
+    brpc_tpu's fast pack and as ``RpcMeta.SerializeToString()``)."""
+    inner = StreamSettings(peer_id, False, seq, credits, close).encode()
+    meta = b"\x32" + _varint(len(inner)) + inner
+    return b"".join((_HDR.pack(MAGIC, len(meta) + len(payload), len(meta)),
+                     meta, payload))
 
 
 def pack_frame(meta: RpcMeta, payload: bytes = b"",

@@ -1,4 +1,4 @@
-"""Channel: unary tpu_std calls over one TCP connection.
+"""Channel: tpu_std calls over one TCP connection, with streams.
 
 Calls from many threads share the connection; each call takes a fresh
 correlation id and parks on an Event that the connection's reader
@@ -6,6 +6,14 @@ thread sets when the matching response arrives. A call that outlives
 its timeout fails with ``ERPCTIMEDOUT`` and its late response, if any,
 is dropped. The request meta carries ``timeout_ms`` so the server can
 stop work the client no longer waits for.
+
+``call_sync(..., stream_options=...)`` sets a Stream up on the call
+(brpc_tpu/rpc/channel.py:482-485, :811-819): the stream is registered
+before the request is written, so its frames are delivered even when
+they overtake the response (the server may send the first token before
+the handler's answer). The response binds the stream to the peer's id
+and to the connection, whose end then closes it; a failed call closes
+it. Frames with correlation id 0 go to the stream registry.
 """
 
 from __future__ import annotations
@@ -20,6 +28,7 @@ from brpc_tpu_torch.transport import tcp
 
 from . import errno_codes as berr
 from .controller import Controller
+from .stream import Stream, StreamOptions, process_stream_frame
 
 
 @dataclass
@@ -51,6 +60,9 @@ class Channel:
 
     def _on_frame(self, conn, meta: tpu_std.RpcMeta, payload: bytes,
                   attachment: bytes) -> None:
+        if meta.is_stream_frame():
+            process_stream_frame(meta, payload, attachment)
+            return
         with self._lock:
             waiter = self._pending.pop(meta.correlation_id, None)
         if waiter is None:
@@ -61,6 +73,13 @@ class Channel:
             cntl.set_failed(resp.error_code, resp.error_text)
         else:
             cntl.response = payload
+            ss, stream = meta.stream_settings, cntl.stream
+            if stream is not None and ss is not None and ss.stream_id:
+                # here, on the reader thread: frames parsed after the
+                # response find the stream bound
+                stream.peer_id = ss.stream_id
+                stream._bind(conn)
+                stream._on_established()
         ev.set()
 
     def _on_close(self, conn) -> None:
@@ -74,12 +93,28 @@ class Channel:
             ev.set()
 
     def call_sync(self, service: str, method: str, request: bytes = b"",
-                  cntl: Optional[Controller] = None) -> Controller:
+                  cntl: Optional[Controller] = None,
+                  stream_options: Optional[StreamOptions] = None
+                  ) -> Controller:
         """Send one request and wait for its response. Returns the
-        controller: ``failed()`` / ``error_code`` / ``response``."""
+        controller: ``failed()`` / ``error_code`` / ``response``, and
+        ``stream`` when ``stream_options`` set a stream up."""
         cntl = cntl or Controller()
         cntl.error_code, cntl.error_text = berr.OK, ""
         cntl.response = None
+        cntl.stream = None
+        try:
+            return self._call(service, method, request, cntl,
+                              stream_options)
+        finally:
+            if cntl.failed() and cntl.stream is not None:
+                # a stream set up on a failed call must not stay
+                # registered
+                cntl.stream.close()
+
+    def _call(self, service: str, method: str, request: bytes,
+              cntl: Controller, stream_options: Optional[StreamOptions]
+              ) -> Controller:
         timeout_ms = (cntl.timeout_ms if cntl.timeout_ms is not None
                       else self.options.timeout_ms)
         try:
@@ -94,6 +129,11 @@ class Channel:
                 service_name=service, method_name=method,
                 timeout_ms=int(timeout_ms) if timeout_ms else 0),
             correlation_id=cid)
+        if stream_options is not None:
+            cntl.stream = Stream(stream_options)
+            cntl.stream.conn = conn     # bound (watched) on the response
+            meta.stream_settings = tpu_std.StreamSettings(
+                stream_id=cntl.stream.id)
         ev = threading.Event()
         with self._lock:
             self._pending[cid] = (ev, cntl, conn)

@@ -1,6 +1,6 @@
 """Per-call state shared by client and server: the error, the deadline
-budget and the response (the subset of brpc_tpu/rpc/controller.py that
-the serving lane uses)."""
+budget, the response, and the call's stream or progressive body (the
+subset of brpc_tpu/rpc/controller.py that the serving lane uses)."""
 
 from __future__ import annotations
 
@@ -8,6 +8,7 @@ import time
 from typing import Optional
 
 from . import errno_codes as berr
+from .progressive import ProgressiveAttachment
 
 
 class Controller:
@@ -22,6 +23,22 @@ class Controller:
         # server side: the deadline taken from the request meta's
         # timeout_ms, counted from the frame's arrival
         self._deadline_ns: Optional[int] = None
+        # client side: the Stream set up on this call (stream_options)
+        self.stream = None
+        # server side: the connection a tpu_std call came on; None for a
+        # call that came over HTTP (brpc_tpu/serving/service.py:289)
+        self._server_socket = None
+        # server side: the client's stream id, and the stream accepted
+        self._peer_stream_id: int = 0
+        self._accepted_stream = None
+        # server side (HTTP): the chunked body fed after the handler
+        self._progressive = None
+
+    def create_progressive_attachment(
+            self, content_type: str = "application/octet-stream"):
+        """An HTTP chunked response body, fed after the handler returns."""
+        self._progressive = ProgressiveAttachment(content_type)
+        return self._progressive
 
     def failed(self) -> bool:
         return self.error_code != berr.OK

@@ -1,11 +1,27 @@
-"""Server: tpu_std over TCP, sync handlers on a small thread pool.
+"""Server: tpu_std and HTTP/1.1 on one TCP port, sync handlers.
 
-A connection's reader thread parses each request frame and hands it to
-the handler pool, so a handler that blocks (a unary Generate waits for
-its sequence to retire) never stalls the connection. Responses are
-framed as brpc_tpu frames them: a success carries only the correlation
-id in its meta (the reference's small-call fast path), a failure
-carries ``response {error_code, error_text}``.
+Every accepted connection picks its protocol from its first bytes
+(``transport/tcp.py``).
+
+tpu_std: a connection's reader thread parses each frame. A request goes
+to the handler pool, so a handler that blocks (a unary Generate waits
+for its sequence to retire) never stalls the connection. A bare stream
+frame goes to its stream on the reader thread itself, in parse order
+(brpc_tpu/protocol/tpu_std.py:676-683); the stream hands DATA frames to
+its own delivery queue. Responses are framed as brpc_tpu frames them: a
+success carries only the correlation id in its meta (the reference's
+small-call fast path); a failure, or the answer to a call whose stream
+the handler accepted, carries the full meta (``response``, and
+``stream_settings`` with the accepted stream's id).
+
+HTTP: ``POST /<Service>/<Method>`` calls the registered method with the
+request body (brpc_tpu/protocol/http.py:902-980). A failed call answers
+400 for ``EREQUEST`` and 500 otherwise, with the body ``[code] text``;
+an unknown method answers 404. A handler that created a progressive
+attachment answers with a chunked body that its feeder writes after the
+handler returned. Requests on one connection are answered in order, one
+at a time, on the connection's own queue: a chunked response holds the
+connection until its terminator is out.
 
 ``start`` and ``stop`` call ``server._serving.on_server_start/stop``
 (brpc_tpu/rpc/server.py:430,518): that is how the serving lane builds
@@ -19,14 +35,17 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, List, Tuple, Union
 
-from brpc_tpu_torch.protocol import tpu_std
+from brpc_tpu_torch.butil.execution_queue import ExecutionQueue
+from brpc_tpu_torch.protocol import http, tpu_std
 from brpc_tpu_torch.transport.tcp import Connection, Listener
 
 from . import errno_codes as berr
 from .controller import Controller
+from .progressive import ProgressiveAttachment
 from .service import Method, Service
+from .stream import process_stream_frame
 
 log = logging.getLogger("brpc_tpu_torch.rpc")
 
@@ -67,7 +86,8 @@ class Server:
         try:
             if self._serving is not None:
                 self._serving.on_server_start(self)
-            self._listener = Listener(address, self._on_frame).start()
+            self._listener = Listener(address, self._on_frame,
+                                      self._on_http).start()
         except BaseException:
             self._pool.shutdown(wait=False)
             if self._serving is not None:
@@ -79,12 +99,18 @@ class Server:
     # ------------------------------------------------------------ dispatch
     def _on_frame(self, conn: Connection, meta: tpu_std.RpcMeta,
                   payload: bytes, attachment: bytes) -> None:
+        if meta.is_stream_frame():
+            process_stream_frame(meta, payload, attachment)
+            return
         req = meta.request
         if req is None:
             return                      # not a request: ignore
         arrival_ns = time.monotonic_ns()
         cntl = Controller()
         cntl.correlation_id = meta.correlation_id
+        cntl._server_socket = conn
+        if meta.stream_settings is not None:
+            cntl._peer_stream_id = meta.stream_settings.stream_id
         cntl.set_deadline(req.timeout_ms, arrival_ns)
         method = self._methods.get((req.service_name, req.method_name))
         if method is None:
@@ -112,12 +138,17 @@ class Server:
 
     @staticmethod
     def _respond(conn: Connection, cntl: Controller, response: bytes) -> None:
-        if cntl.failed():
+        accepted = cntl._accepted_stream
+        if cntl.failed() or accepted is not None:
             meta = tpu_std.RpcMeta(
                 response=tpu_std.RpcResponseMeta(cntl.error_code,
                                                  cntl.error_text),
                 correlation_id=cntl.correlation_id)
-            frame = tpu_std.pack_frame(meta)
+            if accepted is not None:
+                meta.stream_settings = tpu_std.StreamSettings(
+                    stream_id=accepted.id)
+            frame = tpu_std.pack_frame(
+                meta, b"" if cntl.failed() else bytes(response))
         else:
             frame = tpu_std.pack_small_frame(
                 b"", cntl.correlation_id, bytes(response))
@@ -126,7 +157,69 @@ class Server:
         except OSError as e:            # client gone: nothing to tell it
             log.debug("response to %s dropped: %s", conn.peer, e)
 
+    # ----------------------------------------------------------------- HTTP
+    def _on_http(self, conn: Connection, req: http.HttpRequest) -> None:
+        """On the reader thread: queue the request behind the ones before
+        it on this connection, so the reader goes on reading."""
+        q = conn.user_data.get("http_queue")
+        if q is None:
+            q = ExecutionQueue(lambda r: self._serve_http(conn, r),
+                               name="http-conn")
+            conn.user_data["http_queue"] = q
+        q.execute(req)
+
+    def _serve_http(self, conn: Connection, req: http.HttpRequest) -> None:
+        if conn.closed:
+            return
+        status, ctype, body = self._call_http(req)
+        try:
+            if isinstance(body, ProgressiveAttachment):
+                conn.send(http.chunked_head(body.content_type,
+                                            req.keep_alive))
+            else:
+                conn.send(http.response(status, body, ctype,
+                                        req.keep_alive))
+        except OSError:
+            if isinstance(body, ProgressiveAttachment):
+                body._on_conn_failed(conn)  # the feeder sees write() False
+            return
+        if isinstance(body, ProgressiveAttachment):
+            body._bind(conn)
+            # the next request on this connection waits for the whole
+            # body: its response must not land inside the chunked stream
+            body.wait_finished()
+        if not req.keep_alive:
+            conn.close_after_flush()
+
+    def _call_http(self, req: http.HttpRequest
+                   ) -> Tuple[int, str, Union[bytes, ProgressiveAttachment]]:
+        parts = [p for p in req.path.split("/") if p]
+        if len(parts) != 2:
+            return 404, "text/plain", f"no such page {req.path}".encode()
+        method = self._methods.get((parts[0], parts[1]))
+        if method is None:
+            return 404, "text/plain", b"no such service/method"
+        cntl = Controller()             # _server_socket None: HTTP
+        try:
+            response = method.handler(cntl, req.body)
+        except Exception as e:          # boundary: report, keep serving
+            log.exception("handler %s failed", method.full_name)
+            return 500, "text/plain", f"handler error: {e}".encode()
+        if cntl.failed():
+            status = 400 if cntl.error_code == berr.EREQUEST else 500
+            return (status, "text/plain",
+                    f"[{cntl.error_code}] {cntl.error_text}".encode())
+        if cntl._progressive is not None:
+            return 200, cntl._progressive.content_type, cntl._progressive
+        if response is None:
+            return 200, "application/json", b"{}"
+        return 200, "application/octet-stream", bytes(response)
+
     # ----------------------------------------------------------- lifecycle
+    def connections(self) -> List[Connection]:
+        """The accepted connections still open."""
+        return self._listener.connections() if self._listener else []
+
     def stop(self) -> None:
         """Stop accepting and retire in-flight generations; their calls
         fail with the serving lane's verdict."""

@@ -1,5 +1,6 @@
 """Inference serving lane of the port: continuous batching over a
-device-resident KV cache, behind a unary GenerateService.
+device-resident KV cache, behind GenerateService (tpu_std streams,
+HTTP chunked transfer and unary calls on one port).
 
     from brpc_tpu_torch.rpc import Server
     from brpc_tpu_torch.serving import add_generate_service
@@ -7,6 +8,8 @@ device-resident KV cache, behind a unary GenerateService.
     add_generate_service(server)              # cuda:0 unless device="cpu"
     server.start("tcp://127.0.0.1:0")
 """
+
+from brpc_tpu_torch.rpc.stream import Stream, StreamOptions, stream_accept
 
 from .batcher import (CANCELED, COMPLETED, EVICTED, SHED,
                       ContinuousBatcher, GenRequest, RequestTooLong)
@@ -19,4 +22,5 @@ __all__ = [
     "ContinuousBatcher", "GenRequest", "RequestTooLong",
     "ServingEngine", "DEFAULT_SEED", "TinyDecoder", "TinyDecoderConfig",
     "GenerateService", "add_generate_service",
+    "Stream", "StreamOptions", "stream_accept",
 ]

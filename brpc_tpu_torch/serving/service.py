@@ -1,11 +1,29 @@
-"""GenerateService: the unary front end of the serving lane (the port of
-brpc_tpu/serving/service.py, unary path only).
+"""GenerateService: the front end of the serving lane (the port of
+brpc_tpu/serving/service.py).
 
-A ``Generate`` call parks its handler thread until the sequence retires
-and returns every token in one JSON response,
-``{"status": "completed", "n": ..., "tokens": [...], "text": ...}``;
-deadline eviction fails the call with ``ERPCTIMEDOUT``, a full queue with
-``ELIMIT``, a prompt that cannot fit a slot with ``EREQUEST``.
+One registered method, three transports on one server port, one batcher
+behind them all:
+
+- **tpu_std streaming**: the client attaches a Stream to the call; the
+  handler admits the request and returns ``b"accepted"`` at once. Tokens
+  go back as credit-controlled stream frames as they decode, tagged
+  ``t<byte>`` (one token), ``d<json>`` (done: ``{"n": .., "status":
+  "completed"}``) or ``e<errno>`` (deadline eviction sends ``e1008``);
+- **HTTP**: ``POST /GenerateService/Generate`` streams the token bytes
+  as chunked transfer, then a ``\\n#<state> n=<k>[ err=<code>]`` footer
+  (a chunked body cannot carry a late status code). A dead peer turns
+  ``pa.write()`` False, which cancels the sequence and frees its slot;
+- **unary**: a plain tpu_std call parks its handler thread until the
+  sequence retires and returns every token in one JSON response,
+  ``{"status": "completed", "n": ..., "tokens": [...], "text": ...}``.
+
+Deadline eviction fails a unary call with ``ERPCTIMEDOUT``, a full queue
+any call with ``ELIMIT``, a prompt that cannot fit a slot with
+``EREQUEST``.
+
+Token callbacks run on the engine's decode thread, which must never
+wait on a client: both senders only queue writes (``write_nowait`` on a
+stream, chunk writes on a connection whose sends never block).
 
 Request body: JSON ``{"prompt": str, "max_tokens": int, "stop_token":
 int?}``, or a bare byte string taken as the prompt with the default
@@ -27,9 +45,10 @@ from typing import List, Optional, Tuple
 from brpc_tpu_torch.butil.device import DeviceLike, resolve_device
 from brpc_tpu_torch.rpc import errno_codes as berr
 from brpc_tpu_torch.rpc.service import Service
+from brpc_tpu_torch.rpc.stream import StreamOptions, stream_accept
 
-from .batcher import (COMPLETED, EVICTED, ContinuousBatcher, GenRequest,
-                      RequestTooLong)
+from .batcher import (CANCELED, COMPLETED, EVICTED, ContinuousBatcher,
+                      GenRequest, RequestTooLong)
 from .engine import ServingEngine
 from .model import TinyDecoder, TinyDecoderConfig
 
@@ -40,6 +59,9 @@ DEFAULT_MAX_WAITING = 32
 DEFAULT_MAX_TOKENS = 32
 SERVICE_NAME = "GenerateService"
 _TTFT_WINDOW = 1024
+# frames a stream consumer may leave unsent (out of credits) before its
+# sequence is cancelled: a slow reader must not pin a KV slot forever
+_MAX_PENDING_FRAMES = 512
 
 
 def _parse_request(body) -> Tuple[List[int], int, Optional[int]]:
@@ -73,6 +95,96 @@ def _percentile(values: List[float], q: float) -> Optional[float]:
         return None
     s = sorted(values)
     return s[min(len(s) - 1, int(q * len(s)))]
+
+
+class _StreamSender:
+    """Token emitter of the stream path, on the decode thread:
+    ``write_nowait`` only, so a decode step never waits for credits.
+    Frames the window refuses queue up and go out before the next frame;
+    a consumer that stops draining past the cap cancels the sequence."""
+
+    def __init__(self, stream, batcher: ContinuousBatcher):
+        self.stream = stream
+        self.batcher = batcher
+        self._pending: deque = deque()
+        self._lock = threading.Lock()
+
+    def _dead(self) -> bool:
+        return self.stream.closed or self.stream.remote_closed
+
+    def _push(self, payload: bytes) -> bool:
+        """Queue and flush under one lock (token order must survive a
+        finish racing the drain); False once the stream is unwritable
+        or the backlog passed the cap."""
+        with self._lock:
+            self._pending.append(payload)
+            while self._pending:
+                if self._dead():
+                    return False
+                # write_nowait never waits (a credit check and a queued
+                # send), so holding the lock here costs nothing
+                if not self.stream.write_nowait(self._pending[0]):
+                    break               # out of credits
+                self._pending.popleft()
+            return len(self._pending) <= _MAX_PENDING_FRAMES
+
+    def token(self, req: GenRequest, tok: int) -> None:
+        if not self._push(b"t" + bytes([tok & 0xFF])):
+            self.batcher.cancel(req)
+
+    def finish(self, req: GenRequest, state: str) -> None:
+        if state == COMPLETED:
+            self._push(b"d" + json.dumps(
+                {"n": req.ntokens, "status": "completed"}).encode())
+        elif state == EVICTED:
+            self._push(b"e%d" % req.error_code)
+        # CANCELED: the peer is gone, nothing to tell it
+        with self._lock:
+            leftover = bool(self._pending) and not self._dead()
+        if not leftover:
+            self.stream.close()
+            return
+        # the credit window closed on the stream's tail, and nothing will
+        # push again: a thread of its own waits for credits (never the
+        # decode thread), sends the tail, the verdict included, and closes
+        threading.Thread(target=self._drain_then_close,
+                         name="stream-drain", daemon=True).start()
+
+    def _drain_then_close(self) -> None:
+        while True:
+            with self._lock:
+                if not self._pending or self._dead():
+                    break
+                frame = self._pending[0]
+            if not self.stream.write(frame, timeout_s=10.0):
+                break
+            with self._lock:
+                if self._pending and self._pending[0] is frame:
+                    self._pending.popleft()
+        self.stream.close()
+
+
+class _HttpSender:
+    """Token emitter of the HTTP path: raw token bytes, then the
+    ``\\n#<state>`` footer. A dead peer turns ``pa.write()`` False and
+    cancels the sequence: freeing the KV slot is why the disconnect is
+    watched at all."""
+
+    def __init__(self, pa, batcher: ContinuousBatcher):
+        self.pa = pa
+        self.batcher = batcher
+
+    def token(self, req: GenRequest, tok: int) -> None:
+        if not self.pa.write(bytes([tok & 0xFF])):
+            self.batcher.cancel(req)
+
+    def finish(self, req: GenRequest, state: str) -> None:
+        if state != CANCELED:
+            footer = f"\n#{state} n={req.ntokens}"
+            if req.error_code:
+                footer += f" err={req.error_code}"
+            self.pa.write(footer.encode())
+        self.pa.close()
 
 
 class GenerateService:
@@ -161,8 +273,56 @@ class GenerateService:
         except ValueError as e:
             cntl.set_failed(berr.EREQUEST, str(e))
             return b""
+        if cntl._peer_stream_id:
+            return self._generate_stream(cntl, batcher, prompt, max_tokens,
+                                         stop_token)
+        if cntl._server_socket is None:
+            return self._generate_http(cntl, batcher, prompt, max_tokens,
+                                       stop_token)
         return self._generate_unary(cntl, batcher, prompt, max_tokens,
                                     stop_token)
+
+    def _record_ttft(self, req: GenRequest, state: str) -> None:
+        ttft = req.ttft_ms()
+        if state == COMPLETED and ttft is not None:
+            with self._ttft_lock:
+                self._ttft_ms.append(ttft)
+
+    def _generate_stream(self, cntl, batcher, prompt, max_tokens,
+                         stop_token) -> bytes:
+        st = stream_accept(cntl, StreamOptions())
+        sender = _StreamSender(st, batcher)
+
+        def on_finish(req_, state):
+            self._record_ttft(req_, state)
+            sender.finish(req_, state)
+
+        req = GenRequest(prompt, max_tokens, cntl=cntl,
+                         on_token=sender.token, on_finish=on_finish,
+                         stop_token=stop_token)
+        # the client went away (close frame or the connection's end):
+        # the next step boundary frees the KV slot
+        st.on_close(lambda _s: batcher.cancel(req))
+        if not self._submit(cntl, batcher, req):
+            st.close()
+            return b""
+        return b"accepted"
+
+    def _generate_http(self, cntl, batcher, prompt, max_tokens,
+                       stop_token) -> Optional[bytes]:
+        pa = cntl.create_progressive_attachment("application/octet-stream")
+        sender = _HttpSender(pa, batcher)
+
+        def on_finish(req_, state):
+            self._record_ttft(req_, state)
+            sender.finish(req_, state)
+
+        req = GenRequest(prompt, max_tokens, cntl=cntl,
+                         on_token=sender.token, on_finish=on_finish,
+                         stop_token=stop_token)
+        if not self._submit(cntl, batcher, req):
+            return b""                  # failed: a plain HTTP error answers
+        return None                     # the body streams through pa
 
     def _generate_unary(self, cntl, batcher, prompt, max_tokens,
                         stop_token) -> bytes:
@@ -193,10 +353,7 @@ class GenerateService:
         if state != COMPLETED:
             cntl.set_failed(berr.EINTERNAL, f"generation {state}")
             return b""
-        ttft = req.ttft_ms()
-        if ttft is not None:
-            with self._ttft_lock:
-                self._ttft_ms.append(ttft)
+        self._record_ttft(req, state)
         return json.dumps({"status": "completed", "n": req.ntokens,
                            "tokens": req.tokens,
                            "text": bytes(req.tokens).decode(

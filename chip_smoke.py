@@ -36,7 +36,20 @@ Phases, one JSON line each:
    read just after: long-context attention (``flash_attention`` at 8
    heads x 2048 x 64, bf16 and fp32, causal and not) and a long-cache
    decode step (``decode_attention`` at B 4, L 4096, d 128, bf16, split);
-4. kernel times: device times of each kernel, its plain version and one
+4. streaming (the main path since the stream and HTTP transports): a
+   fresh default server on cuda:0, launch counts zeroed before each part
+   and read after it, each part's ``flash_decode`` launches equal to its
+   decode steps (plus the warm-up in the first) and no other kernel: (a)
+   the burst with every call attaching a Stream, cold then warm, every
+   token list and ``d`` frame equal to the CPU plain path; (b) the same
+   burst over HTTP chunked transfer (``http.client``), footer
+   ``completed n=32``; (c) one 120-token stream whose first token lands
+   before half its last token's time, an HTTP peer that dies after its
+   first chunk, whose slot must be freed within 5 s before a following
+   request completes, and one stream burst under the profiler. Client-side
+   time to first token and gaps between tokens, per transport, and the
+   bursts' tokens/s;
+5. kernel times: device times of each kernel, its plain version and one
    PyTorch call (``scaled_dot_product_attention``, a yardstick the port
    never calls), from CUDA events and from the profiler, beside the bound
    from bytes and operations, and, in the same run, the CUDA-core tile
@@ -44,6 +57,10 @@ Phases, one JSON line each:
    inputs as ``ms_simt`` where another kernel serves the call (decode, and
    bf16 at d 64); ``flash_attn_fwd`` itself at 8 x 2048 x 64 and
    x 128 fp32 and 8 x 2048 x 32 bf16, causal and not.
+
+``python3 chip_smoke.py --phase streaming`` runs phase 4 alone (after
+the card line), so that two trees' serving can be compared in one call:
+run each tree's script in turns.
 
 The last lines are the card line, the kernels line and the result line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without the
@@ -66,6 +83,11 @@ FP32_TOL = 1e-4        # fp16/bf16: _rounding_bound, element by element
 N_CLIENTS = 8
 N_REQUESTS = 16
 MAX_TOKENS = 32
+
+
+def _prompts():
+    return [f"request {i:02d}: {'the quick brown fox '[: 3 + i]}"
+            for i in range(N_REQUESTS)]
 
 
 def _fa_module():
@@ -207,7 +229,7 @@ def phase_kernel_check(dev):
     difference to FP32_TOL; fp16/bf16 cases hold every element to
     ``_rounding_bound``, the error the kernel's own roundings explain, and
     two controls show that bound rejects a dropped split and a dropped K
-    tile. Returns the serving-shape and split-decode inputs (for phase 4)
+    tile. Returns the serving-shape and split-decode inputs (for phase 5)
     and the largest error seen by each kernel."""
     import numpy as np
     import torch
@@ -395,16 +417,18 @@ def phase_kernel_check(dev):
 
 def _burst(port: int, prompts, max_tokens: int):
     """N_CLIENTS threads, one Channel each, the prompts dealt round-robin;
-    returns ({prompt: tokens}, [(prompt, errno, text)], wall seconds)."""
+    returns ({prompt: tokens}, [(prompt, errno, text)], wall seconds,
+    [client ms per call: the first token comes with the last], [])."""
     from brpc_tpu_torch.rpc import Channel, ChannelOptions
 
-    results, errors = {}, []
+    results, errors, latency = {}, [], []
 
     def client(idx):
         ch = Channel(f"tcp://127.0.0.1:{port}",
                      ChannelOptions(timeout_ms=120000))
         try:
             for p in prompts[idx::N_CLIENTS]:
+                t0 = time.perf_counter()
                 c = ch.call_sync("GenerateService", "Generate",
                                  json.dumps({"prompt": p,
                                              "max_tokens": max_tokens}
@@ -412,20 +436,12 @@ def _burst(port: int, prompts, max_tokens: int):
                 if c.failed():
                     errors.append((p, c.error_code, c.error_text))
                 else:
+                    latency.append((time.perf_counter() - t0) * 1e3)
                     results[p] = json.loads(c.response)["tokens"]
         finally:
             ch.close()
 
-    threads = [threading.Thread(target=client, args=(i,))
-               for i in range(N_CLIENTS)]
-    t0 = time.monotonic()
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(600)
-    wall = time.monotonic() - t0
-    check(not any(t.is_alive() for t in threads), "clients hung")
-    return results, errors, wall
+    return results, errors, _run_clients(client), latency, []
 
 
 def _check_burst(name, results, errors, oracle):
@@ -483,8 +499,7 @@ def phase_serving():
     from brpc_tpu_torch.serving import (TinyDecoder, TinyDecoderConfig,
                                         add_generate_service)
 
-    prompts = [f"request {i:02d}: {'the quick brown fox '[: 3 + i]}"
-               for i in range(N_REQUESTS)]
+    prompts = _prompts()
     cpu_model = TinyDecoder(TinyDecoderConfig(), device="cpu")
     oracle = {p: cpu_model.generate(list(p.encode()), MAX_TOKENS)
               for p in prompts}
@@ -497,7 +512,7 @@ def phase_serving():
     check(str(gs.device) == "cuda:0", f"service device {gs.device}")
     ep = server.start("tcp://127.0.0.1:0")
     try:
-        results, errors, wall = _burst(ep.port, prompts, MAX_TOKENS)
+        results, errors, wall = _burst(ep.port, prompts, MAX_TOKENS)[:3]
         torch.cuda.synchronize()
         launches = dict(fa.launches)
         steps = gs.batcher.decode_steps
@@ -513,14 +528,14 @@ def phase_serving():
               f"warm-up {warm} of flash_decode alone")
         check(launches["flash_decode"] > 0, "flash_decode was never launched")
         # the same burst again, warm, then once more under the profiler
-        results2, errors2, wall2 = _burst(ep.port, prompts, MAX_TOKENS)
+        results2, errors2, wall2 = _burst(ep.port, prompts, MAX_TOKENS)[:3]
         _check_burst("burst 2", results2, errors2, oracle)
         ttft_warm = gs.ttft_samples()[len(ttft_first):]
         steps2 = gs.batcher.decode_steps - steps
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            results3, errors3, _ = _burst(ep.port, prompts, MAX_TOKENS)
+            results3, errors3, _ = _burst(ep.port, prompts, MAX_TOKENS)[:3]
             torch.cuda.synchronize()
             window_us = (time.perf_counter() - t0) * 1e6
         _check_burst("burst 3 (profiled)", results3, errors3, oracle)
@@ -541,6 +556,323 @@ def phase_serving():
     emit(out)
     trace = {"phase": "serving_trace", "window_us": window_us}
     trace.update(_device_profile(prof.events(), window_us))
+    emit(trace)
+    return out
+
+
+# ------------------------------------------------------------- phase 4
+
+def _stream_burst(port: int, prompts, max_tokens: int):
+    """The burst of ``_burst`` with every call streaming its tokens back
+    (``stream_options``). Returns ({prompt: tokens}, [errors], wall s,
+    [client ms to the first token], [ms between tokens])."""
+    from brpc_tpu_torch.rpc import Channel, ChannelOptions, StreamOptions
+
+    results, errors, ttft, gaps = {}, [], [], []
+    want_done = b'd{"n": %d, "status": "completed"}' % max_tokens
+
+    def one(ch, p):
+        toks, times, verdict = [], [], []
+        done = threading.Event()
+
+        def on_received(stream, msg):
+            if msg.payload[:1] == b"t":
+                toks.append(msg.payload[1])
+                times.append(time.perf_counter())
+            else:
+                verdict.append(msg.payload)
+                done.set()
+
+        t0 = time.perf_counter()
+        c = ch.call_sync("GenerateService", "Generate",
+                         json.dumps({"prompt": p, "max_tokens": max_tokens}
+                                    ).encode(),
+                         stream_options=StreamOptions(
+                             on_received=on_received))
+        if c.failed():
+            errors.append((p, c.error_code, c.error_text))
+            return
+        try:
+            if not done.wait(120) or verdict != [want_done]:
+                errors.append((p, "verdict", verdict))
+                return
+        finally:
+            c.stream.close()
+        results[p] = toks
+        ttft.append((times[0] - t0) * 1e3)
+        gaps.extend((b - a) * 1e3 for a, b in zip(times, times[1:]))
+
+    def client(idx):
+        ch = Channel(f"tcp://127.0.0.1:{port}",
+                     ChannelOptions(timeout_ms=120000))
+        try:
+            for p in prompts[idx::N_CLIENTS]:
+                one(ch, p)
+        finally:
+            ch.close()
+
+    wall = _run_clients(client)
+    return results, errors, wall, ttft, gaps
+
+
+def _http_generate(conn, prompt: str, max_tokens: int):
+    """One chunked Generate over ``conn``: (tokens, footer, client ms to
+    the first token byte, [ms between token bytes])."""
+    t0 = time.perf_counter()
+    conn.request("POST", "/GenerateService/Generate",
+                 body=json.dumps({"prompt": prompt,
+                                  "max_tokens": max_tokens}))
+    resp = conn.getresponse()
+    check(resp.status == 200 and
+          resp.getheader("Transfer-Encoding") == "chunked",
+          f"HTTP Generate answered {resp.status}")
+    data, times = b"", []
+    while True:
+        part = resp.read1(65536)        # one chunk's data at most
+        if not part:
+            break
+        now = time.perf_counter()
+        data += part
+        times.extend([now] * len(part))
+    payload, _, footer = data.rpartition(b"\n#")
+    times = times[:len(payload)]
+    gaps = [(b - a) * 1e3 for a, b in zip(times, times[1:])]
+    return (list(payload), footer,
+            (times[0] - t0) * 1e3 if times else None, gaps)
+
+
+def _http_burst(port: int, prompts, max_tokens: int):
+    """The burst over HTTP/1.1 chunked transfer, one keep-alive
+    connection a client thread."""
+    import http.client
+
+    results, errors, ttft, gaps = {}, [], [], []
+    want_footer = b"completed n=%d" % max_tokens
+
+    def client(idx):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        try:
+            for p in prompts[idx::N_CLIENTS]:
+                toks, footer, first, g = _http_generate(conn, p, max_tokens)
+                if footer != want_footer:
+                    errors.append((p, footer))
+                    continue
+                results[p] = toks
+                ttft.append(first)
+                gaps.extend(g)
+        finally:
+            conn.close()
+
+    wall = _run_clients(client)
+    return results, errors, wall, ttft, gaps
+
+
+def _run_clients(client) -> float:
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(N_CLIENTS)]
+    t0 = time.monotonic()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    check(not any(t.is_alive() for t in threads), "clients hung")
+    return time.monotonic() - t0
+
+
+BURSTS = {"stream": _stream_burst, "http": _http_burst, "unary": _burst}
+
+
+def client_main(kind: str, port: int) -> int:
+    """``python3 chip_smoke.py --client KIND PORT``: one burst of KIND
+    (stream, http or unary) against the server on PORT, from a process of
+    its own, so that the clients do not share the server's interpreter
+    lock; prints its result as one JSON line."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    res, errs, wall, ttft, gaps = BURSTS[kind](port, _prompts(), MAX_TOKENS)
+    emit({"results": res, "errors": errs, "wall_s": wall, "ttft_ms": ttft,
+          "gaps_ms": gaps})
+    return 0
+
+
+def _client_process_burst(kind: str, port: int):
+    out = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--client", kind,
+         str(port)], capture_output=True, text=True, timeout=300)
+    check(out.returncode == 0,
+          f"{kind} client process failed: {out.stderr[-2000:]}")
+    doc = json.loads(out.stdout.strip().splitlines()[-1])
+    return (doc["results"], doc["errors"], doc["wall_s"], doc["ttft_ms"],
+            doc["gaps_ms"])
+
+
+def _burst_line(res, wall, ttft, gaps) -> dict:
+    tokens = sum(len(t) for t in res.values())
+    return {"wall_s": wall, "tokens_per_s": tokens / wall,
+            "ttft_p50_ms": _median(ttft), "ttft_p99_ms": _p99(ttft),
+            "gap_p50_ms": _median(gaps), "gap_p99_ms": _p99(gaps)}
+
+
+def phase_streaming():
+    """The stream and HTTP paths of Generate, each part with the launch
+    counts zeroed just before and read just after: (a) the burst with
+    every call streaming, cold then warm; (b) the same burst over HTTP
+    chunked transfer; (c) one 120-token stream whose first token must
+    land before half its last token's time, a dead HTTP peer whose slot
+    must be freed, a stream burst under the profiler, and two bursts to
+    compare with: unary calls, and streams from this process. The bursts
+    of (a), (b) and the unary and profiled ones run in a client process
+    of their own (``--client``)."""
+    import http.client
+    import socket
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fa = _fa_module()
+    from brpc_tpu_torch.rpc import Channel, ChannelOptions, StreamOptions
+    from brpc_tpu_torch.rpc import Server
+    from brpc_tpu_torch.serving import (TinyDecoder, TinyDecoderConfig,
+                                        add_generate_service)
+
+    phase_t0 = time.monotonic()
+    prompts = _prompts()
+    cpu_model = TinyDecoder(TinyDecoderConfig(), device="cpu")
+    oracle = {p: cpu_model.generate(list(p.encode()), MAX_TOKENS)
+              for p in prompts}
+    long_prompt = "one longer stream"
+    long_want = cpu_model.generate(list(long_prompt.encode()), 120)
+    out = {"phase": "streaming", "requests": N_REQUESTS,
+           "clients": N_CLIENTS, "max_tokens": MAX_TOKENS}
+    parts = {}
+
+    def counted(name, steps_before, warmup=0):
+        torch.cuda.synchronize()
+        launches = dict(fa.launches)
+        steps = gs.batcher.decode_steps - steps_before
+        check(launches["flash_decode"] == steps + warmup > 0 and
+              sum(launches.values()) == launches["flash_decode"],
+              f"{name}: kernel launches {launches} != decode steps "
+              f"{steps} + warm-up {warmup} of flash_decode alone")
+        parts[name] = {"flash_decode": launches["flash_decode"],
+                       "decode_steps": steps, "warmup_steps": warmup}
+
+    def bursts(kind, labels, burst=None):
+        for label in labels:
+            n0, steps0 = len(gs.ttft_samples()), gs.batcher.decode_steps
+            res, errs, wall, ttft, gaps = (
+                burst(ep.port, prompts, MAX_TOKENS) if burst
+                else _client_process_burst(kind, ep.port))
+            _check_burst(f"{kind} burst ({label})", res, errs, oracle)
+            line = _burst_line(res, wall, ttft, gaps)
+            # the server's own TTFT (request made to first token decoded)
+            # and the batch it kept: what the transport does not explain
+            server_ttft = gs.ttft_samples()[n0:]
+            steps = gs.batcher.decode_steps - steps0
+            line.update(server_ttft_p50_ms=_median(server_ttft),
+                        server_ttft_p99_ms=_p99(server_ttft),
+                        decode_steps=steps,
+                        tokens_per_step=N_REQUESTS * MAX_TOKENS / steps)
+            out[f"{kind}_{label}"] = line
+
+    fa.reset_launches()
+    server = Server()
+    gs = add_generate_service(server)           # defaults, on cuda:0
+    check(str(gs.device) == "cuda:0", f"service device {gs.device}")
+    ep = server.start("tcp://127.0.0.1:0")
+    try:
+        bursts("stream", ("cold", "warm"))                  # (a)
+        counted("stream", 0, gs.engine.warmup_steps)
+        fa.reset_launches()
+        steps0 = gs.batcher.decode_steps
+        bursts("http", ("cold", "warm"))                    # (b)
+        counted("http", steps0)
+
+        fa.reset_launches()
+        steps0 = gs.batcher.decode_steps
+        # (c) one longer stream: tokens leave as they decode
+        ch = Channel(f"tcp://127.0.0.1:{ep.port}",
+                     ChannelOptions(timeout_ms=60000))
+        toks, times, done = [], [], threading.Event()
+
+        def on_received(stream, msg):
+            if msg.payload[:1] == b"t":
+                toks.append(msg.payload[1])
+                times.append(time.perf_counter())
+            else:
+                done.set()
+
+        t0 = time.perf_counter()
+        c = ch.call_sync("GenerateService", "Generate",
+                         json.dumps({"prompt": long_prompt,
+                                     "max_tokens": 120}).encode(),
+                         stream_options=StreamOptions(
+                             on_received=on_received))
+        check(not c.failed() and done.wait(60),
+              f"long stream failed: {c.error_text}")
+        c.stream.close()
+        ch.close()
+        check(toks == long_want, "long stream: tokens differ from the CPU "
+                                 "plain path")
+        first_ms, last_ms = (times[0] - t0) * 1e3, (times[-1] - t0) * 1e3
+        check(first_ms < 0.5 * last_ms,
+              f"long stream: first token at {first_ms} ms, last at "
+              f"{last_ms} ms")
+        out["long_stream"] = {"tokens": len(toks), "first_token_ms": first_ms,
+                              "last_token_ms": last_ms}
+
+        # (c) a dead HTTP peer: its slot must be freed
+        sock = socket.create_connection(("127.0.0.1", ep.port), timeout=30)
+        body = json.dumps({"prompt": "a peer that dies",
+                           "max_tokens": 120}).encode()
+        sock.sendall(b"POST /GenerateService/Generate HTTP/1.1\r\n"
+                     b"Content-Length: %d\r\n\r\n%s" % (len(body), body))
+        got = b""
+        while b"\r\n\r\n" not in got or \
+                got.index(b"\r\n\r\n") + 4 >= len(got):
+            part = sock.recv(4096)
+            check(bool(part), "dead peer: no first chunk")
+            got += part
+        canceled0 = gs.batcher.canceled
+        sock.close()
+        t0 = time.monotonic()
+        while gs.batcher.running_count() and time.monotonic() - t0 < 5:
+            time.sleep(0.002)
+        freed_s = time.monotonic() - t0
+        check(gs.batcher.running_count() == 0,
+              "dead HTTP peer: its slot was not freed within 5 s")
+        check(gs.batcher.canceled == canceled0 + 1,
+              "dead HTTP peer: its sequence was not cancelled")
+        conn = http.client.HTTPConnection("127.0.0.1", ep.port, timeout=60)
+        toks, footer, _, _ = _http_generate(conn, prompts[0], MAX_TOKENS)
+        conn.close()
+        check(footer == b"completed n=%d" % MAX_TOKENS
+              and toks == oracle[prompts[0]],
+              "the request after the dead peer did not complete")
+        out["dead_http_peer"] = {"slot_freed_s": freed_s}
+
+        # (c) a stream burst under the profiler, then the comparisons
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            bursts("stream", ("profiled",))
+            torch.cuda.synchronize()
+        # the burst's own wall, as its client process timed it: the
+        # server is idle before and after, the process start-up is not
+        # the burst's
+        window_us = out["stream_profiled"]["wall_s"] * 1e6
+        bursts("unary", ("warm",))
+        bursts("stream", ("in_process",), _stream_burst)
+        counted("long stream, dead peer, profiled and compared bursts",
+                steps0)
+    finally:
+        server.stop()
+        server.join(10)
+    trace = {"phase": "streaming_trace", "window_us": window_us}
+    trace.update(_device_profile(prof.events(), window_us))
+    out["launches"] = parts
+    out["tokens_equal_cpu_plain"] = True
+    out["stream_profiled"]["device_busy_share"] = trace["device_busy_share"]
+    out["phase_s"] = time.monotonic() - phase_t0
+    emit(out)
     emit(trace)
     return out
 
@@ -583,7 +915,7 @@ def phase_paths(dev, split_inputs):
     return out
 
 
-# ------------------------------------------------------------- phase 4
+# ------------------------------------------------------------- phase 5
 
 def _bound(nbytes: float, flops: float, kind: str):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -754,7 +1086,10 @@ def _row(name, path, launches, serving_launches, per_step, err, t, **kw):
             "library_ms": t["library_ms"], "ms_simt": t.get("ms_simt"), **kw}
 
 
-def main() -> int:
+def main(streaming_only: bool = False) -> int:
+    """The whole smoke; ``streaming_only`` (``--phase streaming``): the
+    card line and phase 4 alone (its kernel builds at the server's
+    warm-up), to compare two trees' serving in one call."""
     try:
         import torch
     except ImportError as e:
@@ -780,9 +1115,13 @@ def main() -> int:
               "count": torch.cuda.device_count(),
               "torch": torch.__version__, "cuda": torch.version.cuda,
               "python": sys.version.split()[0]})
+        if streaming_only:
+            phase_streaming()
+            return 0
         phase_build()
         decode_inputs, split_inputs, errs = phase_kernel_check(dev)
         serving = phase_serving()
+        streaming = phase_streaming()
         paths = phase_paths(dev, split_inputs)
         times = phase_times(decode_inputs, split_inputs)
     except SmokeFailure as e:
@@ -790,12 +1129,16 @@ def main() -> int:
         return 1
     sl = serving["kernel_launches"]
     steps = serving["decode_steps"] + serving["warmup_steps"]
+    by_path = {"unary": sl["flash_decode"]}
+    by_path.update({name: p["flash_decode"]
+                    for name, p in streaming["launches"].items()})
     long_by = {c["case"]: c for c in times["long"]}
     tc, simt = long_by["8x2048x64 bf16"], long_by["8x2048x64 fp32"]
     kernels = [
-        _row("flash_decode", "serving", sl["flash_decode"],
-             sl["flash_decode"], sl["flash_decode"] / steps,
-             errs["serving_decode"], times["decode"],
+        _row("flash_decode", "serving: unary, stream and HTTP",
+             sum(by_path.values()), sl["flash_decode"],
+             sl["flash_decode"] / steps, errs["serving_decode"],
+             times["decode"], launches_by_path=by_path,
              shape=times["decode"]["shape"],
              split_case=dict(times["split_decode"],
                              max_abs_err=errs["split_decode"]),
@@ -828,4 +1171,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    if sys.argv[1:2] == ["--client"]:
+        sys.exit(client_main(sys.argv[2], int(sys.argv[3])))
+    sys.exit(main(streaming_only=sys.argv[1:] == ["--phase", "streaming"]))

@@ -13,15 +13,17 @@ are held and flushed in order; every state change (held, bound, closed,
 failed) happens under one lock, so a feeder racing ``_bind`` can neither
 reorder chunks nor put the terminator before held data. The connection
 only queues writes, so holding the lock over them never waits on the
-peer. ``wait_finished`` is what the HTTP path blocks on before it
-answers the next request on the connection.
+peer. ``await wait_finished()`` is what the HTTP path parks on (a
+FiberEvent: its worker goes on) before it answers the next request on
+the connection.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import List, Optional
+from typing import List
 
+from brpc_tpu_torch.fiber import FiberEvent
 from brpc_tpu_torch.protocol import http
 
 
@@ -33,7 +35,7 @@ class ProgressiveAttachment:
         self._pending: List[bytes] = []
         self._closed = False
         self._failed = False            # the bound connection ended
-        self._finished = threading.Event()  # terminator out, or conn dead
+        self._finished = FiberEvent()   # terminator out, or conn dead
 
     # -------------------------------------------------------- handler side
     def write(self, data) -> bool:
@@ -95,6 +97,7 @@ class ProgressiveAttachment:
             return False
         return True
 
-    def wait_finished(self, timeout_s: Optional[float] = None) -> bool:
-        """Wait until the body is complete or the connection ended."""
-        return self._finished.wait(timeout_s)
+    async def wait_finished(self) -> None:
+        """Await, in a fiber, the body's end: the terminator sent or the
+        connection ended."""
+        await self._finished.wait()

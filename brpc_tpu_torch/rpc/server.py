@@ -1,11 +1,19 @@
-"""Server: tpu_std and HTTP/1.1 on one TCP port, sync handlers.
+"""Server: tpu_std and HTTP/1.1 on one TCP port, handlers on fibers.
 
 Every accepted connection picks its protocol from its first bytes
 (``transport/tcp.py``).
 
-tpu_std: a connection's reader thread parses each frame. A request goes
-to the handler pool, so a handler that blocks (a unary Generate waits
-for its sequence to retire) never stalls the connection. A bare stream
+Handlers run as fibers of the server's TaskControl (``Server(control=)``,
+by default the process's ``global_control()``), as brpc_tpu's do without
+``usercode_in_pthread``: a coroutine handler is awaited, so a unary
+Generate parks its fiber until its sequence retires and the worker goes
+on; a plain handler runs on the worker. The same workers run the serving
+engine's decode steps (``serving/engine.py``), so a handler must await,
+never block, what it waits for.
+
+tpu_std: a connection's reader thread parses each frame and spawns a
+request's handler as a fiber, so a handler never stalls the connection
+(the reference's process-in-place reading is a later slice). A bare stream
 frame goes to its stream on the reader thread itself, in parse order
 (brpc_tpu/protocol/tpu_std.py:676-683); the stream hands DATA frames to
 its own delivery queue. Responses are framed as brpc_tpu frames them: a
@@ -20,8 +28,9 @@ request body (brpc_tpu/protocol/http.py:902-980). A failed call answers
 an unknown method answers 404. A handler that created a progressive
 attachment answers with a chunked body that its feeder writes after the
 handler returned. Requests on one connection are answered in order, one
-at a time, on the connection's own queue: a chunked response holds the
-connection until its terminator is out.
+at a time, by the connection's own fiber ExecutionQueue: a chunked
+response holds the queue's drainer (parked, not blocking a worker)
+until its terminator is out.
 
 ``start`` and ``stop`` call ``server._serving.on_server_start/stop``
 (brpc_tpu/rpc/server.py:430,518): that is how the serving lane builds
@@ -30,14 +39,14 @@ and drains its engine with the server's lifecycle.
 
 from __future__ import annotations
 
+import inspect
 import logging
 import threading
 import time
-from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
-from typing import Dict, List, Tuple, Union
+from typing import Dict, List, Optional, Tuple, Union
 
-from brpc_tpu_torch.butil.execution_queue import ExecutionQueue
+from brpc_tpu_torch.fiber import ExecutionQueue, TaskControl, global_control
 from brpc_tpu_torch.protocol import http, tpu_std
 from brpc_tpu_torch.transport.tcp import Connection, Listener
 
@@ -50,9 +59,6 @@ from .stream import process_stream_frame
 log = logging.getLogger("brpc_tpu_torch.rpc")
 
 
-HANDLER_THREADS = 32     # a unary Generate holds its thread until it retires
-
-
 @dataclass(frozen=True)
 class EndPoint:
     host: str
@@ -63,12 +69,14 @@ class EndPoint:
 
 
 class Server:
-    def __init__(self):
+    def __init__(self, control: Optional[TaskControl] = None):
+        self.control = control or global_control()
         self._methods: Dict[tuple, Method] = {}
         self._listener = None
-        self._pool = None
-        self._running = False
+        self._running = False           # started: takes calls
         self._serving = None            # GenerateService handle (serving/)
+        self._idle = threading.Condition()
+        self._inflight = 0              # handler fibers not yet answered
 
     def add_service(self, service: Service) -> None:
         if self._running:
@@ -81,19 +89,17 @@ class Server:
         """Listen on ``tcp://host:port`` (port 0 picks a free port)."""
         if self._running:
             raise RuntimeError("server already started")
-        self._pool = ThreadPoolExecutor(HANDLER_THREADS,
-                                        thread_name_prefix="rpc-handler")
+        self._running = True
         try:
             if self._serving is not None:
                 self._serving.on_server_start(self)
             self._listener = Listener(address, self._on_frame,
                                       self._on_http).start()
         except BaseException:
-            self._pool.shutdown(wait=False)
+            self._running = False
             if self._serving is not None:
                 self._serving.on_server_stop(self)
             raise
-        self._running = True
         return EndPoint(self._listener.host, self._listener.port)
 
     # ------------------------------------------------------------ dispatch
@@ -120,21 +126,30 @@ class Server:
                             "not found")
             self._respond(conn, cntl, b"")
             return
-        try:
-            self._pool.submit(self._run, conn, method, cntl, payload)
-        except RuntimeError:            # pool shut down: server stopping
+        if not self._running:
             cntl.set_failed(berr.ELOGOFF, "server is stopping")
             self._respond(conn, cntl, b"")
+            return
+        with self._idle:
+            self._inflight += 1
+        self.control.spawn(self._run, conn, method, cntl, payload,
+                           name=method.full_name)
 
-    def _run(self, conn: Connection, method: Method, cntl: Controller,
-             payload: bytes) -> None:
+    async def _run(self, conn: Connection, method: Method,
+                   cntl: Controller, payload: bytes) -> None:
         try:
-            response = method.handler(cntl, payload)
-        except Exception as e:          # boundary: report, keep serving
-            log.exception("handler %s failed", method.full_name)
-            cntl.set_failed(berr.EINTERNAL, f"{type(e).__name__}: {e}")
-            response = b""
-        self._respond(conn, cntl, response or b"")
+            try:
+                response = await _call(method, cntl, payload)
+            except Exception as e:      # boundary: report, keep serving
+                log.exception("handler %s failed", method.full_name)
+                cntl.set_failed(berr.EINTERNAL, f"{type(e).__name__}: {e}")
+                response = b""
+            self._respond(conn, cntl, response or b"")
+        finally:
+            with self._idle:
+                self._inflight -= 1
+                if not self._inflight:
+                    self._idle.notify_all()
 
     @staticmethod
     def _respond(conn: Connection, cntl: Controller, response: bytes) -> None:
@@ -163,15 +178,19 @@ class Server:
         it on this connection, so the reader goes on reading."""
         q = conn.user_data.get("http_queue")
         if q is None:
-            q = ExecutionQueue(lambda r: self._serve_http(conn, r),
+            async def serve(batch):
+                for r in batch:
+                    await self._serve_http(conn, r)
+            q = ExecutionQueue(serve, control=self.control,
                                name="http-conn")
             conn.user_data["http_queue"] = q
         q.execute(req)
 
-    def _serve_http(self, conn: Connection, req: http.HttpRequest) -> None:
+    async def _serve_http(self, conn: Connection,
+                          req: http.HttpRequest) -> None:
         if conn.closed:
             return
-        status, ctype, body = self._call_http(req)
+        status, ctype, body = await self._call_http(req)
         try:
             if isinstance(body, ProgressiveAttachment):
                 conn.send(http.chunked_head(body.content_type,
@@ -187,12 +206,13 @@ class Server:
             body._bind(conn)
             # the next request on this connection waits for the whole
             # body: its response must not land inside the chunked stream
-            body.wait_finished()
+            await body.wait_finished()
         if not req.keep_alive:
             conn.close_after_flush()
 
-    def _call_http(self, req: http.HttpRequest
-                   ) -> Tuple[int, str, Union[bytes, ProgressiveAttachment]]:
+    async def _call_http(self, req: http.HttpRequest
+                         ) -> Tuple[int, str,
+                                    Union[bytes, ProgressiveAttachment]]:
         parts = [p for p in req.path.split("/") if p]
         if len(parts) != 2:
             return 404, "text/plain", f"no such page {req.path}".encode()
@@ -201,7 +221,7 @@ class Server:
             return 404, "text/plain", b"no such service/method"
         cntl = Controller()             # _server_socket None: HTTP
         try:
-            response = method.handler(cntl, req.body)
+            response = await _call(method, cntl, req.body)
         except Exception as e:          # boundary: report, keep serving
             log.exception("handler %s failed", method.full_name)
             return 500, "text/plain", f"handler error: {e}".encode()
@@ -229,15 +249,20 @@ class Server:
         self._listener.stop()
         if self._serving is not None:
             self._serving.on_server_stop(self)
-        self._pool.shutdown(wait=False)
 
     def join(self, timeout_s: float = 5.0) -> None:
-        """Wait for in-flight handlers, then close the connections."""
-        if self._pool is not None:
-            done = threading.Event()
-            threading.Thread(target=lambda: (self._pool.shutdown(wait=True),
-                                             done.set()),
-                             daemon=True).start()
-            done.wait(timeout_s)
+        """Wait up to ``timeout_s`` for in-flight handler fibers, then
+        close the connections."""
+        with self._idle:
+            self._idle.wait_for(lambda: not self._inflight, timeout_s)
         if self._listener is not None:
             self._listener.close_connections()
+
+
+async def _call(method: Method, cntl: Controller, request):
+    """Run a handler on the current fiber: a coroutine result is awaited,
+    a plain one returned."""
+    response = method.handler(cntl, request)
+    if inspect.isawaitable(response):
+        response = await response
+    return response

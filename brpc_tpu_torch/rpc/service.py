@@ -1,9 +1,10 @@
-"""Service and method registration (brpc_tpu/rpc/service.py, sync
-handlers only).
+"""Service and method registration (brpc_tpu/rpc/service.py).
 
-A handler is ``handler(cntl, request: bytes) -> bytes``. It runs on the
-server's handler pool and may block; a failure is reported with
-``cntl.set_failed(code, text)``.
+A handler is ``handler(cntl, request: bytes) -> bytes``, or an ``async
+def`` of that shape. It runs as a fiber on the server's workers, which
+also run the decode steps: a coroutine handler awaits what it waits for
+(a ``FiberEvent``, a butex); a plain one must not block for long. A
+failure is reported with ``cntl.set_failed(code, text)``.
 """
 
 from __future__ import annotations

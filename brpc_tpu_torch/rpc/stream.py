@@ -11,13 +11,17 @@ connection under credit-based flow control:
   DATA frame (``frame_seq`` set) spends one;
 - the receiver grants credits back every ``CREDIT_BATCH`` frames it has
   DELIVERED, so a consumer that stops draining stops the sender;
-- ``write`` waits for a credit on a condition variable, ``write_nowait``
-  fails at once.
+- the credits are a Butex: ``await stream.write(...)``, inside a fiber,
+  parks on it until a credit comes (or the stream closes, which adds a
+  sentinel of ``1 << 20`` credits so no writer parks again);
+  ``write_nowait``, from any thread, fails at once.
 
-Frames are delivered to ``on_received(stream, msg)`` in order on the
-stream's own ExecutionQueue, never on the connection's reader thread.
-Remote closure (a close frame, or the connection's end) happens exactly
-once and runs the ``on_close`` callbacks on the same queue.
+Frames are delivered to ``on_received(stream, msg)`` in order by the
+stream's own fiber ExecutionQueue, a batch at a time, never on the
+connection's reader thread; an ``on_received`` that returns an awaitable
+is awaited there, so delivery stays serial. Remote closure (a close
+frame, or the connection's end) happens exactly once and runs the
+``on_close`` callbacks on the same queue, after the frames before it.
 
 Stream ids come from one registry per process, as the reference's
 ResourcePool: frames name their stream by id whichever connection they
@@ -26,13 +30,15 @@ arrive on. Id 0 is invalid (proto3's default), and ids are not reused.
 
 from __future__ import annotations
 
+import inspect
 import itertools
 import logging
 import threading
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional
 
-from brpc_tpu_torch.butil.execution_queue import ExecutionQueue
+from brpc_tpu_torch.fiber import (WAIT_TIMEOUT, Butex, ExecutionQueue,
+                                  FiberEvent)
 from brpc_tpu_torch.protocol import tpu_std
 
 log = logging.getLogger("brpc_tpu_torch.rpc")
@@ -90,13 +96,12 @@ class Stream:
         self.remote_closed = False
         self._frame_seq = 0
         self._send_lock = threading.Lock()  # seq order == wire order
-        self._credit_cond = threading.Condition()
-        self._credits = self.options.initial_credits
+        self._credits = Butex(self.options.initial_credits)
         self._grant_lock = threading.Lock()
         self._pending_grants = 0
         self._close_lock = threading.Lock()
         self._close_cbs: List[Callable] = []
-        self._established = threading.Event()
+        self._established = FiberEvent()
         self._recv_q = ExecutionQueue(self._deliver, name=f"stream-{self.id}")
 
     def _on_established(self) -> None:
@@ -114,36 +119,41 @@ class Stream:
     def _dead(self) -> bool:
         return self.closed or self.remote_closed
 
-    def write(self, payload: bytes = b"",
-              timeout_s: Optional[float] = 10.0) -> bool:
-        """Send one DATA frame, waiting first for establishment and then
-        for a credit. False when the stream closed or the wait timed out."""
+    async def write(self, payload: bytes = b"",
+                    timeout_s: Optional[float] = 10.0) -> bool:
+        """Send one DATA frame from a fiber, parking first until the
+        stream is established, then on the credit butex until a credit
+        comes. False when the stream closed or a wait timed out."""
         if self._dead():
             return False
         if self.peer_id == 0:
             # a frame to stream id 0 would be dropped and its credit lost
-            if not self._established.wait(timeout_s) or self._dead():
+            if not await self._established.wait(timeout_s) or self._dead():
                 return False
-        with self._credit_cond:
+        while True:
             # closure adds a credit sentinel; test closed BEFORE spending
             # one, or a dead stream would "send" on sentinel credits
-            if not self._credit_cond.wait_for(
-                    lambda: self._dead() or self._credits > 0, timeout_s):
-                return False
             if self._dead():
                 return False
-            self._credits -= 1
+            v = self._credits.value
+            if v > 0 and self._credits.compare_exchange(v, v - 1):
+                break
+            if await self._credits.wait(expected=0, timeout_s=timeout_s) \
+                    == WAIT_TIMEOUT:
+                return False
         return self._send_frame(payload)
 
     def write_nowait(self, payload: bytes = b"") -> bool:
         """Send one DATA frame if a credit is at hand; False at once when
-        out of credits, not yet established, or closed."""
+        out of credits, not yet established, or closed. Any thread."""
         if self._dead() or self.peer_id == 0:
             return False
-        with self._credit_cond:
-            if self._credits <= 0:
+        while True:
+            v = self._credits.value
+            if v <= 0:
                 return False
-            self._credits -= 1
+            if self._credits.compare_exchange(v, v - 1):
+                break
         return self._send_frame(payload)
 
     def _send_frame(self, payload: bytes, close: bool = False,
@@ -171,35 +181,39 @@ class Stream:
                   attachment: bytes) -> None:
         """On the connection's reader thread, in parse order: cheap."""
         if ss.credits:
-            with self._credit_cond:
-                self._credits += ss.credits
-                self._credit_cond.notify_all()
+            self._credits.fetch_add(ss.credits)
+            self._credits.wake_all()
         if ss.close:
             self._remote_close_once()
             return
         if ss.frame_seq:
             self._recv_q.execute(StreamMessage(payload, attachment))
 
-    def _deliver(self, item) -> None:
-        if item is None:                # remote closure
-            for cb in list(self._close_cbs):
+    async def _deliver(self, batch) -> None:
+        """The delivery queue's consumer: frames in order; None is the
+        remote closure."""
+        for item in batch:
+            if item is None:
+                for cb in list(self._close_cbs):
+                    try:
+                        cb(self)
+                    except Exception:   # boundary: every callback runs
+                        log.exception("stream on_close failed")
+                continue
+            if self.options.on_received is not None:
                 try:
-                    cb(self)
-                except Exception:       # boundary: every callback runs
-                    log.exception("stream on_close failed")
-            return
-        if self.options.on_received is not None:
-            try:
-                self.options.on_received(self, item)
-            except Exception:           # boundary: keep delivering
-                log.exception("stream on_received failed")
-        with self._grant_lock:
-            self._pending_grants += 1
-            grant = 0
-            if self._pending_grants >= CREDIT_BATCH and self.peer_id:
-                grant, self._pending_grants = self._pending_grants, 0
-        if grant and not self.closed:
-            self._send_frame(b"", credits=grant, data=False)
+                    r = self.options.on_received(self, item)
+                    if inspect.isawaitable(r):
+                        await r         # in the drainer: stays serial
+                except Exception:       # boundary: keep delivering
+                    log.exception("stream on_received failed")
+            with self._grant_lock:
+                self._pending_grants += 1
+                grant = 0
+                if self._pending_grants >= CREDIT_BATCH and self.peer_id:
+                    grant, self._pending_grants = self._pending_grants, 0
+            if grant and not self.closed:
+                self._send_frame(b"", credits=grant, data=False)
 
     # ------------------------------------------------------------ binding
     def _bind(self, conn) -> None:
@@ -219,9 +233,11 @@ class Stream:
             self._remote_close_once()
 
     def _wake_writers(self) -> None:
-        with self._credit_cond:
-            self._credits += _CLOSED_CREDITS
-            self._credit_cond.notify_all()
+        # the sentinel makes every credit park short-circuit (value
+        # changed), so a writer racing the closure cannot sleep out its
+        # timeout on a dead stream
+        self._credits.fetch_add(_CLOSED_CREDITS)
+        self._credits.wake_all()
 
     def _remote_close_once(self) -> None:
         """The one remote-closure path, shared by the peer's close frame

@@ -13,10 +13,12 @@ admission, and each step writes its new rows in place; only the ``[B]``
 next tokens come back to the host. (The reference keeps the slots in
 host numpy and hands the whole cache to every step.)
 
-Thread model: ``step()`` runs on the engine's decode thread and steps are
-serialized by the engine; ``_lock`` guards only the queue and the slot
-table, so ``submit``/``cancel`` from handler threads stay cheap. The
-decode itself and the user callbacks run outside the lock.
+Thread model: ``step()`` runs on whichever fiber worker holds the
+engine's decode lock (``engine.py``), so steps are serialized; ``_lock``
+guards only the queue and the slot table, so ``submit``/``cancel`` from
+handler fibers stay cheap. The decode itself and the user callbacks run
+outside the lock. ``steps_by_group`` counts the steps each worker group
+ran.
 """
 
 from __future__ import annotations
@@ -54,7 +56,7 @@ class RequestTooLong(ValueError):
 class GenRequest:
     """One generation request: prompt, token budget, the controller whose
     deadline drives eviction, and the emit callbacks (called outside the
-    batcher's lock, on the decode thread)."""
+    batcher's lock, on the fiber worker that ran the step)."""
 
     _seq = 0
     _seq_lock = threading.Lock()
@@ -96,7 +98,10 @@ class ContinuousBatcher:
                  max_waiting: int = 32,
                  wake: Optional[Callable[[], None]] = None):
         self.model = model
-        self._wake = wake            # kicks the decode thread on submit
+        # wakes a parked fiber worker on submit (the server control's
+        # parking_lot.signal), so a request to an idle server does not
+        # wait out a worker's park
+        self._wake = wake
         cfg = model.config
         dev = model.device
         self.max_batch = int(max_batch)
@@ -116,6 +121,7 @@ class ContinuousBatcher:
         self._nrunning = 0           # racy-read counter for has_work
         self.stopped = False
         self.batch_hist: Counter = Counter()     # batch size -> steps
+        self.steps_by_group: Counter = Counter()  # worker group -> steps
         self.decode_steps = 0
         self.completed = 0
         self.evicted = 0
@@ -211,9 +217,10 @@ class ContinuousBatcher:
                     survivors.append(req)
             self._waiting = survivors
 
-    def step(self) -> bool:
+    def step(self, group_index: Optional[int] = None) -> bool:
         """One scheduling iteration: sweep, admit, decode once, emit,
-        retire. Returns False when there was nothing to do."""
+        retire. Returns False when there was nothing to do.
+        ``group_index`` names the fiber worker group running it."""
         emits: List[Tuple[GenRequest, int]] = []
         done: List[Tuple[GenRequest, str]] = []
         admitted: List[GenRequest] = []
@@ -232,6 +239,8 @@ class ContinuousBatcher:
             if active:
                 self.decode_steps += 1
                 self.batch_hist[len(active)] += 1
+                if group_index is not None:
+                    self.steps_by_group[group_index] += 1
         if not active:
             self._fire(emits, done)
             return bool(done)
@@ -319,6 +328,7 @@ class ContinuousBatcher:
             } for r in self._slots if r is not None]
             waiting = len(self._waiting)
             hist = dict(sorted(self.batch_hist.items()))
+            groups = dict(sorted(self.steps_by_group.items()))
             used = self._used_locked()
         return {
             "max_batch": self.max_batch,
@@ -334,6 +344,7 @@ class ContinuousBatcher:
             "tokens_out": self.tokens_out,
             "decode_steps": self.decode_steps,
             "batch_size_hist": hist,
+            "steps_by_group": groups,
             "kv_occupancy": round(
                 used / float(self.max_batch * self.cache_len), 4),
             "stopped": self.stopped,

@@ -1,119 +1,91 @@
-"""ServingEngine: drives the batcher from one decode thread (the port of
-brpc_tpu/serving/engine.py).
+"""ServingEngine: the model replica as a WorkerModule (the port of
+brpc_tpu/serving/engine.py): decode slices co-scheduled WITH the fiber
+workers instead of on a thread of their own.
 
-The reference co-schedules decode slices on its fiber workers through a
-WorkerModule hook; the port has no fiber scheduler yet, so the server
-starts one decode thread per engine. The thread steps while the batcher
-has work and otherwise sleeps on an Event that ``submit`` sets, so the
-first token of a request arriving at an idle server does not wait out a
-poll interval. ``has_task``/``process`` keep the WorkerModule shape.
+Every fiber worker's loop polls ``has_task()`` and runs
+``process(group_index)`` before it looks at its run queues
+(``fiber/worker_module.py``), so decode steps interleave with RPC fibers
+on the same threads: under RPC load the workers spend their iterations
+on fibers and steps squeeze between them; on a quiet server every
+worker offers the engine a slice.
 
-The warm-up step runs on the decode thread itself, before it takes
-work: PyTorch keeps a cuBLAS handle per thread, so a warm-up on any
-other thread would leave the first real step to create one.
+Only one worker decodes at a time (``_decode_lock`` try-acquire): the KV
+slots are shared state, and a second concurrent step would race their
+writes. A worker that loses the race returns ``False`` (no progress), so
+its loop may park instead of spinning on a batch a sibling is decoding;
+``contended`` counts those misses, ``threads_seen`` the steps each
+worker thread ran.
+
+The warm-up step runs once, on the thread that starts the server, as the
+reference's does. The workers are not warmed one by one: on the H100,
+neither a prefill nor the whole warm-up step on every worker at start
+shortened a worker's first step or the first burst's time to first
+token (PERF.md, section 6).
 """
 
 from __future__ import annotations
 
-import logging
 import threading
+from collections import Counter
 
 import torch
 
+from brpc_tpu_torch.fiber.worker_module import WorkerModule
+
 from .batcher import ContinuousBatcher
 
-log = logging.getLogger("brpc_tpu_torch.serving")
 
-
-class ServingEngine:
-    def __init__(self, batcher: ContinuousBatcher):
+class ServingEngine(WorkerModule):
+    def __init__(self, batcher: ContinuousBatcher,
+                 label: str = "GenerateService.Generate"):
         self.batcher = batcher
+        # a sampler attributes decode slices to the serving method
+        # (worker_module.active_label reads this while process runs)
+        self.attribution_label = label
         self._decode_lock = threading.Lock()
-        self._wakeup = threading.Event()
-        self._stopping = threading.Event()
-        self._thread = None
         self.steps = 0
         self.warmup_steps = 0
+        self.contended = 0
+        self.threads_seen: Counter = Counter()
 
-    # ------------------------------------------------- WorkerModule shape
+    # ------------------------------------------------- WorkerModule hooks
     def has_task(self) -> bool:
         return self.batcher.has_work()
 
-    def process(self) -> bool:
-        """Run ONE decode slice (sweep + admit + one step). False when
-        nothing was done."""
-        with self._decode_lock:
-            did = self.batcher.step()
+    def process(self, group_index: int) -> bool:
+        """Run ONE decode slice (sweep + admit + one step). False when no
+        progress was made: another worker holds the slice, or there was
+        nothing to do."""
+        if not self._decode_lock.acquire(False):
+            self.contended += 1
+            return False
+        try:
+            did = self.batcher.step(group_index)
+        finally:
+            self._decode_lock.release()
         if did:
             self.steps += 1
+            self.threads_seen[threading.get_ident()] += 1
         return did
-
-    def wake(self) -> None:
-        self._wakeup.set()
-
-    # ------------------------------------------------------ decode thread
-    def _run(self) -> None:
-        while not self._stopping.is_set():
-            if self.has_task():
-                try:
-                    self.process()
-                except Exception:       # boundary: keep the lane alive
-                    log.exception("decode step failed")
-                    self._stopping.wait(0.01)
-                continue
-            self._wakeup.wait(0.5)
-            self._wakeup.clear()
-
-    def start(self, timeout_s: float = 600.0) -> None:
-        """Start the decode thread. It first runs one throwaway step;
-        start() returns once that step is done, or raises what it
-        raised."""
-        if self._thread is not None:
-            return
-        ready = threading.Event()
-        failure = []
-
-        def run():
-            try:
-                self.warm_up()
-            except Exception as e:      # reported to start()'s caller
-                failure.append(e)
-                return
-            finally:
-                ready.set()
-            self._run()
-
-        self._thread = threading.Thread(target=run,
-                                        name="serving-decode",
-                                        daemon=True)
-        self._thread.start()
-        if not ready.wait(timeout_s):
-            raise RuntimeError(f"decode warm-up took over {timeout_s}s")
-        if failure:
-            self._thread = None
-            raise failure[0]
-
-    def stop(self, timeout_s: float = 5.0) -> None:
-        self._stopping.set()
-        self._wakeup.set()
-        if self._thread is not None:
-            self._thread.join(timeout_s)
-            self._thread = None
 
     # ------------------------------------------------------ observability
     def snapshot(self) -> dict:
         return {
             "steps": self.steps,
             "warmup_steps": self.warmup_steps,
-            "decode_thread_alive": bool(self._thread
-                                        and self._thread.is_alive()),
+            "decode_lock_contended": self.contended,
+            "worker_threads_used": len(self.threads_seen),
         }
 
     def warm_up(self) -> None:
         """One throwaway step at the slot shape (prefill, decode, cache
         write, token download), so that the first request's time to first
         token measures scheduling, not the kernel's first-use build and
-        load or the first use of each operation on this thread."""
+        load."""
+        self._warm_step()
+        self.warmup_steps += 1
+
+    def _warm_step(self) -> None:
         m = self.batcher.model
         cfg, dev = m.config, m.device
         b = self.batcher.max_batch
@@ -130,4 +102,3 @@ class ServingEngine:
             v[rows, lens.long()] = v_new
             h.copy_(h_new)
             nxt.tolist()
-        self.warmup_steps += 1

@@ -13,17 +13,20 @@ behind them all:
   as chunked transfer, then a ``\\n#<state> n=<k>[ err=<code>]`` footer
   (a chunked body cannot carry a late status code). A dead peer turns
   ``pa.write()`` False, which cancels the sequence and frees its slot;
-- **unary**: a plain tpu_std call parks its handler thread until the
-  sequence retires and returns every token in one JSON response,
+- **unary**: a plain tpu_std call parks its handler fiber on a
+  FiberEvent until the sequence retires (its worker thread goes on
+  serving) and returns every token in one JSON response,
   ``{"status": "completed", "n": ..., "tokens": [...], "text": ...}``.
 
 Deadline eviction fails a unary call with ``ERPCTIMEDOUT``, a full queue
 any call with ``ELIMIT``, a prompt that cannot fit a slot with
 ``EREQUEST``.
 
-Token callbacks run on the engine's decode thread, which must never
-wait on a client: both senders only queue writes (``write_nowait`` on a
-stream, chunk writes on a connection whose sends never block).
+Token callbacks run inside a decode step, on a fiber worker, which must
+never wait on a client: both senders only queue writes (``write_nowait``
+on a stream, chunk writes on a connection whose sends never block). A
+stream's tail that the credit window held back is sent by a fiber that
+awaits credits.
 
 Request body: JSON ``{"prompt": str, "max_tokens": int, "stop_token":
 int?}``, or a bare byte string taken as the prompt with the default
@@ -31,8 +34,9 @@ budget. Prompt bytes are the tokens (byte-level vocab).
 
 ``add_generate_service(server)`` registers the service and arms the
 engine lifecycle: ``Server.start`` builds a fresh model, batcher and
-engine on the chosen device and starts the decode thread;
-``Server.stop`` stops it and retires what is in flight.
+engine on the chosen device, warms the engine and registers it as a
+WorkerModule, so the server's fiber workers run its decode steps;
+``Server.stop`` unregisters it and retires what is in flight.
 """
 
 from __future__ import annotations
@@ -43,6 +47,9 @@ from collections import deque
 from typing import List, Optional, Tuple
 
 from brpc_tpu_torch.butil.device import DeviceLike, resolve_device
+from brpc_tpu_torch.fiber import FiberEvent
+from brpc_tpu_torch.fiber.worker_module import (register_module,
+                                                unregister_module)
 from brpc_tpu_torch.rpc import errno_codes as berr
 from brpc_tpu_torch.rpc.service import Service
 from brpc_tpu_torch.rpc.stream import StreamOptions, stream_accept
@@ -98,14 +105,15 @@ def _percentile(values: List[float], q: float) -> Optional[float]:
 
 
 class _StreamSender:
-    """Token emitter of the stream path, on the decode thread:
+    """Token emitter of the stream path, inside the decode step:
     ``write_nowait`` only, so a decode step never waits for credits.
     Frames the window refuses queue up and go out before the next frame;
     a consumer that stops draining past the cap cancels the sequence."""
 
-    def __init__(self, stream, batcher: ContinuousBatcher):
+    def __init__(self, stream, batcher: ContinuousBatcher, control):
         self.stream = stream
         self.batcher = batcher
+        self.control = control          # runs the tail's drain fiber
         self._pending: deque = deque()
         self._lock = threading.Lock()
 
@@ -145,18 +153,17 @@ class _StreamSender:
             self.stream.close()
             return
         # the credit window closed on the stream's tail, and nothing will
-        # push again: a thread of its own waits for credits (never the
-        # decode thread), sends the tail, the verdict included, and closes
-        threading.Thread(target=self._drain_then_close,
-                         name="stream-drain", daemon=True).start()
+        # push again: a fiber parks on the credit butex (never the decode
+        # step), sends the tail, the verdict included, and closes
+        self.control.spawn(self._drain_then_close, name="stream-drain")
 
-    def _drain_then_close(self) -> None:
+    async def _drain_then_close(self) -> None:
         while True:
             with self._lock:
                 if not self._pending or self._dead():
                     break
                 frame = self._pending[0]
-            if not self.stream.write(frame, timeout_s=10.0):
+            if not await self.stream.write(frame, timeout_s=10.0):
                 break
             with self._lock:
                 if self._pending and self._pending[0] is frame:
@@ -201,24 +208,26 @@ class GenerateService:
         self._max_waiting = int(max_waiting)
         self.batcher: Optional[ContinuousBatcher] = None
         self.engine: Optional[ServingEngine] = None
+        self._control = None            # the server's TaskControl
         self._ttft_lock = threading.Lock()
         self._ttft_ms: deque = deque(maxlen=_TTFT_WINDOW)
 
     # ----------------------------------------------------------- lifecycle
     def on_server_start(self, server) -> None:
-        engine_box = []
+        self._control = server.control
         self.batcher = ContinuousBatcher(
             TinyDecoder(TinyDecoderConfig(cache_len=self._cache_len),
                         device=self.device),
             max_batch=self._max_batch, max_waiting=self._max_waiting,
-            wake=lambda: engine_box[0].wake())
-        self.engine = ServingEngine(self.batcher)
-        engine_box.append(self.engine)
-        self.engine.start()
+            wake=server.control.parking_lot.signal)
+        self.engine = ServingEngine(self.batcher,
+                                    label=f"{SERVICE_NAME}.Generate")
+        self.engine.warm_up()
+        register_module(self.engine)
 
     def on_server_stop(self, server) -> None:
         if self.engine is not None:
-            self.engine.stop()
+            unregister_module(self.engine)
         if self.batcher is not None:
             self.batcher.stop()
 
@@ -263,7 +272,7 @@ class GenerateService:
             return False
         return True
 
-    def _generate(self, cntl, request: bytes) -> bytes:
+    async def _generate(self, cntl, request: bytes) -> bytes:
         batcher = self.batcher
         if batcher is None or batcher.stopped:
             cntl.set_failed(berr.ELOGOFF, "serving engine not running")
@@ -279,8 +288,8 @@ class GenerateService:
         if cntl._server_socket is None:
             return self._generate_http(cntl, batcher, prompt, max_tokens,
                                        stop_token)
-        return self._generate_unary(cntl, batcher, prompt, max_tokens,
-                                    stop_token)
+        return await self._generate_unary(cntl, batcher, prompt,
+                                          max_tokens, stop_token)
 
     def _record_ttft(self, req: GenRequest, state: str) -> None:
         ttft = req.ttft_ms()
@@ -291,7 +300,7 @@ class GenerateService:
     def _generate_stream(self, cntl, batcher, prompt, max_tokens,
                          stop_token) -> bytes:
         st = stream_accept(cntl, StreamOptions())
-        sender = _StreamSender(st, batcher)
+        sender = _StreamSender(st, batcher, self._control)
 
         def on_finish(req_, state):
             self._record_ttft(req_, state)
@@ -324,9 +333,9 @@ class GenerateService:
             return b""                  # failed: a plain HTTP error answers
         return None                     # the body streams through pa
 
-    def _generate_unary(self, cntl, batcher, prompt, max_tokens,
-                        stop_token) -> bytes:
-        ev = threading.Event()
+    async def _generate_unary(self, cntl, batcher, prompt, max_tokens,
+                              stop_token) -> bytes:
+        ev = FiberEvent()
         outcome = {}
 
         def on_finish(req_, state):
@@ -341,7 +350,7 @@ class GenerateService:
         # is a backstop against a wedged engine, not a budget
         rem = cntl.remaining_ms()
         budget = 30.0 if rem is None else rem / 1e3 + 30.0
-        if not ev.wait(budget):
+        if not await ev.wait(budget):
             batcher.cancel(req)
             cntl.set_failed(berr.EINTERNAL, "serving engine wedged")
             return b""

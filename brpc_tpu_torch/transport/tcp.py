@@ -11,7 +11,7 @@ Writing: ``send`` queues one whole frame and returns; it never waits
 for the peer. A sender finding the send side free tries the frame
 inline with a non-blocking write; what the socket does not take, and
 every frame sent while another write is under way, goes to a FIFO that a
-writer thread drains with blocking writes. So a decode thread that sends
+writer thread drains with blocking writes. So a decode step that sends
 tokens never parks on a peer that stopped reading (brpc_tpu's
 ``Socket.write`` likewise only queues), and frames from concurrent
 callers never interleave.

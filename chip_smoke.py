@@ -31,7 +31,14 @@ Phases, one JSON line each:
    launch count, zeroed just before the server starts and read just
    after the burst, must equal the engine's decode steps plus its
    warm-up step. The same burst then runs warm, and once more under the
-   profiler for the device's busy share and its time by kernel;
+   profiler for the device's busy share and its time by kernel. Decode
+   runs on the server's fiber workers (the engine is a WorkerModule):
+   in every burst the steps counted by worker group must sum to the
+   burst's decode steps, and no ``serving-decode`` thread or
+   ``rpc-handler`` pool may exist; each burst reports the steps by
+   group, the worker threads used, the decode lock's misses, the
+   control's concurrency, ``os.cpu_count()`` and the scheduler's
+   ``saturation_snapshot()``;
    then the two other paths, each with the counts zeroed just before and
    read just after: long-context attention (``flash_attention`` at 8
    heads x 2048 x 64, bf16 and fp32, causal and not) and a long-cache
@@ -48,7 +55,13 @@ Phases, one JSON line each:
    first chunk, whose slot must be freed within 5 s before a following
    request completes, and one stream burst under the profiler. Client-side
    time to first token and gaps between tokens, per transport, and the
-   bursts' tokens/s;
+   bursts' tokens/s; the fiber fields and checks of phase 3 for every
+   burst, and each decode step's time with the prompts it admitted
+   (prefilled) and the host time of its prefills and its model step:
+   the median and p99 of steps that admitted none and of steps that
+   admitted some, the phase's first steps, and each worker thread's
+   first step, to show whether a worker's first step costs more than
+   its kind's median;
 5. kernel times: device times of each kernel, its plain version and one
    PyTorch call (``scaled_dot_product_attention``, a yardstick the port
    never calls), from CUDA events and from the profiler, beside the bound
@@ -70,6 +83,7 @@ result line. Without CUDA, or without the package beside it, it fails.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import threading
@@ -462,6 +476,45 @@ def _p99(xs):
     return s[min(len(s) - 1, int(0.99 * len(s)))] if s else None
 
 
+def _check_no_decode_thread() -> None:
+    names = [t.name for t in threading.enumerate()]
+    check("serving-decode" not in names and
+          not any(n.startswith("rpc-handler") for n in names),
+          f"a decode thread or handler pool exists: {sorted(names)}")
+
+
+class _FiberBurst:
+    """Reads the fiber fields of one burst: steps by worker group (their
+    sum must equal the burst's decode steps), the engine's worker
+    threads and decode-lock misses, and the scheduler's counters over
+    the burst (the snapshot taken at the start opens the interval)."""
+
+    def __init__(self, server, gs):
+        self.server, self.gs = server, gs
+        self.groups0 = dict(gs.batcher.steps_by_group)
+        self.steps0 = gs.batcher.decode_steps
+        self.contended0 = gs.engine.contended
+        server.control.saturation_snapshot()
+
+    def finish(self, name: str) -> dict:
+        gs = self.gs
+        groups = {g: n - self.groups0.get(g, 0)
+                  for g, n in sorted(gs.batcher.steps_by_group.items())
+                  if n - self.groups0.get(g, 0)}
+        steps = gs.batcher.decode_steps - self.steps0
+        check(sum(groups.values()) == steps > 0,
+              f"{name}: steps by worker group {groups} do not sum to the "
+              f"burst's {steps} decode steps")
+        _check_no_decode_thread()
+        return {"steps_by_group": groups,
+                "worker_threads_used": len(gs.engine.threads_seen),
+                "decode_lock_contended": gs.engine.contended
+                - self.contended0,
+                "concurrency": self.server.control.concurrency,
+                "cpu_count": os.cpu_count(),
+                "saturation": self.server.control.saturation_snapshot()}
+
+
 def _device_profile(events, window_us: float):
     """Device busy share and kernel time by name from profiler events:
     the union of device intervals over the host window."""
@@ -512,9 +565,11 @@ def phase_serving():
     check(str(gs.device) == "cuda:0", f"service device {gs.device}")
     ep = server.start("tcp://127.0.0.1:0")
     try:
+        fb = _FiberBurst(server, gs)
         results, errors, wall = _burst(ep.port, prompts, MAX_TOKENS)[:3]
         torch.cuda.synchronize()
         launches = dict(fa.launches)
+        fibers1 = fb.finish("burst 1")
         steps = gs.batcher.decode_steps
         warm = gs.engine.warmup_steps
         hist = dict(gs.batcher.batch_hist)
@@ -528,10 +583,13 @@ def phase_serving():
               f"warm-up {warm} of flash_decode alone")
         check(launches["flash_decode"] > 0, "flash_decode was never launched")
         # the same burst again, warm, then once more under the profiler
+        fb = _FiberBurst(server, gs)
         results2, errors2, wall2 = _burst(ep.port, prompts, MAX_TOKENS)[:3]
         _check_burst("burst 2", results2, errors2, oracle)
+        fibers2 = fb.finish("burst 2")
         ttft_warm = gs.ttft_samples()[len(ttft_first):]
         steps2 = gs.batcher.decode_steps - steps
+        fb = _FiberBurst(server, gs)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -539,6 +597,7 @@ def phase_serving():
             torch.cuda.synchronize()
             window_us = (time.perf_counter() - t0) * 1e6
         _check_burst("burst 3 (profiled)", results3, errors3, oracle)
+        fb.finish("burst 3 (profiled)")
     finally:
         server.stop()
         server.join(10)
@@ -552,7 +611,8 @@ def phase_serving():
            "warm_wall_s": wall2, "warm_tokens_per_s": tokens / wall2,
            "warm_ttft_p50_ms": _median(ttft_warm),
            "warm_ttft_p99_ms": _p99(ttft_warm), "warm_decode_steps": steps2,
-           "warm_ms_per_step": wall2 * 1e3 / steps2}
+           "warm_ms_per_step": wall2 * 1e3 / steps2,
+           "fibers": fibers1, "warm_fibers": fibers2}
     emit(out)
     trace = {"phase": "serving_trace", "window_us": window_us}
     trace.update(_device_profile(prof.events(), window_us))
@@ -759,6 +819,7 @@ def phase_streaming():
     def bursts(kind, labels, burst=None):
         for label in labels:
             n0, steps0 = len(gs.ttft_samples()), gs.batcher.decode_steps
+            fb = _FiberBurst(server, gs)
             res, errs, wall, ttft, gaps = (
                 burst(ep.port, prompts, MAX_TOKENS) if burst
                 else _client_process_burst(kind, ep.port))
@@ -771,7 +832,8 @@ def phase_streaming():
             line.update(server_ttft_p50_ms=_median(server_ttft),
                         server_ttft_p99_ms=_p99(server_ttft),
                         decode_steps=steps,
-                        tokens_per_step=N_REQUESTS * MAX_TOKENS / steps)
+                        tokens_per_step=N_REQUESTS * MAX_TOKENS / steps,
+                        **fb.finish(f"{kind} burst ({label})"))
             out[f"{kind}_{label}"] = line
 
     fa.reset_launches()
@@ -779,6 +841,42 @@ def phase_streaming():
     gs = add_generate_service(server)           # defaults, on cuda:0
     check(str(gs.device) == "cuda:0", f"service device {gs.device}")
     ep = server.start("tcp://127.0.0.1:0")
+    _check_no_decode_thread()
+    # every decode step timed on the worker that runs it, with the
+    # prompts it admitted and the host time of its prefills and of the
+    # model's decode step (steps are serialized, so the counters'
+    # differences across a step are that step's own)
+    step_ms, acc = [], {"prefills": 0, "prefill_s": 0.0, "decode_s": 0.0}
+    model = gs.batcher.model
+    real_step, real_prefill = gs.batcher.step, model.prefill
+    real_decode = model.decode_step
+
+    def counted_prefill(tokens):
+        t0 = time.perf_counter()
+        out = real_prefill(tokens)
+        acc["prefills"] += 1
+        acc["prefill_s"] += time.perf_counter() - t0
+        return out
+
+    def timed_decode(*args):
+        t0 = time.perf_counter()
+        out = real_decode(*args)
+        acc["decode_s"] += time.perf_counter() - t0
+        return out
+
+    def timed_step(group_index=None):
+        a0, t0 = dict(acc), time.perf_counter()
+        did = real_step(group_index)
+        if did:
+            step_ms.append((threading.get_ident(),
+                            (time.perf_counter() - t0) * 1e3,
+                            acc["prefills"] - a0["prefills"],
+                            (acc["prefill_s"] - a0["prefill_s"]) * 1e3,
+                            (acc["decode_s"] - a0["decode_s"]) * 1e3))
+        return did
+
+    model.prefill, model.decode_step = counted_prefill, timed_decode
+    gs.batcher.step = timed_step
     try:
         bursts("stream", ("cold", "warm"))                  # (a)
         counted("stream", 0, gs.engine.warmup_steps)
@@ -868,6 +966,25 @@ def phase_streaming():
         server.join(10)
     trace = {"phase": "streaming_trace", "window_us": window_us}
     trace.update(_device_profile(prof.events(), window_us))
+    def step_doc(ms, admitted, prefill_ms, decode_ms):
+        return {"ms": ms, "admitted": admitted, "prefill_host_ms": prefill_ms,
+                "decode_host_ms": decode_ms}
+
+    first, seen = [], set()
+    for tid, *rest in step_ms:
+        if tid not in seen:
+            seen.add(tid)
+            first.append(step_doc(*rest))
+    plain = [ms for _, ms, a, _, _ in step_ms if not a]
+    admit = [ms for _, ms, a, _, _ in step_ms if a]
+    out["steps"] = {
+        "first_of_phase": [step_doc(*s[1:]) for s in step_ms[:3]],
+        "first_per_thread": first,
+        "no_admission": {"count": len(plain), "ms_p50": _median(plain),
+                         "ms_p99": _p99(plain)},
+        "admission": {"count": len(admit), "ms_p50": _median(admit),
+                      "ms_p99": _p99(admit),
+                      "prompts": sum(s[2] for s in step_ms)}}
     out["launches"] = parts
     out["tokens_equal_cpu_plain"] = True
     out["stream_profiled"]["device_busy_share"] = trace["device_busy_share"]

@@ -3,7 +3,8 @@
 Weights carry over bit for bit; ``decode_step``, ``generate`` and the
 continuous batcher give the reference's tokens; the unary Generate path
 works end to end over TCP, port to port and across the wire in both
-directions with brpc_tpu's Channel and Server.
+directions with brpc_tpu's Channel and Server; its decode steps run on
+the server's fiber workers, through the engine's WorkerModule hook.
 """
 
 import json
@@ -368,6 +369,35 @@ class TestUnaryE2E:
         assert stats["completed"] == 12 and stats["ttft_ms"]["count"] == 12
         assert gs.engine.steps > 0 and gs.engine.warmup_steps == 1
 
+    def test_decode_runs_on_fiber_workers(self, port_server):
+        """The reference's check that decode ran on fiber workers
+        (tests/test_serving.py:280-281), and more: every step ran on a
+        worker of the server's control, and no decode thread or handler
+        pool exists."""
+        server, gs, ep = port_server()
+        ch = Channel(str(ep), ChannelOptions(timeout_ms=30000))
+        try:
+            for p in PROMPTS[:3]:
+                c = ch.call_sync("GenerateService", "Generate",
+                                 _gen_body(p, 8))
+                assert not c.failed(), c.error_text
+        finally:
+            ch.close()
+        assert gs.engine.steps > 0
+        assert sum(gs.batcher.steps_by_group.values()) \
+            == gs.batcher.decode_steps > 0
+        assert gs._payload()["steps_by_group"] == dict(
+            sorted(gs.batcher.steps_by_group.items()))
+        names = {t.ident: t.name for t in threading.enumerate()}
+        prefix = f"{server.control.name}_w"
+        assert all(names.get(tid, "").startswith(prefix)
+                   for tid in gs.engine.threads_seen), gs.engine.threads_seen
+        assert gs.engine.snapshot()["worker_threads_used"] \
+            == len(gs.engine.threads_seen) >= 1
+        names = [t.name for t in threading.enumerate()]
+        assert "serving-decode" not in names
+        assert not any(n.startswith("rpc-handler") for n in names)
+
     def test_errors_and_eviction(self, port_server):
         server, gs, ep = port_server(cache_len=4096)
         ch = Channel(str(ep), ChannelOptions(timeout_ms=20000))
@@ -415,16 +445,17 @@ class TestUnaryE2E:
                 time.sleep(0.005)
             assert cond()
 
-        # a gate in front of the decode thread's step: while it is parked
-        # there, no sweep or retirement can free the slot or the queue
+        # a gate in front of the engine's step: while the worker running
+        # it is parked there, no sweep or retirement can free the slot or
+        # the queue
         go, parked = threading.Event(), threading.Event()
         real_step = gs.batcher.step
 
-        def gated_step():
+        def gated_step(group_index=None):
             if not go.is_set():
                 parked.set()
                 go.wait()
-            return real_step()
+            return real_step(group_index)
 
         go.set()
         gs.batcher.step = gated_step

@@ -13,9 +13,11 @@ Added here: one stream across the wire each way, an HTTP peer that dies
 mid-body and frees its slot, and a peer that stops reading, which must
 not hold up another request's decode.
 
-Left out until the port has what they check: the reference's
-fiber-only assertions (``batcher.steps_by_group``, queue item 2, the
-fiber scheduler) and the ``/serving`` builtin page (queue item 3).
+The reference's fiber assertion (``batcher.steps_by_group``) holds
+here too, and a server with two fiber workers in all answers unary,
+stream and HTTP calls at once: nothing that waits may hold a worker,
+or decode would starve. Left out until the port has it: the
+``/serving`` builtin page (ROADMAP §1).
 Long generations use ``cache_len`` 1024, not the reference's 4096,
 which would make the CPU plain path slow.
 """
@@ -146,6 +148,7 @@ class TestServingStreamE2E:
             total = c.token_ns[-1] - c.t0
             assert ttft < total * 0.5, (ttft, total)
             assert gs.engine.steps > 0
+            assert sum(gs.batcher.steps_by_group.values()) > 0
             assert gs._payload()["ttft_ms"]["count"] == 2
         finally:
             ch.close()
@@ -212,13 +215,13 @@ class TestServingStreamE2E:
                                                      monkeypatch):
         """The consumer delivers nothing until the sequence has retired,
         so the credit window runs dry mid-tail: the held remainder, the
-        d frame included, must still arrive, through the drain thread."""
+        d frame included, must still arrive, through the drain fiber."""
         drains = []
         real_drain = service_mod._StreamSender._drain_then_close
 
         def counted(self):
             drains.append(len(self._pending))
-            real_drain(self)
+            return real_drain(self)
 
         monkeypatch.setattr(service_mod._StreamSender, "_drain_then_close",
                             counted)
@@ -393,3 +396,104 @@ def test_reader_that_stops_draining_does_not_stall_decode(serving, oracle):
     finally:
         ch.close()
         sock.close()
+
+
+_TWO_WORKER_SERVER = """
+import json, sys, threading
+from brpc_tpu_torch.fiber import global_control, set_concurrency
+set_concurrency(2)
+from brpc_tpu_torch.rpc import Server
+from brpc_tpu_torch.serving import add_generate_service
+server = Server()
+gs = add_generate_service(server, device="cpu", max_waiting=64)
+ep = server.start("tcp://127.0.0.1:0")
+print(json.dumps({"port": ep.port}), flush=True)
+sys.stdin.readline()
+names = {t.ident: t.name for t in threading.enumerate()}
+print(json.dumps({
+    "concurrency": server.control.concurrency,
+    "decode_threads": sorted(names.get(i, "?") for i in gs.engine.threads_seen),
+    "steps_by_group": sum(gs.batcher.steps_by_group.values()),
+    "decode_steps": gs.batcher.decode_steps,
+    "completed": gs.batcher.completed,
+    "threads": sorted(names.values())}), flush=True)
+server.stop(); server.join(5)
+"""
+
+
+def test_two_fiber_workers_serve_every_transport_at_once(oracle):
+    """16 unary, 16 stream and 16 HTTP Generates of 32 tokens each, all at
+    once, against a server whose process has two fiber workers in all
+    (``set_concurrency(2)``, in a subprocess: the module registry is one
+    per process). Handlers, stream delivery, HTTP order and every decode
+    step share those two threads, so a wait that blocked a worker would
+    starve decode and hang the calls. Tokens must equal the reference's
+    ``TinyDecoder.generate``; the whole exchange has 120 s."""
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.Popen([sys.executable, "-c", _TWO_WORKER_SERVER],
+                            cwd=root, stdin=subprocess.PIPE,
+                            stdout=subprocess.PIPE, text=True)
+    try:
+        port = json.loads(proc.stdout.readline())["port"]
+        prompts = [f"starve {i:02d}" for i in range(16)]
+        want = {p: oracle.generate(list(p.encode()), 32) for p in prompts}
+        got = {}
+
+        def unary(p):
+            ch = Channel(f"tcp://127.0.0.1:{port}",
+                         ChannelOptions(timeout_ms=60000))
+            try:
+                c = ch.call_sync("GenerateService", "Generate", _body(p, 32))
+                got[("unary", p)] = (None if c.failed()
+                                     else json.loads(c.response)["tokens"])
+            finally:
+                ch.close()
+
+        def stream(p):
+            ch = Channel(f"tcp://127.0.0.1:{port}")
+            try:
+                c = _StreamClient(ch, p, 32, timeout_ms=60000)
+                ok = not c.cntl.failed() and c.wait_done(60) and \
+                    c.done == ("d", {"n": 32, "status": "completed"})
+                got[("stream", p)] = c.tokens if ok else None
+            finally:
+                ch.close()
+
+        def http_(p):
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+            try:
+                conn.request("POST", "/GenerateService/Generate",
+                             body=_body(p, 32))
+                data = conn.getresponse().read()
+                payload, _, footer = data.rpartition(b"\n#")
+                got[("http", p)] = (list(payload)
+                                    if footer == b"completed n=32" else None)
+            finally:
+                conn.close()
+
+        threads = [threading.Thread(target=fn, args=(p,))
+                   for fn in (unary, stream, http_) for p in prompts]
+        t0 = time.monotonic()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(max(0.1, 120 - (time.monotonic() - t0)))
+        assert not any(t.is_alive() for t in threads), "calls hung"
+        assert len(got) == 48
+        wrong = [k for k, v in got.items() if v != want[k[1]]]
+        assert not wrong, wrong
+        out, _ = proc.communicate("report\n", timeout=30)
+        stats = json.loads(out.strip().splitlines()[-1])
+        assert stats["concurrency"] == 2 and stats["completed"] == 48
+        assert set(stats["decode_threads"]) <= {"fiber_w0", "fiber_w1"}
+        assert stats["steps_by_group"] == stats["decode_steps"] > 0
+        assert "serving-decode" not in stats["threads"]
+        assert not any(n.startswith("rpc-handler")
+                       for n in stats["threads"])
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait(10)

@@ -27,7 +27,7 @@ from brpc_tpu.rpc import Service as RefService
 from brpc_tpu.rpc.stream import Stream as RefStream
 from brpc_tpu.rpc.stream import StreamOptions as RefStreamOptions
 from brpc_tpu.rpc.stream import stream_accept as ref_stream_accept
-from brpc_tpu_torch.butil import execution_queue
+from brpc_tpu_torch import fiber as port_fiber
 from brpc_tpu_torch.protocol import tpu_std
 from brpc_tpu_torch.rpc import (Channel, ChannelOptions, Server, Service,
                                 StreamOptions, stream_accept)
@@ -246,8 +246,15 @@ class _PortClient:
         return cntl.failed(), cntl.response, cntl.stream
 
     def write_all(self, stream, payloads, timeout_s=5.0):
-        return sum(bool(stream.write(p, timeout_s=timeout_s))
-                   for p in payloads)
+        async def writer():
+            sent = 0
+            for p in payloads:
+                if await stream.write(p, timeout_s=timeout_s):
+                    sent += 1
+            return sent
+        f = port_fiber.spawn(writer)
+        assert f.join(timeout_s * 4 + 10)
+        return f.value()
 
     def close(self):
         self.ch.close()
@@ -420,14 +427,15 @@ def test_close_frame_and_eof_close_once():
         st = cntl.stream
         st.on_close(lambda s: fired.append(s.id))
         box = []
-        writer = threading.Thread(target=lambda: box.append(
-            st.write(b"x", timeout_s=30)))
-        writer.start()
+
+        async def write():
+            box.append(await st.write(b"x", timeout_s=30))
+
+        writer = port_fiber.spawn(write)
         time.sleep(0.05)                # parked on the empty window
         accepted[0].close()             # close frame ...
         ch.close()                      # ... and the connection's end
-        writer.join(5)
-        assert not writer.is_alive() and box == [False]
+        assert writer.join(5) and box == [False]
         assert _wait_for(lambda: fired == [st.id])
         time.sleep(0.1)
         assert fired == [st.id]
@@ -441,18 +449,6 @@ def test_close_frame_and_eof_close_once():
 
 
 # -------------------------------------------------------------- transport
-
-def test_execution_queue_order_and_idle_exit(monkeypatch):
-    monkeypatch.setattr(execution_queue, "IDLE_S", 0.05)
-    out = []
-    q = execution_queue.ExecutionQueue(out.append)
-    for i in range(200):
-        q.execute(i)
-    assert _wait_for(lambda: len(out) == 200) and out == list(range(200))
-    assert _wait_for(lambda: not q._running, 2)
-    q.execute("again")                  # a fresh drain thread
-    assert _wait_for(lambda: out[-1:] == ["again"])
-
 
 def _pair(on_frame_server=None, **server_kw):
     """(server-side Connection, client socket) over loopback."""

@@ -17,6 +17,12 @@ Hopper card.
     # tokens as they decode: stream_options=StreamOptions(on_received=..)
     # or: curl -N -d '{"prompt":"hi"}' http://HOST:PORT/GenerateService/Generate
 
+The same port answers the builtin pages (``/status``, ``/vars``,
+``/rpcz``, ``/serving``, ``/brpc_metrics``, ...); the ``rpcz_enabled``
+flag (``butil/flags.py``, or ``POST /flags/rpcz_enabled?setvalue=true``)
+traces every call across client and server, down to the serving lane's
+queue, prefill, decode and emit stages.
+
 The package imports torch and numpy only: nothing of JAX, nothing of
 ``brpc_tpu`` and not ``google.protobuf`` (the tpu_std meta codec is
 written by hand, wire-identical to the reference's).

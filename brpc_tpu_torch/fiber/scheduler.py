@@ -19,9 +19,11 @@ Each worker's loop polls the registered WorkerModules before its run
 queues (``worker_module.py``): that is how the serving engine's decode
 slices share the worker threads with the RPC fibers.
 
-The reference's bvar instruments (fiber counts, busy time, run-queue
-peak, the ``fiber_wake`` latency recorder) are plain counters here, read
-by ``TaskControl.saturation_snapshot()``.
+The scheduler's counters are bvars, as the reference's are: the fiber
+counts are Adders, the ``fiber_wake`` LatencyRecorder times 1 wake in
+16, and ``TaskControl.expose_vars()`` puts them on ``/vars`` with the
+run-queue and busy windows. ``TaskControl.saturation_snapshot()`` reads
+the same counters for callers that compare two moments.
 """
 
 from __future__ import annotations
@@ -34,6 +36,10 @@ import time
 from collections import deque
 from typing import Any, Callable, Deque, List, Optional
 
+from brpc_tpu_torch.butil.fast_rand import fast_rand_less_than
+from brpc_tpu_torch.bvar.latency_recorder import LatencyRecorder
+from brpc_tpu_torch.bvar.reducer import Adder, Maxer, PassiveStatus
+
 from . import worker_module
 
 log = logging.getLogger("brpc_tpu_torch.fiber")
@@ -43,29 +49,22 @@ FIBER_STATE_RUNNING = 1
 FIBER_STATE_SUSPENDED = 2
 FIBER_STATE_DONE = 3
 
-_MASK = 0xFFFFFFFFFFFFFFFF
+_wake_rec: Optional[LatencyRecorder] = None
+_wake_rec_lock = threading.Lock()
 
 
-class _RandTLS(threading.local):
-    def __init__(self) -> None:
-        seed = (time.monotonic_ns() ^ (threading.get_ident() << 17)) & _MASK
-        self.state = seed or 0x9E3779B97F4A7C15
-
-
-_rand = _RandTLS()
-
-
-def fast_rand_less_than(n: int) -> int:
-    """Per-thread xorshift64* (brpc_tpu/butil/fast_rand.py): picks steal
-    victims and remote targets without a shared RNG."""
-    if n <= 0:
-        return 0
-    x = _rand.state
-    x ^= x >> 12
-    x ^= (x << 25) & _MASK
-    x ^= x >> 27
-    _rand.state = x
-    return ((x * 0x2545F4914F6CDD1D) & _MASK) % n
+def _wake_recorder() -> LatencyRecorder:
+    """The wake-to-run LatencyRecorder, exposed as ``fiber_wake`` when
+    first used (brpc_tpu/fiber/scheduler.py:44-56). It is one per
+    process, so it exposes itself again after ``unexpose_all``."""
+    global _wake_rec
+    if _wake_rec is None:
+        with _wake_rec_lock:
+            if _wake_rec is None:
+                _wake_rec = LatencyRecorder().expose("fiber_wake")
+    if _wake_rec.name != "fiber_wake":
+        _wake_rec.expose("fiber_wake")
+    return _wake_rec
 
 
 class SchedAwaitable:
@@ -88,23 +87,6 @@ class _YieldNow(SchedAwaitable):
 def yield_now() -> SchedAwaitable:
     """Cooperatively reschedule (bthread_yield)."""
     return _YieldNow()
-
-
-class _Counter:
-    """A counter several threads add to (the bvar Adder's job)."""
-
-    __slots__ = ("_v", "_lock")
-
-    def __init__(self):
-        self._v = 0
-        self._lock = threading.Lock()
-
-    def add(self, n: int) -> None:
-        with self._lock:
-            self._v += n
-
-    def get_value(self) -> int:
-        return self._v
 
 
 class Fiber:
@@ -304,11 +286,17 @@ class TaskControl:
         self.parking_lot = ParkingLot()
         self._threads: List[threading.Thread] = []
         self._stop = False
-        self.nfibers = _Counter()
-        self.nfibers_created = _Counter()
+        self.nfibers = Adder(0)
+        self.nfibers_created = Adder(0)
         # deepest run queue seen at schedule() since the last snapshot;
         # a racy max (a lost update loses one peak reading, no more)
         self.runq_peak = 0
+        # the same peak for the 10 s window of /vars (a Maxer that the
+        # sampler resets each tick, so it must not share the field
+        # saturation_snapshot resets)
+        self.runq_peak_var = Maxer()
+        self._busy_window = None        # built by expose_vars
+        self._runq_peak_window = None
         self._snap_ns = time.perf_counter_ns()
         self._snap_busy_ns = 0
         self._error_handlers: List[Callable] = []
@@ -433,6 +421,7 @@ class TaskControl:
         d = g.depth()
         if d > self.runq_peak:
             self.runq_peak = d
+        self.runq_peak_var.update(d)
 
     def schedule(self, fiber: Fiber, resume_value: Any,
                  to_tail: bool = False) -> None:
@@ -517,6 +506,7 @@ class TaskControl:
                 group.wake_us_sum += us
                 if us > group.wake_us_max:
                     group.wake_us_max = us
+                _wake_recorder().record(us)
         fiber._ready_ns = 0
         try:
             token = fiber.coro.send(fiber._resume_value)
@@ -585,6 +575,62 @@ class TaskControl:
             "wake_us_max": max((g.wake_us_max for g in self.groups),
                                default=0.0),
         }
+
+    # ------------------------------------------------------- bvar views
+    def _busy_ns_total(self) -> int:
+        return sum(g.busy_ns for g in self.groups)
+
+    def _saturation_windows(self):
+        """10 s windows over the busy time and the run-queue peak, made
+        on first use (a Window registers with the sampler thread: not
+        for controls nobody looks at)."""
+        if self._busy_window is None:
+            from brpc_tpu_torch.bvar.window import PerSecond, Window
+            self._busy_window = PerSecond(
+                PassiveStatus(self._busy_ns_total), 10)
+            self._runq_peak_window = Window(self.runq_peak_var, 10)
+        return self._busy_window, self._runq_peak_window
+
+    def worker_busy_fraction(self) -> float:
+        """Share of worker capacity spent stepping fibers over the
+        sampler's 10 s window."""
+        busy, _ = self._saturation_windows()
+        per_s = busy.get_value() or 0.0
+        if self.concurrency <= 0:
+            return 0.0
+        return min(1.0, per_s / 1e9 / self.concurrency)
+
+    def saturation_pane(self) -> dict:
+        """The scheduler's half of the /status saturation pane, over the
+        sampler's 10 s windows (what the reference's
+        ``saturation_snapshot`` returns)."""
+        _, peak = self._saturation_windows()
+        return {
+            "workers": self.concurrency,
+            "runqueue_depth": self.runqueue_depth(),
+            "runqueue_peak_10s": peak.get_value() or 0,
+            "worker_busy_fraction": round(self.worker_busy_fraction(), 4),
+        }
+
+    def expose_vars(self, prefix: str = "fiber") -> None:
+        """The scheduler's counters on /vars and the Prometheus dump
+        (brpc_tpu/fiber/scheduler.py:651), with ``fiber_wake``."""
+        self.nfibers.expose(f"{prefix}_count")
+        self.nfibers_created.expose(f"{prefix}_created")
+        PassiveStatus(lambda: self.concurrency).expose(
+            f"{prefix}_worker_count")
+        PassiveStatus(lambda: sum(g.nswitches for g in self.groups)).expose(
+            f"{prefix}_switch_count")
+        PassiveStatus(lambda: sum(g.nsteals for g in self.groups)).expose(
+            f"{prefix}_steal_count")
+        PassiveStatus(self.runqueue_depth).expose(
+            f"{prefix}_runqueue_depth")
+        _, peak = self._saturation_windows()
+        PassiveStatus(lambda: peak.get_value() or 0).expose(
+            f"{prefix}_runqueue_peak_10s")
+        PassiveStatus(self.worker_busy_fraction).expose(
+            f"{prefix}_worker_busy_fraction")
+        _wake_recorder()
 
 
 # ----------------------------------------------------------------- globals

@@ -3,8 +3,7 @@ bthread's mutex, condition variable and countdown event, all
 butex-based in the reference).
 
 Every primitive is dual-mode: awaitable from fibers, blocking from plain
-threads, as the butex serves both kinds of waiter. The reference's
-contention profiler hook in FiberMutex comes with the builtin services.
+threads, as the butex serves both kinds of waiter.
 """
 
 from __future__ import annotations
@@ -13,30 +12,44 @@ import time
 from typing import Optional
 
 from .butex import WAIT_TIMEOUT, Butex
+from .contention import record_contention
 
 
 class FiberMutex:
     """bthread_mutex: a contended lock from a fiber suspends the fiber,
-    never its worker thread."""
+    never its worker thread.
+
+    Contended acquisitions are sampled into the contention profiler
+    (``contention.py``, bounded by its collector's budget per second),
+    as bthread/mutex.cpp hooks its own: an uncontended lock pays one
+    compare-exchange, a contended one one submit attempt."""
 
     def __init__(self):
         self._butex = Butex(0)  # 0 = unlocked, 1 = locked
 
     async def lock(self):
+        if self._butex.compare_exchange(0, 1):
+            return
+        t0 = time.monotonic_ns()
         while not self._butex.compare_exchange(0, 1):
             await self._butex.wait(expected=1)
+        record_contention(self, (time.monotonic_ns() - t0) / 1e3)
 
     def unlock(self):
         self._butex.set_value(0)
         self._butex.wake(1)
 
     def lock_pthread(self, timeout_s: Optional[float] = None) -> bool:
+        if self._butex.compare_exchange(0, 1):
+            return True
         deadline = None if timeout_s is None else time.monotonic() + timeout_s
+        t0 = time.monotonic_ns()
         while not self._butex.compare_exchange(0, 1):
             remain = None if deadline is None else deadline - time.monotonic()
             if remain is not None and remain <= 0:
                 return False
             self._butex.wait_pthread(expected=1, timeout_s=remain)
+        record_contention(self, (time.monotonic_ns() - t0) / 1e3)
         return True
 
     async def __aenter__(self):

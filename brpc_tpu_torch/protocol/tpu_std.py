@@ -7,10 +7,11 @@ Wire layout (the same bytes brpc_tpu puts on the wire):
 ``body_size = meta_size + len(payload) + len(attachment)``. ``meta`` is a
 proto3 ``RpcMeta`` (brpc_tpu/protocol/proto/tpu_rpc_meta.proto). The port
 does not depend on ``google.protobuf``: this module encodes and decodes
-the fields of unary calls and of streams (``stream_settings``, field 6)
-and reads past every other field, of any wire type, so a brpc_tpu
-peer's trace ids (8-10), device payloads (7) or admission threshold are
-skipped, not rejected.
+the fields of unary calls, of streams (``stream_settings``, field 6) and
+of rpcz tracing (``trace_id``, ``span_id``, ``parent_span_id``, fields
+8-10), and reads past every other field, of any wire type, so a
+brpc_tpu peer's device payloads (7) or admission threshold are skipped,
+not rejected.
 
 Encoding follows protobuf's own rules, so frames are byte-identical to
 ``RpcMeta.SerializeToString()``: fields in number order, proto3 scalars
@@ -266,6 +267,9 @@ class RpcMeta:
     correlation_id: int = 0
     attachment_size: int = 0
     stream_settings: Optional[StreamSettings] = None
+    trace_id: int = 0
+    span_id: int = 0
+    parent_span_id: int = 0
 
     def encode(self) -> bytes:
         out = b""
@@ -279,6 +283,12 @@ class RpcMeta:
             out += _key(5, _WT_VARINT) + _varint(self.attachment_size)
         if self.stream_settings is not None:
             out += _len_field(6, self.stream_settings.encode())
+        if self.trace_id:
+            out += _key(8, _WT_VARINT) + _varint(self.trace_id)
+        if self.span_id:
+            out += _key(9, _WT_VARINT) + _varint(self.span_id)
+        if self.parent_span_id:
+            out += _key(10, _WT_VARINT) + _varint(self.parent_span_id)
         return out
 
     def is_stream_frame(self) -> bool:
@@ -301,6 +311,12 @@ class RpcMeta:
             elif (f, wt) == (6, _WT_LEN):
                 m.stream_settings = StreamSettings.decode(
                     _submessage(buf, s))
+            elif (f, wt) == (8, _WT_VARINT):
+                m.trace_id = _scalar(buf, s)
+            elif (f, wt) == (9, _WT_VARINT):
+                m.span_id = _scalar(buf, s)
+            elif (f, wt) == (10, _WT_VARINT):
+                m.parent_span_id = _scalar(buf, s)
         return m
 
 

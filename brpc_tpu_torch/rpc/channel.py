@@ -14,19 +14,29 @@ they overtake the response (the server may send the first token before
 the handler's answer). The response binds the stream to the peer's id
 and to the connection, whose end then closes it; a failed call closes
 it. Frames with correlation id 0 go to the stream registry.
+
+Under the ``rpcz_enabled`` flag a call gets a client span
+(brpc_tpu/rpc/channel.py:487, :876; client_dispatch.py:137-150): its
+trace and span ids ride the request meta (fields 8-9), ``write_done_us``
+is stamped when the send returns, ``first_byte_us`` and
+``parse_done_us`` when the reader matches the response, and the span is
+finished when the call ends.
 """
 
 from __future__ import annotations
 
 import itertools
 import threading
+import time
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
+from brpc_tpu_torch.butil.flags import flag
 from brpc_tpu_torch.protocol import tpu_std
 from brpc_tpu_torch.transport import tcp
 
 from . import errno_codes as berr
+from . import span as _span
 from .controller import Controller
 from .stream import Stream, StreamOptions, process_stream_frame
 
@@ -68,6 +78,9 @@ class Channel:
         if waiter is None:
             return                      # timed out earlier: drop
         ev, cntl, _ = waiter
+        span = cntl._client_span
+        if span is not None:
+            span.first_byte_us = time.monotonic_ns() // 1000
         resp = meta.response
         if resp is not None and resp.error_code:
             cntl.set_failed(resp.error_code, resp.error_text)
@@ -80,6 +93,9 @@ class Channel:
                 stream.peer_id = ss.stream_id
                 stream._bind(conn)
                 stream._on_established()
+        if span is not None:
+            span.parse_done_us = time.monotonic_ns() // 1000
+            span.response_size = len(payload)
         ev.set()
 
     def _on_close(self, conn) -> None:
@@ -103,6 +119,11 @@ class Channel:
         cntl.error_code, cntl.error_text = berr.OK, ""
         cntl.response = None
         cntl.stream = None
+        cntl._client_span = None
+        if flag("rpcz_enabled"):
+            cntl._client_span = _span.start_client_span(cntl, service,
+                                                        method)
+            cntl._client_span.request_size = len(request)
         try:
             return self._call(service, method, request, cntl,
                               stream_options)
@@ -111,6 +132,8 @@ class Channel:
                 # a stream set up on a failed call must not stay
                 # registered
                 cntl.stream.close()
+            if cntl._client_span is not None:
+                _span.finish_span(cntl._client_span, cntl)
 
     def _call(self, service: str, method: str, request: bytes,
               cntl: Controller, stream_options: Optional[StreamOptions]
@@ -129,6 +152,9 @@ class Channel:
                 service_name=service, method_name=method,
                 timeout_ms=int(timeout_ms) if timeout_ms else 0),
             correlation_id=cid)
+        if cntl.trace_id:
+            meta.trace_id = cntl.trace_id
+            meta.span_id = cntl.span_id
         if stream_options is not None:
             cntl.stream = Stream(stream_options)
             cntl.stream.conn = conn     # bound (watched) on the response
@@ -144,6 +170,11 @@ class Channel:
                 self._pending.pop(cid, None)
             cntl.set_failed(berr.EFAILEDSOCKET, f"write failed: {e}")
             return cntl
+        span = cntl._client_span
+        if span is not None:
+            # the send queued the whole frame; most often the socket
+            # took it at once (transport/tcp.py)
+            span.write_done_us = time.monotonic_ns() // 1000
         if not ev.wait(None if not timeout_ms else timeout_ms / 1e3):
             with self._lock:
                 still = self._pending.pop(cid, None)

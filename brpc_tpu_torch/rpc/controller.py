@@ -1,6 +1,7 @@
 """Per-call state shared by client and server: the error, the deadline
-budget, the response, and the call's stream or progressive body (the
-subset of brpc_tpu/rpc/controller.py that the serving lane uses)."""
+budget, the response, the call's stream or progressive body, and its
+trace (the subset of brpc_tpu/rpc/controller.py that the serving lane
+uses)."""
 
 from __future__ import annotations
 
@@ -33,6 +34,17 @@ class Controller:
         self._accepted_stream = None
         # server side (HTTP): the chunked body fed after the handler
         self._progressive = None
+        # rpcz: the trace this call belongs to and its own span id
+        # (brpc_tpu/rpc/controller.py:112-113). A server sets them from
+        # the request meta and start_server_span; a client call under
+        # rpcz writes them into its request meta.
+        self.trace_id: int = 0
+        self.span_id: int = 0
+        self.log_id: int = 0
+        # server side: the peer's EndPoint
+        self.remote_side = None
+        # client side: this call's rpcz span, finished when it ends
+        self._client_span = None
 
     def create_progressive_attachment(
             self, content_type: str = "application/octet-stream"):

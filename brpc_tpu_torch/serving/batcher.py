@@ -19,6 +19,13 @@ guards only the queue and the slot table, so ``submit``/``cancel`` from
 handler fibers stay cheap. The decode itself and the user callbacks run
 outside the lock. ``steps_by_group`` counts the steps each worker group
 ran.
+
+Observability, as the reference's: the module's Adders are the lane's
+``serving_*`` bvars (``expose_serving_vars``); a request's
+``GenTracker`` (``serving_stats.py``) is stamped at admission, prefill,
+each token and its settle; and each step leaves one record in the
+flight deck's step ring. All of it costs one flag check per step when
+``serving_stats_enabled`` is off.
 """
 
 from __future__ import annotations
@@ -26,13 +33,17 @@ from __future__ import annotations
 import logging
 import threading
 import time
+import weakref
 from collections import Counter, deque
 from typing import Callable, List, Optional, Tuple
 
 import torch
 
+from brpc_tpu_torch.bvar.reducer import Adder, PassiveStatus
+from brpc_tpu_torch.bvar.window import PerSecond
 from brpc_tpu_torch.rpc import errno_codes as berr
 
+from . import serving_stats as _sstats
 from .model import TinyDecoder
 
 log = logging.getLogger("brpc_tpu_torch.serving")
@@ -46,6 +57,43 @@ SHED = "shed"              # wait queue full at submit
 CANCELED = "canceled"      # client gone
 
 _TERMINAL = frozenset((COMPLETED, EVICTED, SHED, CANCELED))
+
+nsubmitted = Adder()
+ncompleted = Adder()
+nevicted = Adder()
+nshed = Adder()
+ncanceled = Adder()
+ntokens = Adder()
+_tokens_ps = None           # PerSecond over ntokens, built on expose
+_live_batchers: "weakref.WeakSet[ContinuousBatcher]" = weakref.WeakSet()
+
+
+def _sum_live(attr: str) -> float:
+    return sum(getattr(b, attr)() for b in list(_live_batchers))
+
+
+def expose_serving_vars() -> None:
+    """The lane's bvars (brpc_tpu/serving/batcher.py:79-98), exposed at
+    each server start so that they outlive an ``unexpose_all``."""
+    global _tokens_ps
+    nsubmitted.expose("serving_requests")
+    ncompleted.expose("serving_completed")
+    nevicted.expose("serving_evicted")
+    nshed.expose("serving_shed")
+    ncanceled.expose("serving_canceled")
+    ntokens.expose("serving_tokens")
+    if _tokens_ps is None:
+        _tokens_ps = PerSecond(ntokens, 10)
+    _tokens_ps.expose("serving_tokens_per_second_10s")
+    PassiveStatus(lambda: int(_sum_live("running_count"))).expose(
+        "serving_running")
+    PassiveStatus(lambda: int(_sum_live("waiting_count"))).expose(
+        "serving_waiting")
+    PassiveStatus(lambda: round(_sum_live("kv_occupancy"), 4)).expose(
+        "serving_kv_occupancy")
+    # the flight deck (per-method cells, TTFT/TPOT recorders) shares
+    # the lane's expose lifecycle
+    _sstats.expose_serving_stats_vars()
 
 
 class RequestTooLong(ValueError):
@@ -79,9 +127,14 @@ class GenRequest:
         self.slot: Optional[int] = None
         self.tokens: List[int] = []
         self.created_ns = time.monotonic_ns()
+        self.admitted_ns = 0
         self.first_token_ns = 0
+        self.finished_ns = 0
         self.error_code = 0
         self._cancel = False         # set by cancel(); swept by step()
+        # the flight deck's stage tracker (serving_stats.GenTracker),
+        # attached by the service when serving_stats is on
+        self.tracker = None
 
     @property
     def ntokens(self) -> int:
@@ -128,6 +181,7 @@ class ContinuousBatcher:
         self.shed = 0
         self.canceled = 0
         self.tokens_out = 0
+        _live_batchers.add(self)
 
     # ------------------------------------------------------------- intake
     def submit(self, req: GenRequest) -> bool:
@@ -145,8 +199,11 @@ class ContinuousBatcher:
             if self.stopped or len(self._waiting) >= self.max_waiting:
                 req.state = SHED
                 req.error_code = berr.ELIMIT
+                req.finished_ns = time.monotonic_ns()
                 self.shed += 1
+                nshed.add(1)
                 return False
+            nsubmitted.add(1)
             self._waiting.append(req)
         if self._wake is not None:
             self._wake()
@@ -182,13 +239,17 @@ class ContinuousBatcher:
     def _retire_locked(self, req: GenRequest, state: str,
                        done: List[Tuple[GenRequest, str]]) -> None:
         req.state = state
+        req.finished_ns = time.monotonic_ns()
         if state == EVICTED:
             req.error_code = berr.ERPCTIMEDOUT
             self.evicted += 1
+            nevicted.add(1)
         elif state == COMPLETED:
             self.completed += 1
+            ncompleted.add(1)
         elif state == CANCELED:
             self.canceled += 1
+            ncanceled.add(1)
         if req.slot is not None:
             i = req.slot
             self._slots[i] = None
@@ -224,14 +285,29 @@ class ContinuousBatcher:
         emits: List[Tuple[GenRequest, int]] = []
         done: List[Tuple[GenRequest, str]] = []
         admitted: List[GenRequest] = []
+        # the flight deck: one flag check per step; the stamps below are
+        # attribute writes on the request's tracker, and the step record
+        # lands in the ring after the callbacks, outside this lock
+        stats_on = _sstats.enabled()
+        t0 = time.monotonic_ns() if stats_on else 0
+        t_sweep = 0
+        n_evicted = n_canceled = 0
+        waiting_after = free_after = kv_used = 0
         with self._lock:
             self._sweep_locked(done)
+            if stats_on:
+                t_sweep = time.monotonic_ns()
+                n_evicted = sum(1 for _, s in done if s == EVICTED)
+                n_canceled = len(done) - n_evicted
             while self._free and self._waiting:
                 req = self._waiting.popleft()
                 i = self._free.pop()
                 self._slots[i] = req
                 req.slot = i
                 req.state = RUNNING
+                req.admitted_ns = time.monotonic_ns()
+                if req.tracker is not None:
+                    req.tracker.gen_admitted(req.admitted_ns)
                 self._nrunning += 1
                 admitted.append(req)
             active = [(i, r) for i, r in enumerate(self._slots)
@@ -243,6 +319,11 @@ class ContinuousBatcher:
                     self.steps_by_group[group_index] += 1
         if not active:
             self._fire(emits, done)
+            if stats_on and done:
+                self._record_step(t0, t_sweep, t_sweep, t_sweep,
+                                  group_index, 0, len(admitted),
+                                  n_evicted, n_canceled, 0,
+                                  len(self._waiting), len(self._free), 0)
             return bool(done)
         # prefill outside the lock: only step() writes the caches and the
         # lengths, and steps are serialized by the engine
@@ -254,6 +335,9 @@ class ContinuousBatcher:
             self._v[i, :n] = vp
             self._h[i] = hl
             self._lens[i] = n
+            if req.tracker is not None:
+                req.tracker.gen_prefilled(time.monotonic_ns())
+        t_admit = time.monotonic_ns() if stats_on else 0
         lens = list(self._lens)
         lens_dev = torch.tensor(lens, dtype=torch.int32).to(self._k.device)
         nxt, k_new, v_new, h_new = self.model.decode_step(
@@ -265,6 +349,7 @@ class ContinuousBatcher:
         self._v[self._slot_index, lens_dev.long()] = v_new
         self._h.copy_(h_new)
         tokens = nxt.tolist()                    # the only device->host copy
+        t_decode = time.monotonic_ns() if stats_on else 0
         with self._lock:
             for i, req in active:
                 if self._slots[i] is not req:
@@ -273,15 +358,57 @@ class ContinuousBatcher:
                 self._lens[i] = lens[i] + 1
                 req.tokens.append(tok)
                 self.tokens_out += 1
+                ntokens.add(1)
                 if not req.first_token_ns:
                     req.first_token_ns = time.monotonic_ns()
+                if req.tracker is not None:
+                    req.tracker.gen_token(time.monotonic_ns())
                 emits.append((req, tok))
                 if (req.stop_token is not None and tok == req.stop_token) \
                         or req.ntokens >= req.max_new_tokens \
                         or self._lens[i] >= self.cache_len:
                     self._retire_locked(req, COMPLETED, done)
+            if stats_on:
+                waiting_after = len(self._waiting)
+                free_after = len(self._free)
+                kv_used = self._used_locked()
         self._fire(emits, done)
+        if stats_on:
+            self._record_step(t0, t_sweep, t_admit, t_decode,
+                              group_index, len(active), len(admitted),
+                              n_evicted, n_canceled, len(emits),
+                              waiting_after, free_after, kv_used)
         return True
+
+    def _record_step(self, t0: int, t_sweep: int, t_admit: int,
+                     t_decode: int, group_index, batch: int,
+                     admitted: int, evicted: int, canceled: int,
+                     tokens: int, waiting: int, free_slots: int,
+                     kv_used: int) -> None:
+        """One iteration record into the flight deck's step ring (a leaf
+        lock, outside every batcher lock): a positional tuple in
+        ``serving_stats.STEP_FIELDS`` order, integer microseconds."""
+        t_end = time.monotonic_ns()
+        reg = _sstats._registry
+        if reg is None:
+            reg = _sstats.global_serving_stats()
+        reg.note_step_record((
+            time.time_ns() // 1_000_000,
+            group_index,
+            batch,
+            admitted,
+            evicted,
+            canceled,
+            tokens,
+            waiting,
+            free_slots,
+            round(kv_used / float(self.max_batch * self.cache_len), 4),
+            max(0, t_sweep - t0) // 1000,
+            max(0, t_admit - t_sweep) // 1000,
+            max(0, t_decode - t_admit) // 1000,
+            max(0, t_end - t_decode) // 1000,
+            max(0, t_end - t0) // 1000,
+        ))
 
     @staticmethod
     def _fire(emits, done) -> None:
@@ -299,6 +426,18 @@ class ContinuousBatcher:
                     req.on_finish(req, state)
                 except Exception:
                     log.exception("on_finish failed")
+            # settle the tracker after the finish callback: emit_us then
+            # covers the delivery of the verdict, and the span ends when
+            # the client could know its outcome
+            if req.tracker is not None:
+                cause = None
+                if state == EVICTED:
+                    cause = "deadline_expired"
+                elif state == CANCELED:
+                    cause = "client_gone"
+                req.tracker.gen_settled(
+                    state, cause=cause, finished_ns=req.finished_ns,
+                    error_code=req.error_code)
 
     # ----------------------------------------------------------- shutdown
     def stop(self) -> List[GenRequest]:

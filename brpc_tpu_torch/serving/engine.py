@@ -32,6 +32,7 @@ import torch
 
 from brpc_tpu_torch.fiber.worker_module import WorkerModule
 
+from . import serving_stats as _sstats
 from .batcher import ContinuousBatcher
 
 
@@ -59,10 +60,17 @@ class ServingEngine(WorkerModule):
         if not self._decode_lock.acquire(False):
             self.contended += 1
             return False
+        # names the decode slice for a sampler when no module label is
+        # live (brpc_tpu/serving/engine.py:64-77)
+        stats_on = _sstats.enabled()
+        if stats_on:
+            _sstats.stamp_serving_thread("serving:decode")
         try:
             did = self.batcher.step(group_index)
         finally:
             self._decode_lock.release()
+            if stats_on:
+                _sstats.unstamp_serving_thread()
         if did:
             self.steps += 1
             self.threads_seen[threading.get_ident()] += 1
@@ -82,7 +90,14 @@ class ServingEngine(WorkerModule):
         write, token download), so that the first request's time to first
         token measures scheduling, not the kernel's first-use build and
         load."""
-        self._warm_step()
+        stats_on = _sstats.enabled()
+        if stats_on:
+            _sstats.stamp_serving_thread("serving:warmup")
+        try:
+            self._warm_step()
+        finally:
+            if stats_on:
+                _sstats.unstamp_serving_thread()
         self.warmup_steps += 1
 
     def _warm_step(self) -> None:

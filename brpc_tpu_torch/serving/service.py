@@ -37,6 +37,11 @@ engine lifecycle: ``Server.start`` builds a fresh model, batcher and
 engine on the chosen device, warms the engine and registers it as a
 WorkerModule, so the server's fiber workers run its decode steps;
 ``Server.stop`` unregisters it and retires what is in flight.
+
+Observability: every submitted request opens a flight-deck tracker
+(``serving_stats.open_generation``; a ``side="serving"`` child span of
+the call under rpcz), and the ``Stats`` method and the ``/serving``
+page carry ``serving_obs_pane()`` under ``"stats"``.
 """
 
 from __future__ import annotations
@@ -54,8 +59,9 @@ from brpc_tpu_torch.rpc import errno_codes as berr
 from brpc_tpu_torch.rpc.service import Service
 from brpc_tpu_torch.rpc.stream import StreamOptions, stream_accept
 
+from . import serving_stats as _sstats
 from .batcher import (CANCELED, COMPLETED, EVICTED, ContinuousBatcher,
-                      GenRequest, RequestTooLong)
+                      GenRequest, RequestTooLong, expose_serving_vars)
 from .engine import ServingEngine
 from .model import TinyDecoder, TinyDecoderConfig
 
@@ -222,6 +228,7 @@ class GenerateService:
             wake=server.control.parking_lot.signal)
         self.engine = ServingEngine(self.batcher,
                                     label=f"{SERVICE_NAME}.Generate")
+        expose_serving_vars()
         self.engine.warm_up()
         register_module(self.engine)
 
@@ -251,24 +258,41 @@ class GenerateService:
         out["ttft_ms"] = {"count": len(ttft),
                           "p50": _percentile(ttft, 0.50),
                           "p99": _percentile(ttft, 0.99)}
+        # the flight deck's panes: one function for the Stats method and
+        # the /serving page, so the two views cannot diverge
+        out["stats"] = _sstats.serving_obs_pane()
         return out
 
     def ttft_samples(self) -> List[float]:
         """Time to first token (ms) of the recent completed calls, oldest
-        first."""
+        first: every call of the last ``_TTFT_WINDOW``, where the flight
+        deck's reservoir samples once it is full."""
         with self._ttft_lock:
             return list(self._ttft_ms)
 
     def _submit(self, cntl, batcher: ContinuousBatcher,
                 req: GenRequest) -> bool:
-        """Shared shed/too-long handling; True when queued."""
+        """Shared shed/too-long handling; True when queued. The flight
+        deck's tracker attaches here (one flag check a request); a
+        request refused at the door settles at once with its cause."""
+        req.tracker = _sstats.open_generation(
+            SERVICE_NAME, "Generate", cntl, created_ns=req.created_ns)
         try:
             ok = batcher.submit(req)
         except RequestTooLong as e:
             cntl.set_failed(berr.EREQUEST, str(e))
+            if req.tracker is not None:
+                req.tracker.gen_settled("rejected",
+                                        cause="prompt_too_long",
+                                        error_code=berr.EREQUEST)
             return False
         if not ok:
             cntl.set_failed(berr.ELIMIT, "serving queue full (shed)")
+            if req.tracker is not None:
+                req.tracker.gen_settled(
+                    "shed", cause="queue_full",
+                    finished_ns=req.finished_ns,
+                    error_code=req.error_code or berr.ELIMIT)
             return False
         return True
 
@@ -378,3 +402,12 @@ def add_generate_service(server, device: DeviceLike = None,
     server.add_service(gs.build_service())
     server._serving = gs
     return gs
+
+
+def serving_page_payload(server) -> dict:
+    """The /serving payload: this server's batcher, engine and flight
+    deck. One function for the builtin RPC and the HTTP page."""
+    gs = getattr(server, "_serving", None)
+    if gs is None or gs.batcher is None:
+        return {"enabled": False}
+    return gs._payload()

@@ -71,9 +71,27 @@ Phases, one JSON line each:
    bf16 at d 64); ``flash_attn_fwd`` itself at 8 x 2048 x 64 and
    x 128 fp32 and 8 x 2048 x 32 bf16, causal and not.
 
-``python3 chip_smoke.py --phase streaming`` runs phase 4 alone (after
-the card line), so that two trees' serving can be compared in one call:
-run each tree's script in turns.
+After phase 4, the phase ``observability``: a fresh default server on
+cuda:0 with the ``rpcz_enabled`` flag on; one warm burst of each kind
+(stream, HTTP, unary; phase 4's sizes) from client processes that trace
+too (``--client KIND PORT --rpcz``), then the pages ``/rpcz``,
+``/serving``, ``/status``, ``/vars`` and ``/brpc_metrics``. Every
+tpu_std call has one client span and one server span of its trace whose
+parent is the client span; every call has one serving span, whose four
+stages sum to its latency; ``/serving`` counts every call; ``/vars``
+lists the fiber variables and ``fiber_wake``; every Prometheus line
+parses; tokens equal the CPU plain path's; ``flash_decode`` runs once a
+decode step and no other kernel runs. It prints, per transport, the
+median and p99 of each call's stages on the wall clock that both
+processes share (``STAGES``: client issue -> server arrival -> handler
+-> admitted -> prefilled -> first token -> the client's first frame)
+and their sum beside the client's TTFT, then the warm stream burst in
+turns with ``serving_stats_enabled`` and ``rpcz_enabled`` off and on.
+
+``python3 chip_smoke.py --phase streaming`` (or ``--phase
+observability``) runs that phase alone (after the card line), so that
+two trees' serving can be compared in one call: run each tree's script
+in turns.
 
 The last lines are the card line, the kernels line and the result line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without the
@@ -429,10 +447,18 @@ def phase_kernel_check(dev):
 
 # ------------------------------------------------------------- phase 3
 
-def _burst(port: int, prompts, max_tokens: int):
+def _real_us() -> int:
+    """The wall clock in microseconds: the axis that spans of two
+    processes share (``base_real_us``)."""
+    return time.time_ns() // 1000
+
+
+def _burst(port: int, prompts, max_tokens: int, calls=None):
     """N_CLIENTS threads, one Channel each, the prompts dealt round-robin;
     returns ({prompt: tokens}, [(prompt, errno, text)], wall seconds,
-    [client ms per call: the first token comes with the last], [])."""
+    [client ms per call: the first token comes with the last], []).
+    ``calls``: a list that gets each call's trace id and its wall-clock
+    issue and response times."""
     from brpc_tpu_torch.rpc import Channel, ChannelOptions
 
     results, errors, latency = {}, [], []
@@ -441,8 +467,8 @@ def _burst(port: int, prompts, max_tokens: int):
         ch = Channel(f"tcp://127.0.0.1:{port}",
                      ChannelOptions(timeout_ms=120000))
         try:
-            for p in prompts[idx::N_CLIENTS]:
-                t0 = time.perf_counter()
+            for seq, p in enumerate(prompts[idx::N_CLIENTS]):
+                t0, issue = time.perf_counter(), _real_us()
                 c = ch.call_sync("GenerateService", "Generate",
                                  json.dumps({"prompt": p,
                                              "max_tokens": max_tokens}
@@ -452,6 +478,11 @@ def _burst(port: int, prompts, max_tokens: int):
                 else:
                     latency.append((time.perf_counter() - t0) * 1e3)
                     results[p] = json.loads(c.response)["tokens"]
+                    if calls is not None:
+                        calls.append({"prompt": p, "seq": seq,
+                                      "trace_id": c.trace_id,
+                                      "issue_real_us": issue,
+                                      "first_real_us": _real_us()})
         finally:
             ch.close()
 
@@ -622,28 +653,31 @@ def phase_serving():
 
 # ------------------------------------------------------------- phase 4
 
-def _stream_burst(port: int, prompts, max_tokens: int):
+def _stream_burst(port: int, prompts, max_tokens: int, calls=None):
     """The burst of ``_burst`` with every call streaming its tokens back
     (``stream_options``). Returns ({prompt: tokens}, [errors], wall s,
-    [client ms to the first token], [ms between tokens])."""
+    [client ms to the first token], [ms between tokens]); ``calls`` as
+    in ``_burst``, the first token frame's arrival as the response."""
     from brpc_tpu_torch.rpc import Channel, ChannelOptions, StreamOptions
 
     results, errors, ttft, gaps = {}, [], [], []
     want_done = b'd{"n": %d, "status": "completed"}' % max_tokens
 
-    def one(ch, p):
-        toks, times, verdict = [], [], []
+    def one(ch, p, seq):
+        toks, times, verdict, first_real = [], [], [], []
         done = threading.Event()
 
         def on_received(stream, msg):
             if msg.payload[:1] == b"t":
+                if not toks:
+                    first_real.append(_real_us())
                 toks.append(msg.payload[1])
                 times.append(time.perf_counter())
             else:
                 verdict.append(msg.payload)
                 done.set()
 
-        t0 = time.perf_counter()
+        t0, issue = time.perf_counter(), _real_us()
         c = ch.call_sync("GenerateService", "Generate",
                          json.dumps({"prompt": p, "max_tokens": max_tokens}
                                     ).encode(),
@@ -661,13 +695,17 @@ def _stream_burst(port: int, prompts, max_tokens: int):
         results[p] = toks
         ttft.append((times[0] - t0) * 1e3)
         gaps.extend((b - a) * 1e3 for a, b in zip(times, times[1:]))
+        if calls is not None:
+            calls.append({"prompt": p, "seq": seq, "trace_id": c.trace_id,
+                          "issue_real_us": issue,
+                          "first_real_us": first_real[0]})
 
     def client(idx):
         ch = Channel(f"tcp://127.0.0.1:{port}",
                      ChannelOptions(timeout_ms=120000))
         try:
-            for p in prompts[idx::N_CLIENTS]:
-                one(ch, p)
+            for seq, p in enumerate(prompts[idx::N_CLIENTS]):
+                one(ch, p, seq)
         finally:
             ch.close()
 
@@ -675,10 +713,12 @@ def _stream_burst(port: int, prompts, max_tokens: int):
     return results, errors, wall, ttft, gaps
 
 
-def _http_generate(conn, prompt: str, max_tokens: int):
+def _http_generate(conn, prompt: str, max_tokens: int, call=None):
     """One chunked Generate over ``conn``: (tokens, footer, client ms to
-    the first token byte, [ms between token bytes])."""
-    t0 = time.perf_counter()
+    the first token byte, [ms between token bytes]). ``call``: a dict
+    that gets the connection's local address and the wall-clock issue
+    and first-byte times."""
+    t0, issue = time.perf_counter(), _real_us()
     conn.request("POST", "/GenerateService/Generate",
                  body=json.dumps({"prompt": prompt,
                                   "max_tokens": max_tokens}))
@@ -686,24 +726,31 @@ def _http_generate(conn, prompt: str, max_tokens: int):
     check(resp.status == 200 and
           resp.getheader("Transfer-Encoding") == "chunked",
           f"HTTP Generate answered {resp.status}")
-    data, times = b"", []
+    data, times, first_real = b"", [], None
     while True:
         part = resp.read1(65536)        # one chunk's data at most
         if not part:
             break
         now = time.perf_counter()
+        if first_real is None:
+            first_real = _real_us()
         data += part
         times.extend([now] * len(part))
     payload, _, footer = data.rpartition(b"\n#")
     times = times[:len(payload)]
     gaps = [(b - a) * 1e3 for a, b in zip(times, times[1:])]
+    if call is not None:
+        host, port = conn.sock.getsockname()[:2]
+        call.update(local=f"{host}:{port}", issue_real_us=issue,
+                    first_real_us=first_real)
     return (list(payload), footer,
             (times[0] - t0) * 1e3 if times else None, gaps)
 
 
-def _http_burst(port: int, prompts, max_tokens: int):
+def _http_burst(port: int, prompts, max_tokens: int, calls=None):
     """The burst over HTTP/1.1 chunked transfer, one keep-alive
-    connection a client thread."""
+    connection a client thread; ``calls`` as in ``_burst``, with each
+    call's connection (local address) and its order on it."""
     import http.client
 
     results, errors, ttft, gaps = {}, [], [], []
@@ -712,14 +759,18 @@ def _http_burst(port: int, prompts, max_tokens: int):
     def client(idx):
         conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
         try:
-            for p in prompts[idx::N_CLIENTS]:
-                toks, footer, first, g = _http_generate(conn, p, max_tokens)
+            for seq, p in enumerate(prompts[idx::N_CLIENTS]):
+                call = {"prompt": p, "seq": seq}
+                toks, footer, first, g = _http_generate(conn, p, max_tokens,
+                                                        call)
                 if footer != want_footer:
                     errors.append((p, footer))
                     continue
                 results[p] = toks
                 ttft.append(first)
                 gaps.extend(g)
+                if calls is not None:
+                    calls.append(call)
         finally:
             conn.close()
 
@@ -742,25 +793,46 @@ def _run_clients(client) -> float:
 BURSTS = {"stream": _stream_burst, "http": _http_burst, "unary": _burst}
 
 
-def client_main(kind: str, port: int) -> int:
-    """``python3 chip_smoke.py --client KIND PORT``: one burst of KIND
-    (stream, http or unary) against the server on PORT, from a process of
-    its own, so that the clients do not share the server's interpreter
-    lock; prints its result as one JSON line."""
+def client_main(kind: str, port: int, traced: bool = False) -> int:
+    """``python3 chip_smoke.py --client KIND PORT [--rpcz]``: one burst of
+    KIND (stream, http or unary) against the server on PORT, from a
+    process of its own, so that the clients do not share the server's
+    interpreter lock; prints its result as one JSON line. ``--rpcz``
+    turns rpcz on in this process and adds each call's record and the
+    process's finished client spans to the line. KIND ``cost``: the
+    turns of the observability phase's flag costs instead."""
     sys.path.insert(0, str(Path(__file__).resolve().parent))
-    res, errs, wall, ttft, gaps = BURSTS[kind](port, _prompts(), MAX_TOKENS)
-    emit({"results": res, "errors": errs, "wall_s": wall, "ttft_ms": ttft,
-          "gaps_ms": gaps})
+    if kind == "cost":
+        emit({"runs": _cost_turns(port)})
+        return 0
+    calls = None
+    if traced:
+        from brpc_tpu_torch.butil.flags import set_flag
+        check(set_flag("rpcz_enabled", True), "cannot turn rpcz on")
+        calls = []
+    res, errs, wall, ttft, gaps = BURSTS[kind](port, _prompts(), MAX_TOKENS,
+                                               calls=calls)
+    doc = {"results": res, "errors": errs, "wall_s": wall, "ttft_ms": ttft,
+           "gaps_ms": gaps}
+    if traced:
+        from brpc_tpu_torch.rpc.span import global_collector
+        doc["calls"] = calls
+        doc["spans"] = [s.to_dict() for s in global_collector.recent(4096)]
+    emit(doc)
     return 0
 
 
-def _client_process_burst(kind: str, port: int):
+def _client_process(args, timeout_s: float = 300) -> dict:
     out = subprocess.run(
-        [sys.executable, str(Path(__file__).resolve()), "--client", kind,
-         str(port)], capture_output=True, text=True, timeout=300)
+        [sys.executable, str(Path(__file__).resolve()), "--client", *args],
+        capture_output=True, text=True, timeout=timeout_s)
     check(out.returncode == 0,
-          f"{kind} client process failed: {out.stderr[-2000:]}")
-    doc = json.loads(out.stdout.strip().splitlines()[-1])
+          f"{args[0]} client process failed: {out.stderr[-2000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def _client_process_burst(kind: str, port: int):
+    doc = _client_process([kind, str(port)])
     return (doc["results"], doc["errors"], doc["wall_s"], doc["ttft_ms"],
             doc["gaps_ms"])
 
@@ -994,6 +1066,338 @@ def phase_streaming():
     return out
 
 
+# ------------------------------------------------------ observability
+
+# the stitched timeline of one call, in order; consecutive stamps on the
+# wall clock of both processes, so the stages sum to the client's TTFT
+STAGES = ("way_in", "received_to_handler", "handler_to_admitted",
+          "admitted_to_prefilled", "prefilled_to_first_token", "way_out")
+COST_FLAGS = ("serving_stats_enabled", "rpcz_enabled")
+COST_TURNS = 3
+
+
+def _http_page(port: int, path: str, method: str = "GET"):
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+    try:
+        conn.request(method, path, body=b"" if method == "POST" else None)
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def _set_flags(port: int, **flags) -> None:
+    """Set flags on the server at ``port`` (``POST /flags/<name>``);
+    ``rpcz_enabled`` in this process too, whose client spans it rules."""
+    from brpc_tpu_torch.butil.flags import set_flag
+    for name, value in flags.items():
+        status, body = _http_page(
+            port, f"/flags/{name}?setvalue={str(value).lower()}", "POST")
+        check(status == 200, f"server refused flag {name}: {body!r}")
+        if name == "rpcz_enabled":
+            check(set_flag(name, value), f"cannot set flag {name}")
+
+
+def _cost_turns(port: int) -> list:
+    """The warm stream burst in turns, off and on, COST_TURNS times for
+    each of COST_FLAGS, the order of a pair alternating (off first in
+    even turns), so that neither setting always runs second; rpcz stays
+    off while serving_stats is measured, and serving_stats on while rpcz
+    is (a serving span needs it)."""
+    runs = []
+    for name in COST_FLAGS:
+        for turn in range(COST_TURNS):
+            for on in ((False, True) if turn % 2 == 0 else (True, False)):
+                flags = {"serving_stats_enabled": True,
+                         "rpcz_enabled": False}
+                flags[name] = on
+                _set_flags(port, **flags)
+                res, errs, wall, ttft, _ = _stream_burst(port, _prompts(),
+                                                         MAX_TOKENS)
+                runs.append({"flag": name, "on": on, "turn": turn,
+                             "results": res, "errors": errs, "wall_s": wall,
+                             "client_ttft_p50_ms": _median(ttft)})
+    _set_flags(port, serving_stats_enabled=True, rpcz_enabled=False)
+    return runs
+
+
+def _stitch(kind: str, calls, client_spans, server_spans, first_token):
+    """Each call's stages (STAGES, microseconds on the wall clock) from
+    its client record, its client span (tpu_std), its server span
+    (tpu_std) and its serving span, checked for one of each per call;
+    ``first_token``: {serving span id: the tracker's first-token stamp,
+    monotonic ns}. An HTTP call has no client or server span: it is
+    matched to its serving span by its connection and its order there,
+    and its handler start is the serving span's start."""
+    by_trace = {}
+    for s in server_spans:
+        by_trace.setdefault(s["trace_id"], []).append(s)
+    mine = {s["trace_id"]: s for s in client_spans}
+    check(len(mine) == len(client_spans),
+          f"{kind}: two client spans share a trace")
+    http_serving = {}
+    if kind == "http":
+        for s in server_spans:
+            if s["side"] == "serving" and not int(s["parent_span_id"], 16):
+                http_serving.setdefault(s["remote_side"], []).append(s)
+        for v in http_serving.values():
+            v.sort(key=lambda s: s["start_us"])
+    rows = []
+    for c in calls:
+        if kind == "http":
+            server = None
+            conn = http_serving.get(f"tcp://{c['local']}", [])
+            check(c["seq"] < len(conn),
+                  f"http call {c['prompt']!r}: no serving span")
+            serving = conn[c["seq"]]
+            check(len(by_trace[serving["trace_id"]]) == 1,
+                  f"http call {c['prompt']!r}: more than one span")
+        else:
+            tid = f"{c['trace_id']:016x}"
+            cs = mine.get(tid)
+            check(cs is not None, f"{kind} call {c['prompt']!r}: no client "
+                                  "span")
+            spans = by_trace.get(tid, [])
+            sides = sorted(s["side"] for s in spans)
+            check(sides == ["server", "serving"],
+                  f"{kind} trace {tid}: server-side spans {sides}")
+            server = next(s for s in spans if s["side"] == "server")
+            serving = next(s for s in spans if s["side"] == "serving")
+            check(server["parent_span_id"] == cs["span_id"]
+                  and serving["parent_span_id"] == server["span_id"],
+                  f"{kind} trace {tid}: parent links broken")
+        stages = [serving[k] for k in ("queue_us", "prefill_us",
+                                       "decode_us", "emit_us")]
+        check(abs(sum(stages) - serving["latency_us"]) <= len(stages),
+              f"{kind}: serving stages {stages} do not sum to "
+              f"{serving['latency_us']}")
+        off = serving["base_real_us"] - serving["start_us"]
+        first = first_token.get(serving["span_id"])
+        check(bool(first), f"{kind}: no first-token stamp for a call")
+        wall = {
+            "issue": c["issue_real_us"],
+            "handler": (server["handler_start_us"] if server
+                        else serving["start_us"]) + off,
+            "admitted": serving["write_done_us"] + off,
+            "prefilled": serving["first_byte_us"] + off,
+            "first_token": first // 1000 + off,
+            "client_first": c["first_real_us"],
+        }
+        if server is not None:
+            wall["received"] = server["received_us"] + (
+                server["base_real_us"] - server["start_us"])
+        # an HTTP call has no arrival stamp: its way in runs to the
+        # handler, and received -> handler is not known
+        wall.setdefault("received", wall["handler"])
+        order = ["issue", "received", "handler", "admitted", "prefilled",
+                 "first_token", "client_first"]
+        row = {stage: wall[b] - wall[a]
+               for stage, a, b in zip(STAGES, order, order[1:])}
+        if server is None:
+            row["received_to_handler"] = None
+        row["sum"] = sum(v for v in row.values() if v is not None)
+        row["client_ttft"] = wall["client_first"] - wall["issue"]
+        # a client's first call on its connection opens it (the Channel
+        # and http.client connect on first use)
+        row["first_on_connection"] = c["seq"] == 0
+        rows.append(row)
+    return rows
+
+
+def _timeline_line(kind: str, rows) -> dict:
+    out = {"transport": kind, "calls": len(rows), "unit": "us"}
+    for stage in STAGES + ("sum", "client_ttft"):
+        xs = [r[stage] for r in rows if r[stage] is not None]
+        out[stage] = ({"p50": _median(xs), "p99": _p99(xs)} if xs
+                      else None)
+    for first in (True, False):
+        xs = [r for r in rows if r["first_on_connection"] == first]
+        key = "first_call_on_connection" if first else "later_calls"
+        out[key] = {"calls": len(xs), **{
+            stage: _median([r[stage] for r in xs])
+            for stage in ("way_in", "client_ttft")}}
+    return out
+
+
+def phase_observability():
+    """rpcz spans, serving stats and the builtin pages on the main path:
+    a fresh default server on cuda:0 with rpcz on, one warm burst of
+    each kind (stream, HTTP, unary) from client processes that trace
+    too, the pages, the stitched stage timeline of every call across
+    the two processes, and the cost of ``serving_stats_enabled`` and
+    ``rpcz_enabled`` in turns."""
+    import torch
+
+    fa = _fa_module()
+    from brpc_tpu_torch.butil.flags import set_flag
+    from brpc_tpu_torch.rpc import Server
+    from brpc_tpu_torch.serving import (TinyDecoder, TinyDecoderConfig,
+                                        add_generate_service)
+    from brpc_tpu_torch.serving import serving_stats
+
+    phase_t0 = time.monotonic()
+    prompts = _prompts()
+    cpu_model = TinyDecoder(TinyDecoderConfig(), device="cpu")
+    oracle = {p: cpu_model.generate(list(p.encode()), MAX_TOKENS)
+              for p in prompts}
+    # the trackers' first-token stamps, which no span carries
+    trackers = []
+    real_open = serving_stats.open_generation
+
+    def kept_open(*args, **kwargs):
+        tr = real_open(*args, **kwargs)
+        if tr is not None and tr.span is not None:
+            trackers.append(tr)
+        return tr
+
+    fa.reset_launches()
+    check(set_flag("rpcz_enabled", False), "cannot set rpcz_enabled")
+    server = Server()
+    gs = add_generate_service(server)           # defaults, on cuda:0
+    check(str(gs.device) == "cuda:0", f"service device {gs.device}")
+    ep = server.start("tcp://127.0.0.1:0")
+    serving_stats.open_generation = kept_open
+    out = {"phase": "observability", "requests": N_REQUESTS,
+           "clients": N_CLIENTS, "max_tokens": MAX_TOKENS}
+    try:
+        # warm the server untraced, then trace one burst of each kind
+        res, errs = _client_process_burst("stream", ep.port)[:2]
+        _check_burst("observability warm-up", res, errs, oracle)
+
+        def cell_requests():
+            doc = json.loads(_http_page(ep.port, "/serving")[1])
+            cell = doc["stats"]["methods"].get("GenerateService.Generate")
+            return cell["requests"] if cell else 0
+
+        requests0 = cell_requests()
+        check(set_flag("rpcz_enabled", True), "cannot set rpcz_enabled")
+        traced = {}
+        for kind in ("stream", "http", "unary"):
+            doc = _client_process([kind, str(ep.port), "--rpcz"])
+            _check_burst(f"traced {kind} burst", doc["results"],
+                         doc["errors"], oracle)
+            check(len(doc["calls"]) == N_REQUESTS,
+                  f"{kind}: {len(doc['calls'])} call records")
+            traced[kind] = doc
+        check(set_flag("rpcz_enabled", False), "cannot set rpcz_enabled")
+
+        pages = {}
+        for path in ("/rpcz?n=4096", "/serving", "/status", "/vars",
+                     "/brpc_metrics"):
+            status, body = _http_page(ep.port, path)
+            check(status == 200, f"{path} answered {status}")
+            pages[path.split("?")[0]] = body
+        server_spans = json.loads(pages["/rpcz"])
+        first_token = {f"{t.span.span_id:016x}": t.t_first_token
+                       for t in trackers}
+        timeline = {}
+        for kind, doc in traced.items():
+            rows = _stitch(kind, doc["calls"], doc["spans"], server_spans,
+                           first_token)
+            timeline[kind] = _timeline_line(kind, rows)
+        n_tpu_std = sum(1 for s in server_spans if s["side"] == "server")
+        check(n_tpu_std == 2 * N_REQUESTS,
+              f"{n_tpu_std} server spans for {2 * N_REQUESTS} tpu_std calls")
+        check(sum(1 for s in server_spans if s["side"] == "serving")
+              == 3 * N_REQUESTS, "serving spans do not match the calls")
+        served = cell_requests() - requests0
+        check(served == 3 * N_REQUESTS,
+              f"/serving counted {served} of {3 * N_REQUESTS} calls")
+        var_names = [ln.split(" : ")[0]
+                     for ln in pages["/vars"].decode().splitlines()]
+        check("fiber_wake" in var_names and
+              {"fiber_count", "fiber_created", "fiber_worker_count",
+               "fiber_switch_count", "fiber_steal_count",
+               "fiber_runqueue_depth", "fiber_runqueue_peak_10s",
+               "fiber_worker_busy_fraction"} <= set(var_names),
+              f"/vars lacks the fiber variables: {var_names}")
+        _check_prometheus(pages["/brpc_metrics"].decode())
+        status_doc = json.loads(pages["/status"])
+        check("GenerateService.Generate" in status_doc["method_status"],
+              "/status has no Generate latency window")
+
+        # the flags' costs, in turns, from one client process; each
+        # request's server stamps split its TTFT into the wait for
+        # admission and admission -> first token
+        steps0 = gs.batcher.decode_steps
+        submitted = []
+        real_submit = gs.batcher.submit
+
+        def kept_submit(req):
+            submitted.append(req)
+            return real_submit(req)
+
+        gs.batcher.submit = kept_submit
+        try:
+            runs = _client_process(["cost", str(ep.port)], 600)["runs"]
+        finally:
+            gs.batcher.submit = real_submit
+        check(len(submitted) == len(runs) * N_REQUESTS,
+              "cost runs: server requests do not match the calls")
+        cost = []
+        for i, r in enumerate(runs):
+            _check_burst(f"cost run {r['flag']}={r['on']}", r["results"],
+                         r["errors"], oracle)
+            tokens = sum(len(t) for t in r["results"].values())
+            mine = submitted[i * N_REQUESTS:(i + 1) * N_REQUESTS]
+            ms = lambda a, b: _median(  # noqa: E731
+                [(getattr(q, b) - getattr(q, a)) / 1e6 for q in mine])
+            cost.append({"flag": r["flag"], "on": r["on"],
+                         "turn": r["turn"], "wall_s": r["wall_s"],
+                         "tokens_per_s": tokens / r["wall_s"],
+                         "client_ttft_p50_ms": r["client_ttft_p50_ms"],
+                         "server_ttft_p50_ms": ms("created_ns",
+                                                  "first_token_ns"),
+                         "queue_p50_ms": ms("created_ns", "admitted_ns"),
+                         "admitted_to_first_p50_ms": ms("admitted_ns",
+                                                        "first_token_ns")})
+        torch.cuda.synchronize()
+        launches = dict(fa.launches)
+        steps = gs.batcher.decode_steps
+        warm = gs.engine.warmup_steps
+        check(launches["flash_decode"] == steps + warm > 0 and
+              sum(launches.values()) == launches["flash_decode"],
+              f"observability: kernel launches {launches} != decode steps "
+              f"{steps} + warm-up {warm} of flash_decode alone")
+        out["cost_decode_steps"] = steps - steps0
+    finally:
+        serving_stats.open_generation = real_open
+        set_flag("rpcz_enabled", False)
+        server.stop()
+        server.join(10)
+    for kind, line in timeline.items():
+        emit({"phase": "observability_timeline", **line})
+    for name in COST_FLAGS:
+        rows = [c for c in cost if c["flag"] == name]
+        emit({"phase": "observability_cost", "flag": name, "runs": rows,
+              **{f"{'on' if on else 'off'}_{k}_median": _median(
+                  [c[k] for c in rows if c["on"] == on])
+                 for on in (False, True)
+                 for k in ("tokens_per_s", "server_ttft_p50_ms",
+                           "queue_p50_ms", "admitted_to_first_p50_ms")}})
+    out.update(launches={"flash_decode": launches["flash_decode"],
+                         "decode_steps": steps, "warmup_steps": warm},
+               served_calls=served, server_spans=len(server_spans),
+               tokens_equal_cpu_plain=True,
+               phase_s=time.monotonic() - phase_t0)
+    emit(out)
+    return out
+
+
+def _check_prometheus(text: str) -> None:
+    """Every sample line reads ``name{labels} value``."""
+    import re
+    sample = re.compile(
+        r'^[A-Za-z_:][A-Za-z0-9_:]*(\{[A-Za-z_][A-Za-z0-9_]*="(?:[^"\\]|'
+        r'\\.)*"(,[A-Za-z_][A-Za-z0-9_]*="(?:[^"\\]|\\.)*")*\})? '
+        r'[-+]?(\d+(\.\d*)?|\.\d+)([eE][-+]?\d+)?$')
+    lines = [ln for ln in text.splitlines() if ln and not ln.startswith("#")]
+    bad = [ln for ln in lines if not sample.match(ln)]
+    check(lines and not bad, f"/brpc_metrics lines that do not parse: "
+                             f"{bad[:5]}")
+
+
 def phase_paths(dev, split_inputs):
     """The port's two other paths, each driven through its public entry
     point with every count zeroed just before and read just after:
@@ -1203,10 +1607,11 @@ def _row(name, path, launches, serving_launches, per_step, err, t, **kw):
             "library_ms": t["library_ms"], "ms_simt": t.get("ms_simt"), **kw}
 
 
-def main(streaming_only: bool = False) -> int:
-    """The whole smoke; ``streaming_only`` (``--phase streaming``): the
-    card line and phase 4 alone (its kernel builds at the server's
-    warm-up), to compare two trees' serving in one call."""
+def main(only: str = "") -> int:
+    """The whole smoke; ``only`` (``--phase streaming`` or ``--phase
+    observability``): the card line and that phase alone (its kernel
+    builds at the server's warm-up), to compare two trees' serving in
+    one call."""
     try:
         import torch
     except ImportError as e:
@@ -1232,13 +1637,15 @@ def main(streaming_only: bool = False) -> int:
               "count": torch.cuda.device_count(),
               "torch": torch.__version__, "cuda": torch.version.cuda,
               "python": sys.version.split()[0]})
-        if streaming_only:
-            phase_streaming()
+        if only:
+            {"streaming": phase_streaming,
+             "observability": phase_observability}[only]()
             return 0
         phase_build()
         decode_inputs, split_inputs, errs = phase_kernel_check(dev)
         serving = phase_serving()
         streaming = phase_streaming()
+        observability = phase_observability()
         paths = phase_paths(dev, split_inputs)
         times = phase_times(decode_inputs, split_inputs)
     except SmokeFailure as e:
@@ -1249,6 +1656,7 @@ def main(streaming_only: bool = False) -> int:
     by_path = {"unary": sl["flash_decode"]}
     by_path.update({name: p["flash_decode"]
                     for name, p in streaming["launches"].items()})
+    by_path["observability"] = observability["launches"]["flash_decode"]
     long_by = {c["case"]: c for c in times["long"]}
     tc, simt = long_by["8x2048x64 bf16"], long_by["8x2048x64 fp32"]
     kernels = [
@@ -1289,5 +1697,10 @@ def main(streaming_only: bool = False) -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--client"]:
-        sys.exit(client_main(sys.argv[2], int(sys.argv[3])))
-    sys.exit(main(streaming_only=sys.argv[1:] == ["--phase", "streaming"]))
+        sys.exit(client_main(sys.argv[2], int(sys.argv[3]),
+                             traced="--rpcz" in sys.argv[4:]))
+    if sys.argv[1:2] == ["--phase"]:
+        if sys.argv[2:3] not in (["streaming"], ["observability"]):
+            sys.exit(f"chip_smoke: unknown phase {sys.argv[2:]}")
+        sys.exit(main(only=sys.argv[2]))
+    sys.exit(main())

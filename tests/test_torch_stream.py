@@ -496,6 +496,8 @@ def test_failure_subscriptions_fire_once():
     cli.close()                         # the reader sees EOF
     assert _wait_for(lambda: conn.closed)
     conn.close()
+    # the reader thread runs the callbacks after it publishes ``closed``
+    assert _wait_for(lambda: fired == ["a"])
     assert fired == ["a"]
     conn.on_failed(lambda c: fired.append("late"))  # after the end: at once
     assert fired == ["a", "late"]

@@ -64,9 +64,10 @@ def test_response_meta_both_ways(code, text):
 
 
 def test_unknown_fields_are_skipped():
-    """Trace ids (8-10), stream settings (6), device payloads (7),
-    compress_type (3), auth_token and admission_threshold from a brpc_tpu
-    peer are read past."""
+    """Device payloads (7), compress_type (3), auth_token and
+    admission_threshold from a brpc_tpu peer are read past; the fields
+    the port knows beside them, stream settings (6) and the trace ids
+    (8-10), are read."""
     m = _pb_request(service_name="S", method_name="M", timeout_ms=5,
                     auth_token="tok")
     m.correlation_id = 42
@@ -87,6 +88,8 @@ def test_unknown_fields_are_skipped():
     assert got.request == port_std.RpcRequestMeta("S", "M", 0, 5, 0)
     assert got.response == port_std.RpcResponseMeta(0, "")
     assert got.correlation_id == 42 and got.attachment_size == 3
+    assert (got.trace_id, got.span_id, got.parent_span_id) == (
+        (1 << 63) + 5, 6, 7)
 
 
 @pytest.mark.parametrize("raw", [

@@ -25,14 +25,15 @@ from brpc_tpu_torch.rpc.service import Service
 
 
 def connections_page(server) -> dict:
-    """The server's open connections: peer, state and the bytes queued
-    for the socket."""
+    """The server's open connections (Sockets): peer, state and the
+    bytes queued for the kernel."""
     rows = []
     for c in server.connections():
+        ep = c.remote_endpoint
         rows.append({
             "role": "server",
-            "remote": f"{c.peer[0]}:{c.peer[1]}",
-            "failed": c.closed,
+            "remote": f"{ep.host}:{ep.port}",
+            "failed": c.failed,
             "wqueue_bytes": c.write_backlog(),
         })
     return {"connections": rows}

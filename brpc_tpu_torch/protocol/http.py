@@ -3,9 +3,14 @@ subset of brpc_tpu/protocol/http.py that ``POST /<Service>/<Method>``
 and the builtin pages need: a ``Content-Length`` body, a query string,
 keep-alive, and plain or chunked responses).
 
-A connection is taken for HTTP when its first bytes start a request
-line (``is_request_start``); the transport cuts the head at the blank
-line and the body by its length, then ``parse_head`` reads the head.
+``HttpProtocol`` (brpc_tpu/protocol/http.py:142-209) is this format's
+entry in the protocol registry: ``parse`` claims bytes that start a
+request line of a known method (``is_request_start``), cuts the head at
+the blank line and the body by its ``Content-Length``, and ``parse_head``
+reads the head. A head that cannot be read disclaims the bytes, and the
+InputMessenger drops the connection. ``process_inline`` queues each
+request behind the earlier ones of its connection
+(``process_in_parse_order``): HTTP/1.1 answers in request order.
 
 ``builtin_page`` answers the builtin pages (brpc_tpu/protocol/http.py:
 281-588) before the server dispatches ``/<Service>/<Method>``: ``/``,
@@ -24,9 +29,15 @@ import urllib.parse
 from dataclasses import dataclass, field
 from typing import Dict, Optional, Tuple
 
+from brpc_tpu_torch.protocol.registry import (PARSE_NOT_ENOUGH_DATA,
+                                              PARSE_OK, PARSE_TRY_OTHERS,
+                                              Protocol, register_protocol)
+
 METHODS = (b"GET ", b"POST ", b"PUT ", b"DELETE ", b"HEAD ", b"OPTIONS ",
            b"PATCH ")
-SNIFF_BYTES = 4
+# the longest method token: a shorter prefix no protocol claims may
+# still become a request line
+PROBE_BYTES = max(len(m) for m in METHODS)
 MAX_HEADER = 64 * 1024
 MAX_BODY = 64 << 20
 
@@ -51,8 +62,8 @@ class HttpRequest:
 
 
 def is_request_start(head: bytes) -> bool:
-    """Whether the first ``SNIFF_BYTES`` of a connection begin a request
-    line of one of the known methods."""
+    """Whether ``head``, a connection's first bytes, begins (or may yet
+    begin) a request line of one of the known methods."""
     return any(m.startswith(head) if len(head) < len(m) else
                head.startswith(m) for m in METHODS)
 
@@ -109,6 +120,56 @@ def chunk(data: bytes) -> bytes:
 
 
 LAST_CHUNK = b"0\r\n\r\n"
+
+
+class HttpProtocol(Protocol):
+    name = "http"
+    min_probe_bytes = PROBE_BYTES
+
+    def parse(self, portal, socket):
+        if not is_request_start(portal.peek_bytes(PROBE_BYTES)):
+            return PARSE_TRY_OTHERS, None
+        raw = portal.peek_bytes(MAX_HEADER)
+        sep = raw.find(b"\r\n\r\n")
+        if sep < 0:
+            if portal.size >= MAX_HEADER:
+                return PARSE_TRY_OTHERS, None   # header flood: drop
+            return PARSE_NOT_ENOUGH_DATA, None
+        try:
+            req = parse_head(raw[:sep])
+        except HttpError:
+            return PARSE_TRY_OTHERS, None       # unreadable: drop
+        if portal.size < sep + 4 + req.content_length:
+            return PARSE_NOT_ENOUGH_DATA, None
+        portal.pop_front(sep + 4)
+        req.body = portal.cut(req.content_length).to_bytes()
+        return PARSE_OK, req
+
+    def process_inline(self, req: HttpRequest, socket) -> bool:
+        """Requests of one connection are served one at a time, in order,
+        by one fiber (a chunked response holds it until its end)."""
+        from brpc_tpu_torch.transport.input_messenger import (
+            process_in_parse_order)
+        process_in_parse_order(socket, "http", req, self.process)
+        return True
+
+    async def process(self, req: HttpRequest, socket) -> None:
+        server = socket.user_data.get("server")
+        if server is None:
+            socket.set_failed(ConnectionError("no server bound to socket"))
+            return
+        await server._serve_http(socket, req)
+
+
+_instance: Optional[HttpProtocol] = None
+
+
+def ensure_registered() -> HttpProtocol:
+    global _instance
+    if _instance is None:
+        _instance = HttpProtocol()
+        register_protocol(_instance)
+    return _instance
 
 
 # ---------------------------------------------------------- builtin pages

@@ -1,4 +1,6 @@
-"""tpu_std framing with a hand-written RpcMeta codec.
+"""tpu_std: framing with a hand-written RpcMeta codec, and the protocol
+object that cuts frames off a socket's input (``TpuStdProtocol``, the
+port of brpc_tpu/protocol/tpu_std.py:246).
 
 Wire layout (the same bytes brpc_tpu puts on the wire):
 
@@ -17,13 +19,25 @@ Encoding follows protobuf's own rules, so frames are byte-identical to
 ``RpcMeta.SerializeToString()``: fields in number order, proto3 scalars
 omitted at their default, a sub-message present once set, and a
 negative int32/int64 written as a 10-byte varint.
+
+``TpuStdProtocol.parse`` cuts one frame off an ``IOPortal`` into an
+``RpcMessage`` (meta, payload and attachment bytes, and the cut time,
+which is the request's arrival for its deadline and its span);
+``process`` sends requests to server dispatch and responses to client
+dispatch; ``process_inline`` hands bare stream frames to their stream in
+parse order.
 """
 
 from __future__ import annotations
 
 import struct
+import time
 from dataclasses import dataclass
 from typing import Optional, Tuple
+
+from brpc_tpu_torch.protocol.registry import (PARSE_NOT_ENOUGH_DATA,
+                                              PARSE_OK, PARSE_TRY_OTHERS,
+                                              Protocol, register_protocol)
 
 MAGIC = b"TRPC"
 HEADER_SIZE = 12
@@ -376,3 +390,79 @@ def unpack_body(body: bytes, meta_size: int
         raise DecodeError(f"attachment_size {att} exceeds body")
     return (meta, body[meta_size:len(body) - att],
             body[len(body) - att:] if att else b"")
+
+
+# ------------------------------------------------------------ protocol
+
+class RpcMessage:
+    """One parsed tpu_std frame; ``arrival_ns`` is its cut time."""
+
+    __slots__ = ("meta", "payload", "attachment", "arrival_ns")
+
+    def __init__(self, meta: RpcMeta, payload: bytes, attachment: bytes):
+        self.meta = meta
+        self.payload = payload
+        self.attachment = attachment
+        self.arrival_ns = time.monotonic_ns()
+
+    @property
+    def is_response(self) -> bool:
+        """No user handler: pure completion work for the client."""
+        return self.meta.request is None
+
+
+class TpuStdProtocol(Protocol):
+    name = "tpu_std"
+    min_probe_bytes = len(MAGIC)
+
+    def parse(self, portal, socket):
+        if portal.size < HEADER_SIZE:
+            head = portal.peek_bytes(len(MAGIC))
+            return (PARSE_NOT_ENOUGH_DATA if MAGIC.startswith(head)
+                    else PARSE_TRY_OTHERS), None
+        try:
+            body_size, meta_size = parse_header(
+                portal.peek_bytes(HEADER_SIZE))
+        except DecodeError:
+            # another magic, or sizes no frame has (a body past
+            # MAX_BODY_SIZE would buffer toward bytes that never come)
+            return PARSE_TRY_OTHERS, None
+        if portal.size < HEADER_SIZE + body_size:
+            # the input loop skips re-probing until the frame is here
+            socket.input_need = HEADER_SIZE + body_size
+            return PARSE_NOT_ENOUGH_DATA, None
+        portal.pop_front(HEADER_SIZE)
+        body = portal.cut(body_size).to_bytes()
+        try:
+            meta, payload, attachment = unpack_body(body, meta_size)
+        except DecodeError as e:
+            # a lying attachment_size would eat the next frame's bytes
+            socket.set_failed(ConnectionError(f"bad frame: {e}"))
+            return PARSE_NOT_ENOUGH_DATA, None
+        return PARSE_OK, RpcMessage(meta, payload, attachment)
+
+    def process(self, msg: RpcMessage, socket):
+        if msg.meta.request is not None:
+            from brpc_tpu_torch.rpc.server_dispatch import process_request
+            return process_request(self, msg, socket)
+        from brpc_tpu_torch.rpc.client_dispatch import process_response
+        return process_response(self, msg, socket)
+
+    def process_inline(self, msg: RpcMessage, socket) -> bool:
+        """Bare stream frames go to their stream here, in parse order."""
+        if msg.meta.is_stream_frame():
+            from brpc_tpu_torch.rpc.stream import process_stream_frame
+            process_stream_frame(msg.meta, msg.payload, msg.attachment)
+            return True
+        return False
+
+
+_instance: Optional[TpuStdProtocol] = None
+
+
+def ensure_registered() -> TpuStdProtocol:
+    global _instance
+    if _instance is None:
+        _instance = TpuStdProtocol()
+        register_protocol(_instance)
+    return _instance

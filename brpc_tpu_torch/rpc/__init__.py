@@ -5,7 +5,9 @@ StreamOptions, stream_accept) and rpcz spans (``span.py``)."""
 from . import errno_codes
 from .channel import Channel, ChannelOptions
 from .controller import Controller
-from .server import EndPoint, Server, ServerOptions
+from brpc_tpu_torch.butil.endpoint import EndPoint
+
+from .server import Server, ServerOptions
 from .service import Method, Service
 from .stream import Stream, StreamOptions, stream_accept
 

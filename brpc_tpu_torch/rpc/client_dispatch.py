@@ -1,0 +1,86 @@
+"""Client-side response processing (the port of
+brpc_tpu/rpc/client_dispatch.py; bRPC's ProcessRpcResponse,
+policy/baidu_rpc_protocol.cpp).
+
+A call waiting for its response is registered here under its
+correlation id, with the socket its request went on. ``process_response``
+runs where the InputMessenger processes the response, most often in place
+on the dispatcher thread: it takes the call first (exactly one of the
+response, the caller's timeout and the socket's failure wins it), fills
+the controller (``_fill_response``) and wakes the caller.
+"""
+
+from __future__ import annotations
+
+import itertools
+import threading
+import time
+from typing import Dict, List, Optional, Tuple
+
+from . import errno_codes as berr
+
+_lock = threading.Lock()
+_cids = itertools.count(1)
+# cid -> (controller, socket, event)
+_calls: Dict[int, Tuple[object, object, threading.Event]] = {}
+
+
+def register_call(cntl, socket) -> threading.Event:
+    """Give ``cntl`` a fresh correlation id and register it as waiting on
+    ``socket``; the event is set once the call is complete."""
+    ev = threading.Event()
+    with _lock:
+        cid = next(_cids)
+        cntl.correlation_id = cid
+        _calls[cid] = (cntl, socket, ev)
+    return ev
+
+
+def take_call(cid: int):
+    """Take the call of ``cid``; None when another path took it."""
+    with _lock:
+        return _calls.pop(cid, None)
+
+
+def fail_calls(socket, code: int, text: str) -> None:
+    """Fail every call still waiting on ``socket`` (its failure)."""
+    with _lock:
+        dead = [cid for cid, c in _calls.items() if c[1] is socket]
+        taken: List = [_calls.pop(cid) for cid in dead]
+    for cntl, _, ev in taken:
+        cntl.set_failed(code, text)
+        ev.set()
+
+
+def process_response(proto, msg, socket) -> None:
+    call = take_call(msg.meta.correlation_id)
+    if call is None:
+        return                  # timed out or failed earlier: dropped
+    cntl, _, ev = call
+    span = cntl._client_span
+    if span is not None:
+        # the frame's cut time: the closest honest first-byte stamp
+        span.first_byte_us = msg.arrival_ns // 1000
+    try:
+        _fill_response(cntl, msg, socket)
+    except Exception as e:      # the call is taken: it must complete here
+        cntl.set_failed(berr.ERESPONSE, f"bad response: {e}")
+    if span is not None:
+        span.parse_done_us = time.monotonic_ns() // 1000
+        span.response_size = len(msg.payload)
+    ev.set()
+
+
+def _fill_response(cntl, msg, socket) -> None:
+    resp = msg.meta.response
+    if resp is not None and resp.error_code:
+        cntl.set_failed(resp.error_code, resp.error_text)
+        return
+    cntl.response = msg.payload
+    ss: Optional[object] = msg.meta.stream_settings
+    stream = cntl.stream
+    if stream is not None and ss is not None and ss.stream_id:
+        # in parse order: frames cut after the response find it bound
+        stream.peer_id = ss.stream_id
+        stream._bind(socket)
+        stream._on_established()

@@ -11,9 +11,9 @@ The HTTP path writes ``Transfer-Encoding: chunked`` headers, then
 ``_bind``s the attachment to the connection. Chunks written before that
 are held and flushed in order; every state change (held, bound, closed,
 failed) happens under one lock, so a feeder racing ``_bind`` can neither
-reorder chunks nor put the terminator before held data. The connection
-only queues writes, so holding the lock over them never waits on the
-peer. ``await wait_finished()`` is what the HTTP path parks on (a
+reorder chunks nor put the terminator before held data. ``Socket.write``
+only queues, so holding the lock over it never waits on the peer.
+``await wait_finished()`` is what the HTTP path parks on (a
 FiberEvent: its worker goes on) before it answers the next request on
 the connection.
 """
@@ -90,9 +90,7 @@ class ProgressiveAttachment:
         self._finished.set()
 
     def _send(self, wire: bytes) -> bool:
-        try:
-            self._conn.send(wire)
-        except OSError:
+        if not self._conn.write(wire):
             self._failed = True
             return False
         return True

@@ -18,10 +18,14 @@ connection under credit-based flow control:
 
 Frames are delivered to ``on_received(stream, msg)`` in order by the
 stream's own fiber ExecutionQueue, a batch at a time, never on the
-connection's reader thread; an ``on_received`` that returns an awaitable
-is awaited there, so delivery stays serial. Remote closure (a close
-frame, or the connection's end) happens exactly once and runs the
+dispatcher thread that parsed them; an ``on_received`` that returns an
+awaitable is awaited there, so delivery stays serial. Remote closure (a
+close frame, or the connection's end) happens exactly once and runs the
 ``on_close`` callbacks on the same queue, after the frames before it.
+
+A stream writes through its connection's ``Socket.write``, which only
+queues (``transport/socket.py``), and watches the socket's end through
+``Socket.on_failed``.
 
 Stream ids come from one registry per process, as the reference's
 ResourcePool: frames name their stream by id whichever connection they
@@ -90,8 +94,8 @@ class Stream:
         self.options = options or StreamOptions()
         self.id: int = _registry.insert(self)
         self.peer_id: int = 0
-        self.conn = None                # the connection frames go out on
-        self._subscribed = None         # the connection whose end we watch
+        self.conn = None                # the Socket frames go out on
+        self._subscribed = None         # the Socket whose end we watch
         self.closed = False
         self.remote_closed = False
         self._frame_seq = 0
@@ -168,18 +172,17 @@ class Stream:
                 # delivered even when empty); grants and closes leave it 0
                 self._frame_seq += 1
                 seq = self._frame_seq
-            try:
-                # conn.send only queues: it never parks this thread
-                conn.send(tpu_std.pack_stream_frame(
-                    self.peer_id, seq, credits, close, bytes(payload)))
-            except OSError:
-                return False            # the failure subscription closes us
-        return True
+            # Socket.write only queues: it never parks this thread; on a
+            # failed socket it is False, and the failure subscription
+            # closes the stream
+            return conn.write(tpu_std.pack_stream_frame(
+                self.peer_id, seq, credits, close, bytes(payload)))
 
     # ------------------------------------------------------------ receive
     def _on_frame(self, ss: tpu_std.StreamSettings, payload: bytes,
                   attachment: bytes) -> None:
-        """On the connection's reader thread, in parse order: cheap."""
+        """Where the frame was cut (most often the dispatcher thread), in
+        parse order: cheap."""
         if ss.credits:
             self._credits.fetch_add(ss.credits)
             self._credits.wake_all()
@@ -217,9 +220,10 @@ class Stream:
 
     # ------------------------------------------------------------ binding
     def _bind(self, conn) -> None:
-        """Attach the established stream to ``conn`` and watch its end:
-        a peer dying mid-stream closes the stream. Called once the stream
-        is established on ``conn``; a previous subscription is dropped."""
+        """Attach the established stream to the Socket ``conn`` and watch
+        its end: a peer dying mid-stream closes the stream. Called once
+        the stream is established on ``conn``; a previous subscription is
+        dropped."""
         self.conn = conn
         prev, self._subscribed = self._subscribed, conn
         if prev is conn:
@@ -275,9 +279,9 @@ def address_stream(stream_id: int) -> Optional[Stream]:
 
 def process_stream_frame(meta: tpu_std.RpcMeta, payload: bytes,
                          attachment: bytes = b"") -> None:
-    """Dispatch a bare stream frame (on the reader thread, in parse
-    order). A frame for an unknown or closed stream is dropped, as the
-    reference drops it."""
+    """Dispatch a bare stream frame (where it was cut, in parse order). A
+    frame for an unknown or closed stream is dropped, as the reference
+    drops it."""
     ss = meta.stream_settings
     stream = _registry.address(ss.stream_id)
     if stream is not None:

@@ -1,388 +1,221 @@
-"""TCP transport for tpu_std frames and HTTP/1.1 requests.
+"""TCP transport: non-blocking sockets driven by the EventDispatcher (the
+port of brpc_tpu/transport/tcp.py, the classic selector lane; bRPC's
+socket.cpp and acceptor.cpp).
 
-Reading: one reader thread per connection cuts whole messages off the
-socket and hands them to the owner: tpu_std frames to ``on_frame``,
-HTTP requests (head and ``Content-Length`` body) to ``on_http``. A
-server connection picks its protocol from its first bytes, as
-brpc_tpu/protocol/http.py:146-152 does: ``TRPC`` is tpu_std, a request
-line is HTTP, anything else closes the connection.
+No thread is started per connection, nor for accepting: a listening
+socket is a dispatcher consumer whose read event accepts until EAGAIN
+(acceptor.cpp:253), and every accepted or dialled socket is one too
+(``TcpConn.start_events``), level-triggered. Out of descriptors
+(EMFILE/ENFILE), the listener pauses accepting for
+``acceptor_backoff_ms`` instead of spinning the dispatcher.
 
-Writing: ``send`` queues one whole frame and returns; it never waits
-for the peer. A sender finding the send side free tries the frame
-inline with a non-blocking write; what the socket does not take, and
-every frame sent while another write is under way, goes to a FIFO that a
-writer thread drains with blocking writes. So a decode step that sends
-tokens never parks on a peer that stopped reading (brpc_tpu's
-``Socket.write`` likewise only queues), and frames from concurrent
-callers never interleave.
-
-Failure: ``on_failed(cb)`` subscribes ``cb(conn)`` to the connection's
-end: EOF or an error seen by the reader or a writer, or ``close()``. It
-fires once; a subscription made after the end fires at once.
+fd lifetime: a ``TcpConn`` owns its ``socket.socket``; ``close``
+unregisters the fd from the dispatcher first and then closes the socket,
+once. Nothing here closes an fd number it does not own.
 """
 
 from __future__ import annotations
 
-import logging
-import socket
-import threading
-from collections import deque
-from typing import Callable, List, Optional, Tuple
+import errno
+import socket as pysocket
+from typing import Callable, Optional
 
-from brpc_tpu_torch.protocol import http, tpu_std
+from brpc_tpu_torch.butil.endpoint import EndPoint
+from brpc_tpu_torch.butil.flags import define_flag, flag
+from brpc_tpu_torch.bvar.reducer import Adder
+from brpc_tpu_torch.transport.base import Conn, Listener, Transport
+from brpc_tpu_torch.transport.event_dispatcher import global_dispatcher
 
-log = logging.getLogger("brpc_tpu_torch.transport")
+define_flag("acceptor_backoff_ms", 100,
+            "pause accepting for this long after accept hits descriptor "
+            "exhaustion (EMFILE/ENFILE): a level-triggered listener would "
+            "otherwise spin the dispatcher",
+            validator=lambda v: v > 0)
 
-FrameHandler = Callable[["Connection", tpu_std.RpcMeta, bytes, bytes], None]
-HttpHandler = Callable[["Connection", http.HttpRequest], None]
+naccept_pauses = Adder().expose("acceptor_fd_exhausted_pauses")
 
-_CLOSE = object()       # write-queue marker: close once what precedes it is out
-_RECV_SIZE = 1 << 16
-
-
-def parse_address(address: str) -> Tuple[str, int]:
-    """``tcp://host:port`` or ``host:port`` -> (host, port)."""
-    if "://" in address:
-        scheme, address = address.split("://", 1)
-        if scheme != "tcp":
-            raise ValueError(f"unsupported scheme {scheme!r}: only tcp://")
-    host, sep, port = address.rpartition(":")
-    if not sep or not host:
-        raise ValueError(f"address needs host:port, got {address!r}")
-    return host, int(port)
+_WOULD_BLOCK = (errno.EAGAIN, errno.EWOULDBLOCK)
 
 
-class _Reader:
-    """Buffered reads off a blocking socket; None at EOF."""
-
-    def __init__(self, sock: socket.socket):
-        self._sock = sock
-        self._buf = bytearray()
-
-    def _fill(self) -> bool:
-        data = self._sock.recv(_RECV_SIZE)
-        if not data:
-            return False
-        self._buf += data
-        return True
-
-    def peek(self, n: int) -> Optional[bytes]:
-        while len(self._buf) < n:
-            if not self._fill():
-                return None
-        return bytes(self._buf[:n])
-
-    def read(self, n: int) -> Optional[bytes]:
-        out = self.peek(n)
-        if out is not None:
-            del self._buf[:n]
-        return out
-
-    def read_until(self, sep: bytes, limit: int) -> Optional[bytes]:
-        """The bytes before ``sep``, which is consumed too."""
-        start = 0
-        while True:
-            i = self._buf.find(sep, start)
-            if i >= 0:
-                out = bytes(self._buf[:i])
-                del self._buf[:i + len(sep)]
-                return out
-            if len(self._buf) >= limit:
-                raise http.HttpError(f"head over {limit} bytes")
-            start = max(0, len(self._buf) - len(sep) + 1)
-            if not self._fill():
-                return None
+def _ep(addr) -> EndPoint:
+    return EndPoint("tcp", addr[0], addr[1])
 
 
-class Connection:
-    """A full-duplex TCP connection: a reader thread, a write queue and
-    failure subscriptions. ``on_http`` set: the first bytes choose
-    between tpu_std and HTTP; unset: tpu_std only."""
+class TcpConn(Conn):
+    # the first write of a frame runs in the writer's own context (the
+    # reference writes once in place before KeepWrite, socket.cpp:1960)
+    inline_write_ok = True
+    # readiness is level-triggered: a short read means the kernel buffer
+    # is (almost surely) empty, and if not, the event fires again
+    level_triggered = True
 
-    def __init__(self, sock: socket.socket, on_frame: FrameHandler,
-                 on_close: Optional[Callable[["Connection"], None]] = None,
-                 name: str = "conn",
-                 on_http: Optional[HttpHandler] = None):
-        sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
-        self.sock = sock
-        self.peer = sock.getpeername()
-        self.name = name
-        self.user_data: dict = {}       # owners' per-connection state
-        self._on_frame = on_frame
-        self._on_http = on_http
-        self._on_close = on_close
-        # one lock for the closed flag, the failure callbacks and the
-        # write queue: a send and a close never see each other half done
-        self._lock = threading.Lock()
-        self._wcond = threading.Condition(self._lock)
-        self.closed = False
-        self._failed_cbs: List[Callable[["Connection"], None]] = []
-        self._wq: deque = deque()
-        self._wq_bytes = 0
-        self._writing = False           # a thread owns the send side
-        self._writer: Optional[threading.Thread] = None
-        self._reader = threading.Thread(target=self._read_loop,
-                                        name=f"{name}-reader", daemon=True)
-
-    def start(self) -> "Connection":
-        self._reader.start()
-        return self
-
-    # ------------------------------------------------------------ writing
-    def send(self, frame: bytes) -> None:
-        """Queue one whole frame for the wire, in call order; never
-        blocks on the peer. Raises ConnectionError once closed."""
-        with self._lock:
-            if self.closed:
-                raise ConnectionError("connection closed")
-            if self._writing or self._wq:
-                self._enqueue_locked(frame)
-                return
-            self._writing = True
+    def __init__(self, sock: pysocket.socket, local: EndPoint,
+                 remote: EndPoint):
+        sock.setblocking(False)
         try:
-            n = self.sock.send(frame, socket.MSG_DONTWAIT)
-        except BlockingIOError:
-            n = 0
-        except OSError as e:
-            with self._lock:
-                self._writing = False
-            # the reader wakes and closes the connection on its own
-            # thread: failure callbacks must not run inside a sender that
-            # may hold its own locks
-            self._shutdown()
-            raise ConnectionError(f"send failed: {e}") from e
-        with self._lock:
-            self._writing = False
-            if n < len(frame):
-                # the rest goes out before anything queued meanwhile
-                self._wq.appendleft(memoryview(frame)[n:])
-                self._wq_bytes += len(frame) - n
-            if self._wq:
-                self._wake_writer_locked()
-
-    def close_after_flush(self) -> None:
-        """Close once every frame queued so far has been written."""
-        with self._lock:
-            if self.closed:
-                return
-            self._enqueue_locked(_CLOSE)
-
-    def write_backlog(self) -> int:
-        """Bytes queued and not yet taken by the socket."""
-        return max(0, self._wq_bytes)
-
-    def _enqueue_locked(self, item) -> None:
-        self._wq.append(item)
-        if item is not _CLOSE:
-            self._wq_bytes += len(item)
-        self._wake_writer_locked()
-
-    def _wake_writer_locked(self) -> None:
-        if self._writer is None:
-            self._writer = threading.Thread(target=self._write_loop,
-                                            name=f"{self.name}-writer",
-                                            daemon=True)
-            self._writer.start()
-        else:
-            self._wcond.notify()
-
-    def _write_loop(self) -> None:
-        while True:
-            with self._lock:
-                while not self.closed and (self._writing or not self._wq):
-                    self._wcond.wait()
-                if self.closed:
-                    return
-                batch = list(self._wq)
-                self._wq.clear()
-                self._writing = True
-            close_after = False
-            try:
-                for item in batch:
-                    if item is _CLOSE:
-                        close_after = True
-                        break
-                    self.sock.sendall(item)
-                    with self._lock:
-                        self._wq_bytes -= len(item)
-            except OSError as e:
-                if not self.closed:
-                    log.debug("write to %s failed: %s", self.peer, e)
-                close_after = True
-            with self._lock:
-                self._writing = False
-            if close_after:
-                self.close()
-                return
-
-    # ------------------------------------------------------------ reading
-    def _read_loop(self) -> None:
-        try:
-            r = _Reader(self.sock)
-            if self._on_http is not None:
-                head = r.peek(http.SNIFF_BYTES)
-                if head is None:
-                    return
-                if head != tpu_std.MAGIC:
-                    if not http.is_request_start(head):
-                        log.debug("unknown protocol from %s: %r", self.peer,
-                                  head)
-                        return
-                    self._read_http(r)
-                    return
-            self._read_tpu_std(r)
-        except (OSError, tpu_std.DecodeError, http.HttpError) as e:
-            if not self.closed:
-                log.debug("connection to %s failed: %s", self.peer, e)
-        finally:
-            self.close()
-
-    def _read_tpu_std(self, r: _Reader) -> None:
-        while True:
-            head = r.read(tpu_std.HEADER_SIZE)
-            if head is None:
-                return
-            body_size, meta_size = tpu_std.parse_header(head)
-            body = r.read(body_size)
-            if body is None:
-                return
-            meta, payload, att = tpu_std.unpack_body(body, meta_size)
-            self._on_frame(self, meta, payload, att)
-
-    def _read_http(self, r: _Reader) -> None:
-        """Requests in order; reading goes on after each, so that the
-        peer's EOF is seen while a chunked response is still streaming."""
-        while True:
-            head = r.read_until(b"\r\n\r\n", http.MAX_HEADER)
-            if head is None:
-                return
-            req = http.parse_head(head)
-            body = r.read(req.content_length)
-            if body is None:
-                return
-            req.body = body
-            self._on_http(self, req)
-
-    # ------------------------------------------------------------ failure
-    def on_failed(self, cb: Callable[["Connection"], None]) -> None:
-        with self._lock:
-            if not self.closed:
-                self._failed_cbs.append(cb)
-                return
-        cb(self)
-
-    def off_failed(self, cb: Callable[["Connection"], None]) -> None:
-        with self._lock:
-            try:
-                self._failed_cbs.remove(cb)
-            except ValueError:
-                pass
-
-    def close(self) -> None:
-        with self._lock:
-            if self.closed:
-                return
-            self.closed = True
-            cbs, self._failed_cbs = self._failed_cbs, []
-            self._wq.clear()
-            self._wq_bytes = 0
-            self._wcond.notify_all()
-        self._shutdown()
-        self.sock.close()
-        for cb in cbs:
-            try:
-                cb(self)
-            except Exception:           # boundary: every subscriber runs
-                log.exception("on_failed callback failed")
-        if self._on_close is not None:
-            self._on_close(self)
-
-    def _shutdown(self) -> None:
-        try:
-            self.sock.shutdown(socket.SHUT_RDWR)
+            sock.setsockopt(pysocket.IPPROTO_TCP, pysocket.TCP_NODELAY, 1)
         except OSError:
             pass
+        self._sock = sock
+        self._fd = sock.fileno()        # the selector key, while open
+        self._local = local
+        self._remote = remote
+        self._closed = False
+        self._on_writable: Optional[Callable[[], None]] = None
 
-    def join(self, timeout_s: float = 5.0) -> None:
-        for t in (self._reader, self._writer):
-            if t is not None and t.is_alive() and \
-                    t is not threading.current_thread():
-                t.join(timeout_s)
+    def write(self, mv) -> int:
+        try:
+            return self._sock.send(mv)
+        except OSError as e:
+            if e.errno in _WOULD_BLOCK:
+                raise BlockingIOError from e
+            raise
 
+    def writev(self, views) -> int:
+        """One sendmsg for a chain of buffers (iobuf.h:177)."""
+        try:
+            return self._sock.sendmsg(views)
+        except OSError as e:
+            if e.errno in _WOULD_BLOCK:
+                raise BlockingIOError from e
+            raise
 
-def connect(address: str, on_frame: FrameHandler,
-            on_close: Optional[Callable[[Connection], None]] = None,
-            timeout_s: float = 5.0) -> Connection:
-    host, port = parse_address(address)
-    sock = socket.create_connection((host, port), timeout=timeout_s)
-    sock.settimeout(None)
-    return Connection(sock, on_frame, on_close, name="client").start()
+    def read_into(self, mv: memoryview) -> int:
+        try:
+            return self._sock.recv_into(mv)
+        except OSError as e:
+            if e.errno in _WOULD_BLOCK:
+                raise BlockingIOError from e
+            raise
 
+    def peek_closed(self) -> bool:
+        """True only when the peer's FIN arrived and no data is left to
+        read (MSG_PEEK: nothing is consumed)."""
+        if self._closed:
+            return True
+        try:
+            return self._sock.recv(1, pysocket.MSG_PEEK) == b""
+        except (BlockingIOError, InterruptedError):
+            return False
+        except OSError:
+            return True
 
-class Listener:
-    """Accepts on ``host:port`` (port 0 picks a free one) and gives every
-    accepted socket a Connection of its own."""
-
-    def __init__(self, address: str, on_frame: FrameHandler,
-                 on_http: Optional[HttpHandler] = None):
-        host, port = parse_address(address)
-        self._on_frame = on_frame
-        self._on_http = on_http
-        self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
-        self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
-        self._sock.bind((host, port))
-        self._sock.listen(128)
-        # a short accept timeout lets stop() end the loop without relying
-        # on close() waking a blocked accept()
-        self._sock.settimeout(0.1)
-        self.host, self.port = self._sock.getsockname()[:2]
-        self._conns: set = set()
-        self._lock = threading.Lock()
-        self._stopped = threading.Event()
-        self._thread = threading.Thread(target=self._accept_loop,
-                                        name="tcp-accept", daemon=True)
-
-    def start(self) -> "Listener":
-        self._thread.start()
-        return self
-
-    def _forget(self, conn: Connection) -> None:
-        with self._lock:
-            self._conns.discard(conn)
-
-    def _accept_loop(self) -> None:
-        while not self._stopped.is_set():
-            try:
-                sock, _ = self._sock.accept()
-            except socket.timeout:
-                continue
-            except OSError:
-                break
-            sock.settimeout(None)
-            conn = Connection(sock, self._on_frame, self._forget,
-                              name="server", on_http=self._on_http)
-            with self._lock:
-                if self._stopped.is_set():
-                    sock.close()
-                    break
-                self._conns.add(conn)
-            conn.start()
-
-    def stop(self) -> None:
-        """Stop accepting; existing connections stay open."""
-        self._stopped.set()
-        if self._thread.is_alive() and \
-                self._thread is not threading.current_thread():
-            self._thread.join(2.0)
+    def close(self) -> None:
+        """Unregister, then close the socket; once."""
+        if self._closed:
+            return
+        self._closed = True
+        global_dispatcher().remove_consumer(self._fd)
+        try:
+            self._sock.shutdown(pysocket.SHUT_RDWR)
+        except OSError:
+            pass
         self._sock.close()
 
-    def connections(self) -> List[Connection]:
-        with self._lock:
-            return list(self._conns)
+    @property
+    def closed(self) -> bool:
+        return self._closed
 
-    def close_connections(self, timeout_s: float = 2.0) -> None:
-        conns = self.connections()
-        for c in conns:
-            c.close()
-        for c in conns:
-            c.join(timeout_s)
+    def start_events(self, on_readable, on_writable) -> None:
+        self._on_writable = on_writable
+        global_dispatcher().add_consumer(self._fd, on_readable)
+
+    def pause_read_events(self) -> None:
+        if not self._closed:
+            global_dispatcher().pause_read(self._fd)
+
+    def resume_read_events(self) -> None:
+        if not self._closed:
+            global_dispatcher().resume_read(self._fd)
+
+    def request_writable_event(self) -> None:
+        if self._closed:
+            raise ConnectionError("connection closed")
+        global_dispatcher().request_writable(self._fd, self._on_writable)
+
+    @property
+    def local_endpoint(self) -> EndPoint:
+        return self._local
+
+    @property
+    def remote_endpoint(self) -> EndPoint:
+        return self._remote
+
+
+class _TcpListener(Listener):
+    def __init__(self, sock: pysocket.socket, ep: EndPoint,
+                 on_new_conn: Callable[[Conn], None]):
+        self._sock = sock
+        self._fd = sock.fileno()
+        self._ep = ep
+        self._on_new_conn = on_new_conn
+        self._stopped = False
+        sock.setblocking(False)
+        global_dispatcher().add_consumer(self._fd, self._on_acceptable)
+
+    def _on_acceptable(self) -> None:
+        """Accept until EAGAIN (acceptor.cpp:253)."""
+        while not self._stopped:
+            try:
+                s, addr = self._sock.accept()
+            except BlockingIOError:
+                return
+            except OSError as e:
+                if e.errno in (errno.EMFILE, errno.ENFILE, errno.ENOMEM):
+                    # the connection stays in the backlog, so this
+                    # level-triggered fd would fire again at once
+                    self._pause_accept()
+                return
+            self._on_new_conn(TcpConn(s, self._ep, _ep(addr)))
+
+    def _pause_accept(self) -> None:
+        naccept_pauses.add(1)
+        global_dispatcher().pause_read(self._fd)
+        from brpc_tpu_torch.fiber.timer import global_timer
+        global_timer().schedule_after(flag("acceptor_backoff_ms") / 1e3,
+                                      self._resume_accept)
+
+    def _resume_accept(self) -> None:
+        if not self._stopped:   # never re-arm a closed (reusable) fd
+            global_dispatcher().resume_read(self._fd)
+
+    def stop(self) -> None:
+        if self._stopped:
+            return
+        self._stopped = True
+        global_dispatcher().remove_consumer(self._fd)
+        self._sock.close()
+
+    @property
+    def endpoint(self) -> EndPoint:
+        return self._ep
+
+
+class TcpTransport(Transport):
+    scheme = "tcp"
+
+    def listen(self, ep: EndPoint, on_new_conn) -> Listener:
+        sock = pysocket.socket(pysocket.AF_INET, pysocket.SOCK_STREAM)
+        try:
+            sock.setsockopt(pysocket.SOL_SOCKET, pysocket.SO_REUSEADDR, 1)
+            sock.bind((ep.host or "127.0.0.1", ep.port))
+            sock.listen(1024)
+            host, port = sock.getsockname()[:2]
+        except BaseException:
+            sock.close()
+            raise
+        return _TcpListener(sock, EndPoint("tcp", host, port, ep.extras),
+                            on_new_conn)
+
+    def connect(self, ep: EndPoint, timeout_s: float = 10.0) -> Conn:
+        sock = pysocket.socket(pysocket.AF_INET, pysocket.SOCK_STREAM)
+        try:
+            # a blocking connect keeps bring-up simple, as the reference's
+            sock.settimeout(timeout_s)
+            sock.connect((ep.host, ep.port))
+            sock.settimeout(None)
+            local = _ep(sock.getsockname())
+        except BaseException:
+            sock.close()
+            raise
+        return TcpConn(sock, local, ep)

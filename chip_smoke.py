@@ -34,8 +34,13 @@ Phases, one JSON line each:
    profiler for the device's busy share and its time by kernel. Decode
    runs on the server's fiber workers (the engine is a WorkerModule):
    in every burst the steps counted by worker group must sum to the
-   burst's decode steps, and no ``serving-decode`` thread or
-   ``rpc-handler`` pool may exist; each burst reports the steps by
+   burst's decode steps, and no ``serving-decode`` thread,
+   ``rpc-handler`` pool, or reader, writer or accept thread may exist.
+   The transport reads on one event dispatcher: while a client process
+   holds 8 connections open (``--client hold``), the server's process
+   must have no thread per connection and the threads it had with none
+   open, give or take the fixed ones (``FIXED_THREADS``); each burst
+   reports the steps by
    group, the worker threads used, the decode lock's misses, the
    control's concurrency, ``os.cpu_count()`` and the scheduler's
    ``saturation_snapshot()``;
@@ -507,11 +512,59 @@ def _p99(xs):
     return s[min(len(s) - 1, int(0.99 * len(s)))] if s else None
 
 
+# threads that exist once per process however many connections are open
+FIXED_THREADS = {"event_dispatcher", "fiber_timer", "bvar_sampler"}
+
+
+def _per_connection_threads(names) -> list:
+    return [n for n in names if n.endswith(("-reader", "-writer"))
+            or n == "tcp-accept"]
+
+
 def _check_no_decode_thread() -> None:
+    """No decode thread, no handler pool, and no thread per connection
+    (the transport reads on the one event dispatcher)."""
     names = [t.name for t in threading.enumerate()]
     check("serving-decode" not in names and
           not any(n.startswith("rpc-handler") for n in names),
           f"a decode thread or handler pool exists: {sorted(names)}")
+    check(not _per_connection_threads(names),
+          f"a reader, writer or accept thread exists: {sorted(names)}")
+
+
+def _check_no_thread_per_connection(server, port: int) -> dict:
+    """A client process opens N_CLIENTS connections to ``server`` and
+    holds them open (``--client hold``); meanwhile this process, the
+    server's, must have no reader, writer or accept thread, and the same
+    threads as with no client connected, give or take the fixed ones."""
+    from collections import Counter
+    idle = Counter(t.name for t in threading.enumerate())
+    proc = subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--client", "hold",
+         str(port)], stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    line = proc.stdout.readline()       # "" once the client has died
+    if line.strip():
+        held = json.loads(line)["connections"]
+        open_now = len(server.connections())
+        names = Counter(t.name for t in threading.enumerate())
+    try:
+        _, err = proc.communicate("\n", timeout=60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        _, err = proc.communicate()
+    check(line.strip() != "" and proc.returncode == 0,
+          f"hold client exited {proc.returncode}: {err[-2000:]}")
+    check(open_now >= held == N_CLIENTS,
+          f"{open_now} server connections while the client held {held}")
+    check(not _per_connection_threads(names),
+          f"per-connection threads with {held} connections open: "
+          f"{sorted(names)}")
+    extra = names - idle
+    check(set(extra) <= FIXED_THREADS,
+          f"{held} connections open added threads {dict(extra)}")
+    return {"connections": open_now, "threads_idle": sum(idle.values()),
+            "threads_held": sum(names.values()), "added": dict(extra)}
 
 
 class _FiberBurst:
@@ -613,6 +666,7 @@ def phase_serving():
               f"kernel launches {launches} != decode steps {steps} + "
               f"warm-up {warm} of flash_decode alone")
         check(launches["flash_decode"] > 0, "flash_decode was never launched")
+        held = _check_no_thread_per_connection(server, ep.port)
         # the same burst again, warm, then once more under the profiler
         fb = _FiberBurst(server, gs)
         results2, errors2, wall2 = _burst(ep.port, prompts, MAX_TOKENS)[:3]
@@ -643,7 +697,8 @@ def phase_serving():
            "warm_ttft_p50_ms": _median(ttft_warm),
            "warm_ttft_p99_ms": _p99(ttft_warm), "warm_decode_steps": steps2,
            "warm_ms_per_step": wall2 * 1e3 / steps2,
-           "fibers": fibers1, "warm_fibers": fibers2}
+           "fibers": fibers1, "warm_fibers": fibers2,
+           "held_connections": held}
     emit(out)
     trace = {"phase": "serving_trace", "window_us": window_us}
     trace.update(_device_profile(prof.events(), window_us))
@@ -805,6 +860,8 @@ def client_main(kind: str, port: int, traced: bool = False) -> int:
     if kind == "cost":
         emit({"runs": _cost_turns(port)})
         return 0
+    if kind == "hold":
+        return _hold_connections(port)
     calls = None
     if traced:
         from brpc_tpu_torch.butil.flags import set_flag
@@ -819,6 +876,27 @@ def client_main(kind: str, port: int, traced: bool = False) -> int:
         doc["calls"] = calls
         doc["spans"] = [s.to_dict() for s in global_collector.recent(4096)]
     emit(doc)
+    return 0
+
+
+def _hold_connections(port: int) -> int:
+    """``--client hold PORT``: N_CLIENTS channels, one answered call on
+    each (an unknown service: no decode step), a JSON line, then the
+    connections stay open until a line comes on stdin."""
+    from brpc_tpu_torch.rpc import Channel, ChannelOptions
+    channels = [Channel(f"tcp://127.0.0.1:{port}",
+                        ChannelOptions(timeout_ms=30000))
+                for _ in range(N_CLIENTS)]
+    try:
+        for ch in channels:
+            c = ch.call_sync("NoSuchService", "Hold", b"")
+            check(c.error_code == 1001, f"hold call: {c.error_code} "
+                                        f"{c.error_text}")
+        emit({"connections": len(channels)})
+        sys.stdin.readline()
+    finally:
+        for ch in channels:
+            ch.close()
     return 0
 
 

@@ -42,8 +42,8 @@ ENGINE_PORT_ONLY = {"warmup_steps"}
 # counters are exposed at import, the reference's when first contended
 VAR_FAMILIES = ("fiber_", "serving_", "process_", "system_", "server_")
 VARS_LEFT_OUT = {"server_admission_threshold", "server_concurrency_inflight",
-                 "server_concurrency_limit", "server_deadline_shed",
-                 "server_limit_shed", "server_priority_shed"}
+                 "server_concurrency_limit", "server_limit_shed",
+                 "server_priority_shed"}
 
 
 def _get(port, path, method="GET", body=None):

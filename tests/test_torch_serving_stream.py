@@ -348,28 +348,24 @@ def test_http_dead_peer_frees_its_slot(serving):
     assert status == 200 and payload.endswith(b"\n#completed n=8")
 
 
-class _StuckSocket:
-    """A socket whose peer stopped reading: nothing more fits (a
-    non-blocking send takes no byte, a blocking one waits) until it is
-    shut down."""
+class _StuckConn:
+    """A connection whose peer stopped reading: a send takes no byte, and
+    the kernel never reports the socket writable again."""
 
-    def __init__(self, sock):
-        self._sock = sock
-        self._down = threading.Event()
+    def __init__(self, conn):
+        self._conn = conn
 
-    def send(self, data, flags=0):
+    def write(self, data):
         raise BlockingIOError("peer not reading")
 
-    def sendall(self, data):
-        self._down.wait()
-        raise BrokenPipeError("shut down")
+    def writev(self, views):
+        raise BlockingIOError("peer not reading")
 
-    def shutdown(self, how):
-        self._down.set()
-        self._sock.shutdown(how)
+    def request_writable_event(self):
+        pass
 
     def __getattr__(self, name):
-        return getattr(self._sock, name)
+        return getattr(self._conn, name)
 
 
 def test_reader_that_stops_draining_does_not_stall_decode(serving, oracle):
@@ -382,7 +378,7 @@ def test_reader_that_stops_draining_does_not_stall_decode(serving, oracle):
     try:
         assert _wait_for(lambda: len(server.connections()) == 1)
         stuck = server.connections()[0]
-        stuck.sock = _StuckSocket(stuck.sock)
+        stuck.conn = _StuckConn(stuck.conn)
         body = _body("never read", 120)
         sock.sendall(b"POST /GenerateService/Generate HTTP/1.1\r\n"
                      b"Content-Length: %d\r\n\r\n%s" % (len(body), body))

@@ -240,6 +240,8 @@ def _check_linked(client_spans, server_spans):
     assert s.parent_span_id == c.span_id
     assert (s.service, s.method) == ("Echo", "Echo")
     assert s.received_us and s.handler_start_us <= s.handler_end_us
+    # the flush stamp comes from the response write's on_done
+    assert s.serialized_us and s.flushed_us >= s.serialized_us
     # both stamped; the write's completion may land after the response
     # (both packages stamp it on the sending side, racing the reader)
     assert c.write_done_us and c.first_byte_us

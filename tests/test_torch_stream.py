@@ -4,8 +4,8 @@ Stream frames are byte-identical to the reference's hand-encoded fast
 pack and to the protobuf serializer. The cases of tests/test_stream.py
 that need no device arrays run over three wirings: port Channel to port
 Server, a brpc_tpu Channel to a port Server, and a port Channel to a
-brpc_tpu Server. Below them: the transport's write queue, failure
-subscriptions and protocol sniffing, and the HTTP path's ordering.
+brpc_tpu Server. Below them: the Socket's write queue and failure subscriptions,
+the InputMessenger's protocol sniffing, and the HTTP path's ordering.
 """
 
 import array
@@ -33,7 +33,10 @@ from brpc_tpu_torch.rpc import (Channel, ChannelOptions, Server, Service,
                                 StreamOptions, stream_accept)
 from brpc_tpu_torch.rpc.stream import (CREDIT_BATCH, DEFAULT_CREDITS,
                                        address_stream)
-from brpc_tpu_torch.transport import tcp
+from brpc_tpu_torch.butil.endpoint import EndPoint
+from brpc_tpu_torch.transport.input_messenger import InputMessenger
+from brpc_tpu_torch.transport.socket import Socket
+from brpc_tpu_torch.transport.tcp import TcpConn
 
 WIRINGS = ["port-port", "ref-client-port-server", "port-client-ref-server"]
 
@@ -171,7 +174,7 @@ class _PortServer:
 
     def kill_connections(self):
         for c in self.server.connections():
-            c.close()
+            c.set_failed(ConnectionError("chaos: server died"))
 
     def stop(self):
         self.server.stop()
@@ -450,28 +453,29 @@ def test_close_frame_and_eof_close_once():
 
 # -------------------------------------------------------------- transport
 
-def _pair(on_frame_server=None, **server_kw):
-    """(server-side Connection, client socket) over loopback."""
+def _pair(on_input=None, sndbuf=None):
+    """(server-side Socket, client socket) over loopback."""
     lst = socket.socket()
     lst.bind(("127.0.0.1", 0))
     lst.listen(1)
     cli = socket.create_connection(lst.getsockname())
-    srv, _ = lst.accept()
+    srv, addr = lst.accept()
     lst.close()
-    conn = tcp.Connection(srv, on_frame_server or (lambda *a: None),
-                          name="t", **server_kw).start()
-    return conn, cli
+    if sndbuf is not None:
+        srv.setsockopt(socket.SOL_SOCKET, socket.SO_SNDBUF, sndbuf)
+    conn = TcpConn(srv, EndPoint("tcp", *srv.getsockname()[:2]),
+                   EndPoint("tcp", *addr[:2]))
+    return Socket(conn, on_input=on_input), cli
 
 
 def test_send_never_blocks_on_a_peer_that_stopped_reading():
-    conn, cli = _pair()
+    conn, cli = _pair(sndbuf=4096)
     try:
-        conn.sock.setsockopt(socket.SOL_SOCKET, socket.SO_SNDBUF, 4096)
         # 2 MiB: well past what the socket buffers hold unread
         frames = [bytes([i % 251]) * 65536 for i in range(32)]
         t0 = time.monotonic()
         for f in frames:
-            conn.send(f)
+            assert conn.write(f)
         assert time.monotonic() - t0 < 1.0
         assert conn.write_backlog() > 0
         want = b"".join(frames)
@@ -483,7 +487,7 @@ def test_send_never_blocks_on_a_peer_that_stopped_reading():
         assert _wait_for(lambda: conn.write_backlog() == 0)
     finally:
         cli.close()
-        conn.close()
+        conn.set_failed()
 
 
 def test_failure_subscriptions_fire_once():
@@ -493,28 +497,30 @@ def test_failure_subscriptions_fire_once():
     conn.on_failed(cb_a)
     conn.on_failed(cb_b)
     conn.off_failed(cb_b)
-    cli.close()                         # the reader sees EOF
-    assert _wait_for(lambda: conn.closed)
-    conn.close()
-    # the reader thread runs the callbacks after it publishes ``closed``
+    cli.close()                         # the dispatcher reads EOF
+    assert _wait_for(lambda: conn.failed)
+    conn.set_failed()
+    # set_failed runs the callbacks after it publishes ``failed``
     assert _wait_for(lambda: fired == ["a"])
     assert fired == ["a"]
     conn.on_failed(lambda c: fired.append("late"))  # after the end: at once
     assert fired == ["a", "late"]
-    with pytest.raises(ConnectionError):
-        conn.send(b"x")
+    done = []
+    assert conn.write(b"x", on_done=done.append) is False
+    assert isinstance(done[0], ConnectionError)
 
 
 @pytest.mark.parametrize("first", [b"XXXX", b"\x00\x01\x02\x03", b"SSH-"])
 def test_unknown_protocol_closes_the_connection(first):
-    conn, cli = _pair(on_http=lambda c, r: None)
+    conn, cli = _pair(on_input=InputMessenger().on_new_messages)
     try:
         cli.sendall(first + b" junk\r\n\r\n")
         cli.settimeout(5)
         assert cli.recv(16) == b""
-        assert _wait_for(lambda: conn.closed)
+        assert _wait_for(lambda: conn.failed)
     finally:
         cli.close()
+        conn.set_failed()
 
 
 def test_http_pipelined_requests_answered_in_order():

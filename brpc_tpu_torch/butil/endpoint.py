@@ -1,15 +1,22 @@
 """EndPoint: where a peer lives (the port of brpc_tpu/butil/endpoint.py;
 bRPC's butil/endpoint.h:87).
 
-A {scheme, host, port, extras} value. The port registers only the
-``tcp`` transport, so ``tcp://10.0.0.1:8000`` is the address it serves
-and dials; a bare ``host:port`` parses as tcp.
+A {scheme, host, port, extras} value:
+
+  tcp://10.0.0.1:8000            a socket peer; a bare ``host:port`` too
+  mem://server-a                 in-process loopback (the test fabric)
+  cuda://name:1#device=0         in-process device lane; tensors land on
+                                 ``cuda:0`` (``#device=cpu``: the host)
+  cudad://10.0.0.1:8000#device=1 the staged lane between processes
+
+``#device=K`` names the receiver's device, ``cuda:K``; ``#reply_device=K``
+names the device a cuda:// client takes its responses on.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -18,6 +25,19 @@ class EndPoint:
     host: str = ""
     port: int = 0
     extras: Tuple[Tuple[str, str], ...] = ()
+
+    def extra(self, key: str, default: Optional[str] = None
+              ) -> Optional[str]:
+        for k, v in self.extras:
+            if k == key:
+                return v
+        return default
+
+    @property
+    def device(self) -> Optional[str]:
+        """The ``#device=`` extra as a torch device string: ``cuda:K`` for
+        an ordinal K, ``cpu`` for ``cpu``; None when absent."""
+        return device_spec(self.extra("device"))
 
     def __str__(self) -> str:
         s = f"{self.scheme}://{self.host}"
@@ -57,3 +77,13 @@ def str2endpoint(s: str, default_scheme: str = "tcp") -> EndPoint:
         if p:
             port = int(p)
     return EndPoint(scheme, host, port, extras)
+
+
+def device_spec(value: Optional[str]) -> Optional[str]:
+    """``"K"`` -> ``"cuda:K"``; ``"cpu"`` stays; None stays None. Anything
+    else raises ValueError."""
+    if value is None or value == "":
+        return None
+    if value == "cpu":
+        return "cpu"
+    return f"cuda:{int(value)}"

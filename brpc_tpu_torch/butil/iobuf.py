@@ -9,10 +9,13 @@ non-blocking reader into spare block space (``append_from_reader``),
 and ``cut_into_writer`` / ``cut_into_gather_writer`` feed a socket's
 ``send`` / ``sendmsg`` and consume what it took.
 
-The reference's device blocks (``DeviceBlock``, ``PinnedStaging``,
-``append_device_array``) come with the device lanes. Its
-``BlockRef.to_bytes`` calls ``np.asarray`` on a device block; when the
-port grows device blocks, that must become an explicit host copy.
+Device blocks (``DeviceBlock``, ``append_device_array``) hold a 1-D
+``torch.uint8`` tensor, on the card or the host; a ref into one is
+``is_device`` and slices the tensor without a copy (``device_array``).
+Its bytes come only from ``to_bytes``, an explicit ``.cpu()`` copy: a
+device ref has no memoryview, so no writer sends it by accident. The
+reference's ``PinnedStaging`` comes with the ``ici://`` lane, its only
+user.
 """
 
 from __future__ import annotations
@@ -121,21 +124,60 @@ class Block:
         return blk
 
 
+class DeviceBlock:
+    """A payload segment held as a 1-D ``torch.uint8`` tensor (brpc_tpu's
+    DeviceBlock over a uint8 jax.Array). Refs slice it without a copy."""
+
+    __slots__ = ("array", "size", "__weakref__")
+
+    def __init__(self, array):
+        import torch
+        if not isinstance(array, torch.Tensor) or array.dtype != torch.uint8 \
+                or array.dim() != 1:
+            raise TypeError("a device block is a 1-D torch.uint8 tensor")
+        self.array = array
+        self.size = int(array.shape[0])
+
+    @property
+    def capacity(self) -> int:
+        return self.size
+
+    def left_space(self) -> int:
+        return 0
+
+
 class BlockRef:
-    """A view (offset, length) into a Block."""
+    """A view (offset, length) into a Block or a DeviceBlock."""
 
     __slots__ = ("block", "offset", "length")
 
-    def __init__(self, block: Block, offset: int, length: int):
+    def __init__(self, block, offset: int, length: int):
         self.block = block
         self.offset = offset
         self.length = length
 
+    @property
+    def is_device(self) -> bool:
+        return isinstance(self.block, DeviceBlock)
+
     def memoryview(self) -> memoryview:
+        if self.is_device:
+            raise TypeError("a device ref has no host memoryview: "
+                            "to_bytes() copies it to the host")
         return memoryview(self.block.data)[self.offset:
                                            self.offset + self.length]
 
+    def device_array(self):
+        """The tensor slice this ref covers (no copy)."""
+        arr = self.block.array
+        if self.offset == 0 and self.length == self.block.size:
+            return arr
+        return arr[self.offset:self.offset + self.length]
+
     def to_bytes(self) -> bytes:
+        if self.is_device:
+            # the one way out of a device block: an explicit host copy
+            return self.device_array().cpu().numpy().tobytes()
         blk = self.block
         d = blk.data
         if self.offset == 0 and self.length == blk.size \
@@ -207,7 +249,7 @@ class IOBuf:
             return None
         ref = self._refs[-1]
         blk = ref.block
-        if not isinstance(blk.data, bytearray):
+        if not isinstance(getattr(blk, "data", None), bytearray):
             return None
         if ref.offset + ref.length != blk.size or blk.left_space() == 0:
             return None
@@ -223,6 +265,19 @@ class IOBuf:
         blk = Block.from_user_data(data, deleter)
         if blk.size:
             self._refs.append(BlockRef(blk, 0, blk.size))
+
+    def append_device_array(self, array) -> None:
+        """Append a 1-D uint8 tensor as a device block, without a copy."""
+        blk = DeviceBlock(array)
+        if blk.size:
+            self._refs.append(BlockRef(blk, 0, blk.size))
+
+    def has_device_blocks(self) -> bool:
+        return any(r.is_device for r in self._refs)
+
+    def device_arrays(self) -> List:
+        """The tensor slices of the device refs, in order."""
+        return [r.device_array() for r in self._refs if r.is_device]
 
     # ---------------------------------------------------------------- cut
     def cut(self, n: int) -> "IOBuf":
@@ -279,14 +334,14 @@ class IOBuf:
             r = refs[0]
             if r.length == n:
                 return r.to_bytes()
-            return bytes(r.memoryview()[:n])
+            return _head(r, n)
         chunks = []
         need = n
         for r in refs:
             if need <= 0:
                 break
             take = min(need, r.length)
-            chunks.append(bytes(r.memoryview()[:take]))
+            chunks.append(_head(r, take))
             need -= take
         return b"".join(chunks)
 
@@ -335,6 +390,13 @@ class IOBuf:
             if nw < len(mv):
                 break
         return total
+
+
+def _head(r: BlockRef, n: int) -> bytes:
+    """The first n bytes of a ref (a device ref's by a host copy)."""
+    if r.is_device:
+        return r.device_array()[:n].cpu().numpy().tobytes()
+    return bytes(r.memoryview()[:n])
 
 
 class IOPortal(IOBuf):

@@ -11,14 +11,27 @@ proto3 ``RpcMeta`` (brpc_tpu/protocol/proto/tpu_rpc_meta.proto). The port
 does not depend on ``google.protobuf``: this module encodes and decodes
 the fields of unary calls, of streams (``stream_settings``, field 6) and
 of rpcz tracing (``trace_id``, ``span_id``, ``parent_span_id``, fields
-8-10), and reads past every other field, of any wire type, so a
-brpc_tpu peer's device payloads (7) or admission threshold are skipped,
-not rejected.
+8-10) and device payloads (7), and reads past every other field, of any
+wire type, so a brpc_tpu peer's admission threshold is skipped, not
+rejected.
 
 Encoding follows protobuf's own rules, so frames are byte-identical to
 ``RpcMeta.SerializeToString()``: fields in number order, proto3 scalars
-omitted at their default, a sub-message present once set, and a
-negative int32/int64 written as a 10-byte varint.
+omitted at their default, a sub-message present once set, a
+negative int32/int64 written as a 10-byte varint, and a repeated scalar
+(``DevicePayloadMeta.shape``) packed; the decoder reads it packed or
+not.
+
+Device payloads (``RpcMeta.device_payloads``, field 7): a frame may
+carry tensors. ``pack_frame(..., device_arrays=, device_lane=)`` describes
+each one in the meta (dtype name, shape, nbytes) and either leaves it out
+of the bytes, to ride the connection's device lane
+(``Socket.write_device_payload``), or copies it to the host and puts its
+bytes at the front of the attachment, ahead of the user attachment
+(``inline_bytes``; ``unpack_inline_device_arrays`` cuts them back off).
+``parse`` takes a frame's lane batch with
+``socket.take_device_payload()`` when any payload is not
+inline; a lane delivers its batches in the order of their frames.
 
 ``TpuStdProtocol.parse`` cuts one frame off an ``IOPortal`` into an
 ``RpcMessage`` (meta, payload and attachment bytes, and the cut time,
@@ -32,8 +45,8 @@ from __future__ import annotations
 
 import struct
 import time
-from dataclasses import dataclass
-from typing import Optional, Tuple
+from dataclasses import dataclass, field
+from typing import List, Optional, Tuple
 
 from brpc_tpu_torch.protocol.registry import (PARSE_NOT_ENOUGH_DATA,
                                               PARSE_OK, PARSE_TRY_OTHERS,
@@ -275,6 +288,57 @@ class StreamSettings:
 
 
 @dataclass
+class DevicePayloadMeta:
+    """One tensor of a frame (tpu_rpc_meta.proto:59-64): its dtype's wire
+    name, its shape, whether its bytes are in the attachment, and their
+    count."""
+    dtype: str = ""
+    shape: Tuple[int, ...] = ()
+    inline_bytes: bool = False
+    nbytes: int = 0
+
+    def encode(self) -> bytes:
+        out = b""
+        if self.dtype:
+            out += _len_field(1, self.dtype.encode("utf-8"))
+        if self.shape:
+            out += _len_field(2, b"".join(_varint(d) for d in self.shape))
+        if self.inline_bytes:
+            out += b"\x18\x01"
+        if self.nbytes:
+            out += _key(4, _WT_VARINT) + _varint(self.nbytes)
+        return out
+
+    @classmethod
+    def decode(cls, buf: bytes) -> "DevicePayloadMeta":
+        m = cls()
+        shape: List[int] = []
+        for f, wt, s in _fields(buf):
+            if (f, wt) == (1, _WT_LEN):
+                m.dtype = _string(buf, s)
+            elif (f, wt) == (2, _WT_LEN):      # packed
+                packed = _submessage(buf, s)
+                pos = 0
+                while pos < len(packed):
+                    v, pos = _read_varint(packed, pos)
+                    shape.append(_as_int64(v))
+            elif (f, wt) == (2, _WT_VARINT):   # unpacked
+                shape.append(_as_int64(_scalar(buf, s)))
+            elif (f, wt) == (3, _WT_VARINT):
+                m.inline_bytes = _scalar(buf, s) != 0
+            elif (f, wt) == (4, _WT_VARINT):
+                m.nbytes = _as_int64(_scalar(buf, s))
+        m.shape = tuple(shape)
+        return m
+
+    @classmethod
+    def of(cls, t, inline: bool) -> "DevicePayloadMeta":
+        from brpc_tpu_torch.butil import tensor_bytes
+        return cls(tensor_bytes.dtype_name(t), tuple(int(d) for d in t.shape),
+                   inline, tensor_bytes.nbytes(t))
+
+
+@dataclass
 class RpcMeta:
     request: Optional[RpcRequestMeta] = None
     response: Optional[RpcResponseMeta] = None
@@ -284,6 +348,7 @@ class RpcMeta:
     trace_id: int = 0
     span_id: int = 0
     parent_span_id: int = 0
+    device_payloads: List[DevicePayloadMeta] = field(default_factory=list)
 
     def encode(self) -> bytes:
         out = b""
@@ -297,6 +362,8 @@ class RpcMeta:
             out += _key(5, _WT_VARINT) + _varint(self.attachment_size)
         if self.stream_settings is not None:
             out += _len_field(6, self.stream_settings.encode())
+        for dp in self.device_payloads:
+            out += _len_field(7, dp.encode())
         if self.trace_id:
             out += _key(8, _WT_VARINT) + _varint(self.trace_id)
         if self.span_id:
@@ -325,6 +392,9 @@ class RpcMeta:
             elif (f, wt) == (6, _WT_LEN):
                 m.stream_settings = StreamSettings.decode(
                     _submessage(buf, s))
+            elif (f, wt) == (7, _WT_LEN):
+                m.device_payloads.append(
+                    DevicePayloadMeta.decode(_submessage(buf, s)))
             elif (f, wt) == (8, _WT_VARINT):
                 m.trace_id = _scalar(buf, s)
             elif (f, wt) == (9, _WT_VARINT):
@@ -362,12 +432,33 @@ def pack_stream_frame(peer_id: int, seq: int = 0, credits: int = 0,
 
 
 def pack_frame(meta: RpcMeta, payload: bytes = b"",
-               attachment: bytes = b"") -> bytes:
+               attachment: bytes = b"", device_arrays=None,
+               device_lane: bool = False) -> Tuple[bytes, Optional[List]]:
+    """``(wire, lane)``: the frame's bytes, and the tensors that must ride
+    the device lane right before it (None when none do). Without
+    ``device_lane`` every tensor is copied to the host and its bytes go
+    at the front of the attachment, ahead of ``attachment``
+    (brpc_tpu/protocol/tpu_std.py:179-225)."""
+    lane = None
+    if device_arrays:
+        # torch only for calls that carry tensors: a process that sends
+        # none never imports it
+        from brpc_tpu_torch.butil import tensor_bytes
+        meta.device_payloads = [
+            DevicePayloadMeta.of(tensor_bytes.check_tensor(t),
+                                 not device_lane)
+            for t in device_arrays]
+        if device_lane:
+            lane = list(device_arrays)
+        else:
+            attachment = b"".join(
+                [tensor_bytes.host_bytes(t) for t in device_arrays]
+                + [bytes(attachment)])
     meta.attachment_size = len(attachment)
     meta_bytes = meta.encode()
     body = len(meta_bytes) + len(payload) + len(attachment)
     return b"".join((_HDR.pack(MAGIC, body, len(meta_bytes)), meta_bytes,
-                     payload, attachment))
+                     payload, attachment)), lane
 
 
 def parse_header(head: bytes) -> Tuple[int, int]:
@@ -395,20 +486,61 @@ def unpack_body(body: bytes, meta_size: int
 # ------------------------------------------------------------ protocol
 
 class RpcMessage:
-    """One parsed tpu_std frame; ``arrival_ns`` is its cut time."""
+    """One parsed tpu_std frame; ``arrival_ns`` is its cut time and
+    ``device_arrays`` the batch its lane delivered (inline tensors stay
+    in the attachment until ``unpack_inline_device_arrays``)."""
 
-    __slots__ = ("meta", "payload", "attachment", "arrival_ns")
+    __slots__ = ("meta", "payload", "attachment", "device_arrays",
+                 "arrival_ns")
 
-    def __init__(self, meta: RpcMeta, payload: bytes, attachment: bytes):
+    def __init__(self, meta: RpcMeta, payload: bytes, attachment: bytes,
+                 device_arrays: Optional[List] = None):
         self.meta = meta
         self.payload = payload
         self.attachment = attachment
+        self.device_arrays = device_arrays or []
         self.arrival_ns = time.monotonic_ns()
 
     @property
     def is_response(self) -> bool:
         """No user handler: pure completion work for the client."""
         return self.meta.request is None
+
+
+def unpack_inline_device_arrays(msg: RpcMessage) -> List:
+    """The inline tensors of ``msg`` on the host, cut off the front of
+    its attachment (which keeps the user attachment); None in the place
+    of each lane tensor (brpc_tpu/protocol/tpu_std.py:235-246)."""
+    from brpc_tpu_torch.butil import tensor_bytes
+    out: List = []
+    att = msg.attachment
+    pos = 0
+    for dp in msg.meta.device_payloads:
+        if not dp.inline_bytes:
+            out.append(None)
+            continue
+        if dp.nbytes < 0 or pos + dp.nbytes > len(att):
+            raise DecodeError(f"inline payload of {dp.nbytes} bytes "
+                              "exceeds the attachment")
+        out.append(tensor_bytes.from_host_bytes(
+            att, dp.dtype, dp.shape, "cpu", offset=pos, count=dp.nbytes))
+        pos += dp.nbytes
+    msg.attachment = att[pos:]
+    return out
+
+
+def merge_device_arrays(msg: RpcMessage) -> List:
+    """A frame's tensors in meta order: inline ones from the attachment,
+    lane ones from the lane batch, in turn. A lane batch of another
+    length than the meta describes raises: the pairing is lost."""
+    inline = unpack_inline_device_arrays(msg)
+    want = sum(not dp.inline_bytes for dp in msg.meta.device_payloads)
+    if len(msg.device_arrays) != want:
+        raise DecodeError(f"lane batch of {len(msg.device_arrays)} tensors "
+                          f"for a frame that describes {want}")
+    lane = iter(msg.device_arrays)
+    return [t if dp.inline_bytes else next(lane)
+            for dp, t in zip(msg.meta.device_payloads, inline)]
 
 
 class TpuStdProtocol(Protocol):
@@ -439,7 +571,11 @@ class TpuStdProtocol(Protocol):
             # a lying attachment_size would eat the next frame's bytes
             socket.set_failed(ConnectionError(f"bad frame: {e}"))
             return PARSE_NOT_ENOUGH_DATA, None
-        return PARSE_OK, RpcMessage(meta, payload, attachment)
+        lane = None
+        if any(not dp.inline_bytes for dp in meta.device_payloads):
+            # the lane batch went out right before this frame
+            lane = socket.take_device_payload()
+        return PARSE_OK, RpcMessage(meta, payload, attachment, lane)
 
     def process(self, msg: RpcMessage, socket):
         if msg.meta.request is not None:
@@ -452,7 +588,7 @@ class TpuStdProtocol(Protocol):
         """Bare stream frames go to their stream here, in parse order."""
         if msg.meta.is_stream_frame():
             from brpc_tpu_torch.rpc.stream import process_stream_frame
-            process_stream_frame(msg.meta, msg.payload, msg.attachment)
+            process_stream_frame(msg)
             return True
         return False
 

@@ -1,6 +1,8 @@
-"""RPC over tpu_std and HTTP/1.1 on TCP: Server (with ServerOptions),
-Channel, Controller, Service, streams set up on a call (Stream,
-StreamOptions, stream_accept) and rpcz spans (``span.py``)."""
+"""RPC over tpu_std and HTTP/1.1: Server (with ServerOptions), Channel,
+Controller, Service, streams set up on a call (Stream, StreamOptions,
+stream_accept) and rpcz spans (``span.py``), on tcp://, mem://, and the
+device lanes cuda:// and cudad://, where a call and a stream frame
+carry tensors (``request_device_arrays``, ``response_device_arrays``)."""
 
 from . import errno_codes
 from .channel import Channel, ChannelOptions

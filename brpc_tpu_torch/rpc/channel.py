@@ -21,6 +21,15 @@ the handler's answer). The response binds the stream to the peer's id
 and to the socket, whose failure then closes it; a failed call closes
 it.
 
+``call_sync(..., request_device_arrays=[t, ...])`` sends tensors with
+the request (brpc_tpu/rpc/channel.py:391-394, :820-850). On a connection
+with a device lane (mem, cuda, cudad) they ride the lane, and the batch
+and the request frame are written as an adjacent pair under the socket's
+``lane_lock``, since the receiver pairs batches with frames by order; on
+tcp they are copied to the host and go inline in the frame. The
+response's tensors come back in ``cntl.response_device_arrays``.
+``device_lane_kind()`` names the lane of the channel's connection.
+
 Under the ``rpcz_enabled`` flag a call gets a client span
 (brpc_tpu/rpc/channel.py:487, :876; client_dispatch.py:137-150): its
 trace and span ids ride the request meta (fields 8-9), ``write_done_us``
@@ -34,7 +43,7 @@ from __future__ import annotations
 import threading
 import time
 from dataclasses import dataclass
-from typing import Optional
+from typing import List, Optional
 
 from brpc_tpu_torch.butil.endpoint import str2endpoint
 from brpc_tpu_torch.butil.flags import flag
@@ -93,17 +102,32 @@ class Channel:
         client_dispatch.fail_calls(socket, berr.EFAILEDSOCKET,
                                    "connection closed")
 
+    def device_lane_kind(self) -> Optional[str]:
+        """The device lane of this channel's connection (``loopback-d2d``,
+        ``staged-dcn``), or None without one; dials if needed."""
+        try:
+            conn = self._get_socket().conn
+        except OSError:
+            return None
+        if not conn.supports_device_lane:
+            return None
+        return conn.lane_kind
+
     def call_sync(self, service: str, method: str, request: bytes = b"",
                   cntl: Optional[Controller] = None,
-                  stream_options: Optional[StreamOptions] = None
+                  stream_options: Optional[StreamOptions] = None,
+                  request_device_arrays: Optional[List] = None
                   ) -> Controller:
         """Send one request and wait for its response. Returns the
-        controller: ``failed()`` / ``error_code`` / ``response``, and
-        ``stream`` when ``stream_options`` set a stream up."""
+        controller: ``failed()`` / ``error_code`` / ``response``, the
+        response's tensors in ``response_device_arrays``, and ``stream``
+        when ``stream_options`` set a stream up."""
         cntl = cntl or Controller()
         cntl.error_code, cntl.error_text = berr.OK, ""
         cntl.response = None
         cntl.stream = None
+        cntl.request_device_arrays = list(request_device_arrays or ())
+        cntl.response_device_arrays = []
         cntl._client_span = None
         if flag("rpcz_enabled"):
             cntl._client_span = _span.start_client_span(cntl, service,
@@ -144,8 +168,29 @@ class Channel:
             cntl.stream = Stream(stream_options)
             meta.stream_settings = tpu_std.StreamSettings(
                 stream_id=cntl.stream.id)
-        if not sock.write(tpu_std.pack_frame(meta, bytes(request))) or \
-                sock.failed:
+        arrays = cntl.request_device_arrays
+        try:
+            wire, lane = tpu_std.pack_frame(
+                meta, bytes(request), device_arrays=arrays,
+                device_lane=bool(arrays) and sock.conn.supports_device_lane)
+            if lane is None:
+                written = sock.write(wire)
+            else:
+                # the batch and its frame, adjacent: Socket.write only
+                # queues, and the peer learns of the bytes through the
+                # dispatcher, so nothing of it runs under the lock
+                with sock.lane_lock:
+                    sock.write_device_payload(lane)
+                    written = sock.write(wire)
+        except OSError as e:
+            written = False
+            sock.set_failed(e)
+        except BaseException:
+            # a tensor that cannot be sent (a failed copy, an unknown
+            # dtype) fails loudly: no fallback
+            client_dispatch.take_call(cid)
+            raise
+        if not written or sock.failed:
             # the socket failed before or as the call was registered
             if client_dispatch.take_call(cid) is not None:
                 cntl.set_failed(berr.EFAILEDSOCKET,

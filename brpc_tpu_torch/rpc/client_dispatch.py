@@ -17,6 +17,8 @@ import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
+from brpc_tpu_torch.protocol import tpu_std
+
 from . import errno_codes as berr
 
 _lock = threading.Lock()
@@ -77,6 +79,10 @@ def _fill_response(cntl, msg, socket) -> None:
         cntl.set_failed(resp.error_code, resp.error_text)
         return
     cntl.response = msg.payload
+    if msg.meta.device_payloads:
+        # inline and lane tensors in meta order
+        # (brpc_tpu/rpc/client_dispatch.py:251-258)
+        cntl.response_device_arrays = tpu_std.merge_device_arrays(msg)
     ss: Optional[object] = msg.meta.stream_settings
     stream = cntl.stream
     if stream is not None and ss is not None and ss.stream_id:

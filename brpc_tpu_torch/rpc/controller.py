@@ -1,12 +1,12 @@
 """Per-call state shared by client and server: the error, the deadline
-budget, the response, the call's stream or progressive body, and its
-trace (the subset of brpc_tpu/rpc/controller.py that the serving lane
-uses)."""
+budget, the response, the call's tensors, the call's stream or
+progressive body, and its trace (the subset of brpc_tpu/rpc/controller.py
+that the serving lane and the device lanes use)."""
 
 from __future__ import annotations
 
 import time
-from typing import Optional
+from typing import List, Optional
 
 from . import errno_codes as berr
 from .progressive import ProgressiveAttachment
@@ -21,6 +21,12 @@ class Controller:
         self.correlation_id: int = 0
         # client side: the response payload once the call succeeded
         self.response: Optional[bytes] = None
+        # the call's tensors (brpc_tpu/rpc/controller.py:169-170): the
+        # client's request tensors reach the handler here, and what the
+        # handler sets in response_device_arrays reaches the client's
+        # controller, each in order, inline or over the device lane
+        self.request_device_arrays: List = []
+        self.response_device_arrays: List = []
         # server side: the deadline taken from the request meta's
         # timeout_ms, counted from the frame's arrival
         self._deadline_ns: Optional[int] = None

@@ -17,9 +17,16 @@ before its handler would start is shed with ``ERPCTIMEDOUT``
 (``server_deadline_shed``).
 
 Responses are framed as brpc_tpu frames them: a success carries only the
-correlation id in its meta (the small-call fast path); a failure, or the
-answer to a call whose stream the handler accepted, carries the full
-meta. Under ``rpcz_enabled`` the server span is stamped as the
+correlation id in its meta (the small-call fast path); a failure, the
+answer to a call whose stream the handler accepted, or one with tensors,
+carries the full meta.
+
+Tensors: the request's, inline or from the lane, reach the handler in
+``cntl.request_device_arrays`` (brpc_tpu/rpc/server_dispatch.py:340-345);
+what the handler sets in ``cntl.response_device_arrays`` goes back on the
+connection's device lane when it has one, the batch and the response
+frame as an adjacent pair under ``socket.lane_lock`` (:964-1000), and
+inline otherwise. Under ``rpcz_enabled`` the server span is stamped as the
 reference's (server_dispatch.py:300-317, :473, :490): ``received_us`` at
 the cut, ``dispatch_us`` at dispatch, ``parse_done_us``,
 ``handler_start_us``/``handler_end_us`` around the handler,
@@ -112,6 +119,13 @@ async def _process_request_body(proto, msg: tpu_std.RpcMessage, socket,
         cntl._peer_stream_id = meta.stream_settings.stream_id
     # the client's whole budget, counted from the frame's cut
     cntl.set_deadline(req.timeout_ms, msg.arrival_ns)
+    if meta.device_payloads:
+        try:
+            cntl.request_device_arrays = tpu_std.merge_device_arrays(msg)
+        except ValueError as e:         # DecodeError, a dtype not known
+            cntl.set_failed(berr.EREQUEST, f"bad request tensors: {e}")
+            _send_response(proto, socket, cntl, b"")
+            return
     span = None
     if flag("rpcz_enabled"):
         span = _span.start_server_span(cntl, req.service_name,
@@ -163,7 +177,9 @@ async def _process_request_body(proto, msg: tpu_std.RpcMessage, socket,
 def _send_response(proto, socket, cntl: Controller, response: bytes,
                    span=None) -> None:
     accepted = cntl._accepted_stream
-    if cntl.failed() or accepted is not None:
+    arrays = [] if cntl.failed() else list(cntl.response_device_arrays)
+    lane = None
+    if cntl.failed() or accepted is not None or arrays:
         meta = tpu_std.RpcMeta(
             response=tpu_std.RpcResponseMeta(cntl.error_code,
                                              cntl.error_text),
@@ -171,8 +187,13 @@ def _send_response(proto, socket, cntl: Controller, response: bytes,
         if accepted is not None:
             meta.stream_settings = tpu_std.StreamSettings(
                 stream_id=accepted.id)
-        frame = tpu_std.pack_frame(
-            meta, b"" if cntl.failed() else bytes(response))
+        try:
+            frame, lane = tpu_std.pack_frame(
+                meta, b"" if cntl.failed() else bytes(response),
+                device_arrays=arrays,
+                device_lane=bool(arrays) and socket.conn.supports_device_lane)
+        except (TypeError, ValueError, RuntimeError) as e:
+            frame, lane = _failed_tensors_frame(cntl, meta, e), None
     else:
         frame = tpu_std.pack_small_frame(b"", cntl.correlation_id,
                                          bytes(response))
@@ -183,7 +204,34 @@ def _send_response(proto, socket, cntl: Controller, response: bytes,
         _span.expect_flush(span)
         on_done = lambda err, s=span: _span.mark_flushed(s, err)  # noqa: E731
     # a failed socket fires on_done with the reason: the client is gone
-    socket.write(frame, on_done=on_done)
+    if lane is None:
+        socket.write(frame, on_done=on_done)
+        return
+    try:
+        with socket.lane_lock:
+            try:
+                # on cudad:// the host copy of the tensors runs here
+                socket.write_device_payload(lane)
+            except (TypeError, ValueError, RuntimeError) as e:
+                # no batch went out: answer without one
+                frame = _failed_tensors_frame(cntl, meta, e)
+                if span is not None:
+                    span.response_size = 0
+            socket.write(frame, on_done=on_done)
+    except OSError as e:
+        socket.set_failed(e)
+        if on_done is not None:
+            on_done(e)
+
+
+def _failed_tensors_frame(cntl: Controller, meta, e: Exception) -> bytes:
+    """A tensor that cannot be sent fails the call, not the server: the
+    EINTERNAL frame that answers in place of the response."""
+    log.exception("response tensors of call %d", cntl.correlation_id)
+    cntl.set_failed(berr.EINTERNAL, f"{type(e).__name__}: {e}")
+    meta.device_payloads = []
+    meta.response = tpu_std.RpcResponseMeta(cntl.error_code, cntl.error_text)
+    return tpu_std.pack_frame(meta)[0]
 
 
 def _send_error(proto, socket, cid: int, code: int, text: str) -> None:

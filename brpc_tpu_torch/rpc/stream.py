@@ -1,5 +1,5 @@
 """Streaming RPC: the port of brpc_tpu/rpc/stream.py (bRPC's stream.h,
-SURVEY.md §2.6), without device arrays and without the native scan lane.
+SURVEY.md §2.6), without the native scan lane.
 
 A stream is set up on an RPC: the client's request carries its stream
 id in ``stream_settings``, the handler accepts (``stream_accept``) and
@@ -27,6 +27,16 @@ A stream writes through its connection's ``Socket.write``, which only
 queues (``transport/socket.py``), and watches the socket's end through
 ``Socket.on_failed``.
 
+A DATA frame may carry tensors (``write(payload, device_arrays=[...])``,
+brpc_tpu/rpc/stream.py:126-188): its meta describes them, so it takes
+the full-meta path, and they ride the connection's device lane when it
+has one, inline otherwise; the receiver finds them, in order, in
+``StreamMessage.device_arrays``. The lane batch and its frame are
+written under the socket's ``lane_lock``, as a unary call's are: a
+unary call on the same connection must not slip between them, or the
+receiver pairs its batch with the stream's frame (brpc_tpu writes the
+stream's pair without the lock).
+
 Stream ids come from one registry per process, as the reference's
 ResourcePool: frames name their stream by id whichever connection they
 arrive on. Id 0 is invalid (proto3's default), and ids are not reused.
@@ -38,7 +48,7 @@ import inspect
 import itertools
 import logging
 import threading
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional
 
 from brpc_tpu_torch.fiber import (WAIT_TIMEOUT, Butex, ExecutionQueue,
@@ -80,6 +90,7 @@ class StreamMessage:
     """One delivered DATA frame."""
     payload: bytes
     attachment: bytes = b""
+    device_arrays: List = field(default_factory=list)
 
 
 class StreamOptions:
@@ -124,7 +135,8 @@ class Stream:
         return self.closed or self.remote_closed
 
     async def write(self, payload: bytes = b"",
-                    timeout_s: Optional[float] = 10.0) -> bool:
+                    timeout_s: Optional[float] = 10.0,
+                    device_arrays: Optional[List] = None) -> bool:
         """Send one DATA frame from a fiber, parking first until the
         stream is established, then on the credit butex until a credit
         comes. False when the stream closed or a wait timed out."""
@@ -145,9 +157,10 @@ class Stream:
             if await self._credits.wait(expected=0, timeout_s=timeout_s) \
                     == WAIT_TIMEOUT:
                 return False
-        return self._send_frame(payload)
+        return self._send_frame(payload, device_arrays=device_arrays)
 
-    def write_nowait(self, payload: bytes = b"") -> bool:
+    def write_nowait(self, payload: bytes = b"",
+                     device_arrays: Optional[List] = None) -> bool:
         """Send one DATA frame if a credit is at hand; False at once when
         out of credits, not yet established, or closed. Any thread."""
         if self._dead() or self.peer_id == 0:
@@ -158,10 +171,11 @@ class Stream:
                 return False
             if self._credits.compare_exchange(v, v - 1):
                 break
-        return self._send_frame(payload)
+        return self._send_frame(payload, device_arrays=device_arrays)
 
     def _send_frame(self, payload: bytes, close: bool = False,
-                    credits: int = 0, data: bool = True) -> bool:
+                    credits: int = 0, data: bool = True,
+                    device_arrays: Optional[List] = None) -> bool:
         conn = self.conn
         if conn is None:
             return False
@@ -175,14 +189,28 @@ class Stream:
             # Socket.write only queues: it never parks this thread; on a
             # failed socket it is False, and the failure subscription
             # closes the stream
-            return conn.write(tpu_std.pack_stream_frame(
-                self.peer_id, seq, credits, close, bytes(payload)))
+            if not device_arrays:
+                return conn.write(tpu_std.pack_stream_frame(
+                    self.peer_id, seq, credits, close, bytes(payload)))
+            meta = tpu_std.RpcMeta(stream_settings=tpu_std.StreamSettings(
+                self.peer_id, False, seq, credits, close))
+            wire, lane = tpu_std.pack_frame(
+                meta, bytes(payload), device_arrays=device_arrays,
+                device_lane=conn.conn.supports_device_lane)
+            if lane is None:
+                return conn.write(wire)
+            with conn.lane_lock:
+                try:
+                    conn.write_device_payload(lane)
+                except OSError:
+                    return False    # the connection's end closes us
+                return conn.write(wire)
 
     # ------------------------------------------------------------ receive
-    def _on_frame(self, ss: tpu_std.StreamSettings, payload: bytes,
-                  attachment: bytes) -> None:
+    def _on_frame(self, msg: tpu_std.RpcMessage) -> None:
         """Where the frame was cut (most often the dispatcher thread), in
         parse order: cheap."""
+        ss = msg.meta.stream_settings
         if ss.credits:
             self._credits.fetch_add(ss.credits)
             self._credits.wake_all()
@@ -190,7 +218,10 @@ class Stream:
             self._remote_close_once()
             return
         if ss.frame_seq:
-            self._recv_q.execute(StreamMessage(payload, attachment))
+            arrays = (tpu_std.merge_device_arrays(msg)
+                      if msg.meta.device_payloads else [])
+            self._recv_q.execute(StreamMessage(msg.payload, msg.attachment,
+                                               arrays))
 
     async def _deliver(self, batch) -> None:
         """The delivery queue's consumer: frames in order; None is the
@@ -277,15 +308,13 @@ def address_stream(stream_id: int) -> Optional[Stream]:
     return _registry.address(stream_id)
 
 
-def process_stream_frame(meta: tpu_std.RpcMeta, payload: bytes,
-                         attachment: bytes = b"") -> None:
+def process_stream_frame(msg: tpu_std.RpcMessage) -> None:
     """Dispatch a bare stream frame (where it was cut, in parse order). A
     frame for an unknown or closed stream is dropped, as the reference
-    drops it."""
-    ss = meta.stream_settings
-    stream = _registry.address(ss.stream_id)
+    drops it; its lane batch, if any, was taken when it was cut."""
+    stream = _registry.address(msg.meta.stream_settings.stream_id)
     if stream is not None:
-        stream._on_frame(ss, payload, attachment)
+        stream._on_frame(msg)
 
 
 def stream_accept(cntl, options: Optional[StreamOptions] = None

@@ -4,9 +4,20 @@ A ``Conn`` is one non-blocking byte stream: ``write`` and ``read_into``
 raise BlockingIOError when they would block, and the owning Socket
 waits for the dispatcher to report readiness (``start_events``,
 ``request_writable_event``). A ``Transport`` dials (``connect``) and
-listens (``listen``) for one scheme. The port registers ``tcp`` only;
-the reference's mem://, tpu://, ici:// and ssl transports are still to
-port (ROADMAP section 1).
+listens (``listen``) for one scheme. The port registers ``tcp``,
+``mem`` (in-process loopback), ``cuda`` (the in-process device lane,
+brpc_tpu's ``tpu://``) and ``cudad`` (the staged lane between processes,
+brpc_tpu's ``tpud://``); the reference's ici:// and ssl transports are
+still to port (ROADMAP section 1).
+
+Device lane: a conn with ``supports_device_lane`` carries tensors beside
+its bytes. ``write_device_payload(arrays)`` sends one batch and
+``take_device_payload()`` returns the oldest batch received (None when
+none came), in the order they were written; the sender writes a batch
+right before the frame that describes it, so the parser takes the batch
+when it cuts that frame. ``lane_kind`` names the lane
+(``loopback-d2d``, ``staged-dcn``). A conn without the lane (tcp) never
+gets a batch: tensors go inline in the frame's bytes.
 """
 
 from __future__ import annotations
@@ -19,6 +30,16 @@ from brpc_tpu_torch.butil.endpoint import EndPoint
 
 class Conn:
     """One established, non-blocking byte-stream connection."""
+
+    supports_device_lane = False
+    lane_kind: Optional[str] = None
+
+    def write_device_payload(self, arrays) -> bool:
+        raise NotImplementedError(
+            f"{type(self).__name__} has no device lane")
+
+    def take_device_payload(self):
+        return None
 
     def write(self, mv: memoryview) -> int:
         """Write some bytes; BlockingIOError if none can be taken."""
@@ -79,18 +100,24 @@ def register_transport(t: Transport) -> None:
         _transports[t.scheme] = t
 
 
+# the builtin schemes, each imported when first asked for: cuda and
+# cudad import torch, which a process serving bytes alone never needs
+_BUILTINS = {
+    "tcp": ("brpc_tpu_torch.transport.tcp", "TcpTransport"),
+    "mem": ("brpc_tpu_torch.transport.mem", "MemTransport"),
+    "cuda": ("brpc_tpu_torch.transport.cuda", "CudaTransport"),
+    "cudad": ("brpc_tpu_torch.transport.cudad", "CudadTransport"),
+}
+
+
 def get_transport(scheme: str) -> Transport:
     t = _transports.get(scheme)
-    if t is None:
-        _register_builtins()
-        t = _transports.get(scheme)
+    if t is None and scheme in _BUILTINS:
+        import importlib
+        module, cls = _BUILTINS[scheme]
+        made = getattr(importlib.import_module(module), cls)()
+        with _lock:
+            t = _transports.setdefault(scheme, made)
     if t is None:
         raise ValueError(f"no transport registered for scheme {scheme!r}")
     return t
-
-
-def _register_builtins() -> None:
-    with _lock:
-        if "tcp" not in _transports:
-            from brpc_tpu_torch.transport.tcp import TcpTransport
-            _transports["tcp"] = TcpTransport()

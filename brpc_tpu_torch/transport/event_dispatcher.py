@@ -10,6 +10,12 @@ block hops to a fiber worker first, so one connection cannot stall the
 others. A write-readiness request is one-shot: the epollout a blocked
 writer asks for.
 
+Conns without an fd (``mem://``, ``cuda://``) ``post`` their readiness
+callbacks: the dispatcher runs them on its thread as it runs an fd's, so
+a peer's input is processed where a TCP socket's would be, never in the
+writer's own context (where a handler run in place could re-enter the
+writer's locks).
+
 A consumer is keyed by its fd number only here, inside the selector: the
 owners hold ``socket.socket`` objects, unregister (``remove_consumer``)
 before they close, and close once.
@@ -26,6 +32,7 @@ import selectors
 import socket as pysocket
 import threading
 import time
+from collections import deque
 from typing import Callable, Dict, Optional
 
 from brpc_tpu_torch.bvar.reducer import Adder, Maxer, PassiveStatus
@@ -87,6 +94,8 @@ class EventDispatcher:
         self._thread: Optional[threading.Thread] = None
         self._stop = False
         self._name = name
+        # callbacks posted by fd-less conns, run in order on the thread
+        self._posted: deque = deque()
         # epoll applies interest changes while another thread waits in
         # it; select/poll snapshot the set per call and need a kick
         self._rearm_needs_wakeup = not isinstance(
@@ -182,6 +191,14 @@ class EventDispatcher:
                 pass
         self._wakeup()
 
+    def post(self, cb: Callable[[], None]) -> None:
+        """Run ``cb`` on the dispatcher thread, after what it is running."""
+        self._posted.append(cb)
+        if self._thread is None or not self._thread.is_alive():
+            with self._lock:
+                self._ensure_thread()
+        self._wakeup()
+
     def nconsumers(self) -> int:
         with self._lock:
             return len(self._handlers)
@@ -189,7 +206,8 @@ class EventDispatcher:
     def _run(self) -> None:
         while not self._stop:
             try:
-                events = self._selector.select(timeout=0.5)
+                events = self._selector.select(
+                    timeout=0 if self._posted else 0.5)
             except OSError:
                 continue
             fired = []
@@ -212,6 +230,10 @@ class EventDispatcher:
                         fired.append((fd, h[1]))
                         h[1] = None                 # one-shot
                         self._apply_locked(fd, h)
+            # what was posted up to now; later posts wait for the next
+            # turn, so a callback that posts cannot hold the loop
+            for _ in range(len(self._posted)):
+                fired.append((None, self._posted.popleft()))
             if not fired:
                 continue
             t0 = time.monotonic_ns()
@@ -219,7 +241,7 @@ class EventDispatcher:
                 try:
                     cb()
                 except Exception:       # boundary: the loop must go on
-                    log.exception("event callback failed for fd %d", fd)
+                    log.exception("event callback failed for fd %s", fd)
             dur_ms = (time.monotonic_ns() - t0) / 1e6
             if dur_ms > 1.0:
                 # sub-ms ticks are the norm and not worth a Maxer lock

@@ -28,8 +28,20 @@ its classic Python path; bRPC's socket.h, SURVEY.md §2.4).
   fail, and the ``on_failed`` callbacks fire; one subscribed after the
   end fires at once.
 
-The reference's native fastcore, ring lane, sync pluck, device payload
-lane and census rows are still to port (ROADMAP section 1).
+- **Device lane**: ``write_device_payload(arrays)`` hands a batch of
+  tensors to the conn's lane and ``take_device_payload`` takes the oldest
+  batch received (brpc_tpu/transport/socket.py:1007-1058, :1747-1791).
+  Batches are paired with the frames that describe them by order alone,
+  so a writer sends the batch and its frame as an adjacent pair under
+  ``lane_lock``; ``Socket.write`` only queues, and on a conn without an
+  fd (mem, cuda) the peer is told through the dispatcher
+  (``EventDispatcher.post``), so nothing of the peer runs under the lock.
+  Such a conn's readable event fires on the dispatcher as a TCP
+  socket's does; it is not level-triggered and has no read interest to
+  pause.
+
+The reference's native fastcore, ring lane, sync pluck, device stats and
+census rows are still to port (ROADMAP section 1).
 """
 
 from __future__ import annotations
@@ -157,6 +169,9 @@ class Socket:
         self.wq_bytes = 0               # queued, not yet taken by the kernel
         self._on_failed_cbs: list = []
         self._failed_cb_lock = threading.Lock()
+        # pairs a device-lane batch with its frame: batches are matched
+        # to frames by order, so two writers must not interleave
+        self.lane_lock = threading.Lock()
         self._inline_process = flag("socket_inline_process")
         self._level_triggered = getattr(conn, "level_triggered", False)
         self.id: SocketId = _pool.insert(self)
@@ -312,6 +327,18 @@ class Socket:
         item = self._take_handoff()
         if item is not None:
             self._control.spawn(self._drain_writes, item, name="keep_write")
+
+    # -------------------------------------------------------- device lane
+    def write_device_payload(self, arrays) -> bool:
+        """Send one batch of tensors on the conn's device lane; the caller
+        holds ``lane_lock`` and writes the batch's frame next."""
+        if self.failed:
+            raise ConnectionError(f"socket failed: {self.fail_reason}")
+        return bool(self.conn.write_device_payload(arrays))
+
+    def take_device_payload(self):
+        """The oldest batch the lane delivered; None when none came."""
+        return self.conn.take_device_payload()
 
     # -------------------------------------------------------------- input
     def _on_readable_event(self) -> None:

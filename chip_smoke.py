@@ -93,8 +93,40 @@ processes share (``STAGES``: client issue -> server arrival -> handler
 and their sum beside the client's TTFT, then the warm stream burst in
 turns with ``serving_stats_enabled`` and ``rpcz_enabled`` off and on.
 
+After ``observability``, the phase ``device_lane``: tensors in RPCs on
+the two device lanes, each part with the launch counts zeroed just
+before and read just after it. (a) A port Server on
+``cuda://smoke:1#device=0`` with ``Perf.Echo`` (response tensors = request
+tensors) answers fp32 tensors of 4 B to 4 MiB in x4 steps (the sizes of
+examples/tpu_performance/main.py), 3 warm-up and 30 timed calls each:
+every echo equal and the same memory (``data_ptr``), p50/p99 us and
+GB/s (2 x bytes per echo). (b) The same sweep from a client process
+(``--client device_lane PORT``) to a ``cudad://127.0.0.1:0#device=0``
+server: the handler sees ``cuda:0`` tensors, every echo equal; with the
+dispatcher's ``dispatcher_stall_ms_max_10s`` and, at 1 and 4 MiB, the
+time of each batch landing on the card (in parse, on the dispatcher)
+and of each response's host copy (on a fiber worker). (c) One send of a
+tensor filled on a fresh stream behind a device sleep: the handler must
+read the filled values. (d) ``Attend`` on both lanes, 4 calls at once,
+each on a connection of its own (on one connection a request is read
+only after the handler of the one before has finished):
+q [4, 128], K/V [4, 4096, 128] bf16 and lengths 0/1/4096/3000 ride the
+lane, the async handler waits until all 4 calls have arrived (parked
+on a Future, so that the 4 parks below overlap however far apart the
+requests came in), runs ``decode_attention``, parks on a CUDA event
+(``device_ready``) and returns O as a response tensor; each call
+launches ``flash_decode`` and ``flash_decode_combine`` once and nothing
+else, O is within ``_rounding_bound`` of the plain version computed from
+the client's tensors, every handler resumed on a fiber worker after its
+event completed, and the poller's waiter threads never outnumbered the
+calls in flight; a thread waiting in ``Event.synchronize`` must not hold
+the interpreter lock. (e) A stream of 16 tensor frames of 64 KiB from
+the server beside unary device calls on the same connection, on both
+lanes: every frame and every response pairs with its own tensor.
+
 ``python3 chip_smoke.py --phase streaming`` (or ``--phase
-observability``) runs that phase alone (after the card line), so that
+observability``, ``--phase device_lane``) runs that phase alone (after
+the card line), so that
 two trees' serving can be compared in one call: run each tree's script
 in turns.
 
@@ -136,6 +168,12 @@ def _fa_module():
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def progress(what: str) -> None:
+    """A line on stderr as a part starts: where a hang sits."""
+    print(f"chip_smoke: {time.strftime('%H:%M:%S')} {what}",
+          file=sys.stderr, flush=True)
 
 
 class SmokeFailure(Exception):
@@ -1476,6 +1514,575 @@ def _check_prometheus(text: str) -> None:
                              f"{bad[:5]}")
 
 
+# ------------------------------------------------------ phase device_lane
+
+# the north-star sweep (examples/tpu_performance/main.py:48-78): 4 B to
+# 4 MiB in x4 steps
+SWEEP_BYTES = [4 << (2 * i) for i in range(11)]
+SWEEP_WARMUP = 3
+SWEEP_CALLS = 30
+ATTEND_CALLS = 4
+# device-side sleep queued behind each Attend's kernels (~0.1 s at
+# 2 GHz), so that its event is still pending when the handler parks
+ATTEND_PARK_CYCLES = int(2e8)
+# the longest an Attend part's handlers wait at its gate for one another
+ATTEND_GATE_S = 30.0
+STREAM_FRAMES = 16
+STREAM_FRAME_BYTES = 64 << 10
+
+
+def _device_spec(dev) -> str:
+    """The ``#device=`` extra that names ``dev``."""
+    return "cpu" if dev.type == "cpu" else str(dev.index or 0)
+
+
+def _device_event(dev):
+    """A CUDA event recorded on the current stream of ``dev``."""
+    import torch
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(dev))
+    return ev
+
+
+def _sync(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _sweep(ch, dev, check_zero_copy: bool) -> list:
+    """Echo fp32 tensors of every SWEEP_BYTES size: SWEEP_WARMUP calls,
+    then SWEEP_CALLS timed ones. Rows of p50/p99 us and GB/s (2 x bytes
+    per echo, as the example counts)."""
+    import torch
+    rows = []
+    for nbytes in SWEEP_BYTES:
+        n = nbytes // 4
+        times = []
+        for i in range(SWEEP_WARMUP + SWEEP_CALLS):
+            x = torch.arange(n, dtype=torch.float32, device=dev) + i
+            _sync(dev)
+            t0 = time.perf_counter()
+            c = ch.call_sync("Perf", "Echo", b"",
+                             request_device_arrays=[x])
+            dt = time.perf_counter() - t0
+            check(not c.failed(), f"echo {nbytes} B: {c.error_code} "
+                                  f"{c.error_text}")
+            (y,) = c.response_device_arrays
+            check(y.device == x.device and y.dtype == x.dtype
+                  and torch.equal(y, x), f"echo {nbytes} B: not equal")
+            if check_zero_copy:
+                check(y.data_ptr() == x.data_ptr(),
+                      f"echo {nbytes} B: the hand-off copied")
+            if i >= SWEEP_WARMUP:
+                times.append(dt)
+        p50 = _median(times)
+        rows.append({"bytes": nbytes, "p50_us": p50 * 1e6,
+                     "p99_us": _p99(times) * 1e6,
+                     "gb_per_s": 2 * nbytes / p50 / 1e9})
+    return rows
+
+
+class _CopyTimes:
+    """Times of the cudad conns' host copies in this process, by size:
+    ``write`` (the whole lane write on the sender's thread), ``encode``
+    (its part that copies to the host and builds the envelope) and
+    ``take`` (the batch landing on the device, in parse: the dispatcher
+    thread).
+    Measurement only: the methods are wrapped for the phase and put
+    back after it."""
+
+    def __init__(self):
+        from brpc_tpu_torch.transport import cudad
+        self._mod = cudad
+        self._cls = cudad.CudadConn
+        self._orig = (self._cls.write_device_payload,
+                      self._cls.take_device_payload,
+                      cudad._encode_device_batch)
+        self.rows = []
+
+    def __enter__(self):
+        write, take, encode = self._orig
+        rows = self.rows
+
+        def timed_encode(arrays):
+            t0 = time.perf_counter()
+            r = encode(arrays)
+            rows.append(("encode", nb(arrays), time.perf_counter() - t0,
+                         threading.current_thread().name))
+            return r
+
+        def nb(arrays):
+            return sum(t.numel() * t.element_size() for t in arrays)
+
+        def timed_write(conn, arrays):
+            t0 = time.perf_counter()
+            r = write(conn, arrays)
+            rows.append(("write", nb(arrays), time.perf_counter() - t0,
+                         threading.current_thread().name))
+            return r
+
+        def timed_take(conn):
+            t0 = time.perf_counter()
+            r = take(conn)
+            if r is not None:
+                rows.append(("take", nb(r), time.perf_counter() - t0,
+                             threading.current_thread().name))
+            return r
+        self._cls.write_device_payload = timed_write
+        self._cls.take_device_payload = timed_take
+        self._mod._encode_device_batch = timed_encode
+        return self
+
+    def __exit__(self, *exc):
+        (self._cls.write_device_payload, self._cls.take_device_payload,
+         self._mod._encode_device_batch) = self._orig
+
+    def summary(self, kind: str, nbytes: int) -> dict:
+        ts = [r[2] for r in self.rows if r[0] == kind and r[1] == nbytes]
+        threads = sorted({r[3] for r in self.rows
+                          if r[0] == kind and r[1] == nbytes})
+        return {"calls": len(ts), "p50_ms": _median(ts) and
+                _median(ts) * 1e3, "max_ms": max(ts) * 1e3 if ts else None,
+                "threads": threads}
+
+
+def _device_lane_server(addr: str, dev, seen: dict):
+    """A port Server with Perf.Echo (response = request tensors),
+    Perf.Check (the side-stream read) and the async Perf.Attend
+    (decode_attention on the delivered tensors, on a stream of its own
+    behind which a device-side sleep keeps the event pending, parked on
+    it through ``device_ready``), and Perf.Frames (a stream of
+    tensors)."""
+    import torch
+
+    from brpc_tpu_torch.fiber import current_group, device_ready
+    from brpc_tpu_torch.rpc import (Server, ServerOptions, Service,
+                                    stream_accept)
+    fa = _fa_module()
+    svc = Service("Perf")
+
+    @svc.method()
+    def Echo(cntl, request):
+        seen.setdefault("echo_devices", set()).update(
+            str(t.device) for t in cntl.request_device_arrays)
+        cntl.response_device_arrays = cntl.request_device_arrays
+        return request
+
+    @svc.method()
+    async def Check(cntl, request):
+        (x,) = cntl.request_device_arrays
+        ok = (x == 7).all()
+        await device_ready(_device_event(dev))
+        return b"1" if bool(ok) else b"0"
+
+    @svc.method()
+    async def Attend(cntl, request):
+        q, k, v, lengths = cntl.request_device_arrays
+        # the part's calls park here (a Future: the callback path) until
+        # its last call has arrived, so that their parks on the device
+        # events below overlap however far apart the requests came in
+        if not await device_ready(_arrive(seen)):
+            raise RuntimeError(f"only {len(seen['arrivals'])} of "
+                               f"{ATTEND_CALLS} Attend calls arrived in "
+                               f"{ATTEND_GATE_S} s")
+        if dev.type == "cuda":
+            # a stream of the call's own, so one call's parked work
+            # holds back neither another call nor a lane's host copy
+            cur = torch.cuda.current_stream(dev)
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                for t in (q, k, v, lengths):
+                    t.record_stream(side)
+                o = fa.decode_attention(q, k, v, lengths)
+                o.record_stream(cur)
+                torch.cuda._sleep(ATTEND_PARK_CYCLES)
+                ev = _device_event(dev)
+        else:
+            o = fa.decode_attention(q, k, v, lengths)
+            ev = _device_event(dev)
+        seen.setdefault("in_flight", []).append(1)
+        seen["max_in_flight"] = max(seen.get("max_in_flight", 0),
+                                    len(seen["in_flight"]))
+        await device_ready(ev)
+        seen["in_flight"].pop()
+        seen.setdefault("attend_resumed", []).append(
+            (bool(ev.query()), current_group() is not None,
+             threading.current_thread().name))
+        cntl.response_device_arrays = [o]
+        return b"o"
+
+    @svc.method()
+    def Frames(cntl, request):
+        st = stream_accept(cntl)
+        n = STREAM_FRAME_BYTES // 4
+
+        def send():
+            for i in range(STREAM_FRAMES):
+                t = torch.full((n,), float(i), device=dev)
+                deadline = time.monotonic() + 10
+                while not st.write_nowait(b"f%d" % i, device_arrays=[t]):
+                    if time.monotonic() > deadline:
+                        seen["frames_error"] = f"frame {i}: no credit"
+                        return
+                    time.sleep(0.0005)
+                time.sleep(0.001)   # spread the frames among the calls
+        threading.Thread(target=send, name="smoke_frames",
+                         daemon=True).start()
+        return b"ok"
+
+    srv = Server(ServerOptions(enable_builtin_services=False))
+    srv.add_service(svc)
+    ep = srv.start(addr)
+    return srv, ep
+
+
+def _open_gate(seen: dict) -> None:
+    """A fresh gate for an Attend part: a Future set True by the part's
+    ATTEND_CALLS-th arrival, or False by a timer if they do not all come."""
+    import concurrent.futures
+    gate = concurrent.futures.Future()
+    seen.update(gate=gate, arrivals=[], gate_lock=threading.Lock())
+
+    def expire():
+        with seen["gate_lock"]:
+            if not gate.done():
+                gate.set_result(False)
+    timer = threading.Timer(ATTEND_GATE_S, expire)
+    timer.daemon = True
+    timer.start()
+    seen["gate_timer"] = timer
+
+
+def _arrive(seen: dict):
+    """Count one Attend arrival at the part's gate and return the gate."""
+    with seen["gate_lock"]:
+        seen["arrivals"].append(time.monotonic())
+        if len(seen["arrivals"]) == ATTEND_CALLS and not seen["gate"].done():
+            seen["gate"].set_result(True)
+    return seen["gate"]
+
+
+def _attend(addr: str, dev, calls: int, rng) -> dict:
+    """``calls`` concurrent Attend calls (q [4, 128], K/V [4, 4096, 128]
+    bf16, lengths 0/1/4096/3000), each O held within ``_rounding_bound``
+    of the plain version computed here from the client's own tensors.
+    Each call has a connection of its own: on one connection the next
+    request is read only when the handler of the last one has finished
+    (in-place processing, as in brpc_tpu), so parked handlers of one
+    connection do not overlap unless their requests came in one read."""
+    import torch
+
+    from brpc_tpu_torch.rpc import Channel, ChannelOptions
+    fa = _fa_module()
+    b, L, d = 4, 4096, 128
+    lengths = torch.tensor([0, 1, 4096, 3000], dtype=torch.int32,
+                           device=dev)
+    inputs = []
+    for _ in range(calls):
+        q = _rand(rng, (b, d), torch.bfloat16, dev)
+        k = _rand(rng, (b, L, d), torch.bfloat16, dev)
+        v = _rand(rng, (b, L, d), torch.bfloat16, dev)
+        inputs.append((q, k, v))
+    _sync(dev)
+    out = [None] * calls
+    errs = []
+    chans = [Channel(addr, ChannelOptions(timeout_ms=60000))
+             for _ in range(calls)]
+
+    def one(i):
+        try:
+            q, k, v = inputs[i]
+            c = chans[i].call_sync("Perf", "Attend", b"",
+                                   request_device_arrays=[q, k, v, lengths])
+            check(not c.failed(), f"Attend: {c.error_code} {c.error_text}")
+            out[i] = c.response_device_arrays[0]
+        except Exception as e:      # reported below, on the main thread
+            errs.append(e)
+    threads = [threading.Thread(target=one, args=(i,)) for i in
+               range(calls)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    for c in chans:
+        c.close()
+    check(not errs, f"Attend failed: {errs[:1]}")
+    worst = 0.0
+    max_err = 0.0
+    for (q, k, v), o in zip(inputs, out):
+        want = fa._flash_plain(q[:, None].float(), k.float(), v.float(),
+                               d ** -0.5, True, 64,
+                               q_offset=lengths - 1)[:, 0]
+        bound = fa._rounding_bound(want, torch.bfloat16)
+        diff = (o.float() - want.float()).abs()
+        check(o.shape == q.shape and o.dtype == q.dtype,
+              f"Attend output {tuple(o.shape)} {o.dtype}")
+        worst = max(worst, float((diff / bound).max()))
+        max_err = max(max_err, float(diff.max()))
+    check(worst <= 1.0, f"Attend: O off the plain version by "
+                        f"{worst:.3f} x its rounding bound")
+    return {"calls": calls, "worst_over_bound": worst,
+            "max_abs_err": max_err,
+            "request_bytes": sum(t.numel() * t.element_size()
+                                 for t in (*inputs[0], lengths))}
+
+
+def _frames_beside_unary(ch, dev) -> dict:
+    """A stream of STREAM_FRAMES tensor frames from the server while
+    unary device calls run on the same connection: every frame and every
+    response must pair with its own tensor."""
+    import torch
+
+    from brpc_tpu_torch.rpc import StreamOptions
+    frames = []
+    done = threading.Event()
+
+    def on_received(stream, msg):
+        frames.append((msg.payload, msg.device_arrays))
+        if len(frames) == STREAM_FRAMES:
+            done.set()
+    c = ch.call_sync("Perf", "Frames", b"", stream_options=StreamOptions(
+        on_received=on_received))
+    check(not c.failed(), f"Frames: {c.error_text}")
+    unary = 0
+    while unary < 4 or (not done.is_set() and unary < 400):
+        x = torch.full((STREAM_FRAME_BYTES // 4,), -1.0 - unary,
+                       device=dev)
+        r = ch.call_sync("Perf", "Echo", b"", request_device_arrays=[x])
+        check(not r.failed() and torch.equal(r.response_device_arrays[0],
+                                             x),
+              f"unary call {unary} beside the stream got another tensor")
+        unary += 1
+    check(done.wait(30), f"{len(frames)} of {STREAM_FRAMES} frames")
+    for i, (payload, arrays) in enumerate(frames):
+        check(payload == b"f%d" % i and len(arrays) == 1
+              and bool((arrays[0] == float(i)).all()),
+              f"stream frame {i} paired with another tensor")
+    c.stream.close()
+    return {"frames": len(frames), "unary_calls_beside": unary}
+
+
+def _side_stream_send(ch, dev) -> bool:
+    """Fill a tensor on a fresh stream behind a device-side sleep and
+    send it at once, from that stream: the handler must read the filled
+    values (the writer's event, waited on by the taker's stream)."""
+    import torch
+    side = torch.cuda.Stream(dev)
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(int(2e8))             # ~0.1 s at 2 GHz
+        x = torch.full((1 << 20,), 7.0, device=dev)
+        c = ch.call_sync("Perf", "Check", b"", request_device_arrays=[x])
+    check(not c.failed(), f"Check: {c.error_text}")
+    return c.response == b"1"
+
+
+def _gil_released_by_event_wait(dev) -> dict:
+    """While a thread waits in ``Event.synchronize`` on ~0.2 s of device
+    sleep, this thread keeps running: the longest gap between its loop
+    turns shows whether the wait held the interpreter lock."""
+    import torch
+    torch.cuda._sleep(int(4e8))
+    ev = _device_event(dev)
+    t = threading.Thread(target=ev.synchronize, name="smoke_ev_wait")
+    t0 = time.perf_counter()
+    t.start()
+    last = t0
+    gap = 0.0
+    while t.is_alive():
+        now = time.perf_counter()
+        gap = max(gap, now - last)
+        last = now
+    return {"wait_ms": (time.perf_counter() - t0) * 1e3,
+            "max_gap_ms": gap * 1e3}
+
+
+def device_lane_client(port: int, spec: str) -> int:
+    """``--client device_lane PORT [DEVICE]``: the sweep over
+    ``cudad://127.0.0.1:PORT#device=DEVICE`` from a process of its own."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import torch
+
+    from brpc_tpu_torch.butil.device import resolve_device
+    from brpc_tpu_torch.rpc import Channel, ChannelOptions
+    dev = resolve_device("cpu" if spec == "cpu" else f"cuda:{spec}")
+    ch = Channel(f"cudad://127.0.0.1:{port}#device={spec}",
+                 ChannelOptions(timeout_ms=30000))
+    try:
+        rows = _sweep(ch, dev, check_zero_copy=False)
+        emit({"sweep": rows, "lane": ch.device_lane_kind(),
+              "peer_info": ch._socket.conn.peer_info,
+              "torch": torch.__version__})
+    finally:
+        ch.close()
+    return 0
+
+
+def phase_device_lane(dev):
+    """Tensors in RPCs on the two device lanes: (a) the cuda:// sweep,
+    zero-copy; (b) the cudad:// sweep from a client process, with the
+    dispatcher's stall and the host copies' times; (c) one side-stream
+    send; (d) Attend (decode_attention on delivered tensors, the handler
+    parked on a CUDA event) on both lanes; (e) a stream of tensors beside
+    unary calls on one connection, on both lanes. Launch counts zeroed
+    before each part, read after it."""
+    import numpy as np
+    import torch
+
+    from brpc_tpu_torch.fiber import global_poller
+    from brpc_tpu_torch.rpc import Channel, ChannelOptions
+    from brpc_tpu_torch.transport import event_dispatcher
+    fa = _fa_module()
+    spec = _device_spec(dev)
+    rng = np.random.RandomState(20261017)
+    out = {"launches": {}, "stalls": {}}
+
+    def counted(part, fn, *args, want=None):
+        progress(f"device_lane {part}")
+        stalls0 = event_dispatcher.nstalls.get_value()
+        fa.reset_launches()
+        r = fn(*args)
+        _sync(dev)
+        got = dict(fa.launches)
+        out["launches"][part] = got
+        # dispatcher ticks of STALL_MS or more while the part ran
+        out["stalls"][part] = event_dispatcher.nstalls.get_value() - stalls0
+        want = want or {}
+        check(all(got[k] == want.get(k, 0) for k in got),
+              f"{part}: launched {got}, want {want}")
+        return r
+
+    poller = global_poller()
+    park = {}
+
+    def parked(lane, fn, *args, **kw):
+        """Run an Attend part; every call must park on the waiter path,
+        more than one at once, with no more waiter threads than calls
+        in flight."""
+        seen["max_in_flight"] = 0
+        _open_gate(seen)
+        poller.max_active_waiters = 0
+        w0 = dict(poller.nwaits)
+        try:
+            r = fn(*args, **kw)
+        finally:
+            seen["gate_timer"].cancel()
+        arrivals = seen["arrivals"]
+        got = {"poller_waits": {k: poller.nwaits[k] - w0[k] for k in w0},
+               "max_waiter_threads": poller.max_active_waiters,
+               "max_calls_in_flight": seen["max_in_flight"],
+               "arrival_spread_ms": (max(arrivals) - min(arrivals)) * 1e3}
+        park[lane] = got
+        check(got["poller_waits"]["waiter"] >= ATTEND_CALLS,
+              f"{lane}: Attend did not park on the waiter path: {got}")
+        check(got["max_calls_in_flight"] > 1,
+              f"{lane}: Attend calls ran one at a time: {got}")
+        check(0 < got["max_waiter_threads"] <= got["max_calls_in_flight"],
+              f"{lane}: waiter threads against calls in flight: {got}")
+        return r
+
+    if dev.type == "cuda":
+        # build and load flash_decode, and load Check's kernels, before
+        # any handler launches them (the handler runs in place on the
+        # dispatcher until it parks, and a kernel's first launch loads
+        # its module, which can wait for the work on the card)
+        z = torch.zeros(4, 64, 128, dtype=torch.bfloat16, device=dev)
+        fa.decode_attention(z[:, 0].contiguous(), z, z, torch.full(
+            (4,), 64, dtype=torch.int32, device=dev))
+        bool((torch.full((1 << 20,), 7.0, device=dev) == 7).all())
+    seen = {}
+    srv, ep = _device_lane_server(f"cuda://smoke:1#device={spec}", dev,
+                                  seen)
+    try:
+        ch = Channel(str(ep), ChannelOptions(timeout_ms=60000))
+        check(ch.device_lane_kind() == "loopback-d2d", "cuda:// lane kind")
+        rows = counted("a_cuda_sweep", _sweep, ch, dev, True)
+        emit({"phase": "device_lane", "part": "a", "lane": "cuda://",
+              "zero_copy": True, "sweep": rows})
+        if dev.type == "cuda":
+            w0 = dict(poller.nwaits)
+            ok = counted("c_side_stream", _side_stream_send, ch, dev)
+            check(ok, "the side-stream send was read before it was "
+                      "written")
+            emit({"phase": "device_lane", "part": "c", "filled": ok,
+                  "poller_waits": {k: poller.nwaits[k] - w0[k]
+                                   for k in w0}})
+        attend = {}
+        attend["cuda"] = parked("cuda", counted, "d_attend_cuda", _attend,
+                                str(ep), dev, ATTEND_CALLS, rng,
+                                want={"flash_decode": ATTEND_CALLS,
+                                      "flash_decode_combine": ATTEND_CALLS})
+        streams = {"cuda": counted("e_streams_cuda", _frames_beside_unary,
+                                   ch, dev)}
+        ch.close()
+    finally:
+        srv.stop()
+        srv.join()
+
+    copies = _CopyTimes()
+    with copies:
+        srv, ep = _device_lane_server(f"cudad://127.0.0.1:0#device={spec}",
+                                      dev, seen)
+        try:
+            seen.pop("echo_devices", None)
+            stalls0 = event_dispatcher.nstalls.get_value()
+            progress("device_lane b_cudad_sweep (client process)")
+            fa.reset_launches()
+            doc = _client_process(["device_lane", str(ep.port), spec],
+                                  timeout_s=600)
+            _sync(dev)
+            out["launches"]["b_cudad_sweep"] = dict(fa.launches)
+            check(not any(fa.launches.values()), "the sweep launched "
+                                                 "a kernel")
+            out["stalls"]["b_cudad_sweep"] = \
+                event_dispatcher.nstalls.get_value() - stalls0
+            check(doc["lane"] == "staged-dcn", f"lane {doc['lane']}")
+            check(seen.get("echo_devices") == {str(dev)},
+                  f"the handler saw tensors on {seen.get('echo_devices')}")
+            stall = event_dispatcher.stall_ms_max_10s()
+            big = {str(n): {"take_on_dispatcher": copies.summary("take", n),
+                            "response_write": copies.summary("write", n),
+                            "response_encode": copies.summary("encode", n)}
+                   for n in (1 << 20, 4 << 20)}
+            emit({"phase": "device_lane", "part": "b", "lane": "cudad://",
+                  "sweep": doc["sweep"], "peer_info": doc["peer_info"],
+                  "dispatcher_stall_ms_max_10s": stall,
+                  "dispatcher_stalls": event_dispatcher.nstalls.get_value()
+                  - stalls0,
+                  "host_copies": big})
+            ch = Channel(str(ep), ChannelOptions(timeout_ms=60000))
+            attend["cudad"] = parked(
+                "cudad", counted, "d_attend_cudad", _attend, str(ep), dev,
+                ATTEND_CALLS, rng,
+                want={"flash_decode": ATTEND_CALLS,
+                      "flash_decode_combine": ATTEND_CALLS})
+            streams["cudad"] = counted("e_streams_cudad",
+                                       _frames_beside_unary, ch, dev)
+            ch.close()
+        finally:
+            srv.stop()
+            srv.join()
+    resumed = seen.get("attend_resumed", [])
+    check(len(resumed) == 2 * ATTEND_CALLS
+          and all(r[0] and r[1] for r in resumed),
+          f"Attend handlers resumed off a worker or before the event: "
+          f"{resumed}")
+    check("frames_error" not in seen, seen.get("frames_error", ""))
+    gil = _gil_released_by_event_wait(dev) if dev.type == "cuda" else None
+    if gil is not None:
+        check(gil["max_gap_ms"] < 20.0,
+              f"Event.synchronize held the interpreter lock: {gil}")
+    emit({"phase": "device_lane", "part": "d", "attend": attend,
+          "resumed_threads": sorted({r[2] for r in resumed}),
+          "park": park, "event_synchronize": gil})
+    emit({"phase": "device_lane", "part": "e", "streams": streams})
+    emit({"phase": "device_lane", "launches": out["launches"],
+          "dispatcher_stalls_by_part": out["stalls"]})
+    out["attend"] = attend
+    return out
+
+
 def phase_paths(dev, split_inputs):
     """The port's two other paths, each driven through its public entry
     point with every count zeroed just before and read just after:
@@ -1699,6 +2306,10 @@ def main(only: str = "") -> int:
         print("chip_smoke: CUDA is not available; this smoke needs a card",
               file=sys.stderr)
         return 2
+    # a hang shows every thread's stack and fails, inside the call's
+    # time limit, instead of running out silently
+    import faulthandler
+    faulthandler.dump_traceback_later(1100, exit=True)
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     try:
         import brpc_tpu_torch  # noqa: F401
@@ -1715,17 +2326,30 @@ def main(only: str = "") -> int:
               "count": torch.cuda.device_count(),
               "torch": torch.__version__, "cuda": torch.version.cuda,
               "python": sys.version.split()[0]})
+        if only == "device_lane":
+            phase_device_lane(dev)
+            return 0
         if only:
             {"streaming": phase_streaming,
              "observability": phase_observability}[only]()
             return 0
+        progress("phase build")
         phase_build()
+        progress("phase kernel_check")
         decode_inputs, split_inputs, errs = phase_kernel_check(dev)
+        progress("phase serving")
         serving = phase_serving()
+        progress("phase streaming")
         streaming = phase_streaming()
+        progress("phase observability")
         observability = phase_observability()
+        progress("phase device_lane")
+        device_lane = phase_device_lane(dev)
+        progress("phase paths")
         paths = phase_paths(dev, split_inputs)
+        progress("phase times")
         times = phase_times(decode_inputs, split_inputs)
+        progress("done")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1735,10 +2359,20 @@ def main(only: str = "") -> int:
     by_path.update({name: p["flash_decode"]
                     for name, p in streaming["launches"].items()})
     by_path["observability"] = observability["launches"]["flash_decode"]
+    dl = device_lane["launches"]
+    by_path["device_lane_attend"] = (dl["d_attend_cuda"]["flash_decode"]
+                                     + dl["d_attend_cudad"]["flash_decode"])
+    combine_by_path = {
+        "long_cache_decode": paths["long_cache_decode"][
+            "flash_decode_combine"],
+        "device_lane_attend": (dl["d_attend_cuda"]["flash_decode_combine"]
+                               + dl["d_attend_cudad"][
+                                   "flash_decode_combine"])}
     long_by = {c["case"]: c for c in times["long"]}
     tc, simt = long_by["8x2048x64 bf16"], long_by["8x2048x64 fp32"]
     kernels = [
-        _row("flash_decode", "serving: unary, stream and HTTP",
+        _row("flash_decode", "serving: unary, stream and HTTP; device "
+             "lanes: Attend",
              sum(by_path.values()), sl["flash_decode"],
              sl["flash_decode"] / steps, errs["serving_decode"],
              times["decode"], launches_by_path=by_path,
@@ -1746,12 +2380,13 @@ def main(only: str = "") -> int:
              split_case=dict(times["split_decode"],
                              max_abs_err=errs["split_decode"]),
              split_first_pass=times["split_first_pass"]),
-        _row("flash_decode_combine", "long-cache decode",
-             paths["long_cache_decode"]["flash_decode_combine"],
+        _row("flash_decode_combine", "long-cache decode; device lanes: "
+             "Attend", sum(combine_by_path.values()),
              sl["flash_decode_combine"],
              sl["flash_decode_combine"] / steps,
              errs["flash_decode_combine"], times["combine"],
-             shape=times["combine"]["shape"]),
+             shape=times["combine"]["shape"],
+             launches_by_path=combine_by_path),
         _row("flash_attn_fwd_tc", "long-context attention",
              paths["long_context"]["flash_attn_fwd_tc"],
              sl["flash_attn_fwd_tc"], sl["flash_attn_fwd_tc"] / steps,
@@ -1774,11 +2409,15 @@ def main(only: str = "") -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:3] == ["--client", "device_lane"]:
+        sys.exit(device_lane_client(int(sys.argv[3]),
+                                    (sys.argv[4:5] or ["0"])[0]))
     if sys.argv[1:2] == ["--client"]:
         sys.exit(client_main(sys.argv[2], int(sys.argv[3]),
                              traced="--rpcz" in sys.argv[4:]))
     if sys.argv[1:2] == ["--phase"]:
-        if sys.argv[2:3] not in (["streaming"], ["observability"]):
+        if sys.argv[2:3] not in (["streaming"], ["observability"],
+                                 ["device_lane"]):
             sys.exit(f"chip_smoke: unknown phase {sys.argv[2:]}")
         sys.exit(main(only=sys.argv[2]))
     sys.exit(main())

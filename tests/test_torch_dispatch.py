@@ -7,7 +7,8 @@ prefix that no protocol claims (dropped) against a short one that may
 still become a request (kept), the deadline shed before the handler
 (``ERPCTIMEDOUT``), a server with 16 connections and no thread per
 connection, and the last message of a read processed in place on the
-dispatcher thread until its handler first suspends.
+dispatcher thread until its handler first suspends; of a burst's
+earlier messages, the responses run in place and the requests spawn.
 
 Every case tears down what it made. The cases run inside one collected
 test (``_run_cases`` reports every failing case, with its traceback, and
@@ -34,11 +35,13 @@ from brpc_tpu.rpc import Service as RefService
 from brpc_tpu.rpc import server_dispatch as ref_dispatch
 from brpc_tpu_torch import fiber as port_fiber
 from brpc_tpu_torch.butil.flags import flag, set_flag
+from brpc_tpu_torch.butil.iobuf import IOPortal
 from brpc_tpu_torch.protocol import tpu_std
 from brpc_tpu_torch.rpc import (Channel, ChannelOptions, Server,
                                 ServerOptions, Service, errno_codes as berr)
 from brpc_tpu_torch.rpc import server_dispatch as port_dispatch
 from brpc_tpu_torch.transport.event_dispatcher import global_dispatcher
+from brpc_tpu_torch.transport.input_messenger import InputMessenger
 
 WIRINGS = ["ref-client-port-server", "port-client-ref-server"]
 SERVERS = ["port", "ref"]
@@ -203,7 +206,7 @@ def _request(cid, method, payload=b"", timeout_ms=0):
     return tpu_std.pack_frame(tpu_std.RpcMeta(
         request=tpu_std.RpcRequestMeta("Echo", method,
                                        timeout_ms=timeout_ms),
-        correlation_id=cid), payload)
+        correlation_id=cid), payload)[0]
 
 
 def _read_frames(sock, n, timeout_s=10.0):
@@ -454,8 +457,65 @@ def case_inline_processing_off():
             set_flag("socket_inline_process", was)
 
 
+class _RecordingStd(tpu_std.TpuStdProtocol):
+    """tpu_std's parse; ``process`` notes the frame and its thread."""
+
+    def __init__(self, seen):
+        self.seen = seen
+
+    def process(self, msg, socket):
+        self.seen.append((msg.meta.correlation_id, msg.is_response,
+                          threading.current_thread().name))
+
+
+class _BurstSocket:
+    """What the InputMessenger reads of a socket: one portal of frames."""
+
+    def __init__(self, wire):
+        self.input_portal = IOPortal()
+        self.input_portal.append(wire)
+        self.input_need = 0
+        self.preferred_protocol = -1
+
+    def set_failed(self, err):
+        raise AssertionError(f"burst socket failed: {err}")
+
+    def take_device_payload(self):
+        return None
+
+
+def case_burst_responses_in_place():
+    """Of one read's burst, the responses run in place on the reading
+    thread (``dispatch_inline_budget``), in parse order; the requests
+    spawn as fibers; the last message is processed in place."""
+    responses = [tpu_std.pack_small_frame(b"", i + 1, b"r%d" % i)
+                 for i in range(4)]
+    burst = (responses[:2] + [_request(10, "Echo", b"q")] + responses[2:]
+             + [_request(11, "Echo", b"last")])
+    seen = []
+    proto = _RecordingStd(seen)
+    messenger = InputMessenger(protocols=[proto])
+    me = threading.current_thread().name
+    assert messenger.on_new_messages(_BurstSocket(b"".join(burst))) is None
+    assert _wait_for(lambda: len(seen) == 6)
+    in_place = [(cid, resp) for cid, resp, th in seen if th == me]
+    assert in_place == [(1, True), (2, True), (3, True), (4, True),
+                        (11, False)], seen
+    (spawned,) = [(cid, resp, th) for cid, resp, th in seen if th != me]
+    assert spawned[:2] == (10, False) and spawned[2].startswith("fiber_w")
+    # a response frame off the wire is a response, a request is not
+    meta, payload, att = tpu_std.unpack_body(responses[0][12:],
+                                             tpu_std.parse_header(
+                                                 responses[0][:12])[1])
+    assert tpu_std.RpcMessage(meta, payload, att).is_response
+
+
 CASES = (
-    [(f"pipelined_calls[{w}]", case_pipelined_calls, (w,)) for w in WIRINGS]
+    # first: a brpc_tpu control that a later case stops can be started
+    # again by a late socket event, one thread over the count (ROADMAP 3)
+    [("no_thread_per_connection", case_no_thread_per_connection, ())]
+    + [(f"pipelined_calls[{w}]", case_pipelined_calls, (w,))
+       for w in WIRINGS]
     + [(f"pipelined_burst[{k}]", case_pipelined_burst, (k,))
        for k in SERVERS]
     + [(f"tpu_std_and_http[{w}]", case_tpu_std_and_http, (w,))
@@ -468,10 +528,10 @@ CASES = (
     + [(f"deadline_shed[{k}]", case_deadline_shed, (k,)) for k in SERVERS]
     + [(f"deadline_across_the_wire[{w}]", case_deadline_across_the_wire,
         (w,)) for w in WIRINGS]
-    + [("no_thread_per_connection", case_no_thread_per_connection, ())]
     + [(f"last_message_in_place[{c}]", case_last_message_in_place, (c,))
        for c in ("port", "ref")]
-    + [("inline_processing_off", case_inline_processing_off, ())])
+    + [("inline_processing_off", case_inline_processing_off, ())]
+    + [("burst_responses_in_place", case_burst_responses_in_place, ())])
 
 
 def test_dispatch_across_the_wire():

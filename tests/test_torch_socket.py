@@ -296,13 +296,13 @@ def _frames(seed: int, n: int):
                     "Svc", f"M{i}", log_id=int(rng.integers(1 << 40)),
                     timeout_ms=int(rng.integers(0, 5000))),
                 correlation_id=i + 1)
-            out.append(tpu_std.pack_frame(meta, payload, att))
+            out.append(tpu_std.pack_frame(meta, payload, att)[0])
         elif kind == 1:
             meta = tpu_std.RpcMeta(
                 response=tpu_std.RpcResponseMeta(int(rng.integers(2)) * 1008,
                                                  "t" * int(rng.integers(4))),
                 correlation_id=i + 1)
-            out.append(tpu_std.pack_frame(meta, payload, att))
+            out.append(tpu_std.pack_frame(meta, payload, att)[0])
         else:
             out.append(tpu_std.pack_stream_frame(
                 int(rng.integers(1, 1 << 30)), i, int(rng.integers(4)),

@@ -127,7 +127,7 @@ def test_small_frames_byte_equal(prefix_fields, cid, payload, att):
         request=(port_std.RpcRequestMeta(**prefix_fields)
                  if prefix_fields else None),
         correlation_id=cid)
-    assert port_std.pack_frame(meta, payload, att) == want
+    assert port_std.pack_frame(meta, payload, att) == (want, None)
     # and it parses back
     body_size, meta_size = port_std.parse_header(want[:12])
     got_meta, got_payload, got_att = port_std.unpack_body(want[12:],
@@ -147,7 +147,7 @@ def test_error_response_frame_matches_reference_pack_message():
     mine = port_std.pack_frame(port_std.RpcMeta(
         response=port_std.RpcResponseMeta(2004, "serving queue full (shed)"),
         correlation_id=99))
-    assert mine == want.to_bytes()
+    assert mine == (want.to_bytes(), None)
 
 
 def test_header_rejects_foreign_magic_and_bad_sizes():

@@ -8,10 +8,13 @@ One online-softmax recurrence, four versions:
     several blocks per sequence and a second launch,
     ``flash_decode_combine``, merges the per-split ``(m, l, o)``;
   * ``flash_attn_fwd_tc`` (``csrc/flash_attention_tc.cu``): fp16/bf16
-    tiles on the tensor cores (``wgmma``), K/V streamed by TMA through a
-    ring of shared-memory stages, head dim 64 or 128;
-  * ``flash_attn_fwd`` (``csrc/flash_attention.cu``): fp32 (or head dim
-    16/32) tiles on the CUDA cores, 64 query rows a block whose key range
+    tiles on the tensor cores (``wgmma``), K/V streamed by TMA through
+    rings of shared-memory stages, every head dim the port takes (16, 32,
+    64, 128); each tile's softmax runs while the last tile's P V is on
+    the tensor cores;
+  * ``flash_attn_fwd`` (``csrc/flash_attention.cu``): fp32 tiles on the
+    CUDA cores (it also takes fp16/bf16, which ``_plan`` no longer sends
+    it), 64 query rows a block whose key range
     two groups of 4 warps split, register tiles fed by 16-byte shared
     loads, K/V streamed by ``cp.async`` through a two-stage ring;
   * ``_flash_plain``, the plain PyTorch version: the ``_flash_lax``
@@ -42,7 +45,6 @@ NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 TC_DTYPES = (torch.float16, torch.bfloat16)
-TC_HEAD_DIMS = (64, 128)
 # the card's streaming multiprocessors (H100 SXM): decode splits a cache
 # until the grid covers them, keeping at least this many keys a split
 SM_COUNT = 132
@@ -208,8 +210,8 @@ def _plan(op: str, device: Union[str, torch.device], dtype: torch.dtype,
     ========== ============================== =====================
     cpu        any                            plain (``_flash_plain``)
     cuda       decode, any                    flash_decode
-    cuda       fp16/bf16, d 64 or 128         flash_attn_fwd_tc
-    cuda       fp32, or d 16/32               flash_attn_fwd
+    cuda       fp16/bf16, any head dim        flash_attn_fwd_tc
+    cuda       fp32                           flash_attn_fwd
     ========== ============================== =====================
 
     For decode, ``sk`` is the cache capacity L. Inputs a kernel does not
@@ -224,7 +226,7 @@ def _plan(op: str, device: Union[str, torch.device], dtype: torch.dtype,
         return Plan("flash_decode", splits, -(-sk // splits))
     if op != "attention":
         raise ValueError(f"unknown op {op!r}")
-    if dtype in TC_DTYPES and d in TC_HEAD_DIMS:
+    if dtype in TC_DTYPES:
         return Plan("flash_attn_fwd_tc")
     return Plan("flash_attn_fwd")
 
@@ -284,9 +286,9 @@ def _launch_tile(kernel: str, q3: torch.Tensor, k3: torch.Tensor,
         raise ValueError(f"batch*heads {bh} of q does not match k's "
                          f"{k3.shape[0]}")
     if kernel == "flash_attn_fwd_tc" and (q3.dtype not in TC_DTYPES
-                                          or d not in TC_HEAD_DIMS):
+                                          or d not in KERNEL_HEAD_DIMS):
         raise ValueError(f"flash_attn_fwd_tc takes fp16/bf16 with head dim "
-                         f"in {TC_HEAD_DIMS}, not {q3.dtype} d {d}")
+                         f"in {KERNEL_HEAD_DIMS}, not {q3.dtype} d {d}")
     if -(-sq // TILE_BLOCK_Q[kernel]) > GRID_Y_MAX:
         raise ValueError(f"{kernel}: sq {sq} needs more than {GRID_Y_MAX} "
                          f"q tiles")
@@ -363,8 +365,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Blockwise attention over [..., seq, head_dim] operands. On the CPU
     ``block_k`` sets the plain version's k blocks; the kernels' tiles are
     their own (``flash_attn_fwd`` 64 query rows x 64 keys, 32 at head
-    dim 128; ``flash_attn_fwd_tc`` 64 x 64), which changes only the fp32
-    summation order. ``block_q`` is kept for the reference's signature."""
+    dim 128; ``flash_attn_fwd_tc`` 64 x 128, 64 x 64 at head dim 128
+    without the causal mask), which changes only the fp32 summation
+    order. ``block_q`` is kept for the reference's signature."""
     del block_q
     sq, d = q.shape[-2:]
     sk = k.shape[-2]

@@ -15,15 +15,18 @@ Phases, one JSON line each:
    the card, at the serving shape, a split decode cache, and long,
    ragged and sq != sk shapes, in fp32, fp16 and bf16: fp32 within
    FP32_TOL, fp16/bf16 element by element within ``_rounding_bound``
-   (the error the kernel's own roundings explain), and three controls, a
-   split decode with one split dropped and a bf16 and an fp32 attention
-   with their last K tile dropped, that these bounds must reject; each
-   case names the kernel ``_plan`` chose and checks that it was the one
-   launched. ``flash_attn_fwd`` is also held at its 64-row block's edges
-   (sq < 64, sq and sk off the tile sizes, head dims 16/32/128, causal
-   with sq != sk), in bf16 at d 32 and fp16 at d 16, and through
-   ``_launch_tile`` with a per-head device ``q_offset`` (lengths 0, 1, L
-   and between, ``q_offset_add`` -1);
+   (the error the kernel's own roundings explain), and four controls, a
+   split decode with one split dropped and bf16 (d 64, d 32) and fp32
+   attention with their last 64 keys dropped, that these bounds must
+   reject; each case names the kernel ``_plan`` chose and checks that it
+   was the one launched. ``flash_attn_fwd_tc`` takes every 16-bit head
+   dim: it is held at one tile (sq 64 x sk 64 at d 16 and 32), inside
+   one tile (sq 16 x sk 40) and at ragged, causal and sq != sk shapes.
+   ``flash_attn_fwd`` is also held at its 64-row block's edges (sq < 64,
+   sq and sk off the tile sizes, head dims 16/32/128, causal with sq !=
+   sk), in bf16 at d 32 and fp16 at d 16 through ``_launch_tile`` (the
+   ``ms_simt`` of phase 5), and with a per-head device ``q_offset``
+   (lengths 0, 1, L and between, ``q_offset_add`` -1);
 3. serving (the main path): a port Server on tcp://127.0.0.1:0 with the
    default GenerateService on cuda:0 answers a burst of 16 unary
    Generate calls from 8 client threads; every token list must equal the
@@ -46,8 +49,9 @@ Phases, one JSON line each:
    ``saturation_snapshot()``;
    then the two other paths, each with the counts zeroed just before and
    read just after: long-context attention (``flash_attention`` at 8
-   heads x 2048 x 64, bf16 and fp32, causal and not) and a long-cache
-   decode step (``decode_attention`` at B 4, L 4096, d 128, bf16, split);
+   heads x 2048 x 64, bf16 and fp32, and x 32 bf16, causal and not) and
+   a long-cache decode step (``decode_attention`` at B 4, L 4096, d 128,
+   bf16, split);
 4. streaming (the main path since the stream and HTTP transports): a
    fresh default server on cuda:0, launch counts zeroed before each part
    and read after it, each part's ``flash_decode`` launches equal to its
@@ -72,9 +76,12 @@ Phases, one JSON line each:
    never calls), from CUDA events and from the profiler, beside the bound
    from bytes and operations, and, in the same run, the CUDA-core tile
    kernel (``flash_attn_fwd`` through ``_launch_tile``) on the same
-   inputs as ``ms_simt`` where another kernel serves the call (decode, and
-   bf16 at d 64); ``flash_attn_fwd`` itself at 8 x 2048 x 64 and
-   x 128 fp32 and 8 x 2048 x 32 bf16, causal and not.
+   inputs as ``ms_simt`` where another kernel serves the call (decode,
+   and every 16-bit row); ``flash_attn_fwd_tc`` at 8 x 2048 x 16 fp16,
+   x 32, x 64 and x 128 bf16 and 32 x 2048 x 64 bf16, ``flash_attn_fwd``
+   at 8 x 2048 x 64 and x 128 fp32, causal and not. Each long case also
+   gives, on its kernel_times line only, ``mufu_ms``: its exponentials
+   at the special-function rate, worked out and not measured.
 
 After phase 4, the phase ``observability``: a fresh default server on
 cuda:0 with the ``rpcz_enabled`` flag on; one warm burst of each kind
@@ -148,6 +155,9 @@ from pathlib import Path
 # H100 SXM published peaks (NVIDIA data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12, "fp16": 989e12}
+# H100 SXM special-function (exp2) rate: 3.9e12/s (Shah et al. 2024,
+# the FlashAttention-3 paper); attention takes one exponential a score
+MUFU_PER_S = 3.9e12
 FP32_TOL = 1e-4        # fp16/bf16: _rounding_bound, element by element
 N_CLIENTS = 8
 N_REQUESTS = 16
@@ -446,13 +456,23 @@ def phase_kernel_check(dev):
         ("sq100 sk77 d32 fp32 causal", (3, 100, 32), 77, torch.float32, True,
          64),
         ("sq65 sk129 d16 fp32", (2, 65, 16), 129, torch.float32, False, 64),
-        # the 16-bit inputs the routing table sends to flash_attn_fwd
+        # 16-bit inputs at head dim 16/32 (flash_attn_fwd_tc; flash_attn_fwd
+        # is held on them below, through _launch_tile)
         ("4x257x32 bf16", (4, 257, 32), 257, torch.bfloat16, False, 64),
         ("4x257x32 bf16 causal", (4, 257, 32), 257, torch.bfloat16, True,
          64),
         ("3x190x16 fp16", (3, 190, 16), 190, torch.float16, False, 64),
         ("3x190x16 fp16 causal", (3, 190, 16), 190, torch.float16, True, 64),
+        # one tile, and the ragged edge inside one tile, at d 16/32
+        ("sq64 sk64 d16 bf16", (2, 64, 16), 64, torch.bfloat16, False, 64),
+        ("sq64 sk64 d32 fp16 causal", (2, 64, 32), 64, torch.float16, True,
+         64),
+        ("sq16 sk40 d32 bf16 causal", (3, 16, 32), 40, torch.bfloat16, True,
+         64),
+        ("8x2048x32 bf16", (8, 2048, 32), 2048, torch.bfloat16, False, 128),
     ]
+    simt_16bit = ("4x257x32 bf16", "4x257x32 bf16 causal", "3x190x16 fp16",
+                  "3x190x16 fp16 causal")
     for name, qshape, sk, dtype, causal, block_k in cases:
         kshape = qshape[:-2] + (sk, qshape[-1])
         q = _rand(rng, qshape, dtype, dev)
@@ -478,8 +498,17 @@ def phase_kernel_check(dev):
                       if plan.kernel == "flash_attn_fwd_tc" else None)
             bound = fa._rounding_bound(want, dtype, pv_abs)
         record(name, launched, got, want, bound)
-        if name in ("8x2048x64 bf16", "8x2048x64 fp32"):
-            control(f"{name} without the last K tile",
+        if name in simt_16bit:
+            # flash_attn_fwd on the same inputs: it rounds only its output
+            before = dict(fa.launches)
+            got = fa._launch_tile("flash_attn_fwd", q, k, v, scale, causal)
+            launched = _launched(fa, before)
+            check(launched == ["flash_attn_fwd"],
+                  f"{name} via _launch_tile: launched {launched}")
+            record(f"{name} via _launch_tile", launched, got, want,
+                   fa._rounding_bound(want, dtype))
+        if name in ("8x2048x64 bf16", "8x2048x32 bf16", "8x2048x64 fp32"):
+            control(f"{name} without its last 64 keys",
                     fa._flash_plain(qf, kf[:, :-64], vf[:, :-64], scale,
                                     causal, block_k), want, bound)
     torch.cuda.synchronize()
@@ -2087,7 +2116,8 @@ def phase_paths(dev, split_inputs):
     """The port's two other paths, each driven through its public entry
     point with every count zeroed just before and read just after:
     long-context attention (examples/long_context's 8 heads x 2048 x 64,
-    bf16 to flash_attn_fwd_tc, fp32 to flash_attn_fwd, causal and not)
+    bf16 to flash_attn_fwd_tc, fp32 to flash_attn_fwd, and 8 x 2048 x 32
+    bf16 to flash_attn_fwd_tc, causal and not)
     and a decode step over a long cache (split, then combined)."""
     import numpy as np
     import torch
@@ -2096,15 +2126,16 @@ def phase_paths(dev, split_inputs):
     rng = np.random.RandomState(7)
     out = {}
     fa.reset_launches()
-    for dtype in (torch.bfloat16, torch.float32):
-        x = [_rand(rng, (8, 2048, 64), dtype, dev) for _ in range(3)]
+    for dtype, d in ((torch.bfloat16, 64), (torch.float32, 64),
+                     (torch.bfloat16, 32)):
+        x = [_rand(rng, (8, 2048, d), dtype, dev) for _ in range(3)]
         for causal in (False, True):
             o = fa.flash_attention(*x, causal=causal)
             check(o.shape == x[0].shape and bool(torch.isfinite(o).all()),
                   "long-context attention gave non-finite values")
     torch.cuda.synchronize()
     out["long_context"] = dict(fa.launches)
-    check(out["long_context"]["flash_attn_fwd_tc"] == 2
+    check(out["long_context"]["flash_attn_fwd_tc"] == 4
           and out["long_context"]["flash_attn_fwd"] == 2,
           f"long-context path launched {out['long_context']}")
 
@@ -2242,11 +2273,14 @@ def phase_times(decode_inputs, split_inputs):
     n = 2048
     # 8 heads: examples/long_context's shape, one wave of tc blocks or
     # less; 32 heads: several waves, where the causal tile order pays;
-    # d 128 fp32 and d 32 bf16 take flash_attn_fwd's other tile shapes
+    # every 16-bit head dim goes to flash_attn_fwd_tc, fp32 to
+    # flash_attn_fwd (d 128 its other tile shape)
     for heads, d, dtype in ((8, 64, torch.float32), (8, 64, torch.bfloat16),
                             (32, 64, torch.bfloat16),
                             (8, 128, torch.float32),
-                            (8, 32, torch.bfloat16)):
+                            (8, 32, torch.bfloat16),
+                            (8, 128, torch.bfloat16),
+                            (8, 16, torch.float16)):
         kind = _kind(dtype)
         kernel = fa._plan("attention", q.device, dtype, d).kernel
         x = [_rand(rng, (heads, n, d), dtype, q.device) for _ in range(3)]
@@ -2269,7 +2303,8 @@ def phase_times(decode_inputs, split_inputs):
             t.update(case=f"{heads}x{n}x{d} {kind}"
                           f"{' causal' if causal else ''}",
                      kernel=kernel, bound_ms=bms, bound_by=bby,
-                     bytes=nbytes, flops=flops)
+                     bytes=nbytes, flops=flops,
+                     mufu_ms=heads * pairs / MUFU_PER_S * 1e3)
             long_cases.append(t)
             emit(dict(phase="kernel_times", **t))
     for c in long_cases:
@@ -2290,6 +2325,14 @@ def _row(name, path, launches, serving_launches, per_step, err, t, **kw):
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "ms_simt": t.get("ms_simt"), **kw}
+
+
+def _measured_cases(long_cases, kernel):
+    """The long cases ``kernel`` serves, for the kernels line: without
+    ``mufu_ms``, a figure worked out from the exponentials' count and not
+    measured (the ``kernel_times`` lines keep it)."""
+    return [{k: v for k, v in c.items() if k != "mufu_ms"}
+            for c in long_cases if c["kernel"] == kernel]
 
 
 def main(only: str = "") -> int:
@@ -2391,14 +2434,12 @@ def main(only: str = "") -> int:
              paths["long_context"]["flash_attn_fwd_tc"],
              sl["flash_attn_fwd_tc"], sl["flash_attn_fwd_tc"] / steps,
              errs["flash_attn_fwd_tc"], tc, shape="8x2048x64 bf16",
-             cases=[c for c in times["long"]
-                    if c["kernel"] == "flash_attn_fwd_tc"]),
+             cases=_measured_cases(times["long"], "flash_attn_fwd_tc")),
         _row("flash_attn_fwd", "long-context attention",
              paths["long_context"]["flash_attn_fwd"],
              sl["flash_attn_fwd"], sl["flash_attn_fwd"] / steps,
              errs["flash_attn_fwd"], simt, shape="8x2048x64 fp32",
-             cases=[c for c in times["long"]
-                    if c["kernel"] == "flash_attn_fwd"]),
+             cases=_measured_cases(times["long"], "flash_attn_fwd")),
     ]
     print(card)
     emit({"kernels": kernels})

@@ -91,8 +91,8 @@ def test_combine_guards_all_empty_partials():
     ("attention", torch.bfloat16, 64, 1, "flash_attn_fwd_tc"),
     ("attention", torch.float32, 64, 2048, "flash_attn_fwd"),
     ("attention", torch.float32, 128, 16, "flash_attn_fwd"),
-    ("attention", torch.bfloat16, 32, 16, "flash_attn_fwd"),
-    ("attention", torch.float16, 16, 300, "flash_attn_fwd"),
+    ("attention", torch.bfloat16, 32, 16, "flash_attn_fwd_tc"),
+    ("attention", torch.float16, 16, 300, "flash_attn_fwd_tc"),
 ])
 def test_plan_routes_cuda_by_dtype_and_head_dim(op, dtype, d, sq, want):
     plan = port._plan(op, CUDA, dtype, d, bh=8, sk=max(sq, 160))
@@ -156,8 +156,8 @@ def test_plan_tile_order(causal, order):
 def test_causal_tile_order_heaviest_first(n):
     order = port._causal_tile_order(n)
     assert sorted(order) == list(range(n))
-    # k tiles q tile t sees under a top-left causal mask (flash_attn_fwd_tc's
-    # 64 x 64 tiles, sq = sk): the count must not grow along the order
+    # k tiles q tile t sees under a top-left causal mask (64 x 64 tiles,
+    # sq = sk): the count must not grow along the order
     block_q, block_k, sq = 64, 64, 64 * n
     n_k = -(-sq // block_k)
     visible = [min(((t + 1) * block_q + block_k - 1) // block_k, n_k)
@@ -194,9 +194,10 @@ def test_decode_on_cpu_launches_nothing_and_matches_plain_split():
 
 
 def test_tc_launcher_refuses_what_it_does_not_take():
-    """flash_attn_fwd_tc takes fp16/bf16 at head dim 64/128; anything else
-    is refused before a launch (``_plan`` never sends it there)."""
-    for dtype, d in ((torch.float32, 64), (torch.bfloat16, 32)):
+    """flash_attn_fwd_tc takes fp16/bf16 at head dim 16/32/64/128; fp32,
+    and a head dim neither tile kernel takes, are refused before a launch
+    (``_plan`` never sends them there)."""
+    for dtype, d in ((torch.float32, 64), (torch.bfloat16, 48)):
         x = torch.zeros((2, 16, d), dtype=dtype)
         with pytest.raises(ValueError, match="flash_attn_fwd_tc takes"):
             port._launch_tile("flash_attn_fwd_tc", x, x, x, 1.0, False)
@@ -227,23 +228,25 @@ def _tc_numerics(q, k, v, causal, dtype):
     return (num / p.sum(dim=-1, keepdim=True)).to(dtype).float()
 
 
+@pytest.mark.parametrize("d", [16, 32, 64])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_rounding_bound_holds_for_tc_numerics_and_rejects_a_dropped_tile(
-        dtype, causal):
+        dtype, causal, d):
     """chip_smoke.py's check of the 16-bit kernels: the tc kernel's own
-    roundings stay inside ``_rounding_bound``, and dropping the last 64
-    keys (one K tile) does not."""
+    roundings stay inside ``_rounding_bound``, at every head dim it takes
+    below 128, and dropping the last 64 keys does not."""
     rng = np.random.RandomState(15)
-    q, k, v = (torch.from_numpy(rng.randn(2, n, 64).astype(np.float32))
+    q, k, v = (torch.from_numpy(rng.randn(2, n, d).astype(np.float32))
                .to(dtype).float() for n in (256, 256, 256))
-    want = port._flash_plain(q, k, v, 64 ** -0.5, causal, 64)
+    scale = d ** -0.5
+    want = port._flash_plain(q, k, v, scale, causal, 64)
     bound = port._rounding_bound(
-        want, dtype, port._flash_plain(q, k, v.abs(), 64 ** -0.5, causal, 64))
+        want, dtype, port._flash_plain(q, k, v.abs(), scale, causal, 64))
     got = _tc_numerics(q, k, v, causal, dtype)
     assert ((got - want).abs() <= bound).all()
-    dropped = port._flash_plain(q, k[:, :-64], v[:, :-64], 64 ** -0.5,
-                                causal, 64)
+    dropped = port._flash_plain(q, k[:, :-64], v[:, :-64], scale, causal,
+                                64)
     assert ((dropped - want).abs() > bound).any()
 
 

@@ -6,9 +6,11 @@ Pipelined requests on one connection, tpu_std and HTTP on one port, a
 prefix that no protocol claims (dropped) against a short one that may
 still become a request (kept), the deadline shed before the handler
 (``ERPCTIMEDOUT``), a server with 16 connections and no thread per
-connection, and the last message of a read processed in place on the
-dispatcher thread until its handler first suspends; of a burst's
-earlier messages, the responses run in place and the requests spawn.
+connection (counting the threads the port started, with a control whose
+accept path starts one per connection), and the last message of a read
+processed in place on the dispatcher thread until its handler first
+suspends; of a burst's earlier messages, the responses run in place and
+the requests spawn.
 
 Every case tears down what it made. The cases run inside one collected
 test (``_run_cases`` reports every failing case, with its traceback, and
@@ -26,6 +28,7 @@ import traceback
 import pytest
 
 from brpc_tpu import fiber as ref_fiber
+from brpc_tpu.fiber.timer import TimerThread as RefTimerThread
 from brpc_tpu.rpc import Channel as RefChannel
 from brpc_tpu.rpc import ChannelOptions as RefChannelOptions
 from brpc_tpu.rpc import Controller as RefController
@@ -40,6 +43,7 @@ from brpc_tpu_torch.protocol import tpu_std
 from brpc_tpu_torch.rpc import (Channel, ChannelOptions, Server,
                                 ServerOptions, Service, errno_codes as berr)
 from brpc_tpu_torch.rpc import server_dispatch as port_dispatch
+from brpc_tpu_torch.transport import tcp as port_tcp
 from brpc_tpu_torch.transport.event_dispatcher import global_dispatcher
 from brpc_tpu_torch.transport.input_messenger import InputMessenger
 
@@ -386,28 +390,100 @@ def _thread_names():
     return sorted(t.name for t in threading.enumerate())
 
 
+def _started_by_the_port(t) -> bool:
+    """Whether the port started thread ``t``: the module of its target, or
+    of its ``Thread`` subclass, is one of brpc_tpu_torch's. A thread that
+    a brpc_tpu module started (brpc_tpu shares this process) is not."""
+    target = getattr(t, "_target", None)
+    return any(m == "brpc_tpu_torch" or m.startswith("brpc_tpu_torch.")
+               for m in (getattr(target, "__module__", None) or "",
+                         type(t).__module__))
+
+
+def _port_thread_names():
+    return sorted(t.name for t in threading.enumerate()
+                  if _started_by_the_port(t))
+
+
 def case_no_thread_per_connection():
+    """16 connections add no thread that the port started. A brpc_tpu
+    thread that starts meanwhile (a control of the JAX package that a late
+    socket event restarts does so) is not the port's, and is not
+    counted."""
     with _Made() as m:
         srv = m.server("port")
         warm = Channel(srv.address)
         channels = []
+        ref_timer = RefTimerThread("ref_timer_in_window")
         try:
             assert warm.call_sync("Echo", "Echo", b"w").response == b"w"
-            before = _thread_names()
+            before = _port_thread_names()
+            ref_timer.schedule_after(60.0, lambda: None)  # starts a thread
             for i in range(16):
                 ch = Channel(srv.address)
                 channels.append(ch)
                 assert ch.call_sync("Echo", "Echo", b"%d" % i).response \
                     == b"%d" % i
             assert len(srv.server.connections()) == 17
-            after = _thread_names()
-            assert not [n for n in after if n.endswith(("-reader", "-writer"))
-                        or n == "tcp-accept"], after
-            assert len(after) == len(before), (before, after)
+            after = _port_thread_names()
+            names = _thread_names()
+            assert not [n for n in names if n.endswith(("-reader", "-writer"))
+                        or n == "tcp-accept"], names
+            assert "ref_timer_in_window" in names
+            assert "ref_timer_in_window" not in after
+            assert len(after) == len(before), \
+                f"threads the port started: {before} -> {after}"
         finally:
+            ref_timer.stop()
+            if ref_timer._thread is not None:
+                ref_timer._thread.join(5)
             for ch in channels + [warm]:
                 ch.close()
         assert _wait_for(lambda: not srv.server.connections())
+
+
+def _hold_the_connection(stop):
+    stop.wait(30)
+
+
+# the thread that the patched accept path below starts runs code of that
+# path, so it carries the accept path's module
+_hold_the_connection.__module__ = port_tcp.__name__
+
+
+def case_thread_per_connection_fails_the_count():
+    """Control: with the port's accept path patched to start one thread
+    per connection, ``case_no_thread_per_connection`` fails its count."""
+    stop = threading.Event()
+    started = []
+    accept = port_tcp._TcpListener._on_acceptable
+
+    def on_acceptable(self):
+        if not getattr(self, "_one_thread_each", False):
+            inner = self._on_new_conn
+
+            def on_new_conn(conn):
+                t = threading.Thread(target=_hold_the_connection,
+                                     args=(stop,), daemon=True,
+                                     name=f"conn-thread-{len(started)}")
+                started.append(t)
+                t.start()
+                inner(conn)
+            self._on_new_conn = on_new_conn
+            self._one_thread_each = True
+        accept(self)
+
+    port_tcp._TcpListener._on_acceptable = on_acceptable
+    try:
+        with pytest.raises(AssertionError) as failed:
+            case_no_thread_per_connection()
+        assert len(started) == 17
+        assert "conn-thread-16" in str(failed.value)
+    finally:
+        port_tcp._TcpListener._on_acceptable = accept
+        stop.set()
+        for t in started:
+            t.join(5)
 
 
 def case_last_message_in_place(client):
@@ -511,9 +587,9 @@ def case_burst_responses_in_place():
 
 
 CASES = (
-    # first: a brpc_tpu control that a later case stops can be started
-    # again by a late socket event, one thread over the count (ROADMAP 3)
-    [("no_thread_per_connection", case_no_thread_per_connection, ())]
+    [("no_thread_per_connection", case_no_thread_per_connection, ()),
+     ("thread_per_connection_fails_the_count",
+      case_thread_per_connection_fails_the_count, ())]
     + [(f"pipelined_calls[{w}]", case_pipelined_calls, (w,))
        for w in WIRINGS]
     + [(f"pipelined_burst[{k}]", case_pipelined_burst, (k,))

@@ -35,8 +35,7 @@ def _source_block_q(source: str, **defines) -> int:
 
 @pytest.mark.parametrize("kernel,source,defines", [
     ("flash_attn_fwd", "flash_attention.cu", {}),
-    # the library builds one consumer warpgroup a block
-    ("flash_attn_fwd_tc", "flash_attention_tc.cu", {"kWarpgroups": 1}),
+    ("flash_attn_fwd_tc", "flash_attention_tc.cu", {}),
 ])
 def test_launcher_block_rows_mirror_the_kernel(kernel, source, defines):
     assert port.TILE_BLOCK_Q[kernel] == _source_block_q(source, **defines)

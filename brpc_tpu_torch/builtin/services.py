@@ -106,6 +106,15 @@ def add_builtin_services(server) -> None:
         return json.dumps(connections_page(server), default=str).encode()
 
     @builtin.method()
+    def device(cntl, request):
+        # the device lanes' cells, conns, recv pool and leaks: the twin
+        # of HTTP /device, from the same function
+        from brpc_tpu_torch.transport.device_stats import (
+            device_page_payload)
+        return json.dumps(device_page_payload(server),
+                          default=str).encode()
+
+    @builtin.method()
     def serving(cntl, request):
         # imported here: the serving lane imports torch, the RPC layer not
         from brpc_tpu_torch.serving.service import serving_page_payload

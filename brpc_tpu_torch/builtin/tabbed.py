@@ -15,6 +15,7 @@ TABS = [
     ("rpcz", "/rpcz"),
     ("contentions", "/contentions"),
     ("serving", "/serving"),
+    ("device", "/device"),
     ("connections", "/connections"),
     ("metrics", "/brpc_metrics"),
     ("version", "/version"),

@@ -13,9 +13,16 @@ Device blocks (``DeviceBlock``, ``append_device_array``) hold a 1-D
 ``torch.uint8`` tensor, on the card or the host; a ref into one is
 ``is_device`` and slices the tensor without a copy (``device_array``).
 Its bytes come only from ``to_bytes``, an explicit ``.cpu()`` copy: a
-device ref has no memoryview, so no writer sends it by accident. The
-reference's ``PinnedStaging`` comes with the ``ici://`` lane, its only
-user.
+device ref has no memoryview, so no writer sends it by accident.
+
+``PinnedStaging`` / ``pinned_staging_block`` (brpc_tpu/butil/iobuf.py:
+241-275) are the host staging memory of H2D copies, used by the pinned
+stager of ``ici://``'s staged lane (``butil/device_pool.py``). The
+reference's mlock'd native arena becomes a freelist of page-locked
+torch blocks (``pin_memory=True``) by size class: pinning costs tens of
+microseconds to milliseconds a block, so a block is reused, never
+allocated a batch. Without a card the blocks are plain host memory,
+pooled the same way (``pinned`` False).
 """
 
 from __future__ import annotations
@@ -86,6 +93,109 @@ pool = BlockPool()
 
 def _recycle_buffer(buf: bytearray) -> None:
     pool.recycle(buf)
+
+
+# ------------------------------------------------------ pinned staging
+
+_PINNED_MIN_CLASS = 64 << 10
+_PINNED_MAX_CLASS = 64 << 20
+_PINNED_CACHED_PER_CLASS = 8
+
+
+def _pinned_class(nbytes: int) -> int:
+    """The power-of-two size class of an ``nbytes`` block; 0 for a size
+    past the largest class (allocated for the request, not pooled)."""
+    c = _PINNED_MIN_CLASS
+    while c < nbytes:
+        c <<= 1
+    return c if c <= _PINNED_MAX_CLASS else 0
+
+
+class PinnedBlockPool:
+    """Size-classed freelists of 1-D ``torch.uint8`` host blocks,
+    page-locked when a card is there. ``acquire`` pops a cached block
+    or makes one; ``recycle`` keeps at most ``_PINNED_CACHED_PER_CLASS``
+    a class. The interpreter lock makes each list operation atomic."""
+
+    __slots__ = ("classes", "hits", "misses", "pin")
+
+    def __init__(self):
+        self.classes: dict = {}
+        self.hits = 0
+        self.misses = 0
+        self.pin: Optional[bool] = None     # decided at first use
+
+    def _pinnable(self) -> bool:
+        if self.pin is None:
+            import torch
+            self.pin = torch.cuda.is_available()
+        return self.pin
+
+    def acquire(self, nbytes: int):
+        import torch
+        cls = _pinned_class(nbytes)
+        lst = self.classes.get(cls) if cls else None
+        if lst:
+            try:
+                blk = lst.pop()
+                self.hits += 1
+                return blk
+            except IndexError:          # a racing pop took the last one
+                pass
+        self.misses += 1
+        return torch.empty(cls or nbytes, dtype=torch.uint8,
+                           pin_memory=self._pinnable())
+
+    def recycle(self, blk) -> None:
+        cls = blk.numel()
+        if _pinned_class(cls) != cls:
+            return                      # an unpooled size: dropped
+        lst = self.classes.setdefault(cls, [])
+        if len(lst) < _PINNED_CACHED_PER_CLASS:
+            lst.append(blk)
+
+    def cached_bytes(self) -> int:
+        return sum(c * len(lst) for c, lst in self.classes.items())
+
+
+pinned_pool = PinnedBlockPool()
+
+
+class PinnedStaging:
+    """Host staging memory for one H2D copy: ``tensor`` is a 1-D
+    ``torch.uint8`` block of at least ``nbytes`` (page-locked when
+    ``pinned``), ``view`` its first ``nbytes`` as a writable
+    memoryview. ``release()`` returns the block to its freelist, once;
+    call it after the device copy that reads the block has completed."""
+
+    __slots__ = ("tensor", "view", "pinned", "_pool", "__weakref__")
+
+    def __init__(self, block, nbytes: int, pool: PinnedBlockPool,
+                 pinned: bool):
+        self.tensor = block[:nbytes]
+        self.view = memoryview(block.numpy())[:nbytes]
+        self.pinned = pinned
+        self._pool = pool
+
+    def release(self) -> None:
+        p, self._pool = self._pool, None
+        if p is not None:
+            self.view.release()
+            p.recycle(self.tensor._base if self.tensor._base is not None
+                      else self.tensor)
+            self.tensor = None
+
+
+def pinned_staging_block(nbytes: int,
+                         pool: Optional[PinnedBlockPool] = None
+                         ) -> PinnedStaging:
+    """Staging memory for an H2D copy of ``nbytes``: a page-locked block
+    from the freelist when a card is there (the DMA engine reads locked
+    pages directly), plain host memory otherwise: one interface, so
+    callers never branch on which."""
+    pool = pool or pinned_pool
+    blk = pool.acquire(max(1, nbytes))
+    return PinnedStaging(blk, nbytes, pool, bool(blk.is_pinned()))
 
 
 class Block:

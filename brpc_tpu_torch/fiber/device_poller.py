@@ -16,7 +16,9 @@ completion signal:
   sleeps 200 us between sweeps.
 
 An object already ready resumes the fiber at once. The fiber resumes
-with the object itself, or with a Future's result.
+with the object itself, or with a Future's result. The waiter and pump
+threads carry a device thread label while they run
+(``transport/device_stats.stamp_device_thread``).
 """
 
 from __future__ import annotations
@@ -25,6 +27,9 @@ import logging
 import threading
 import time
 from typing import Any, Callable, List, Optional, Tuple
+
+from brpc_tpu_torch.transport.device_stats import (stamp_device_thread,
+                                                   unstamp_device_thread)
 
 from .scheduler import Fiber, SchedAwaitable
 
@@ -110,6 +115,7 @@ class DeviceEventPoller:
             self._cond.notify()
 
     def _wait_and_fire(self, block, on_ready) -> None:
+        stamp_device_thread("device:wait")
         try:
             block()             # the device's own wait, lock released
         except Exception:       # an error shows where the result is used
@@ -121,6 +127,10 @@ class DeviceEventPoller:
             on_ready()
         except Exception:       # boundary: the waiter thread ends here
             log.exception("device waiter callback failed")
+        finally:
+            # the thread ends here: a label left behind would pin an
+            # entry for a dead thread id
+            unstamp_device_thread()
 
     def _ensure_thread(self) -> None:
         if self._thread is None or not self._thread.is_alive():
@@ -130,6 +140,15 @@ class DeviceEventPoller:
             self._thread.start()
 
     def _run(self) -> None:
+        # the pump's sweeps belong to the device lane; the unstamp is in
+        # a finally, so a pump that dies leaves no stale label
+        stamp_device_thread(f"device:{self._name}")
+        try:
+            self._run_inner()
+        finally:
+            unstamp_device_thread()
+
+    def _run_inner(self) -> None:
         idle_spins = 0
         while not self._stop:
             with self._cond:

@@ -17,7 +17,8 @@ request behind the earlier ones of its connection
 ``/health``, ``/status``, ``/vars`` (``/vars/<prefix>``, ``?prefix=``),
 ``/brpc_metrics`` and ``/metrics``, ``/flags`` (``POST
 /flags/<name>?setvalue=``), ``/connections``, ``/serving``, ``/rpcz``
-(``?trace_id=``, ``?n=``, ``?history=1``), ``/contentions`` and
+(``?trace_id=``, ``?n=``, ``?history=1``), ``/device`` (the device
+lanes' cells, conns, recv pool and leaks), ``/contentions`` and
 ``/version``. The reference's other pages wait for their modules
 (ROADMAP section 1).
 """
@@ -233,6 +234,10 @@ def builtin_page(server, req: HttpRequest) -> Optional[Page]:
         return _json(serving_page_payload(server))
     if path == "/rpcz":
         return _rpcz_page(req)
+    if path == "/device":
+        from brpc_tpu_torch.transport.device_stats import (
+            device_page_payload)
+        return _json(device_page_payload(server))
     if path == "/contentions":
         from brpc_tpu_torch.fiber.contention import contention_report
         try:

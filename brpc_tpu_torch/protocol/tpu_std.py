@@ -30,7 +30,7 @@ of the bytes, to ride the connection's device lane
 bytes at the front of the attachment, ahead of the user attachment
 (``inline_bytes``; ``unpack_inline_device_arrays`` cuts them back off).
 ``parse`` takes a frame's lane batch with
-``socket.take_device_payload()`` when any payload is not
+``socket.take_device_payload_with_recv()`` when any payload is not
 inline; a lane delivers its batches in the order of their frames.
 
 ``TpuStdProtocol.parse`` cuts one frame off an ``IOPortal`` into an
@@ -491,15 +491,19 @@ class RpcMessage:
     in the attachment until ``unpack_inline_device_arrays``)."""
 
     __slots__ = ("meta", "payload", "attachment", "device_arrays",
-                 "arrival_ns")
+                 "arrival_ns", "device_recv")
 
     def __init__(self, meta: RpcMeta, payload: bytes, attachment: bytes,
-                 device_arrays: Optional[List] = None):
+                 device_arrays: Optional[List] = None,
+                 device_recv: Optional[dict] = None):
         self.meta = meta
         self.payload = payload
         self.attachment = attachment
         self.device_arrays = device_arrays or []
         self.arrival_ns = time.monotonic_ns()
+        # the socket's record of the lane take (rpcz on): dispatch hangs
+        # a device-recv child span off the call's span with it
+        self.device_recv = device_recv
 
     @property
     def is_response(self) -> bool:
@@ -571,11 +575,11 @@ class TpuStdProtocol(Protocol):
             # a lying attachment_size would eat the next frame's bytes
             socket.set_failed(ConnectionError(f"bad frame: {e}"))
             return PARSE_NOT_ENOUGH_DATA, None
-        lane = None
+        lane = recv = None
         if any(not dp.inline_bytes for dp in meta.device_payloads):
             # the lane batch went out right before this frame
-            lane = socket.take_device_payload()
-        return PARSE_OK, RpcMessage(meta, payload, attachment, lane)
+            lane, recv = socket.take_device_payload_with_recv()
+        return PARSE_OK, RpcMessage(meta, payload, attachment, lane, recv)
 
     def process(self, msg: RpcMessage, socket):
         if msg.meta.request is not None:

@@ -23,7 +23,7 @@ it.
 
 ``call_sync(..., request_device_arrays=[t, ...])`` sends tensors with
 the request (brpc_tpu/rpc/channel.py:391-394, :820-850). On a connection
-with a device lane (mem, cuda, cudad) they ride the lane, and the batch
+with a device lane (mem, cuda, cudad, ici) they ride the lane, and the batch
 and the request frame are written as an adjacent pair under the socket's
 ``lane_lock``, since the receiver pairs batches with frames by order; on
 tcp they are copied to the host and go inline in the frame. The
@@ -58,6 +58,8 @@ from .controller import Controller
 from .stream import Stream, StreamOptions
 
 _messenger: Optional[InputMessenger] = None
+# the longest an ici:// dial waits for the peer's hello
+_HELLO_TIMEOUT_S = 10.0
 
 
 def _client_messenger() -> InputMessenger:
@@ -92,6 +94,16 @@ class Channel:
                     self.endpoint,
                     on_input=_client_messenger().on_new_messages)
                 s.on_failed(self._on_socket_failed)
+                # an ici:// dial completes with the peer's hello (the
+                # QP bring-up): the first batch then goes, and is
+                # counted, on the lane it really takes
+                wait_hello = getattr(s.conn, "wait_hello", None)
+                if wait_hello is not None and \
+                        not wait_hello(_HELLO_TIMEOUT_S):
+                    s.set_failed(ConnectionError("no hello from the peer"))
+                    raise ConnectionError(
+                        f"no hello from {self.address} within "
+                        f"{_HELLO_TIMEOUT_S} s")
                 self._socket = s
             return s
 
@@ -104,7 +116,9 @@ class Channel:
 
     def device_lane_kind(self) -> Optional[str]:
         """The device lane of this channel's connection (``loopback-d2d``,
-        ``staged-dcn``), or None without one; dials if needed."""
+        ``staged-dcn``; on ici:// ``local-d2d``, ``cuda-ipc`` or
+        ``staged``, from the peer's hello), or None without one; dials
+        if needed."""
         try:
             conn = self._get_socket().conn
         except OSError:
@@ -180,7 +194,9 @@ class Channel:
                 # queues, and the peer learns of the bytes through the
                 # dispatcher, so nothing of it runs under the lock
                 with sock.lane_lock:
-                    sock.write_device_payload(lane)
+                    # the batch's device span is a child of the call's
+                    sock.write_device_payload(lane,
+                                              span=cntl._client_span)
                     written = sock.write(wire)
         except OSError as e:
             written = False

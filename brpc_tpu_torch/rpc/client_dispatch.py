@@ -81,8 +81,13 @@ def _fill_response(cntl, msg, socket) -> None:
     cntl.response = msg.payload
     if msg.meta.device_payloads:
         # inline and lane tensors in meta order
-        # (brpc_tpu/rpc/client_dispatch.py:251-258)
+        # (brpc_tpu/rpc/client_dispatch.py:251-265)
         cntl.response_device_arrays = tpu_std.merge_device_arrays(msg)
+        span = cntl._client_span
+        if msg.device_recv is not None and span is not None:
+            # the response's receive leg, a child of the client span
+            from brpc_tpu_torch.rpc.span import submit_device_recv_span
+            submit_device_recv_span(span, msg.device_recv)
     ss: Optional[object] = msg.meta.stream_settings
     stream = cntl.stream
     if stream is not None and ss is not None and ss.stream_id:

@@ -142,6 +142,15 @@ class Server:
             expose_stall_vars()
             self.control.expose_vars()
             self._expose_vars()
+            # the device lanes' cells and the ici_* counters: a restart
+            # after a test's unexpose_all must not drop them from /vars
+            from brpc_tpu_torch.transport.device_stats import (
+                expose_device_vars)
+            expose_device_vars()
+            import sys
+            ici = sys.modules.get("brpc_tpu_torch.transport.ici")
+            if ici is not None:
+                ici.expose_ici_vars()
         self._messenger = InputMessenger(control=self.control)
         self._running = True
         try:

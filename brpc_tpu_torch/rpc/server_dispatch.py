@@ -31,7 +31,13 @@ reference's (server_dispatch.py:300-317, :473, :490): ``received_us`` at
 the cut, ``dispatch_us`` at dispatch, ``parse_done_us``,
 ``handler_start_us``/``handler_end_us`` around the handler,
 ``serialized_us`` when the response is packed, and ``flushed_us`` by the
-response write's ``on_done`` once the kernel took it.
+response write's ``on_done`` once the kernel took it. The request's lane
+take becomes a ``device-recv`` child span (``RpcMessage.device_recv``),
+and the response batch's stage tracker hangs its device span off the
+server span. A cuda-ipc request batch (``ici://``) arrives with its copy
+queued: the request's fiber parks until the copy has run
+(``device_ready`` on the batch's ``ready``) before the handler runs,
+never blocking the dispatcher.
 
 The reference's limiter and priority sheds, capture and fast drains are
 still to port (ROADMAP section 1).
@@ -45,6 +51,7 @@ import time
 
 from brpc_tpu_torch.butil.flags import flag
 from brpc_tpu_torch.bvar.reducer import Adder
+from brpc_tpu_torch.fiber.device_poller import device_ready
 from brpc_tpu_torch.fiber.scheduler import SchedAwaitable, current_group
 from brpc_tpu_torch.protocol import tpu_std
 
@@ -119,6 +126,9 @@ async def _process_request_body(proto, msg: tpu_std.RpcMessage, socket,
         cntl._peer_stream_id = meta.stream_settings.stream_id
     # the client's whole budget, counted from the frame's cut
     cntl.set_deadline(req.timeout_ms, msg.arrival_ns)
+    # a cuda-ipc batch's copy may still be running: the fiber parks
+    # until it has run before the handler sees the tensors
+    landed = getattr(msg.device_arrays, "ready", None)
     if meta.device_payloads:
         try:
             cntl.request_device_arrays = tpu_std.merge_device_arrays(msg)
@@ -135,6 +145,12 @@ async def _process_request_body(proto, msg: tpu_std.RpcMessage, socket,
         # server residence and received -> dispatch the dispatch wait
         span.received_us = span.start_us = msg.arrival_ns // 1000
         span.dispatch_us = t0 // 1000
+        if msg.device_recv is not None:
+            # the request's receive leg, a child of this server span
+            # (brpc_tpu/rpc/server_dispatch.py:346-353)
+            _span.submit_device_recv_span(span, msg.device_recv)
+    if landed is not None and not landed.done():
+        await device_ready(landed)
     try:
         if _expired(cntl, method, server, req.timeout_ms, "dispatch"):
             _send_response(proto, socket, cntl, b"", span)
@@ -210,8 +226,9 @@ def _send_response(proto, socket, cntl: Controller, response: bytes,
     try:
         with socket.lane_lock:
             try:
-                # on cudad:// the host copy of the tensors runs here
-                socket.write_device_payload(lane)
+                # on cudad:// the host copy of the tensors runs here; the
+                # batch's device span is a child of this server span
+                socket.write_device_payload(lane, span=span)
             except (TypeError, ValueError, RuntimeError) as e:
                 # no batch went out: answer without one
                 frame = _failed_tensors_frame(cntl, meta, e)

@@ -9,11 +9,13 @@ leveldb SpanDB, span.cpp:308, as rotating JSON-lines files):
 ids propagate in RpcMeta (trace_id/span_id/parent_span_id fields), so
 multi-hop call trees link up.
 
-The port has the server, client and serving spans. The reference's
-device-transfer and retry-attempt children wait for the device lanes
-and the cluster channel (ROADMAP section 1), and ``_postfork_reset`` and
-``_span_census`` wait, unregistered, for the postfork registry and the
-resource census that come with shard groups.
+The port has the server, client and serving spans, and the device
+transfer children (``start_device_span``, ``submit_device_recv_span``;
+``transport/device_stats.py`` stamps them). The reference's
+retry-attempt child waits for the cluster channel (ROADMAP section 1),
+and ``_postfork_reset`` and ``_span_census`` wait, unregistered, for the
+postfork registry and the resource census that come with shard
+groups.
 """
 
 from __future__ import annotations
@@ -44,7 +46,7 @@ class Span:
     trace_id: int
     span_id: int
     parent_span_id: int = 0
-    side: str = "server"            # server | client
+    side: str = "server"            # server | client | device | serving
     service: str = ""
     method: str = ""
     remote_side: str = ""
@@ -144,7 +146,15 @@ class Span:
             "annotations": [
                 {"us": us, "text": t} for us, t in self.annotations],
         }
-        if self.side == "serving":
+        if self.side == "device":
+            # the device lane's waypoint names (transport/device_stats):
+            # host stage + descriptor encode, lane enqueue and credit
+            # wait + flush, wire + peer recv + ack return; they sum to
+            # latency_us by construction
+            d["stage_us"] = queue_us
+            d["wire_us"] = handle_us
+            d["ack_us"] = write_us
+        elif self.side == "serving":
             # the serving lane's waypoint names (serving/serving_stats):
             # submit->admit (write_done_us), admit->prefill-done
             # (first_byte_us), prefill-done->decode-done (serialized_us),
@@ -396,6 +406,45 @@ def start_client_span(cntl, service: str, method: str) -> Span:
     cntl.trace_id = trace_id
     cntl.span_id = span.span_id
     return span
+
+
+def start_device_span(parent: Span, peer: str, lane: str) -> Span:
+    """A device-transfer child of the owning RPC span: the lane's
+    waypoints ride the client-shaped stamp slots (write_done_us =
+    encoded, first_byte_us = flushed, end_us = acked), so
+    stage_breakdown yields (stage_us, wire_us, ack_us) summing to the
+    transfer's latency. The tracker (``transport/device_stats``
+    ``BatchTracker``) stamps and submits it."""
+    span = Span(
+        trace_id=parent.trace_id,
+        span_id=new_trace_id(),
+        parent_span_id=parent.span_id,
+        side="device",
+        service="device",
+        method=lane,
+        remote_side=peer,
+        start_us=time.monotonic_ns() // 1000,
+        log_id=parent.log_id,
+    )
+    span.annotate(f"device transfer peer={peer} lane={lane}")
+    return span
+
+
+def submit_device_recv_span(parent: Span, dr: dict) -> None:
+    """The receiving half of a device transfer (the lane take: the
+    copy's issue, the landing, the recv pool's admission) as a finished
+    child of the owning RPC span. ``dr`` is the socket's
+    ``last_device_take`` record (peer, lane, recv_us, nbytes, t_us); one
+    helper, so the server's and the client's parse paths cannot
+    drift."""
+    span = start_device_span(parent, dr.get("peer", ""),
+                             dr.get("lane", ""))
+    span.start_us = dr.get("t_us") or span.start_us
+    span.end_us = span.start_us + int(dr.get("recv_us", 0))
+    span.request_size = dr.get("nbytes", 0)
+    span.annotate(f"device-recv recv_us={dr.get('recv_us')} "
+                  f"nbytes={dr.get('nbytes')}")
+    _submit_span(span)
 
 
 def start_serving_span(cntl, service: str, method: str) -> Span:

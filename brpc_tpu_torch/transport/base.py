@@ -6,9 +6,10 @@ waits for the dispatcher to report readiness (``start_events``,
 ``request_writable_event``). A ``Transport`` dials (``connect``) and
 listens (``listen``) for one scheme. The port registers ``tcp``,
 ``mem`` (in-process loopback), ``cuda`` (the in-process device lane,
-brpc_tpu's ``tpu://``) and ``cudad`` (the staged lane between processes,
-brpc_tpu's ``tpud://``); the reference's ici:// and ssl transports are
-still to port (ROADMAP section 1).
+brpc_tpu's ``tpu://``), ``cudad`` (the staged lane between processes,
+brpc_tpu's ``tpud://``) and ``ici`` (the device lane between processes:
+CUDA IPC, or staged; ``transport/ici.py``); the reference's ssl
+transport is still to port (ROADMAP section 1).
 
 Device lane: a conn with ``supports_device_lane`` carries tensors beside
 its bytes. ``write_device_payload(arrays)`` sends one batch and
@@ -16,7 +17,10 @@ its bytes. ``write_device_payload(arrays)`` sends one batch and
 none came), in the order they were written; the sender writes a batch
 right before the frame that describes it, so the parser takes the batch
 when it cuts that frame. ``lane_kind`` names the lane
-(``loopback-d2d``, ``staged-dcn``). A conn without the lane (tcp) never
+(``loopback-d2d``, ``staged-dcn``, ``local-d2d``, ``cuda-ipc``,
+``staged``). A conn with ``supports_device_tracker`` takes the stage
+tracker of ``transport/device_stats.py`` (``write_device_payload(arrays,
+tracker=)``) and stamps it itself. A conn without the lane (tcp) never
 gets a batch: tensors go inline in the frame's bytes.
 """
 
@@ -107,6 +111,7 @@ _BUILTINS = {
     "mem": ("brpc_tpu_torch.transport.mem", "MemTransport"),
     "cuda": ("brpc_tpu_torch.transport.cuda", "CudaTransport"),
     "cudad": ("brpc_tpu_torch.transport.cudad", "CudadTransport"),
+    "ici": ("brpc_tpu_torch.transport.ici", "IciTransport"),
 }
 
 

@@ -19,8 +19,10 @@ order, so the batch is decoded (into host tensors, during the read) by
 the time the parser asks for it. ``take_device_payload`` lands the batch
 on the conn's device (``#device=K``, ``cpu`` for the host), on the
 thread that parses, as brpc_tpu does; a failed copy raises, there is no
-host fallback. Moving these copies off the dispatcher and the workers is
-the pinned stager's work (the ``ici://`` lane, ROADMAP section 1).
+host fallback. ``cudad://`` mirrors brpc_tpu's ``tpud://``, which lands
+its batches without the pinned stager; ``ici://``'s staged lane is the
+one that lands through it (``butil/device_pool.py``). Moving these
+copies onto the stager is a redesign queued in ROADMAP section 2.
 """
 
 from __future__ import annotations

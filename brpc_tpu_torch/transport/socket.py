@@ -40,14 +40,19 @@ its classic Python path; bRPC's socket.h, SURVEY.md §2.4).
   socket's does; it is not level-triggered and has no read interest to
   pause.
 
-The reference's native fastcore, ring lane, sync pluck, device stats and
-census rows are still to port (ROADMAP section 1).
+- **Device stats** (``transport/device_stats.py``): each batch written
+  gets a stage tracker in the cell of its (peer, lane), and each batch
+  taken is timed into the cell of its receive side.
+
+The reference's native fastcore, ring lane, sync pluck and census rows
+are still to port (ROADMAP section 1).
 """
 
 from __future__ import annotations
 
 import logging
 import threading
+import time
 from collections import deque
 from typing import Callable, Optional
 
@@ -58,6 +63,7 @@ from brpc_tpu_torch.butil.iobuf import (BIG_BLOCK_SIZE, DEFAULT_BLOCK_SIZE,
 from brpc_tpu_torch.butil.resource_pool import ResourcePool, VersionedId
 from brpc_tpu_torch.bvar.reducer import Adder
 from brpc_tpu_torch.fiber import TaskControl, global_control
+from brpc_tpu_torch.transport import device_stats as _device_stats
 from brpc_tpu_torch.transport.base import Conn, get_transport
 
 log = logging.getLogger("brpc_tpu_torch.transport")
@@ -329,16 +335,94 @@ class Socket:
             self._control.spawn(self._drain_writes, item, name="keep_write")
 
     # -------------------------------------------------------- device lane
-    def write_device_payload(self, arrays) -> bool:
+    def _lane_cell(self, slot: str):
+        """(lane, peer, cell) of this socket's device lane, cached in
+        ``slot``; the lane kind can change once a hello lands, so the
+        cache keys on it."""
+        conn = self.conn
+        lane = getattr(conn, "lane_kind", None) or \
+            getattr(conn.remote_endpoint, "scheme", "device")
+        cached = self.__dict__.get(slot)
+        if cached is None or cached[0] != lane:
+            peer = _device_stats.peer_key(conn.remote_endpoint)
+            cached = (lane, peer, _device_stats.global_device_stats()
+                      .device_cell(peer, lane))
+            self.__dict__[slot] = cached
+        return cached
+
+    def write_device_payload(self, arrays, span=None) -> bool:
         """Send one batch of tensors on the conn's device lane; the caller
-        holds ``lane_lock`` and writes the batch's frame next."""
+        holds ``lane_lock`` and writes the batch's frame next. With device
+        stats on, the batch gets a stage tracker (and, under rpcz, a
+        child span of ``span``, the owning RPC's): a conn with
+        ``supports_device_tracker`` stamps it through its flush and ack
+        legs; on any other the timeline settles around the call
+        (brpc_tpu/transport/socket.py:1007-1058)."""
         if self.failed:
             raise ConnectionError(f"socket failed: {self.fail_reason}")
-        return bool(self.conn.write_device_payload(arrays))
+        tracker = None
+        if _device_stats.enabled():
+            lane, peer, cell = self._lane_cell("_dev_send")
+            nbytes = sum(t.numel() * t.element_size() for t in arrays)
+            tracker = _device_stats.open_transfer(peer, lane, nbytes,
+                                                  parent_span=span,
+                                                  cell=cell)
+        if tracker is not None and \
+                getattr(self.conn, "supports_device_tracker", False):
+            try:
+                return bool(self.conn.write_device_payload(
+                    arrays, tracker=tracker))
+            except BaseException as e:
+                # the conn settles the failures it detects; one before
+                # those checks must not strand an open record (a second
+                # settle does nothing)
+                tracker.lane_failed(f"{type(e).__name__}: {e}")
+                raise
+        try:
+            r = self.conn.write_device_payload(arrays)
+        except BaseException as e:
+            if tracker is not None:
+                tracker.lane_failed(f"{type(e).__name__}: {e}")
+            raise
+        if tracker is not None:
+            # a loopback or staged conn delivers in the call: the whole
+            # timeline settles here (stage = the call, ack = 0)
+            tracker.lane_encoded()
+            tracker.lane_flushed()
+            tracker.lane_acked()
+        return bool(r)
 
     def take_device_payload(self):
-        """The oldest batch the lane delivered; None when none came."""
-        return self.conn.take_device_payload()
+        """The oldest batch the lane delivered; None when none came. With
+        device stats on, the take is timed into the lane's cell, and
+        under rpcz the record ``last_device_take`` is left for the
+        parser (brpc_tpu/transport/socket.py:1747-1781)."""
+        if not _device_stats.enabled():
+            return self.conn.take_device_payload()
+        t0 = time.monotonic_ns()
+        lane = self.conn.take_device_payload()
+        if lane is None:
+            return None
+        dur_us = (time.monotonic_ns() - t0) / 1e3
+        kind, peer, cell = self._lane_cell("_dev_recv")
+        nbytes = sum(t.numel() * t.element_size() for t in lane)
+        cell.note_recv(dur_us, nbytes)
+        if flag("rpcz_enabled"):
+            # parse per connection is sequential: the parser takes the
+            # record before the next take can replace it
+            self.last_device_take = {
+                "peer": peer, "lane": kind, "recv_us": round(dur_us, 1),
+                "nbytes": nbytes, "t_us": t0 // 1000}
+        return lane
+
+    def take_device_payload_with_recv(self):
+        """(batch or None, recv record or None): the one parse-side way
+        to take a batch, so the device-recv span's record cannot drift
+        between protocols (brpc_tpu/transport/socket.py:1783)."""
+        lane = self.take_device_payload()
+        if lane is None:
+            return None, None
+        return lane, self.__dict__.pop("last_device_take", None)
 
     # -------------------------------------------------------------- input
     def _on_readable_event(self) -> None:

@@ -101,7 +101,7 @@ and their sum beside the client's TTFT, then the warm stream burst in
 turns with ``serving_stats_enabled`` and ``rpcz_enabled`` off and on.
 
 After ``observability``, the phase ``device_lane``: tensors in RPCs on
-the two device lanes, each part with the launch counts zeroed just
+the three device lanes, each part with the launch counts zeroed just
 before and read just after it. (a) A port Server on
 ``cuda://smoke:1#device=0`` with ``Perf.Echo`` (response tensors = request
 tensors) answers fp32 tensors of 4 B to 4 MiB in x4 steps (the sizes of
@@ -130,6 +130,27 @@ calls in flight; a thread waiting in ``Event.synchronize`` must not hold
 the interpreter lock. (e) A stream of 16 tensor frames of 64 KiB from
 the server beside unary device calls on the same connection, on both
 lanes: every frame and every response pairs with its own tensor.
+(f) The sweep on ``ici://127.0.0.1:0#device=0`` from a client process
+run with ``BRPC_TPU_TORCH_ICI_REQUIRE_PULL=1`` (``--client ici``, a
+session of steps, the next on the server's go): lane ``cuda-ipc`` on
+both sides (one card: a same-device CUDA IPC hand-off between two
+processes, not a link), every echo equal, the handler's tensors on
+``cuda:0``, no kernel launched, no staged batch and every cell balanced
+on both sides, the first call timed apart, a send filled on a side
+stream read whole, then ICI_CYCLES connect/echo/close cycles after
+which both processes' allocated bytes on the card and their mappings
+of the peer's memory are back where they were; with the server's takes
+(on the dispatcher), its IPC opens and closes, and the dispatcher's
+longest tick. (g) ``Attend`` as in (d), its 4 calls from the ici client
+process. (h) With rpcz on, a short sweep (SHORT_SWEEP_BYTES) on each
+lane, the server's spans read from ``/rpcz`` of an admin server in this
+process and the client's from its line: each lane's write side (stage,
+wire, ack) and receive side (``device-recv``) beside its echo p50; on
+``ici://`` every device span's stage + wire + ack equals its latency
+and its stage is at most its size's slowest echo; ``/device`` has a
+cell for every lane, ``transfer_lane: up``, the recv pool and the leak
+pane; then ``device_stats_enabled`` off and on in turns on ``ici://``
+at 64 KiB.
 
 ``python3 chip_smoke.py --phase streaming`` (or ``--phase
 observability``, ``--phase device_lane``) runs that phase alone (after
@@ -1558,6 +1579,16 @@ ATTEND_PARK_CYCLES = int(2e8)
 ATTEND_GATE_S = 30.0
 STREAM_FRAMES = 16
 STREAM_FRAME_BYTES = 64 << 10
+# parts (f)-(h): ici://
+ICI_CYCLES = 100
+ICI_CYCLE_BYTES = 64 << 10
+SHORT_SWEEP_BYTES = [4, 64 << 10, 4 << 20]
+SHORT_SWEEP_CALLS = 10
+DEVICE_COST_BYTES = 64 << 10
+DEVICE_COST_CALLS = 60
+# the client process's switch: a batch that would go staged fails
+ICI_REQUIRE_PULL = {"BRPC_TPU_TORCH_ICI_REQUIRE_PULL": "1"}
+ICI_LANES = ("local-d2d", "cuda-ipc", "staged")
 
 
 def _device_spec(dev) -> str:
@@ -1579,16 +1610,17 @@ def _sync(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
-def _sweep(ch, dev, check_zero_copy: bool) -> list:
-    """Echo fp32 tensors of every SWEEP_BYTES size: SWEEP_WARMUP calls,
-    then SWEEP_CALLS timed ones. Rows of p50/p99 us and GB/s (2 x bytes
+def _sweep(ch, dev, check_zero_copy: bool, sizes=SWEEP_BYTES,
+           calls: int = SWEEP_CALLS) -> list:
+    """Echo fp32 tensors of every size in ``sizes``: SWEEP_WARMUP calls,
+    then ``calls`` timed ones. Rows of p50/p99 us and GB/s (2 x bytes
     per echo, as the example counts)."""
     import torch
     rows = []
-    for nbytes in SWEEP_BYTES:
+    for nbytes in sizes:
         n = nbytes // 4
         times = []
-        for i in range(SWEEP_WARMUP + SWEEP_CALLS):
+        for i in range(SWEEP_WARMUP + calls):
             x = torch.arange(n, dtype=torch.float32, device=dev) + i
             _sync(dev)
             t0 = time.perf_counter()
@@ -1695,6 +1727,8 @@ def _device_lane_server(addr: str, dev, seen: dict):
     def Echo(cntl, request):
         seen.setdefault("echo_devices", set()).update(
             str(t.device) for t in cntl.request_device_arrays)
+        seen.setdefault("echo_lanes", set()).add(
+            cntl._server_socket.conn.lane_kind)
         cntl.response_device_arrays = cntl.request_device_arrays
         return request
 
@@ -1927,17 +1961,51 @@ def _gil_released_by_event_wait(dev) -> dict:
             "max_gap_ms": gap * 1e3}
 
 
-def device_lane_client(port: int, spec: str) -> int:
-    """``--client device_lane PORT [DEVICE]``: the sweep over
-    ``cudad://127.0.0.1:PORT#device=DEVICE`` from a process of its own."""
+def _process_spans() -> list:
+    """This process's client and device spans, as dicts."""
+    from brpc_tpu_torch.rpc.span import global_collector
+    return [s.to_dict() for s in global_collector.recent(4096)
+            if s.side in ("client", "device")]
+
+
+def _client_device(spec: str):
     sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from brpc_tpu_torch.butil.device import resolve_device
+    return resolve_device("cpu" if spec == "cpu" else f"cuda:{spec}")
+
+
+def _next_step() -> None:
+    """A session client's wait for the server's go (a line on stdin)."""
+    check(sys.stdin.readline() != "", "the server ended the session")
+
+
+def _traced_short_sweep(addr: str, dev) -> dict:
+    """SHORT_SWEEP_BYTES with rpcz on in this process, and its spans."""
+    from brpc_tpu_torch.butil.flags import set_flag
+    from brpc_tpu_torch.rpc import Channel, ChannelOptions
+    from brpc_tpu_torch.rpc.span import global_collector
+    check(set_flag("rpcz_enabled", True), "cannot turn rpcz on")
+    global_collector.clear()
+    ch = Channel(addr, ChannelOptions(timeout_ms=30000))
+    try:
+        rows = _sweep(ch, dev, False, SHORT_SWEEP_BYTES, SHORT_SWEEP_CALLS)
+    finally:
+        ch.close()
+        set_flag("rpcz_enabled", False)
+    return {"sweep": rows, "spans": _process_spans()}
+
+
+def device_lane_client(port: int, spec: str) -> int:
+    """``--client device_lane PORT [DEVICE]``: a session over
+    ``cudad://127.0.0.1:PORT#device=DEVICE`` from a process of its own:
+    the sweep (part b), then, on the server's go, SHORT_SWEEP_BYTES under
+    rpcz (part h); a JSON line each."""
+    dev = _client_device(spec)
     import torch
 
-    from brpc_tpu_torch.butil.device import resolve_device
     from brpc_tpu_torch.rpc import Channel, ChannelOptions
-    dev = resolve_device("cpu" if spec == "cpu" else f"cuda:{spec}")
-    ch = Channel(f"cudad://127.0.0.1:{port}#device={spec}",
-                 ChannelOptions(timeout_ms=30000))
+    addr = f"cudad://127.0.0.1:{port}#device={spec}"
+    ch = Channel(addr, ChannelOptions(timeout_ms=30000))
     try:
         rows = _sweep(ch, dev, check_zero_copy=False)
         emit({"sweep": rows, "lane": ch.device_lane_kind(),
@@ -1945,33 +2013,543 @@ def device_lane_client(port: int, spec: str) -> int:
               "torch": torch.__version__})
     finally:
         ch.close()
+    _next_step()
+    emit(_traced_short_sweep(addr, dev))
     return 0
 
 
+def _device_cells(lanes=None) -> dict:
+    """This process's device cells (``peer|lane`` -> value), of ``lanes``
+    or all."""
+    from brpc_tpu_torch.transport.device_stats import global_device_stats
+    return {f"{peer}|{lane}": cell.get_value()
+            for (peer, lane), cell in global_device_stats().rows()
+            if lanes is None or lane in lanes}
+
+
+def _wait_for_value(fn, want, timeout_s: float = 5.0) -> bool:
+    deadline = time.monotonic() + timeout_s
+    while fn() != want and time.monotonic() < deadline:
+        time.sleep(0.01)
+    return fn() == want
+
+
+def _allocated(dev) -> int:
+    """The card's allocated bytes once collectable tensors are gone (0
+    on the host)."""
+    import gc
+
+    import torch
+    gc.collect()
+    return torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+
+
+def _ici_cycles(addr: str, dev) -> dict:
+    """ICI_CYCLES times: dial, echo one ICI_CYCLE_BYTES tensor, close.
+    The card's allocated bytes must come back to where they were: the
+    registry drops each batch on its ACK and a close acknowledges what
+    its copies consumed, so nothing stays held."""
+    import torch
+
+    from brpc_tpu_torch.rpc import Channel, ChannelOptions
+    x = torch.full((ICI_CYCLE_BYTES // 4,), 3.0, device=dev)
+    _sync(dev)
+    base = _allocated(dev)
+    t0 = time.perf_counter()
+    for i in range(ICI_CYCLES):
+        ch = Channel(addr, ChannelOptions(timeout_ms=30000))
+        c = ch.call_sync("Perf", "Echo", b"", request_device_arrays=[x])
+        check(not c.failed() and torch.equal(c.response_device_arrays[0], x),
+              f"cycle {i}: {c.error_code} {c.error_text}")
+        del c
+        ch.close()
+    wall = time.perf_counter() - t0
+    _wait_for_value(lambda: _allocated(dev), base, 10.0)
+    after = _allocated(dev)
+    check(after == base, f"{ICI_CYCLES} connect/echo/close cycles left "
+                         f"{after - base} bytes allocated on the card")
+    return {"cycles": ICI_CYCLES, "bytes": ICI_CYCLE_BYTES,
+            "wall_ms_per_cycle": wall / ICI_CYCLES * 1e3,
+            "allocated_before": base, "allocated_after": after}
+
+
+def _device_cost_turns(ch, dev, admin_port: int) -> list:
+    """Echoes of DEVICE_COST_BYTES with ``device_stats_enabled`` off and
+    on in turns (COST_TURNS pairs, the order alternating), set here and
+    on the server (its admin port's ``/flags``)."""
+    import torch
+
+    from brpc_tpu_torch.butil.flags import set_flag
+    runs = []
+    x = torch.ones(DEVICE_COST_BYTES // 4, device=dev)
+    for turn in range(COST_TURNS):
+        for on in ((False, True) if turn % 2 == 0 else (True, False)):
+            status, body = _http_page(
+                admin_port, f"/flags/device_stats_enabled?setvalue="
+                f"{str(on).lower()}", "POST")
+            check(status == 200, f"server refused the flag: {body!r}")
+            check(set_flag("device_stats_enabled", on), "flag")
+            times = []
+            for i in range(SWEEP_WARMUP + DEVICE_COST_CALLS):
+                t0 = time.perf_counter()
+                c = ch.call_sync("Perf", "Echo", b"",
+                                 request_device_arrays=[x])
+                dt = time.perf_counter() - t0
+                check(not c.failed(), f"cost echo: {c.error_text}")
+                if i >= SWEEP_WARMUP:
+                    times.append(dt)
+            runs.append({"on": on, "turn": turn,
+                         "p50_us": _median(times) * 1e6,
+                         "p99_us": _p99(times) * 1e6})
+    _http_page(admin_port, "/flags/device_stats_enabled?setvalue=true",
+               "POST")
+    set_flag("device_stats_enabled", True)
+    return runs
+
+
+def _mapped_check(dev) -> None:
+    """A peer's allocations stay mapped only while a copy reads them."""
+    if dev.type == "cuda":
+        from brpc_tpu_torch.transport import cuda_ipc
+        _sync(dev)
+        check(_wait_for_value(cuda_ipc.mapped_count, 0),
+              f"{cuda_ipc.mapped_count()} peer allocations still mapped")
+
+
+def ici_client(port: int, spec: str, admin_port: int) -> int:
+    """``--client ici PORT DEVICE ADMIN_PORT``: parts (f)-(h) over
+    ``ici://127.0.0.1:PORT#device=DEVICE`` from a process of its own, a
+    session of four steps, each a JSON line, the next on the server's go:
+    (f) the first call timed apart, the sweep, a send filled on a side
+    stream, ICI_CYCLES connect/echo/close cycles; (g) ATTEND_CALLS
+    concurrent Attend calls; (h) SHORT_SWEEP_BYTES under rpcz, then
+    ``device_stats_enabled`` off and on in turns. Each line carries this
+    process's ici cells."""
+    dev = _client_device(spec)
+    import numpy as np
+    import torch
+
+    from brpc_tpu_torch.rpc import Channel, ChannelOptions
+    addr = f"ici://127.0.0.1:{port}#device={spec}"
+    doc = {"torch": torch.__version__}
+    ch = Channel(addr, ChannelOptions(timeout_ms=30000))
+    try:
+        doc["lane"] = ch.device_lane_kind()
+        doc["peer_info"] = ch._socket.conn.peer_info
+        # the first call: the first IPC open on each side, timed apart
+        x = torch.arange(1024, dtype=torch.float32, device=dev)
+        _sync(dev)
+        t0 = time.perf_counter()
+        c = ch.call_sync("Perf", "Echo", b"", request_device_arrays=[x])
+        doc["first_call_ms"] = (time.perf_counter() - t0) * 1e3
+        check(not c.failed(), f"first ici echo: {c.error_code} "
+                              f"{c.error_text}")
+        check(torch.equal(c.response_device_arrays[0], x),
+              f"first ici echo: {c.response_device_arrays[0][:8]} for "
+              f"{x[:8]}")
+        doc["sweep"] = _sweep(ch, dev, check_zero_copy=False)
+        if dev.type == "cuda":
+            doc["side_stream_filled"] = _side_stream_send(ch, dev)
+    finally:
+        ch.close()
+    doc["cycles"] = _ici_cycles(addr, dev)
+    _mapped_check(dev)
+    doc["cells"] = _device_cells(ICI_LANES)
+    emit(doc)
+    _next_step()
+    emit({"attend": _attend(addr, dev, ATTEND_CALLS,
+                            np.random.RandomState(20261018)),
+          "cells": _device_cells(ICI_LANES)})
+    _next_step()
+    emit(_traced_short_sweep(addr, dev))
+    _next_step()
+    ch = Channel(addr, ChannelOptions(timeout_ms=30000))
+    try:
+        runs = _device_cost_turns(ch, dev, admin_port)
+    finally:
+        ch.close()
+    _mapped_check(dev)
+    emit({"runs": runs, "cells": _device_cells(ICI_LANES)})
+    return 0
+
+
+class _Session:
+    """A client process driven step by step: each step's JSON line is
+    read from its stdout, the next step starts on a line to its stdin."""
+
+    def __init__(self, args, env=None, timeout_s: float = 300):
+        import queue
+        self._timeout = timeout_s
+        self._p = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--client",
+             *args], stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True,
+            env=None if env is None else dict(os.environ, **env))
+        self._lines = queue.Queue()
+        self._err = []
+        threading.Thread(target=self._pump, args=(self._p.stdout,
+                                                  self._lines),
+                         daemon=True).start()
+        threading.Thread(target=self._pump, args=(self._p.stderr,
+                                                  self._err),
+                         daemon=True).start()
+        self.name = args[0]
+
+    @staticmethod
+    def _pump(f, sink) -> None:
+        for line in f:
+            (sink.put if hasattr(sink, "put") else sink.append)(line)
+        if hasattr(sink, "put"):
+            sink.put(None)
+
+    def read(self) -> dict:
+        """The step's JSON line (the last one it printed)."""
+        import queue
+        while True:
+            try:
+                line = self._lines.get(timeout=self._timeout)
+            except queue.Empty:
+                line = None
+            if line is None:
+                self.close()
+                raise SmokeFailure(f"{self.name} client process failed: "
+                                   f"{''.join(self._err)[-2000:]}")
+            if line.startswith("{"):
+                return json.loads(line)
+
+    def step(self) -> dict:
+        """Start the next step and read its line."""
+        self._p.stdin.write("go\n")
+        self._p.stdin.flush()
+        return self.read()
+
+    def close(self) -> None:
+        try:
+            self._p.stdin.close()
+        except OSError:
+            pass
+        try:
+            self._p.wait(30)
+        except subprocess.TimeoutExpired:
+            self._p.kill()
+            self._p.wait()
+
+
+class _IciTimes:
+    """Times of this process's ici takes (in parse: the dispatcher) by
+    size, and of each IPC open and close of a peer's allocation (the
+    first open apart). Measurement only: wrapped for the part and put
+    back after it."""
+
+    def __init__(self):
+        from brpc_tpu_torch.transport import cuda_ipc, ici
+        self._ipc = cuda_ipc
+        self._cls = ici.IciConn
+        self._orig = (self._cls.take_device_payload, cuda_ipc.open_handle,
+                      cuda_ipc.close_handle)
+        self.takes = []
+        self.opens = []
+        self.closes = []
+
+    def __enter__(self):
+        take, open_handle, close_handle = self._orig
+        takes, opens, closes = self.takes, self.opens, self.closes
+
+        def timed_take(conn):
+            t0 = time.perf_counter()
+            r = take(conn)
+            if r is not None:
+                takes.append((sum(t.numel() * t.element_size() for t in r),
+                              time.perf_counter() - t0,
+                              threading.current_thread().name))
+            return r
+
+        def timed_open(handle, device_index):
+            t0 = time.perf_counter()
+            r = open_handle(handle, device_index)
+            opens.append(time.perf_counter() - t0)
+            return r
+
+        def timed_close(base, device_index):
+            t0 = time.perf_counter()
+            close_handle(base, device_index)
+            closes.append(time.perf_counter() - t0)
+        self._cls.take_device_payload = timed_take
+        self._ipc.open_handle = timed_open
+        self._ipc.close_handle = timed_close
+        return self
+
+    def __exit__(self, *exc):
+        (self._cls.take_device_payload, self._ipc.open_handle,
+         self._ipc.close_handle) = self._orig
+
+    def summary(self) -> dict:
+        by_size = {}
+        for n, dt, th in self.takes:
+            by_size.setdefault(n, []).append(dt)
+        later = self.opens[1:]
+        return {
+            "ipc_opens": len(self.opens),
+            "first_open_ms": self.opens[0] * 1e3 if self.opens else None,
+            "later_open_p50_ms": _median(later) * 1e3 if later else None,
+            "later_open_max_ms": max(later) * 1e3 if later else None,
+            "close_p50_ms": _median(self.closes) * 1e3
+            if self.closes else None,
+            "take_p50_ms_by_bytes": {str(n): _median(ts) * 1e3
+                                     for n, ts in sorted(by_size.items())},
+            "take_threads": sorted({th for _, _, th in self.takes})}
+
+
+def _check_ici_cells(cells: dict, where: str, dev) -> None:
+    """Each ici:// cell balanced; on a card, no staged batch (on the
+    host, where the smoke is only rehearsed, the lane is staged)."""
+    check(cells, f"{where}: no ici:// cell")
+    for key, c in cells.items():
+        if dev.type == "cuda":
+            check(not key.endswith("|staged")
+                  and c["staged_fallbacks"] == 0,
+                  f"{where}: staged batches on {key}: {c}")
+        check(c["transfers"] == c["completed"] + c["failed"],
+              f"{where}: cell {key} does not balance: {c}")
+        check(c["failed"] == 0, f"{where}: failed transfers on {key}")
+
+
+def _settled_cells(lanes, timeout_s: float = 5.0) -> dict:
+    """This process's cells of ``lanes`` once every transfer settled
+    (the last batch of a connection is acknowledged by its close)."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        cells = _device_cells(lanes)
+        if all(c["transfers"] == c["completed"] + c["failed"]
+               for c in cells.values()) or time.monotonic() > deadline:
+            return cells
+        time.sleep(0.02)
+
+
+def _lane_spans(spans, lane: str) -> dict:
+    """Medians of the device spans of ``lane`` by size: the write side
+    (stage, wire, ack, latency) and the receive side (recv)."""
+    rows = {}
+    for d in spans:
+        if d.get("side") != "device" or d.get("method") != lane:
+            continue
+        recv = not (d["write_done_us"] or d["first_byte_us"])
+        r = rows.setdefault(str(d["request_size"]),
+                            {"recv_us": [], "stage_us": [], "wire_us": [],
+                             "ack_us": [], "latency_us": []})
+        if recv:
+            r["recv_us"].append(d["latency_us"])
+        else:
+            for k in ("stage_us", "wire_us", "ack_us", "latency_us"):
+                r[k].append(d[k])
+    return {n: {k + "_p50": _median(v) for k, v in r.items() if v}
+            | {"sends": len(r["latency_us"]), "recvs": len(r["recv_us"])}
+            for n, r in rows.items()}
+
+
+class _LaneSpans:
+    """Part (h)'s record: per lane, a short sweep under rpcz, the server
+    spans read from ``/rpcz`` of the admin server right after it, and the
+    client process's spans."""
+
+    def __init__(self, admin_port: int):
+        self.admin_port = admin_port
+        self.lanes = {}
+
+    def begin(self) -> None:
+        from brpc_tpu_torch.butil.flags import set_flag
+        from brpc_tpu_torch.rpc.span import global_collector
+        check(set_flag("rpcz_enabled", True), "cannot turn rpcz on")
+        global_collector.clear()
+
+    def end(self, name: str, lane: str, doc: dict) -> None:
+        """``doc``: the sweep's rows and the client's spans (None when
+        the client ran in this process)."""
+        from brpc_tpu_torch.butil.flags import set_flag
+        status, body = _http_page(self.admin_port, "/rpcz?n=100000")
+        set_flag("rpcz_enabled", False)
+        check(status == 200, f"/rpcz: {status}")
+        self.lanes[name] = {"lane": lane, "sweep": doc["sweep"],
+                            "server_spans": json.loads(body),
+                            "client_spans": doc.get("spans")}
+
+    def report(self, dev) -> dict:
+        """Each lane's write and receive sides against its echo p50; on
+        ici:// every device span's stage + wire + ack equals its latency
+        and its stage is at most its size's slowest echo; /device has a
+        cell for every lane, the recv pool and the leaks."""
+        out = {}
+        for name, info in self.lanes.items():
+            lane = info["lane"]
+            mine = _lane_spans(info["server_spans"], lane)
+            check(mine, f"{name}: no device span on the server")
+            out[name] = {
+                "lane": lane,
+                "echo_p50_us": {str(r["bytes"]): r["p50_us"]
+                                for r in info["sweep"]},
+                "server_side": mine,
+                "client_side": (_lane_spans(info["client_spans"], lane)
+                                if info["client_spans"] is not None
+                                else None)}
+        ici = self.lanes["ici://"]
+        slowest = {str(r["bytes"]): r["p99_us"] for r in ici["sweep"]}
+        sends = [d for d in ici["server_spans"] + ici["client_spans"]
+                 if d.get("side") == "device" and d.get("method")
+                 == ici["lane"] and (d["write_done_us"]
+                                     or d["first_byte_us"])]
+        check(sends, "no ici:// device span")
+        for d in sends:
+            check(d["stage_us"] + d["wire_us"] + d["ack_us"]
+                  == d["latency_us"], f"ici:// device span stages do not "
+                                      f"sum to its latency: {d}")
+            cap = slowest.get(str(d["request_size"]))
+            check(cap is None or d["stage_us"] <= cap,
+                  f"ici:// stage {d['stage_us']} us over the slowest echo "
+                  f"{cap} us of its size")
+        status, body = _http_page(self.admin_port, "/device")
+        check(status == 200, f"/device: {status}")
+        page = json.loads(body)
+        cell_lanes = {k.rsplit("|", 1)[1] for k in page["cells"]}
+        for info in self.lanes.values():
+            check(info["lane"] in cell_lanes,
+                  f"/device has no {info['lane']} cell: {cell_lanes}")
+        if dev.type == "cuda":
+            check(page["transfer_lane"] == "up",
+                  f"/device transfer_lane {page['transfer_lane']}")
+        check("recv_pool" in page and "leaks" in page,
+              f"/device lacks the recv pool or the leaks: {sorted(page)}")
+        return {"lanes": out,
+                "device_page": {"cells": len(page["cells"]),
+                                "lanes": sorted(cell_lanes),
+                                "transfer_lane": page["transfer_lane"],
+                                "recv_pool": page["recv_pool"],
+                                "leaks": page["leaks"],
+                                "totals": page["totals"],
+                                "conns": len(page["conns"])}}
+
+
+def _ici_parts(dev, spec: str, seen: dict, counted, parked,
+               spans: _LaneSpans) -> dict:
+    """Parts (f), (g) and ici:// of (h): one client process session (lane
+    cuda-ipc on a card; the client fails any batch that would go
+    staged)."""
+    from brpc_tpu_torch.transport import event_dispatcher
+    from brpc_tpu_torch.transport.ici import transfer_lane_status
+    fa = _fa_module()
+    env = ICI_REQUIRE_PULL if dev.type == "cuda" else None
+    want_lane = "cuda-ipc" if dev.type == "cuda" else "staged"
+    out = {}
+    times = _IciTimes()
+    with times:
+        srv, ep = _device_lane_server(f"ici://127.0.0.1:0#device={spec}",
+                                      dev, seen)
+        session = None
+        try:
+            seen.pop("echo_devices", None)
+            seen.pop("echo_lanes", None)
+            _sync(dev)
+            base = _allocated(dev)
+            stalls0 = event_dispatcher.nstalls.get_value()
+            progress("device_lane f_ici_sweep (client process)")
+            fa.reset_launches()
+            session = _Session(["ici", str(ep.port), spec,
+                                str(spans.admin_port)], env, 600)
+            doc = session.read()
+            _sync(dev)
+            out["launches_f"] = dict(fa.launches)
+            check(not any(fa.launches.values()),
+                  f"the ici sweep launched {fa.launches}")
+            check(doc["lane"] == want_lane, f"client lane {doc['lane']}")
+            check(seen.get("echo_lanes") == {want_lane},
+                  f"server lanes {seen.get('echo_lanes')}")
+            check(seen.get("echo_devices") == {str(dev)},
+                  f"the handler saw tensors on {seen.get('echo_devices')}")
+            if dev.type == "cuda":
+                check(doc.get("side_stream_filled") is True,
+                      "the ici side-stream send was read before it was "
+                      "written")
+                check(transfer_lane_status() == "up",
+                      f"ici transfer lane {transfer_lane_status()}")
+            server_cells = _settled_cells(ICI_LANES)
+            _check_ici_cells(doc["cells"], "client process", dev)
+            _check_ici_cells(server_cells, "server", dev)
+            _wait_for_value(lambda: _allocated(dev), base, 10.0)
+            after = _allocated(dev)
+            check(after == base, f"the server holds {after - base} bytes "
+                                 f"more on the card after the ici cycles")
+            _mapped_check(dev)
+            emit({"phase": "device_lane", "part": "f", "lane": "ici://",
+                  "lane_kind": doc["lane"],
+                  "note": "one card: a same-device CUDA IPC hand-off "
+                          "between two processes, not a link",
+                  "first_call_ms": doc["first_call_ms"],
+                  "sweep": doc["sweep"],
+                  "p50_us_ici_vs_cudad": {
+                      str(r["bytes"]): [r["p50_us"], c["p50_us"]]
+                      for r, c in zip(doc["sweep"],
+                                      seen.get("cudad_sweep", []))},
+                  "side_stream_filled": doc.get("side_stream_filled"),
+                  "cycles": doc["cycles"],
+                  "server_allocated": {"before": base, "after": after},
+                  "server_takes": times.summary(),
+                  "dispatcher_stall_ms_max_10s":
+                      event_dispatcher.stall_ms_max_10s(),
+                  "dispatcher_stalls": event_dispatcher.nstalls.get_value()
+                  - stalls0,
+                  "cells": {"client": doc["cells"],
+                            "server": server_cells},
+                  "transfer_lane": transfer_lane_status()})
+            out["sweep"] = doc["sweep"]
+            doc = parked("ici", counted, "g_attend_ici", session.step,
+                         want={"flash_decode": ATTEND_CALLS,
+                               "flash_decode_combine": ATTEND_CALLS})
+            out["attend"] = doc["attend"]
+            _check_ici_cells(doc["cells"], "attend client process", dev)
+            progress("device_lane h_spans_ici (client process)")
+            spans.begin()
+            spans.end("ici://", want_lane, session.step())
+            progress("device_lane h_device_stats_cost (client process)")
+            doc = session.step()
+            _check_ici_cells(doc["cells"], "cost client process", dev)
+            out["cost"] = doc["runs"]
+        finally:
+            if session is not None:
+                session.close()
+            srv.stop()
+            srv.join()
+    _check_ici_cells(_settled_cells(ICI_LANES), "server", dev)
+    return out
+
+
 def phase_device_lane(dev):
-    """Tensors in RPCs on the two device lanes: (a) the cuda:// sweep,
+    """Tensors in RPCs on the three device lanes: (a) the cuda:// sweep,
     zero-copy; (b) the cudad:// sweep from a client process, with the
     dispatcher's stall and the host copies' times; (c) one side-stream
     send; (d) Attend (decode_attention on delivered tensors, the handler
-    parked on a CUDA event) on both lanes; (e) a stream of tensors beside
-    unary calls on one connection, on both lanes. Launch counts zeroed
+    parked on a CUDA event) on cuda:// and cudad://; (e) a stream of
+    tensors beside unary calls on one connection, on both; (f) the
+    sweep, a side-stream send and ICI_CYCLES connect/echo/close cycles on
+    ici:// from a client process; (g) Attend over ici://; (h) a short
+    sweep on each lane under rpcz, its device spans and /device, and
+    ``device_stats_enabled``'s cost on ici://. Launch counts zeroed
     before each part, read after it."""
     import numpy as np
     import torch
 
     from brpc_tpu_torch.fiber import global_poller
-    from brpc_tpu_torch.rpc import Channel, ChannelOptions
+    from brpc_tpu_torch.rpc import (Channel, ChannelOptions, Server,
+                                    ServerOptions)
     from brpc_tpu_torch.transport import event_dispatcher
     fa = _fa_module()
     spec = _device_spec(dev)
     rng = np.random.RandomState(20261017)
     out = {"launches": {}, "stalls": {}}
 
-    def counted(part, fn, *args, want=None):
+    def counted(part, fn, *args, want=None, **kw):
         progress(f"device_lane {part}")
         stalls0 = event_dispatcher.nstalls.get_value()
         fa.reset_launches()
-        r = fn(*args)
+        r = fn(*args, **kw)
         _sync(dev)
         got = dict(fa.launches)
         out["launches"][part] = got
@@ -2021,79 +2599,110 @@ def phase_device_lane(dev):
             (4,), 64, dtype=torch.int32, device=dev))
         bool((torch.full((1 << 20,), 7.0, device=dev) == 7).all())
     seen = {}
-    srv, ep = _device_lane_server(f"cuda://smoke:1#device={spec}", dev,
-                                  seen)
+    # the pages (/rpcz, /device, /flags) of this process, for part (h)
+    admin = Server(ServerOptions(enable_builtin_services=True))
+    spans = _LaneSpans(admin.start("tcp://127.0.0.1:0").port)
     try:
-        ch = Channel(str(ep), ChannelOptions(timeout_ms=60000))
-        check(ch.device_lane_kind() == "loopback-d2d", "cuda:// lane kind")
-        rows = counted("a_cuda_sweep", _sweep, ch, dev, True)
-        emit({"phase": "device_lane", "part": "a", "lane": "cuda://",
-              "zero_copy": True, "sweep": rows})
-        if dev.type == "cuda":
-            w0 = dict(poller.nwaits)
-            ok = counted("c_side_stream", _side_stream_send, ch, dev)
-            check(ok, "the side-stream send was read before it was "
-                      "written")
-            emit({"phase": "device_lane", "part": "c", "filled": ok,
-                  "poller_waits": {k: poller.nwaits[k] - w0[k]
-                                   for k in w0}})
-        attend = {}
-        attend["cuda"] = parked("cuda", counted, "d_attend_cuda", _attend,
-                                str(ep), dev, ATTEND_CALLS, rng,
-                                want={"flash_decode": ATTEND_CALLS,
-                                      "flash_decode_combine": ATTEND_CALLS})
-        streams = {"cuda": counted("e_streams_cuda", _frames_beside_unary,
-                                   ch, dev)}
-        ch.close()
-    finally:
-        srv.stop()
-        srv.join()
-
-    copies = _CopyTimes()
-    with copies:
-        srv, ep = _device_lane_server(f"cudad://127.0.0.1:0#device={spec}",
-                                      dev, seen)
+        srv, ep = _device_lane_server(f"cuda://smoke:1#device={spec}", dev,
+                                      seen)
         try:
-            seen.pop("echo_devices", None)
-            stalls0 = event_dispatcher.nstalls.get_value()
-            progress("device_lane b_cudad_sweep (client process)")
-            fa.reset_launches()
-            doc = _client_process(["device_lane", str(ep.port), spec],
-                                  timeout_s=600)
-            _sync(dev)
-            out["launches"]["b_cudad_sweep"] = dict(fa.launches)
-            check(not any(fa.launches.values()), "the sweep launched "
-                                                 "a kernel")
-            out["stalls"]["b_cudad_sweep"] = \
-                event_dispatcher.nstalls.get_value() - stalls0
-            check(doc["lane"] == "staged-dcn", f"lane {doc['lane']}")
-            check(seen.get("echo_devices") == {str(dev)},
-                  f"the handler saw tensors on {seen.get('echo_devices')}")
-            stall = event_dispatcher.stall_ms_max_10s()
-            big = {str(n): {"take_on_dispatcher": copies.summary("take", n),
-                            "response_write": copies.summary("write", n),
-                            "response_encode": copies.summary("encode", n)}
-                   for n in (1 << 20, 4 << 20)}
-            emit({"phase": "device_lane", "part": "b", "lane": "cudad://",
-                  "sweep": doc["sweep"], "peer_info": doc["peer_info"],
-                  "dispatcher_stall_ms_max_10s": stall,
-                  "dispatcher_stalls": event_dispatcher.nstalls.get_value()
-                  - stalls0,
-                  "host_copies": big})
             ch = Channel(str(ep), ChannelOptions(timeout_ms=60000))
-            attend["cudad"] = parked(
-                "cudad", counted, "d_attend_cudad", _attend, str(ep), dev,
+            check(ch.device_lane_kind() == "loopback-d2d",
+                  "cuda:// lane kind")
+            rows = counted("a_cuda_sweep", _sweep, ch, dev, True)
+            emit({"phase": "device_lane", "part": "a", "lane": "cuda://",
+                  "zero_copy": True, "sweep": rows})
+            if dev.type == "cuda":
+                w0 = dict(poller.nwaits)
+                ok = counted("c_side_stream", _side_stream_send, ch, dev)
+                check(ok, "the side-stream send was read before it was "
+                          "written")
+                emit({"phase": "device_lane", "part": "c", "filled": ok,
+                      "poller_waits": {k: poller.nwaits[k] - w0[k]
+                                       for k in w0}})
+            attend = {}
+            attend["cuda"] = parked(
+                "cuda", counted, "d_attend_cuda", _attend, str(ep), dev,
                 ATTEND_CALLS, rng,
                 want={"flash_decode": ATTEND_CALLS,
                       "flash_decode_combine": ATTEND_CALLS})
-            streams["cudad"] = counted("e_streams_cudad",
-                                       _frames_beside_unary, ch, dev)
+            streams = {"cuda": counted("e_streams_cuda",
+                                       _frames_beside_unary, ch, dev)}
+            progress("device_lane h_spans_cuda")
+            spans.begin()
+            spans.end("cuda://", "loopback-d2d",
+                      {"sweep": _sweep(ch, dev, False, SHORT_SWEEP_BYTES,
+                                       SHORT_SWEEP_CALLS)})
             ch.close()
         finally:
             srv.stop()
             srv.join()
+
+        copies = _CopyTimes()
+        with copies:
+            srv, ep = _device_lane_server(
+                f"cudad://127.0.0.1:0#device={spec}", dev, seen)
+            session = None
+            try:
+                seen.pop("echo_devices", None)
+                stalls0 = event_dispatcher.nstalls.get_value()
+                progress("device_lane b_cudad_sweep (client process)")
+                fa.reset_launches()
+                session = _Session(["device_lane", str(ep.port), spec],
+                                   timeout_s=600)
+                doc = session.read()
+                _sync(dev)
+                out["launches"]["b_cudad_sweep"] = dict(fa.launches)
+                check(not any(fa.launches.values()), "the sweep launched "
+                                                     "a kernel")
+                out["stalls"]["b_cudad_sweep"] = \
+                    event_dispatcher.nstalls.get_value() - stalls0
+                check(doc["lane"] == "staged-dcn", f"lane {doc['lane']}")
+                check(seen.get("echo_devices") == {str(dev)},
+                      f"the handler saw tensors on "
+                      f"{seen.get('echo_devices')}")
+                stall = event_dispatcher.stall_ms_max_10s()
+                big = {str(n): {
+                    "take_on_dispatcher": copies.summary("take", n),
+                    "response_write": copies.summary("write", n),
+                    "response_encode": copies.summary("encode", n)}
+                    for n in (1 << 20, 4 << 20)}
+                seen["cudad_sweep"] = doc["sweep"]
+                emit({"phase": "device_lane", "part": "b",
+                      "lane": "cudad://", "sweep": doc["sweep"],
+                      "peer_info": doc["peer_info"],
+                      "dispatcher_stall_ms_max_10s": stall,
+                      "dispatcher_stalls":
+                          event_dispatcher.nstalls.get_value() - stalls0,
+                      "host_copies": big})
+                progress("device_lane h_spans_cudad (client process)")
+                spans.begin()
+                spans.end("cudad://", "staged-dcn", session.step())
+                session.close()
+                session = None
+                ch = Channel(str(ep), ChannelOptions(timeout_ms=60000))
+                attend["cudad"] = parked(
+                    "cudad", counted, "d_attend_cudad", _attend, str(ep),
+                    dev, ATTEND_CALLS, rng,
+                    want={"flash_decode": ATTEND_CALLS,
+                          "flash_decode_combine": ATTEND_CALLS})
+                streams["cudad"] = counted("e_streams_cudad",
+                                           _frames_beside_unary, ch, dev)
+                ch.close()
+            finally:
+                if session is not None:
+                    session.close()
+                srv.stop()
+                srv.join()
+        ici = _ici_parts(dev, spec, seen, counted, parked, spans)
+        attend["ici"] = ici["attend"]
+        emit({"phase": "device_lane", "part": "h", **spans.report(dev),
+              "device_stats_cost_ici_64KiB": ici["cost"]})
+    finally:
+        admin.stop()
+        admin.join()
     resumed = seen.get("attend_resumed", [])
-    check(len(resumed) == 2 * ATTEND_CALLS
+    check(len(resumed) == 3 * ATTEND_CALLS
           and all(r[0] and r[1] for r in resumed),
           f"Attend handlers resumed off a worker or before the event: "
           f"{resumed}")
@@ -2109,6 +2718,7 @@ def phase_device_lane(dev):
     emit({"phase": "device_lane", "launches": out["launches"],
           "dispatcher_stalls_by_part": out["stalls"]})
     out["attend"] = attend
+    out["ici_sweep"] = ici["sweep"]
     return out
 
 
@@ -2405,12 +3015,15 @@ def main(only: str = "") -> int:
     dl = device_lane["launches"]
     by_path["device_lane_attend"] = (dl["d_attend_cuda"]["flash_decode"]
                                      + dl["d_attend_cudad"]["flash_decode"])
+    by_path["device_lane_attend_ici"] = dl["g_attend_ici"]["flash_decode"]
     combine_by_path = {
         "long_cache_decode": paths["long_cache_decode"][
             "flash_decode_combine"],
         "device_lane_attend": (dl["d_attend_cuda"]["flash_decode_combine"]
                                + dl["d_attend_cudad"][
-                                   "flash_decode_combine"])}
+                                   "flash_decode_combine"]),
+        "device_lane_attend_ici": dl["g_attend_ici"][
+            "flash_decode_combine"]}
     long_by = {c["case"]: c for c in times["long"]}
     tc, simt = long_by["8x2048x64 bf16"], long_by["8x2048x64 fp32"]
     kernels = [
@@ -2453,6 +3066,9 @@ if __name__ == "__main__":
     if sys.argv[1:3] == ["--client", "device_lane"]:
         sys.exit(device_lane_client(int(sys.argv[3]),
                                     (sys.argv[4:5] or ["0"])[0]))
+    if sys.argv[1:3] == ["--client", "ici"]:
+        sys.exit(ici_client(int(sys.argv[3]), sys.argv[4],
+                            int(sys.argv[5])))
     if sys.argv[1:2] == ["--client"]:
         sys.exit(client_main(sys.argv[2], int(sys.argv[3]),
                              traced="--rpcz" in sys.argv[4:]))

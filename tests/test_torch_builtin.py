@@ -29,7 +29,7 @@ SATURATION_LEFT_OUT = {
     "socket_write_coalesced_frames",                 # input/write batching
     "iobuf_pool_hit_ratio", "iobuf_pool_bytes"}      # IOBuf pool
 CONNECTIONS_LEFT_OUT = {"client_connections", "breakers", "robustness"}
-BUILTIN_METHODS_LEFT_OUT = {"backends", "capture", "census", "device",
+BUILTIN_METHODS_LEFT_OUT = {"backends", "capture", "census",
                             "incidents", "lb_trace", "timeline"}
 # /serving: batcher fields that differ between the two lanes since the
 # port's first slices (the port names its device, keeps steps by fiber

@@ -63,6 +63,35 @@ launches: Dict[str, int] = {"flash_decode": 0, "flash_decode_combine": 0,
 
 # ------------------------------------------------------------ plain version
 
+def _online_softmax_step(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         m: torch.Tensor, l: torch.Tensor, o: torch.Tensor,
+                         scale: float, mask: Optional[torch.Tensor] = None):
+    """One blockwise online-softmax update (brpc_tpu/ops/flash_attention.py
+    :34), batched over leading dims: q [..., sq, d]; k, v [..., sk, d];
+    m, l [..., sq]; o [..., sq, d] (fp32 accumulators); mask broadcast
+    against [..., sq, sk], True = attend. Returns the new (m, l, o)."""
+    s = torch.einsum("...qd,...kd->...qk", q.float(), k.float()) * scale
+    if mask is not None:
+        s = torch.where(mask, s, NEG_INF)
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    correction = torch.exp(m - m_new)
+    p = torch.exp(s - m_new[..., None])
+    if mask is not None:
+        p = torch.where(mask, p, 0.0)
+    l_new = l * correction + p.sum(dim=-1)
+    o_new = o * correction[..., None] + torch.einsum("...qk,...kd->...qd",
+                                                     p, v.float())
+    return m_new, l_new, o_new
+
+
+def _finalize(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor,
+              dtype: torch.dtype):
+    """O from the accumulators (flash_attention.py:58): a row that saw
+    nothing (l = 0) gives zeros, not NaNs. Returns (out, m, l)."""
+    safe_l = torch.where(l == 0.0, 1.0, l)
+    return (o / safe_l[..., None]).to(dtype), m, l
+
+
 def _flash_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  scale: float, causal: bool, block_k: int,
                  q_offset: Union[int, torch.Tensor] = 0,
@@ -92,17 +121,9 @@ def _flash_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         mask = (k_pos < k_offset + sk).expand(*lead, sq, block_k)
         if causal:
             mask = mask & (k_pos <= q_pos[..., None])
-        s = torch.einsum("...qd,...kd->...qk", qf, kblk) * scale
-        s = torch.where(mask, s, NEG_INF)
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        correction = torch.exp(m - m_new)
-        p = torch.where(mask, torch.exp(s - m_new[..., None]), 0.0)
-        l = l * correction + p.sum(dim=-1)
-        o = o * correction[..., None] + torch.einsum("...qk,...kd->...qd",
-                                                     p, vblk)
-        m = m_new
-    safe_l = torch.where(l == 0.0, 1.0, l)
-    return (o / safe_l[..., None]).to(q.dtype)
+        m, l, o = _online_softmax_step(qf, kblk, vblk, m, l, o, scale,
+                                       mask)
+    return _finalize(m, l, o, q.dtype)[0]
 
 
 def _decode_partials_plain(q: torch.Tensor, k: torch.Tensor,

@@ -6,8 +6,9 @@ A call waiting for its response is registered here under its
 correlation id, with the socket its request went on. ``process_response``
 runs where the InputMessenger processes the response, most often in place
 on the dispatcher thread: it takes the call first (exactly one of the
-response, the caller's timeout and the socket's failure wins it), fills
-the controller (``_fill_response``) and wakes the caller.
+response, the deadline timer, the socket's failure and ``start_cancel``
+wins it), fills the controller (``_fill_response``) and completes it
+(``Controller._complete``: the joiners wake and ``done`` runs here).
 """
 
 from __future__ import annotations
@@ -23,42 +24,43 @@ from . import errno_codes as berr
 
 _lock = threading.Lock()
 _cids = itertools.count(1)
-# cid -> (controller, socket, event)
-_calls: Dict[int, Tuple[object, object, threading.Event]] = {}
+# cid -> (controller, socket)
+_calls: Dict[int, Tuple[object, object]] = {}
 
 
-def register_call(cntl, socket) -> threading.Event:
+def register_call(cntl, socket) -> int:
     """Give ``cntl`` a fresh correlation id and register it as waiting on
-    ``socket``; the event is set once the call is complete."""
-    ev = threading.Event()
+    ``socket``."""
     with _lock:
         cid = next(_cids)
         cntl.correlation_id = cid
-        _calls[cid] = (cntl, socket, ev)
-    return ev
+        _calls[cid] = (cntl, socket)
+    return cid
 
 
 def take_call(cid: int):
-    """Take the call of ``cid``; None when another path took it."""
+    """Take the controller of call ``cid``; None when another path took
+    it."""
     with _lock:
-        return _calls.pop(cid, None)
+        call = _calls.pop(cid, None)
+    return None if call is None else call[0]
 
 
 def fail_calls(socket, code: int, text: str) -> None:
-    """Fail every call still waiting on ``socket`` (its failure)."""
+    """Fail and complete every call still waiting on ``socket`` (its
+    failure)."""
     with _lock:
         dead = [cid for cid, c in _calls.items() if c[1] is socket]
-        taken: List = [_calls.pop(cid) for cid in dead]
-    for cntl, _, ev in taken:
+        taken: List = [_calls.pop(cid)[0] for cid in dead]
+    for cntl in taken:
         cntl.set_failed(code, text)
-        ev.set()
+        cntl._complete()
 
 
 def process_response(proto, msg, socket) -> None:
-    call = take_call(msg.meta.correlation_id)
-    if call is None:
-        return                  # timed out or failed earlier: dropped
-    cntl, _, ev = call
+    cntl = take_call(msg.meta.correlation_id)
+    if cntl is None:
+        return          # timed out, canceled or failed earlier: dropped
     span = cntl._client_span
     if span is not None:
         # the frame's cut time: the closest honest first-byte stamp
@@ -70,7 +72,7 @@ def process_response(proto, msg, socket) -> None:
     if span is not None:
         span.parse_done_us = time.monotonic_ns() // 1000
         span.response_size = len(msg.payload)
-    ev.set()
+    cntl._complete()
 
 
 def _fill_response(cntl, msg, socket) -> None:

@@ -269,6 +269,8 @@ class Server:
         self._request_begin()
         t0 = time.monotonic_ns()
         failed = True
+        # nested calls in the handler read the serving controller
+        server_dispatch._serving_cntl.set(cntl)
         try:
             response = method.handler(cntl, req.body)
             if inspect.isawaitable(response):
@@ -278,6 +280,7 @@ class Server:
             log.exception("handler %s failed", method.full_name)
             return 500, "text/plain", f"handler error: {e}".encode()
         finally:
+            server_dispatch._serving_cntl.set(None)
             self._request_end(method.full_name,
                               (time.monotonic_ns() - t0) / 1e3, failed)
             self._request_done()

@@ -39,6 +39,13 @@ queued: the request's fiber parks until the copy has run
 (``device_ready`` on the batch's ``ready``) before the handler runs,
 never blocking the dispatcher.
 
+``current_serving_controller()`` (brpc_tpu/rpc/server_dispatch.py:95-108)
+is the controller of the request whose handler runs on this fiber: a
+fiber-local set for the request's whole residence, in place on the
+dispatcher and after the hop to a worker alike, and cleared in
+``finally``. A nested ``Channel.call`` reads it to inherit the parent's
+remaining budget and trace. The HTTP path sets it too (``Server``).
+
 The reference's limiter and priority sheds, capture and fast drains are
 still to port (ROADMAP section 1).
 """
@@ -48,10 +55,12 @@ from __future__ import annotations
 import inspect
 import logging
 import time
+from typing import Optional
 
 from brpc_tpu_torch.butil.flags import flag
 from brpc_tpu_torch.bvar.reducer import Adder
 from brpc_tpu_torch.fiber.device_poller import device_ready
+from brpc_tpu_torch.fiber.keys import FiberLocal
 from brpc_tpu_torch.fiber.scheduler import SchedAwaitable, current_group
 from brpc_tpu_torch.protocol import tpu_std
 
@@ -64,6 +73,17 @@ log = logging.getLogger("brpc_tpu_torch.rpc")
 # requests shed with ERPCTIMEDOUT: their client's budget was gone
 # before the handler would start (exposed by Server.start)
 nshed = Adder()
+
+# the controller of the request this fiber serves; set around the
+# request's residence only, since a fiber that served one request must
+# not clamp an unrelated later call
+_serving_cntl = FiberLocal()
+
+
+def current_serving_controller() -> Optional[Controller]:
+    """The server-side Controller whose handler runs on this fiber (or
+    thread), or None outside a handler."""
+    return _serving_cntl.get()
 
 
 class _HopToWorker(SchedAwaitable):
@@ -124,6 +144,18 @@ async def _process_request_body(proto, msg: tpu_std.RpcMessage, socket,
     cntl.remote_side = socket.remote_endpoint
     if meta.stream_settings is not None:
         cntl._peer_stream_id = meta.stream_settings.stream_id
+    _serving_cntl.set(cntl)
+    try:
+        await _serve(proto, msg, socket, server, method, cntl, t0)
+    finally:
+        _serving_cntl.set(None)
+        cntl._drop_cancel_subs()
+
+
+async def _serve(proto, msg: tpu_std.RpcMessage, socket, server, method,
+                 cntl: Controller, t0: int) -> None:
+    meta = msg.meta
+    req = meta.request
     # the client's whole budget, counted from the frame's cut
     cntl.set_deadline(req.timeout_ms, msg.arrival_ns)
     # a cuda-ipc batch's copy may still be running: the fiber parks

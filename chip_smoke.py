@@ -152,9 +152,38 @@ cell for every lane, ``transfer_lane: up``, the recv pool and the leak
 pane; then ``device_stats_enabled`` off and on in turns on ``ici://``
 at 64 KiB.
 
+After ``device_lane``, the phase ``combo``: combo channels, the async
+client and mesh collectives on the card, each part with the launch
+counts zeroed just before and read just after it. (a) BASELINE's
+"ParallelChannel 8-shard tensor allreduce", shaped as
+examples/parallel_allreduce/main.py: 8 port servers on
+``cuda://combo-<i>:1#device=0`` serve ``Reduce.Sum`` (the sum of the
+shard on the card, returned as a response tensor); a ParallelChannel
+whose mapper gives sub i row i of a [8, dim/8] fp32 request on cuda:0,
+and whose merger sums the responses on the card, at dim 2^16 and 2^20
+(256 KiB and 4 MiB), three ways: ``call_sync``, ``call(done=)`` and
+``call_async`` awaited in a fiber; every sum within FP32_TOL (relative)
+of the host's, p50/p99 ms of each; no kernel launched. (b) The same
+calls through a ParallelChannel lowered by ``attach_collective`` onto a
+``CollectiveChannel`` (merge "sum") over ``make_rpc_mesh(1, 8,
+devices=[cuda:0] * 8)``: ``collective_fused`` up by one a call,
+``collective_fallbacks`` 0, the same sums, p50/p99. (c) Nested async
+calls: an async handler fans ``Attend`` out by head (PR 10's case: q [4,
+128], K/V [4, 4096, 128] bf16, lengths 0/1/4096/3000) through a
+PartitionChannel of 4 ``cuda://`` servers and awaits ``call_async``:
+each partition call launches ``flash_decode`` and
+``flash_decode_combine`` once (a split decode) and nothing else, the
+merged O is within ``_rounding_bound`` of the plain version, every
+sub-call's meta ``timeout_ms`` is at most the handler's remaining budget,
+and a handler whose budget is spent gets ERPCTIMEDOUT from a nested call
+that reaches no server. (d) ``ring_attention`` and ``ulysses_attention``
+on an 8-shard mesh on cuda:0 at 8 heads x 2048 x 64 fp32, causal and
+not, within FP32_TOL of ``flash_attention`` (which launches
+``flash_attn_fwd``), with the wall ms of each beside that call's.
+
 ``python3 chip_smoke.py --phase streaming`` (or ``--phase
-observability``, ``--phase device_lane``) runs that phase alone (after
-the card line), so that
+observability``, ``--phase device_lane``, ``--phase combo``) runs that
+phase alone (after the card line), so that
 two trees' serving can be compared in one call: run each tree's script
 in turns.
 
@@ -2722,6 +2751,423 @@ def phase_device_lane(dev):
     return out
 
 
+# ------------------------------------------------------------- combo
+
+COMBO_SHARDS = 8
+# fp32 [8, dim/8] requests of 256 KiB and 4 MiB
+COMBO_DIMS = (1 << 16, 1 << 20)
+COMBO_CALLS = 20            # timed calls of each style and size
+COMBO_WARMUP = 2
+COMBO_ATTEND_CALLS = 5      # nested Attend calls, the first cold
+RING_SHAPE = (8, 2048, 64)  # examples/long_context's heads x seq x dim
+RING_ITERS = 5
+
+
+def _combo_server(addr: str, service: str, methods: dict):
+    """A port Server with ``service``'s ``methods``, started on ``addr``."""
+    from brpc_tpu_torch.rpc import Server, ServerOptions, Service
+    svc = Service(service)
+    for name, fn in methods.items():
+        svc.register_method(name, fn)
+    srv = Server(ServerOptions(enable_builtin_services=False))
+    srv.add_service(svc)
+    return srv, str(srv.start(addr))
+
+
+class _MetaTimeouts:
+    """The request meta's ``timeout_ms`` of every request the port's
+    servers in this process process, by service. Measurement only: the
+    dispatch entry is wrapped for the part and put back after it."""
+
+    def __init__(self):
+        from brpc_tpu_torch.rpc import server_dispatch
+        self._mod = server_dispatch
+        self._orig = server_dispatch.process_request
+        self.seen = []
+
+    def __enter__(self):
+        orig, seen = self._orig, self.seen
+
+        def spy(proto, msg, socket):
+            r = msg.meta.request
+            seen.append((r.service_name, r.timeout_ms))
+            return orig(proto, msg, socket)
+        self._mod.process_request = spy
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.process_request = self._orig
+
+    def of(self, service: str) -> list:
+        return [t for s, t in self.seen if s == service]
+
+
+def _reduce_style(pch, style: str, x, want: float, calls: int) -> dict:
+    """``calls`` ParallelChannel calls of one style: ``sync``
+    (``call_sync``), ``done`` (``call(done=)``, waited on an Event) or
+    ``async`` (``call_async`` awaited in a fiber). Each result read back
+    (a host sync) and held to the host's sum; p50/p99 of the wall ms."""
+    from brpc_tpu_torch.fiber import spawn
+    from brpc_tpu_torch.rpc import Controller
+
+    def one():
+        cntl = Controller()
+        cntl.request_device_arrays = [x]
+        if style == "sync":
+            pch.call_sync("Reduce", "Sum", b"", cntl=cntl)
+        elif style == "done":
+            ev = threading.Event()
+            pch.call("Reduce", "Sum", b"", cntl=cntl,
+                     done=lambda c: ev.set())
+            check(ev.wait(30), "Reduce: done never ran")
+        else:
+            async def in_fiber():
+                return await pch.call_async("Reduce", "Sum", b"",
+                                            cntl=cntl)
+            f = spawn(in_fiber)
+            check(f.join(30), "Reduce: the fiber never finished")
+            check(f.value() is cntl, "Reduce: call_async's controller")
+        check(not cntl.failed(), f"Reduce {style}: {cntl.error_code} "
+                                 f"{cntl.error_text}")
+        (total,) = cntl.response_device_arrays
+        got = float(total.sum())
+        check(abs(got - want) <= FP32_TOL * abs(want),
+              f"Reduce {style}: sum {got} against the host's {want}")
+        return cntl
+    times = []
+    for i in range(COMBO_WARMUP + calls):
+        t0 = time.perf_counter()
+        cntl = one()
+        if i >= COMBO_WARMUP:
+            times.append(time.perf_counter() - t0)
+    return {"p50_ms": _median(times) * 1e3, "p99_ms": _p99(times) * 1e3,
+            "calls": calls, "lowered": cntl.collective_lowered}
+
+
+def _allreduce_parts(dev, rng, counted) -> dict:
+    """(a) ParallelChannel 8-shard tensor allreduce on 8 cuda:// servers,
+    three call styles; (b) the same calls with attach_collective."""
+    import torch
+
+    from brpc_tpu_torch.parallel import CollectiveChannel, make_rpc_mesh
+    from brpc_tpu_torch.rpc import (CallMapper, Channel, ChannelOptions,
+                                    ParallelChannel, ResponseMerger, SubCall)
+
+    def Sum(cntl, request):
+        (x,) = cntl.request_device_arrays
+        cntl.response_device_arrays = [x.sum().reshape(1)]
+        return b""
+    spec = _device_spec(dev)
+    made = [_combo_server(f"cuda://combo-{i}:1#device={spec}", "Reduce",
+                          {"Sum": Sum}) for i in range(COMBO_SHARDS)]
+
+    class RowMapper(CallMapper):
+        def map(self, i, n, service, method, request, cntl):
+            return SubCall(service, method, request,
+                           device_arrays=[cntl.request_device_arrays[0][i]])
+
+    class SumMerger(ResponseMerger):
+        """Sums the sub-responses on the card as they come."""
+
+        def __init__(self):
+            self._lock = threading.Lock()
+
+        def merge(self, final, i, sub):
+            (t,) = sub.response_device_arrays
+            with self._lock:
+                acc = final.response_device_arrays
+                final.response_device_arrays = [t if not acc else acc[0] + t]
+    chans = []
+
+    def channels():
+        out = [Channel(addr, ChannelOptions(timeout_ms=10000))
+               for _, addr in made]
+        chans.extend(out)
+        return out
+    fanned = ParallelChannel(call_mapper=RowMapper(),
+                             response_merger=SumMerger())
+    for ch in channels():
+        fanned.add_sub_channel(ch)
+    lowered = ParallelChannel()
+    for ch in channels():
+        lowered.add_sub_channel(ch)
+    mesh = make_rpc_mesh(1, COMBO_SHARDS, devices=[dev] * COMBO_SHARDS)
+    lowered.attach_collective(CollectiveChannel(mesh, merge="sum"),
+                              {("Reduce", "Sum"):
+                               lambda s: s.sum().reshape(1)})
+    out = {"a": {}, "b": {}}
+    try:
+        for dim in COMBO_DIMS:
+            x = torch.from_numpy(rng.rand(COMBO_SHARDS, dim // COMBO_SHARDS)
+                                 .astype("float32")).to(dev)
+            want = float(x.double().sum())
+            key = f"{dim * 4 >> 10}KiB"
+            out["a"][key] = counted(
+                f"a_{key}", lambda: {s: _reduce_style(fanned, s, x, want,
+                                                      COMBO_CALLS)
+                                     for s in ("sync", "done", "async")})
+            before = (lowered.collective_fused, lowered.collective_fallbacks)
+            b = counted(f"b_{key}", _reduce_style, lowered, "sync", x, want,
+                        COMBO_CALLS)
+            calls = COMBO_WARMUP + COMBO_CALLS
+            check(b["lowered"] and lowered.collective_fused == before[0]
+                  + calls and lowered.collective_fallbacks == 0,
+                  f"attach_collective: fused {lowered.collective_fused}, "
+                  f"fallbacks {lowered.collective_fallbacks} after {calls} "
+                  f"calls")
+            b["fused"] = lowered.collective_fused - before[0]
+            b["fallbacks"] = lowered.collective_fallbacks
+            out["b"][key] = b
+    finally:
+        for ch in chans:
+            ch.close()
+        for srv, _ in made:
+            srv.stop()
+            srv.join()
+    return out
+
+
+def _nested_attend(dev, rng, counted) -> dict:
+    """(c) An async handler fans Attend out by head to 4 partition
+    servers through a PartitionChannel, awaiting ``call_async``; the
+    sub-calls' meta timeout against the handler's remaining budget; a
+    handler whose budget is spent issues nothing."""
+    import torch
+
+    from brpc_tpu_torch.fiber import sleep
+    from brpc_tpu_torch.rpc import (Channel, ChannelOptions, Controller,
+                                    PartitionChannel, PartitionParser,
+                                    SubCall, errno_codes as berr)
+    fa = _fa_module()
+    spec = _device_spec(dev)
+    b, L, d = 4, 4096, 128
+
+    def Attend(cntl, request):
+        q, k, v, lengths = cntl.request_device_arrays
+        cntl.response_device_arrays = [fa.decode_attention(q, k, v,
+                                                           lengths)]
+        return b"o"
+    parts = [_combo_server(f"cuda://combo-part-{i}:1#device={spec}",
+                           "Part", {"Attend": Attend}) for i in range(b)]
+
+    class HeadParser(PartitionParser):
+        def parse(self, i, n, service, method, request, cntl):
+            return SubCall("Part", "Attend", request, device_arrays=[
+                t[i:i + 1] for t in cntl.request_device_arrays])
+    # the partitions' own timeout is longer than any parent's budget:
+    # what reaches them is the parent's remaining budget
+    chans = [Channel(addr, ChannelOptions(timeout_ms=600000))
+             for _, addr in parts]
+    pch = PartitionChannel(partition_parser=HeadParser())
+    for ch in chans:
+        ch.device_lane_kind()           # dial before any handler runs
+        pch.add_partition(ch)
+    seen = {"remaining": [], "spent": []}
+
+    async def FrontAttend(cntl, request):
+        seen["remaining"].append(cntl.remaining_ms())
+        sub = Controller()
+        sub.request_device_arrays = list(cntl.request_device_arrays)
+        c = await pch.call_async("Part", "Attend", b"", cntl=sub)
+        if c.failed():
+            cntl.set_failed(c.error_code, c.error_text)
+            return b""
+        cntl.response_device_arrays = [
+            torch.cat([a[0] for a in c.sub_device_arrays])]
+        return b"o"
+
+    async def Spent(cntl, request):
+        await sleep(0.08)               # past the client's 40 ms
+        one = chans[0].call("Part", "Attend", b"",
+                            request_device_arrays=cntl.request_device_arrays)
+        sub = Controller()
+        sub.request_device_arrays = list(cntl.request_device_arrays)
+        fan = pch.call("Part", "Attend", b"", cntl=sub)
+        seen["spent"].append((one._finalized and fan._finalized,
+                              one.error_code, fan.error_code,
+                              [e[0] for e in fan.sub_errors if e],
+                              one.latency_us()))
+        return b""
+    front, front_addr = _combo_server(
+        f"cuda://combo-front:1#device={spec}", "Front",
+        {"Attend": FrontAttend, "Spent": Spent})
+    client = Channel(front_addr, ChannelOptions(timeout_ms=30000))
+    lengths = torch.tensor([0, 1, 4096, 3000], dtype=torch.int32,
+                           device=dev)
+    out = {}
+    try:
+        inputs = [(_rand(rng, (b, d), torch.bfloat16, dev),
+                   _rand(rng, (b, L, d), torch.bfloat16, dev),
+                   _rand(rng, (b, L, d), torch.bfloat16, dev))
+                  for _ in range(COMBO_ATTEND_CALLS)]
+        _sync(dev)
+
+        def calls():
+            times, outs = [], []
+            for q, k, v in inputs:
+                t0 = time.perf_counter()
+                c = client.call_sync("Front", "Attend", b"",
+                                     request_device_arrays=[q, k, v,
+                                                            lengths])
+                check(not c.failed(), f"nested Attend: {c.error_code} "
+                                      f"{c.error_text}")
+                (o,) = c.response_device_arrays
+                _sync(dev)
+                times.append(time.perf_counter() - t0)
+                outs.append(o)
+            return times, outs
+        with _MetaTimeouts() as meta:
+            times, outs = counted(
+                "c_nested_attend", calls,
+                want={"flash_decode": b * COMBO_ATTEND_CALLS,
+                      "flash_decode_combine": b * COMBO_ATTEND_CALLS})
+            sub_timeouts = meta.of("Part")
+            n_before = len(sub_timeouts)
+            c = Channel(front_addr, ChannelOptions(timeout_ms=40))
+            r = c.call_sync("Front", "Spent", b"",
+                            request_device_arrays=[*inputs[0], lengths])
+            c.close()
+            check(r.error_code == berr.ERPCTIMEDOUT,
+                  f"Spent: the client got {r.error_code}")
+            check(_wait_for_value(lambda: len(seen["spent"]), 1),
+                  "Spent: the handler never ran its nested call")
+            check(len(meta.of("Part")) == n_before,
+                  "a nested call with its parent's budget spent reached "
+                  "a partition")
+        worst = max_err = 0.0
+        for (q, k, v), o in zip(inputs, outs):
+            want = fa._flash_plain(q[:, None].float(), k.float(), v.float(),
+                                   d ** -0.5, True, 64,
+                                   q_offset=lengths - 1)[:, 0]
+            check(o.shape == q.shape and o.dtype == q.dtype,
+                  f"nested Attend output {tuple(o.shape)} {o.dtype}")
+            diff = (o.float() - want).abs()
+            worst = max(worst, float((diff / fa._rounding_bound(
+                want, torch.bfloat16)).max()))
+            max_err = max(max_err, float(diff.max()))
+        check(worst <= 1.0, f"nested Attend: O off the plain version by "
+                            f"{worst:.3f} x its rounding bound")
+        check(len(sub_timeouts) == b * COMBO_ATTEND_CALLS,
+              f"{len(sub_timeouts)} partition calls seen")
+        pairs = [(max(sub_timeouts[i * b:(i + 1) * b]), rem)
+                 for i, rem in enumerate(seen["remaining"])]
+        check(all(0 < t <= rem for t, rem in pairs),
+              f"sub-call timeouts over the parent's remaining budget: "
+              f"{pairs}")
+        finalized, one, fan, sub_codes, spent_us = seen["spent"][0]
+        check(finalized and one == berr.ERPCTIMEDOUT
+              and fan == berr.ETOOMANYFAILS and sub_codes
+              and set(sub_codes) == {berr.ERPCTIMEDOUT},
+              f"Spent: {one}, fan-out {fan} {sub_codes}")
+        out = {"calls": COMBO_ATTEND_CALLS, "worst_over_bound": worst,
+               "max_abs_err": max_err, "first_ms": times[0] * 1e3,
+               "p50_ms": _median(times[1:]) * 1e3,
+               "sub_timeout_ms_vs_parent_remaining_ms": pairs,
+               "spent_budget_us": spent_us}
+    finally:
+        client.close()
+        for ch in chans:
+            ch.close()
+        for srv, _ in parts + [(front, front_addr)]:
+            srv.stop()
+            srv.join()
+    return out
+
+
+def _wall_ms(fn, iters: int) -> list:
+    """Wall ms of each of ``iters`` calls after one warm-up, the device
+    synchronised after each."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def _sequence_parallel(dev, rng, counted) -> dict:
+    """(d) Ring and Ulysses attention on an 8-shard mesh of ``dev`` at 8
+    heads x 2048 x 64 fp32, causal and not, held to the port's
+    flash_attention (flash_attn_fwd)."""
+    import torch
+
+    from brpc_tpu_torch.ops import ring_attention, ulysses_attention
+    from brpc_tpu_torch.parallel import make_rpc_mesh
+    fa = _fa_module()
+    mesh = make_rpc_mesh(1, COMBO_SHARDS, devices=[dev] * COMBO_SHARDS)
+    q, k, v = (_rand(rng, RING_SHAPE, torch.float32, dev) for _ in range(3))
+
+    def check_all():
+        res = {}
+        for causal in (False, True):
+            want = fa.flash_attention(q, k, v, causal=causal)
+            for name, fn in (("ring", ring_attention),
+                             ("ulysses", ulysses_attention)):
+                got = fn(mesh, q, k, v, causal=causal)
+                err = float((got - want).abs().max())
+                check(got.shape == want.shape and err <= FP32_TOL,
+                      f"{name} attention{' causal' if causal else ''}: "
+                      f"{err} from flash_attention")
+                res[f"{name}{'_causal' if causal else ''}_max_abs_err"] = err
+        return res
+    out = counted("d_sequence_parallel", check_all,
+                  want={"flash_attn_fwd": 2})
+    for causal in (False, True):
+        tag = "_causal" if causal else ""
+        for name, fn in (
+                ("flash_attention",
+                 lambda: fa.flash_attention(q, k, v, causal=causal)),
+                ("ring", lambda: ring_attention(mesh, q, k, v,
+                                                causal=causal)),
+                ("ulysses", lambda: ulysses_attention(mesh, q, k, v,
+                                                      causal=causal))):
+            if dev.type == "cuda":
+                out[f"{name}{tag}_wall_ms_p50"] = _median(
+                    _wall_ms(fn, RING_ITERS))
+        if dev.type == "cuda":
+            out[f"flash_attention{tag}_ms"] = cuda_time_ms(
+                lambda: fa.flash_attention(q, k, v, causal=causal), 20)[0]
+    return out
+
+
+def phase_combo(dev):
+    """Combo channels and mesh collectives on the card: (a) the 8-shard
+    tensor allreduce through a ParallelChannel, call_sync, call(done=)
+    and call_async; (b) the same call lowered by attach_collective;
+    (c) nested async calls through a PartitionChannel with inherited
+    deadlines; (d) ring and Ulysses attention. Launch counts zeroed
+    before each part, read after it."""
+    import numpy as np
+
+    fa = _fa_module()
+    rng = np.random.RandomState(20261018)
+    launches = {}
+
+    def counted(part, fn, *args, want=None, **kw):
+        progress(f"combo {part}")
+        fa.reset_launches()
+        r = fn(*args, **kw)
+        _sync(dev)
+        got = dict(fa.launches)
+        launches[part] = got
+        want = want or {}
+        check(all(got[k] == want.get(k, 0) for k in got),
+              f"combo {part}: launched {got}, want {want}")
+        return r
+    out = _allreduce_parts(dev, rng, counted)
+    out["c"] = _nested_attend(dev, rng, counted)
+    out["d"] = _sequence_parallel(dev, rng, counted)
+    for part in "abcd":
+        emit({"phase": "combo", "part": part, part: out[part]})
+    emit({"phase": "combo", "launches": launches})
+    out["launches"] = launches
+    return out
+
+
 def phase_paths(dev, split_inputs):
     """The port's two other paths, each driven through its public entry
     point with every count zeroed just before and read just after:
@@ -2982,6 +3428,13 @@ def main(only: str = "") -> int:
         if only == "device_lane":
             phase_device_lane(dev)
             return 0
+        if only == "combo":
+            from brpc_tpu_torch.ops import _build
+            # alone, the phase builds its kernels first, so that no call
+            # times out on a build
+            _build.build_all()
+            phase_combo(dev)
+            return 0
         if only:
             {"streaming": phase_streaming,
              "observability": phase_observability}[only]()
@@ -2998,6 +3451,8 @@ def main(only: str = "") -> int:
         observability = phase_observability()
         progress("phase device_lane")
         device_lane = phase_device_lane(dev)
+        progress("phase combo")
+        combo = phase_combo(dev)
         progress("phase paths")
         paths = phase_paths(dev, split_inputs)
         progress("phase times")
@@ -3016,6 +3471,8 @@ def main(only: str = "") -> int:
     by_path["device_lane_attend"] = (dl["d_attend_cuda"]["flash_decode"]
                                      + dl["d_attend_cudad"]["flash_decode"])
     by_path["device_lane_attend_ici"] = dl["g_attend_ici"]["flash_decode"]
+    cl = combo["launches"]
+    by_path["combo_nested_attend"] = cl["c_nested_attend"]["flash_decode"]
     combine_by_path = {
         "long_cache_decode": paths["long_cache_decode"][
             "flash_decode_combine"],
@@ -3023,12 +3480,18 @@ def main(only: str = "") -> int:
                                + dl["d_attend_cudad"][
                                    "flash_decode_combine"]),
         "device_lane_attend_ici": dl["g_attend_ici"][
+            "flash_decode_combine"],
+        "combo_nested_attend": cl["c_nested_attend"][
             "flash_decode_combine"]}
+    fwd_by_path = {
+        "long_context": paths["long_context"]["flash_attn_fwd"],
+        "combo_sequence_parallel": cl["d_sequence_parallel"][
+            "flash_attn_fwd"]}
     long_by = {c["case"]: c for c in times["long"]}
     tc, simt = long_by["8x2048x64 bf16"], long_by["8x2048x64 fp32"]
     kernels = [
         _row("flash_decode", "serving: unary, stream and HTTP; device "
-             "lanes: Attend",
+             "lanes: Attend; combo: nested Attend",
              sum(by_path.values()), sl["flash_decode"],
              sl["flash_decode"] / steps, errs["serving_decode"],
              times["decode"], launches_by_path=by_path,
@@ -3037,7 +3500,7 @@ def main(only: str = "") -> int:
                              max_abs_err=errs["split_decode"]),
              split_first_pass=times["split_first_pass"]),
         _row("flash_decode_combine", "long-cache decode; device lanes: "
-             "Attend", sum(combine_by_path.values()),
+             "Attend; combo: nested Attend", sum(combine_by_path.values()),
              sl["flash_decode_combine"],
              sl["flash_decode_combine"] / steps,
              errs["flash_decode_combine"], times["combine"],
@@ -3048,10 +3511,12 @@ def main(only: str = "") -> int:
              sl["flash_attn_fwd_tc"], sl["flash_attn_fwd_tc"] / steps,
              errs["flash_attn_fwd_tc"], tc, shape="8x2048x64 bf16",
              cases=_measured_cases(times["long"], "flash_attn_fwd_tc")),
-        _row("flash_attn_fwd", "long-context attention",
-             paths["long_context"]["flash_attn_fwd"],
+        _row("flash_attn_fwd", "long-context attention; combo: the "
+             "reference of ring and Ulysses attention",
+             sum(fwd_by_path.values()),
              sl["flash_attn_fwd"], sl["flash_attn_fwd"] / steps,
              errs["flash_attn_fwd"], simt, shape="8x2048x64 fp32",
+             launches_by_path=fwd_by_path,
              cases=_measured_cases(times["long"], "flash_attn_fwd")),
     ]
     print(card)
@@ -3074,7 +3539,7 @@ if __name__ == "__main__":
                              traced="--rpcz" in sys.argv[4:]))
     if sys.argv[1:2] == ["--phase"]:
         if sys.argv[2:3] not in (["streaming"], ["observability"],
-                                 ["device_lane"]):
+                                 ["device_lane"], ["combo"]):
             sys.exit(f"chip_smoke: unknown phase {sys.argv[2:]}")
         sys.exit(main(only=sys.argv[2]))
     sys.exit(main())

@@ -9,10 +9,8 @@ The port keeps the entries whose source it has. Left out, until their
 modules are ported (ROADMAP section 1): on ``/status`` the incident
 line, the trend-ring links (``saturation_timeline``) and, in the
 saturation pane, the IOBuf pool, input-batching and write-coalescing
-gauges, the concurrency limiter, the shed counters, the admission
-threshold and the retry tokens; on ``/connections`` the client
-channels' rows, the circuit breakers and the chaos counters, and the
-read-side bytes and idle class of each row.
+gauges; on ``/connections`` the client channels' rows, the chaos
+counters, and the read-side bytes and idle class of each row.
 """
 
 from __future__ import annotations
@@ -21,12 +19,23 @@ import json
 
 from brpc_tpu_torch.bvar.prometheus import dump_prometheus
 from brpc_tpu_torch.bvar.variable import dump_exposed
+from brpc_tpu_torch.rpc import errno_codes as berr
 from brpc_tpu_torch.rpc.service import Service
+
+
+# the overload and retry counters of the robustness pane
+ROBUSTNESS_VARS = ("server_deadline_shed", "server_limit_shed",
+                   "server_priority_shed", "client_priority_shed",
+                   "retry_suppressed_budget", "retry_throttled",
+                   "hedge_suppressed_budget", "naming_empty")
 
 
 def connections_page(server) -> dict:
     """The server's open connections (Sockets): peer, state and the
-    bytes queued for the kernel."""
+    bytes queued for the kernel; the circuit breakers of every cluster
+    channel of the process, by endpoint; and the robustness pane, the
+    shed and retry counters."""
+    from brpc_tpu_torch.rpc.circuit_breaker import all_breaker_snapshots
     rows = []
     for c in server.connections():
         ep = c.remote_endpoint
@@ -36,7 +45,11 @@ def connections_page(server) -> dict:
             "failed": c.failed,
             "wqueue_bytes": c.write_backlog(),
         })
-    return {"connections": rows}
+    robustness = {}
+    for name in ROBUSTNESS_VARS:
+        robustness.update(dump_exposed(name))
+    return {"connections": rows, "breakers": all_breaker_snapshots(),
+            "robustness": robustness}
 
 
 def status_page(server) -> dict:
@@ -44,11 +57,26 @@ def status_page(server) -> dict:
     (qps and p50/p90/p99/max, "which method is slow" without scraping
     /vars), and the saturation pane naming why it is slow: workers'
     busy share, run-queue depth, bytes queued on the connections and
-    calls in flight."""
+    calls in flight, and the overload pane: the limiter's limit, the
+    shed counters, the admission threshold and the process's most
+    drained retry budget (brpc_tpu/builtin/services.py:228)."""
+    from brpc_tpu_torch.rpc.retry_policy import min_retry_tokens
+    from brpc_tpu_torch.rpc.server_dispatch import (nlimit_shed,
+                                                    npriority_shed, nshed)
     saturation = server.control.saturation_pane()
     saturation["socket_wqueue_bytes"] = sum(
         c.write_backlog() for c in server.connections())
+    saturation["concurrency_limit"] = server.concurrency_limit()
     saturation["inflight"] = server.concurrency
+    saturation["limit_shed"] = nlimit_shed.get_value()
+    saturation["deadline_shed"] = nshed.get_value()
+    saturation["priority_shed"] = npriority_shed.get_value()
+    if server._admission is not None:
+        saturation["admission_threshold"] = \
+            server._admission.wire_threshold()
+    tokens = min_retry_tokens()
+    if tokens is not None:
+        saturation["retry_tokens"] = tokens
     return {
         "running": server.is_running,
         "endpoint": str(server.endpoint) if server.endpoint else None,
@@ -113,6 +141,23 @@ def add_builtin_services(server) -> None:
             device_page_payload)
         return json.dumps(device_page_payload(server),
                           default=str).encode()
+
+    @builtin.method()
+    def backends(cntl, request):
+        # this process's client channels: the twin of HTTP /backends
+        from brpc_tpu_torch.rpc.backend_stats import backends_page_payload
+        return json.dumps(backends_page_payload(), default=str).encode()
+
+    @builtin.method()
+    def lb_trace(cntl, request):
+        # the request names the channel (empty: the directory)
+        from brpc_tpu_torch.rpc.backend_stats import lb_trace_payload
+        name = bytes(request).decode() if request else ""
+        payload = lb_trace_payload(name or None)
+        if payload is None:
+            cntl.set_failed(berr.EREQUEST, f"no such channel {name!r}")
+            return b""
+        return json.dumps(payload, default=str).encode()
 
     @builtin.method()
     def serving(cntl, request):

@@ -33,6 +33,13 @@ class EndPoint:
                 return v
         return default
 
+    def with_extras(self, **kv) -> "EndPoint":
+        """This endpoint with the extras ``kv`` added or replaced."""
+        merged = dict(self.extras)
+        merged.update({k: str(v) for k, v in kv.items()})
+        return EndPoint(self.scheme, self.host, self.port,
+                        tuple(sorted(merged.items())))
+
     @property
     def device(self) -> Optional[str]:
         """The ``#device=`` extra as a torch device string: ``cuda:K`` for

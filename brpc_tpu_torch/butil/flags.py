@@ -6,7 +6,10 @@
 This module defines only the flags of the modules that import it
 (rpcz here; ``serving_stats_enabled`` and ``serving_step_ring_cap`` in
 ``serving/serving_stats.py``; the contention budget in
-``fiber/contention.py``), so a flag exists once its module does.
+``fiber/contention.py``; ``server_queue_shed_ms`` in ``rpc/server.py``,
+``admission_enabled`` in ``rpc/admission.py``, ``backend_stats_enabled``
+and ``lb_trace_ring`` in ``rpc/backend_stats.py``, with brpc_tpu's
+names and defaults), so a flag exists once its module does.
 """
 
 from __future__ import annotations

@@ -18,8 +18,10 @@ request behind the earlier ones of its connection
 ``/brpc_metrics`` and ``/metrics``, ``/flags`` (``POST
 /flags/<name>?setvalue=``), ``/connections``, ``/serving``, ``/rpcz``
 (``?trace_id=``, ``?n=``, ``?history=1``), ``/device`` (the device
-lanes' cells, conns, recv pool and leaks), ``/contentions`` and
-``/version``. The reference's other pages wait for their modules
+lanes' cells, conns, recv pool and leaks), ``/backends`` (the client
+channels' backend cells), ``/lb_trace`` (``?channel=``, ``?n=``: a
+channel's load-balancing decisions), ``/contentions`` and ``/version``;
+``/health`` asks ``ServerOptions.health_reporter`` when there is one. The reference's other pages wait for their modules
 (ROADMAP section 1).
 """
 
@@ -211,7 +213,7 @@ def builtin_page(server, req: HttpRequest) -> Optional[Page]:
         from brpc_tpu_torch.builtin.tabbed import render_index
         return 200, "text/html", render_index(server)
     if path == "/health":
-        return 200, "text/plain", b"OK"
+        return _health_page(server)
     if path == "/status":
         from brpc_tpu_torch.builtin.services import status_page
         return _json(status_page(server))
@@ -238,6 +240,12 @@ def builtin_page(server, req: HttpRequest) -> Optional[Page]:
         from brpc_tpu_torch.transport.device_stats import (
             device_page_payload)
         return _json(device_page_payload(server))
+    if path == "/backends":
+        # this process's client channels, a row a (channel, backend)
+        from brpc_tpu_torch.rpc.backend_stats import backends_page_payload
+        return _json(backends_page_payload())
+    if path == "/lb_trace":
+        return _lb_trace_page(req)
     if path == "/contentions":
         from brpc_tpu_torch.fiber.contention import contention_report
         try:
@@ -252,6 +260,37 @@ def builtin_page(server, req: HttpRequest) -> Optional[Page]:
         from brpc_tpu_torch.builtin.services import version_page
         return _json(version_page(server))
     return None
+
+
+def _health_page(server) -> Page:
+    """``OK``, or what ``ServerOptions.health_reporter`` says
+    (health_reporter.h: the application decides what healthy means)."""
+    reporter = server.options.health_reporter
+    if reporter is None:
+        return 200, "text/plain", b"OK"
+    try:
+        r = reporter(server)
+    except Exception as e:
+        return 500, "text/plain", f"health reporter: {e}".encode()
+    if isinstance(r, tuple):
+        status, ctype, body = r
+        return status, ctype, (body if isinstance(body, bytes)
+                               else str(body).encode())
+    return 200, "text/plain", r if isinstance(r, bytes) else str(r).encode()
+
+
+def _lb_trace_page(req: HttpRequest) -> Page:
+    from brpc_tpu_torch.rpc.backend_stats import lb_trace_payload
+    try:
+        n = max(1, int(req.query.get("n", "100")))
+    except ValueError:
+        return 400, "text/plain", f"bad n {req.query.get('n')!r}".encode()
+    name = req.query.get("channel")
+    payload = lb_trace_payload(name, n)
+    if payload is None:
+        return (404, "text/plain",
+                f"no decision ring for channel {name!r}".encode())
+    return _json(payload)
 
 
 def _flags_page(req: HttpRequest, path: str) -> Page:

@@ -9,11 +9,12 @@ Wire layout (the same bytes brpc_tpu puts on the wire):
 ``body_size = meta_size + len(payload) + len(attachment)``. ``meta`` is a
 proto3 ``RpcMeta`` (brpc_tpu/protocol/proto/tpu_rpc_meta.proto). The port
 does not depend on ``google.protobuf``: this module encodes and decodes
-the fields of unary calls, of streams (``stream_settings``, field 6) and
-of rpcz tracing (``trace_id``, ``span_id``, ``parent_span_id``, fields
-8-10) and device payloads (7), and reads past every other field, of any
-wire type, so a brpc_tpu peer's admission threshold is skipped, not
-rejected.
+the fields of unary calls (with the payload's ``compress_type``, field
+3, and the request's ``auth_token``, ``RpcRequestMeta`` field 5), of
+streams (``stream_settings``, field 6) and of rpcz tracing
+(``trace_id``, ``span_id``, ``parent_span_id``, fields 8-10), device
+payloads (7) and the response's admission threshold (``RpcResponseMeta``
+field 3), and reads past every other field, of any wire type.
 
 Encoding follows protobuf's own rules, so frames are byte-identical to
 ``RpcMeta.SerializeToString()``: fields in number order, proto3 scalars
@@ -186,6 +187,8 @@ class RpcRequestMeta:
     method_name: str = ""
     log_id: int = 0
     timeout_ms: int = 0
+    # the client's credential (rpc/auth.py), on every request
+    auth_token: str = ""
     priority: int = 0
 
     def encode(self) -> bytes:
@@ -198,6 +201,8 @@ class RpcRequestMeta:
             out += _key(3, _WT_VARINT) + _varint(self.log_id)
         if self.timeout_ms:
             out += _key(4, _WT_VARINT) + _varint(self.timeout_ms)
+        if self.auth_token:
+            out += _len_field(5, self.auth_token.encode("utf-8"))
         if self.priority:
             out += _key(6, _WT_VARINT) + _varint(self.priority)
         return out
@@ -214,6 +219,8 @@ class RpcRequestMeta:
                 m.log_id = _as_int64(_scalar(buf, s))
             elif (f, wt) == (4, _WT_VARINT):
                 m.timeout_ms = _as_int64(_scalar(buf, s))
+            elif (f, wt) == (5, _WT_LEN):
+                m.auth_token = _string(buf, s)
             elif (f, wt) == (6, _WT_VARINT):
                 m.priority = _as_int32(_scalar(buf, s))
         return m
@@ -223,6 +230,9 @@ class RpcRequestMeta:
 class RpcResponseMeta:
     error_code: int = 0
     error_text: str = ""
+    # an overloaded server's admission threshold (rpc/admission.py); 0
+    # while calm, and then off the wire
+    admission_threshold: int = 0
 
     def encode(self) -> bytes:
         out = b""
@@ -230,6 +240,8 @@ class RpcResponseMeta:
             out += _key(1, _WT_VARINT) + _varint(self.error_code)
         if self.error_text:
             out += _len_field(2, self.error_text.encode("utf-8"))
+        if self.admission_threshold:
+            out += _key(3, _WT_VARINT) + _varint(self.admission_threshold)
         return out
 
     @classmethod
@@ -240,6 +252,8 @@ class RpcResponseMeta:
                 m.error_code = _as_int32(_scalar(buf, s))
             elif (f, wt) == (2, _WT_LEN):
                 m.error_text = _string(buf, s)
+            elif (f, wt) == (3, _WT_VARINT):
+                m.admission_threshold = _as_int32(_scalar(buf, s))
         return m
 
 
@@ -342,6 +356,8 @@ class DevicePayloadMeta:
 class RpcMeta:
     request: Optional[RpcRequestMeta] = None
     response: Optional[RpcResponseMeta] = None
+    # the payload's codec (rpc/compress.py); 0: none
+    compress_type: int = 0
     correlation_id: int = 0
     attachment_size: int = 0
     stream_settings: Optional[StreamSettings] = None
@@ -356,6 +372,8 @@ class RpcMeta:
             out += _len_field(1, self.request.encode())
         if self.response is not None:
             out += _len_field(2, self.response.encode())
+        if self.compress_type:
+            out += _key(3, _WT_VARINT) + _varint(self.compress_type)
         if self.correlation_id:
             out += _key(4, _WT_VARINT) + _varint(self.correlation_id)
         if self.attachment_size:
@@ -385,6 +403,8 @@ class RpcMeta:
                 m.request = RpcRequestMeta.decode(_submessage(buf, s))
             elif (f, wt) == (2, _WT_LEN):
                 m.response = RpcResponseMeta.decode(_submessage(buf, s))
+            elif (f, wt) == (3, _WT_VARINT):
+                m.compress_type = _as_int32(_scalar(buf, s))
             elif (f, wt) == (4, _WT_VARINT):
                 m.correlation_id = _scalar(buf, s)
             elif (f, wt) == (5, _WT_VARINT):

@@ -7,7 +7,10 @@
                       balancer, a retry going to another one
                       (selective_channel.h:52);
   PartitionChannel -- a fan-out by partition index, each partition its
-                      own sub-channel (partition_channel.h:46-136).
+                      own sub-channel (partition_channel.h:46-136);
+  DynamicPartitionChannel -- partitions taken from the naming service's
+                      ``#partition=K/N`` tags, a ClusterChannel each,
+                      rebuilt on every update (partition_channel.h:136).
 
 Sub-calls go out through ``Channel.call(done=)``; the parent controller
 completes in the callback of the sub-call that decides it, wherever that
@@ -22,8 +25,7 @@ Unlike the reference, a sub-call's response is merged before it is
 counted, so the parent completes only after every merge of the calls
 that decided it has run (the reference merges after counting, and a
 last sub-call could complete the parent while an earlier one's merge
-still ran). ``DynamicPartitionChannel`` waits for naming and the cluster
-channel (ROADMAP section 1 item 8).
+still ran).
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ import time
 from typing import Any, Callable, Dict, List, Optional
 
 from brpc_tpu_torch.butil.endpoint import EndPoint
+from brpc_tpu_torch.fiber.timer import global_timer
 
 from . import errno_codes as berr
 from .channel import Channel
@@ -346,3 +349,83 @@ class PartitionChannel(ParallelChannel):
     @property
     def partition_count(self) -> int:
         return self.sub_channel_count
+
+
+class DynamicPartitionChannel(PartitionChannel):
+    """A PartitionChannel whose partitions follow the naming service
+    (partition_channel.h:136 and the _dynpart balancer). A server entry
+    carries ``#partition=K/N``; on each update the sub-channels become N
+    partitions, each a ``list://`` ClusterChannel of that partition's
+    replicas, swapped in whole: a call in flight keeps the generation it
+    started with, and the old one closes 10 s later. A partition with no
+    replica gets an empty cluster, whose calls fail ENAMINGEMPTY."""
+
+    RETIRE_S = 10.0
+
+    def __init__(self, naming_url: str,
+                 partition_parser: Optional[PartitionParser] = None,
+                 fail_limit: Optional[int] = 1,
+                 response_merger: Optional[ResponseMerger] = None,
+                 options=None):
+        from .naming import NamingServiceThread
+        super().__init__(partition_parser, fail_limit, response_merger)
+        self._options = options
+        self._generation = 0
+        self._ready = threading.Event()
+        self._retired: List[list] = []
+        self._retire_lock = threading.Lock()
+        self._ns = NamingServiceThread(naming_url)
+        self._ns.watch(self._rebuild)
+
+    def wait_ready(self, timeout_s: float = 5.0) -> bool:
+        return self._ready.wait(timeout_s)
+
+    def _rebuild(self, servers) -> None:
+        from .cluster_channel import ClusterChannel
+        by_partition: Dict[int, list] = {}
+        nparts = 0
+        for ep in servers:
+            spec = ep.extra("partition")
+            if not spec or "/" not in spec:
+                continue
+            k_s, n_s = spec.split("/", 1)
+            try:
+                k, n = int(k_s), int(n_s)
+            except ValueError:
+                continue
+            if n <= 0 or not 0 <= k < n:
+                continue
+            nparts = max(nparts, n)
+            by_partition.setdefault(k, []).append(
+                EndPoint(ep.scheme, ep.host, ep.port))
+        new_subs = [
+            ClusterChannel("list://" + ",".join(
+                str(e) for e in by_partition.get(k, [])), "rr",
+                self._options)
+            for k in range(nparts)]
+        old, self._subs = self._subs, new_subs       # one reference swap
+        self._lane_verdict = None
+        self._generation += 1
+        self._ready.set()
+        if old:
+            # calls in flight still hold the old generation: close it
+            # after a grace period, not under them
+            with self._retire_lock:
+                self._retired.append(old)
+            global_timer().schedule_after(self.RETIRE_S,
+                                          self._close_retired)
+
+    def _close_retired(self) -> None:
+        with self._retire_lock:
+            gens, self._retired = self._retired[:1], self._retired[1:]
+        for gen in gens:
+            for ch in gen:
+                ch.close()
+
+    def close(self) -> None:
+        self._ns.stop()
+        with self._retire_lock:
+            gens, self._retired = self._retired, []
+        for gen in gens + [self._subs]:
+            for ch in gen:
+                ch.close()

@@ -1,17 +1,37 @@
 """Per-call state shared by client and server: the error, the deadline
 budget, the response, the call's tensors, the call's stream or
-progressive body, and its trace (the port of brpc_tpu/rpc/controller.py
-without the retry, backup, auth and compression state, and without the
-sync pluck lane).
+progressive body, its trace, and on the client its retries and backup
+request, its credential and its payload's codec (the port of
+brpc_tpu/rpc/controller.py without the sync pluck lane).
 
 Client side, a call has one completion point, ``_complete``
-(brpc_tpu/rpc/controller.py:428): exactly one of the response, the
-deadline timer, the socket's failure and ``start_cancel`` takes the call
-from the registry and completes it. ``_complete`` unschedules the call's
-timers, runs its complete hooks, sets the done event under the lock that
-``join`` creates it under, then runs the ``done`` callback. Waiters block
+(brpc_tpu/rpc/controller.py:428). A call may make several attempts (a
+retry, a backup request), each registered under a correlation id of its
+own (``client_dispatch``); exactly one of a response, the deadline
+timer, the failure of an attempt that may not retry and
+``start_cancel`` takes the call and completes it. ``_complete``
+unschedules the call's timers, settles its retry budget, runs its
+complete hooks, sets the done event under the lock that ``join``
+creates it under, then runs the ``done`` callback. Waiters block
 (``join``) or park their fiber (``join_async``) on that event, which is
 created only when a waiter arrives before completion.
+
+The retry state (brpc_tpu/rpc/controller.py:120-173): ``max_retry`` and
+``backup_request_ms`` (None: the channel's option), ``current_try`` (the
+retries so far, ``retried_count()``), ``used_backup``,
+``tried_servers`` (a cluster channel's picks, in order),
+``responded_server`` (whose response completed the call) and
+``request_priority`` (the wire's admission class, inherited by nested
+calls); a reused controller starts each call with them cleared.
+
+Auth and compression (brpc_tpu/rpc/controller.py:109-111, :148):
+``auth_token`` is the credential the request carries (the channel's,
+unless set before the call), ``auth_context`` the identity the server
+verified for the connection, and ``compress_type`` the payload's codec
+(``rpc/compress.py``): set on a client before the call, it compresses
+the request, and the server answers in the kind it was sent.
+``session_local_data()`` is the object a handler borrowed from
+``ServerOptions.session_local_data_factory``.
 
 Server side, ``is_canceled`` and ``notify_on_cancel`` follow the
 client's connection (``Socket.on_failed``).
@@ -27,7 +47,7 @@ from brpc_tpu_torch.fiber.sync import FiberEvent
 from brpc_tpu_torch.fiber.timer import global_timer
 
 from . import errno_codes as berr
-from .client_dispatch import take_call
+from .client_dispatch import take_controller
 from .progressive import ProgressiveAttachment
 
 
@@ -93,12 +113,60 @@ class Controller:
         self.sub_device_arrays: List = []
         self.sub_errors: List = []
         self.collective_lowered = False
+        # client side: retries and the backup request
+        self.max_retry: Optional[int] = None
+        self.backup_request_ms: Optional[float] = None
+        # the fields the channel filled in: reuse clears those only
+        self._filled_by_channel: List[str] = []
+        self.current_try = 0
+        self.used_backup = False
+        self.tried_servers: List = []
+        self.responded_server = None
+        # both sides: the admission class (RpcRequestMeta.priority; 0 is
+        # unset). A client sets it before the call, a handler reads it
+        self.request_priority = 0
+        # the request's credential, the identity the server verified for
+        # its connection, and the payload's codec (0: none)
+        self.auth_token = ""
+        self.auth_context = None
+        self.compress_type = 0
+        # server side: the object borrowed from the session-local pool
+        self._session_local = None
+        # client side, per call: the channel that issued it, what it
+        # sends again on a retry, the call's generation (a reused
+        # controller's stale timers and retries must not touch the next
+        # call), the attempts' correlation ids in flight, and _taken once
+        # a path won the call (client_dispatch)
+        self._owner_channel = None
+        self._service_name = ""
+        self._method_name = ""
+        self._request_bytes = b""
+        self._call_seq = 0
+        self._issue_seq = 0
+        self._attempt_cids: List[int] = []
+        self._taken = False
+        # backend stats (rpc/backend_stats.py), attempt spans, the
+        # cluster channel's selection bookkeeping, the backup's evidence
+        # and the sends shed on this side against a cached threshold
+        self._bs_attempts: List = []
+        self._bs_resp_bytes = 0
+        self._attempt_spans: List = []
+        self._lb_lock = threading.Lock()
+        self._lb_swept_n: Optional[int] = None
+        self._lb_fed: List = []
+        self._hedge_decision = None
+        self._adm_local_sheds = 0
 
     def create_progressive_attachment(
             self, content_type: str = "application/octet-stream"):
         """An HTTP chunked response body, fed after the handler returns."""
         self._progressive = ProgressiveAttachment(content_type)
         return self._progressive
+
+    def session_local_data(self):
+        """The handler's object from ``ServerOptions.
+        session_local_data_factory`` (None without one)."""
+        return self._session_local
 
     def failed(self) -> bool:
         return self.error_code != berr.OK
@@ -109,6 +177,11 @@ class Controller:
 
     def latency_us(self) -> int:
         return max(0, self.end_us - self.start_us)
+
+    def retried_count(self) -> int:
+        """Retries this call made (Controller::retried_count)."""
+        return self.current_try
+
 
     def set_deadline(self, timeout_ms: Optional[float],
                      start_ns: Optional[int] = None) -> None:
@@ -143,6 +216,8 @@ class Controller:
             self._completed = False
             self._finalized = False
             self._done_event = None
+            self._taken = False
+            self._attempt_cids = []
         self.end_us = 0
         self._deadline_ns = None
         self._client_span = None
@@ -152,6 +227,23 @@ class Controller:
         self.stream = None
         self._complete_hooks.clear()
         self.collective_lowered = False
+        for name in self._filled_by_channel:
+            setattr(self, name, None)
+        self._filled_by_channel = []
+        self.current_try = 0
+        self.used_backup = False
+        self.responded_server = None
+        self.request_priority = 0
+        self._issue_seq = 0
+        self._bs_attempts = []
+        self._bs_resp_bytes = 0
+        self._attempt_spans = []
+        self._hedge_decision = None
+        self._adm_local_sheds = 0
+        with self._lb_lock:
+            self.tried_servers = []
+            self._lb_swept_n = None
+            self._lb_fed = []
 
     def _add_complete_hook(self, hook: Callable) -> None:
         """``hook(cntl)`` runs at completion; at once if the call has
@@ -167,7 +259,21 @@ class Controller:
         the call (``client_dispatch.take_call``) or never registered it."""
         with self._arb_lock:
             self._completed = True
+            if not self._taken:
+                take_controller(self)   # completed before any attempt
         self.end_us = time.monotonic_ns() // 1000
+        ch = self._owner_channel
+        rb = ch._retry_budget if ch is not None else None
+        if rb is not None:
+            # a success re-earns a fraction of a token; a deadline that
+            # fired here with no server answering drains one (a stalled
+            # cluster whose sockets stay up gives exactly these). Other
+            # failures drained where the channel judged them
+            if not self.error_code:
+                rb.refill()
+            elif self.error_code == berr.ERPCTIMEDOUT \
+                    and self.responded_server is None:
+                rb.drain()
         if self._timer_ids:
             for tid in self._timer_ids:
                 global_timer().unschedule(tid)
@@ -197,11 +303,9 @@ class Controller:
         completes now with ECANCELED and its late response is dropped. A
         call that has completed, or was never issued, is left as it is.
         The server may still run the handler."""
-        if self.correlation_id == 0:
+        if not self.start_us:
             return
-        with self._arb_lock:
-            taken = take_call(self.correlation_id) is self
-        if taken:
+        if take_controller(self):
             self.set_failed(berr.ECANCELED, "canceled by caller")
             self._complete()
 

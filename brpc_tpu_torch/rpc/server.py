@@ -55,9 +55,10 @@ import threading
 import time
 import weakref
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 from brpc_tpu_torch.butil.endpoint import EndPoint, str2endpoint
+from brpc_tpu_torch.butil.flags import define_flag, flag
 from brpc_tpu_torch.bvar.latency_recorder import LatencyRecorder
 from brpc_tpu_torch.bvar.reducer import PassiveStatus
 from brpc_tpu_torch.fiber import TaskControl, global_control
@@ -69,17 +70,66 @@ from brpc_tpu_torch.transport.socket import Socket
 
 from . import errno_codes as berr
 from . import server_dispatch
+from .admission import AdmissionController, CostModel, admission_enabled
+from .auth import AuthError, InterceptorError, resolve_server_auth
+from .concurrency_limiter import new_limiter
 from .controller import Controller
+from .data_pool import SimpleDataPool
 from .progressive import ProgressiveAttachment
 from .service import Method, Service
 
 log = logging.getLogger("brpc_tpu_torch.rpc")
 
+define_flag("server_queue_shed_ms", 200.0,
+            "queue-delay shed budget: a request whose arrival-to-"
+            "dispatch time exceeds this is rejected with ELIMIT before "
+            "the handler runs (default gate for adaptive-limiter "
+            "servers; ServerOptions.queue_delay_shed_ms overrides "
+            "per server)", validator=lambda v: v > 0)
+
 
 @dataclass
 class ServerOptions:
-    """The options of brpc_tpu/rpc/server.py:121 that the port has."""
-    # the builtin service and pages (/status, /vars, /rpcz, ...)
+    """The options of brpc_tpu/rpc/server.py:112-190 that the port has.
+
+    ``max_concurrency``: the server's limit of requests in flight, an
+    int or a spec, ``constant:N``, ``auto[:initial[:min[:max]]]`` or
+    ``timeout:MS`` (``rpc/concurrency_limiter.py``); a request over it is
+    shed with ELIMIT before its handler. ``method_max_concurrency``:
+    ``{"Service.Method": spec}``, checked after the server's.
+    ``queue_delay_shed_ms``: a request that waited longer than this
+    from its arrival to its dispatch is shed with ELIMIT (None: on at
+    the ``server_queue_shed_ms`` flag's value when ``max_concurrency``
+    is a spec string, else off). ``request_costs``: weighted slots
+    (``admission.CostModel``). ``priority_admission``: shed by the
+    DAGOR threshold with EPRIORITYSHED while overloaded, the threshold
+    on every response (None: on whenever a limiter or the queue gate
+    is). ``health_reporter``: ``callable(server)`` answering ``/health``
+    with bytes, a str, or (status, content type, body).
+    ``auth``: an ``Authenticator`` (``rpc/auth.py``) that verifies each
+    connection's first request, tpu_std and HTTP alike (``/health``
+    excepted); ``auth_token``: a shared token, short for a
+    ``TokenAuthenticator``. ``interceptor``: ``callable(cntl)`` run on
+    every decoded request before its handler, returning None to accept
+    or ``(error_code, reason)`` to reject. ``session_local_data_factory``
+    (and ``session_local_data_reset``): each request borrows an object of
+    a ``SimpleDataPool`` (``cntl.session_local_data()``).
+    ``usercode_in_pthread``: handlers that are not coroutine functions
+    run on the usercode pool (``rpc/usercode.py``), not on the fiber
+    workers. ``enable_builtin_services``: the builtin service and pages
+    (/status, /vars, /rpcz, ...)."""
+    max_concurrency: Any = None
+    method_max_concurrency: Optional[Dict[str, Any]] = None
+    queue_delay_shed_ms: Optional[float] = None
+    request_costs: Optional[bool] = None
+    priority_admission: Optional[bool] = None
+    health_reporter: Optional[Callable] = None
+    auth: Optional[Any] = None
+    auth_token: Optional[str] = None
+    interceptor: Optional[Callable] = None
+    session_local_data_factory: Optional[Callable[[], Any]] = None
+    session_local_data_reset: Optional[Callable[[Any], None]] = None
+    usercode_in_pthread: bool = False
     enable_builtin_services: bool = True
 
 
@@ -103,6 +153,45 @@ class Server:
         self.method_status: Dict[str, LatencyRecorder] = {}
         self.nprocessed = 0
         self.nerror = 0
+        self._build_limiters()
+        # resolved once, as the reference does at Server::Start
+        self._auth = resolve_server_auth(self.options)
+        self.session_local_pool = None
+        if self.options.session_local_data_factory is not None:
+            self.session_local_pool = SimpleDataPool(
+                self.options.session_local_data_factory,
+                reset=self.options.session_local_data_reset)
+
+    def _build_limiters(self) -> None:
+        """The overload gates the options name
+        (brpc_tpu/rpc/server.py:224)."""
+        o = self.options
+        self._limiter = new_limiter(o.max_concurrency)
+        self._method_limiters = {
+            k: new_limiter(v)
+            for k, v in (o.method_max_concurrency or {}).items()}
+        qd = o.queue_delay_shed_ms
+        if qd is None and isinstance(o.max_concurrency, str):
+            # an adaptive server gets the queue gate by default: a
+            # saturated node must reject in microseconds, not let queued
+            # work time out in seconds
+            qd = flag("server_queue_shed_ms")
+        self._queue_shed_ns = int(qd * 1e6) if qd else 0
+        # admission is on where an overload gate exists to signal it;
+        # inert until overload, and never sheds traffic of one priority
+        want_adm = o.priority_admission
+        if want_adm is None:
+            want_adm = (self._limiter is not None
+                        or bool(self._method_limiters)
+                        or self._queue_shed_ns > 0)
+        self._admission = AdmissionController() \
+            if (want_adm and admission_enabled()) else None
+        self._cost_model = CostModel(self) if o.request_costs else None
+
+    def concurrency_limit(self) -> Optional[int]:
+        """The server limiter's current limit (None: no limit)."""
+        lim = self._limiter
+        return lim.max_concurrency if lim is not None else None
 
     def add_service(self, service: Service) -> None:
         if self._running:
@@ -124,7 +213,7 @@ class Server:
 
     @property
     def concurrency(self) -> int:
-        """Calls not yet answered."""
+        """Calls admitted and not yet answered."""
         return self._inflight
 
     def start(self, address: str) -> EndPoint:
@@ -200,17 +289,63 @@ class Server:
             "server_errors")
         PassiveStatus(lambda: read(worst_p99, 0.0)).expose(
             "server_latency_p99_us")
+        # the overload gates (brpc_tpu/rpc/server.py:54-75)
+        PassiveStatus(lambda: read(
+            lambda s: s.concurrency_limit() or 0)).expose(
+            "server_concurrency_limit")
+        PassiveStatus(lambda: read(lambda s: s.concurrency)).expose(
+            "server_concurrency_inflight")
+        PassiveStatus(lambda: read(
+            lambda s: s._admission.wire_threshold()
+            if s._admission is not None else 0)).expose(
+            "server_admission_threshold")
         server_dispatch.nshed.expose("server_deadline_shed")
+        server_dispatch.nlimit_shed.expose("server_limit_shed")
+        server_dispatch.npriority_shed.expose("server_priority_shed")
+        from .backend_stats import expose_backend_vars
+        from .channel import expose_channel_vars
+        from .cluster_channel import nnaming_empty
+        expose_backend_vars()
+        expose_channel_vars()
+        nnaming_empty.expose("naming_empty")
 
     # ----------------------------------------------------------- accounting
     def _request_begin(self) -> None:
         with self._idle:
             self._inflight += 1
 
-    def _request_end(self, method_key: str, latency_us: float,
-                     failed: bool) -> None:
-        """A handler's end (brpc_tpu/rpc/server.py:654): the counters and
-        its method's LatencyRecorder."""
+    def on_request_start(self, method_key: Optional[str] = None,
+                         nbytes: int = 0, level: int = 0,
+                         level_counted: bool = False) -> float:
+        """The limiters' gate (brpc_tpu/rpc/server.py:601): the server's
+        limiter, then the method's. The request's cost (1.0, or its
+        weight with ``request_costs``), which ``on_request_end`` must
+        release, or 0.0: shed it with ELIMIT. A reject is overload
+        evidence for the admission controller (``level`` is the
+        request's; ``level_counted``: ``admit_level`` counted it)."""
+        cm = self._cost_model
+        cost = cm.request_cost(method_key, nbytes) if cm is not None \
+            else 1.0
+        lim = self._limiter
+        ml = self._method_limiters.get(method_key) \
+            if self._method_limiters else None
+        if lim is not None and not lim.on_requested(cost):
+            shed = True
+        elif ml is not None and not ml.on_requested(cost):
+            if lim is not None:
+                lim.on_responded(0.0, True, cost)   # the slot it took
+            shed = True
+        else:
+            return cost
+        server_dispatch.nlimit_shed.add(1)
+        if self._admission is not None:
+            self._admission.signal_overload(level, level_counted)
+        return 0.0
+
+    def on_request_end(self, method_key: str, latency_us: float,
+                       failed: bool, cost: float = 1.0) -> None:
+        """A handler's end (brpc_tpu/rpc/server.py:654): the counters,
+        the limiters' release and its method's LatencyRecorder."""
         with self._idle:
             self.nprocessed += 1
             if failed:
@@ -218,6 +353,12 @@ class Server:
             lr = self.method_status.get(method_key)
             if lr is None:
                 lr = self.method_status[method_key] = LatencyRecorder()
+        if self._limiter is not None:
+            self._limiter.on_responded(latency_us, failed, cost)
+        ml = self._method_limiters.get(method_key) \
+            if self._method_limiters else None
+        if ml is not None:
+            ml.on_responded(latency_us, failed, cost)
         lr.record(latency_us)
 
     def _request_done(self) -> None:
@@ -251,9 +392,33 @@ class Server:
             socket.write(b"", on_done=lambda err: socket.set_failed(
                 ConnectionError("closed after the response")))
 
+    def _http_auth_refused(self, socket: Socket,
+                           req: http.HttpRequest) -> Optional[bytes]:
+        """The auth gate of the HTTP path (brpc_tpu/protocol/http.py:
+        259-280): every page and method but ``/health`` wants the
+        credential (``Authorization: Bearer ...`` or ``?token=``), once
+        a connection. The reason of a refusal, or None."""
+        if self._auth is None or socket.user_data.get("auth_context") \
+                is not None or (req.path.rstrip("/") or "/") == "/health":
+            return None
+        header = req.headers.get("authorization", "")
+        cred = header[7:] if header.startswith("Bearer ") \
+            else req.query.get("token", "")
+        try:
+            ctx = self._auth.verify_credential(cred, socket.remote_endpoint)
+        except AuthError as e:
+            return (str(e) or "authentication failed").encode()
+        except Exception:               # boundary: a broken authenticator
+            return b"authentication failed"
+        socket.user_data["auth_context"] = ctx
+        return None
+
     async def _call_http(self, socket: Socket, req: http.HttpRequest
                          ) -> Tuple[int, str,
                                     Union[bytes, ProgressiveAttachment]]:
+        refused = self._http_auth_refused(socket, req)
+        if refused is not None:
+            return 403, "text/plain", refused
         if self.options.enable_builtin_services:
             page = http.builtin_page(self, req)
             if page is not None:
@@ -264,8 +429,25 @@ class Server:
         method = self._methods.get((parts[0], parts[1]))
         if method is None:
             return 404, "text/plain", b"no such service/method"
+        # the limiters' gate (brpc_tpu/protocol/http.py:924); HTTP
+        # carries no priority, so no admission level
+        cost = self.on_request_start(method.full_name, len(req.body))
+        if not cost:
+            return 500, "text/plain", b"max_concurrency reached"
         cntl = Controller()             # _server_socket None: HTTP
         cntl.remote_side = socket.remote_endpoint
+        cntl.auth_context = socket.user_data.get("auth_context")
+        interceptor = self.options.interceptor
+        if interceptor is not None:
+            try:
+                verdict = interceptor(cntl)
+            except InterceptorError as e:
+                verdict = (e.error_code, e.reason)
+            except Exception as e:      # boundary: a broken interceptor
+                verdict = (500, f"interceptor error: {e}")
+            if verdict is not None:
+                self.on_request_end(method.full_name, 0.0, True, cost)
+                return 403, "text/plain", str(verdict[1]).encode()
         self._request_begin()
         t0 = time.monotonic_ns()
         failed = True
@@ -281,8 +463,9 @@ class Server:
             return 500, "text/plain", f"handler error: {e}".encode()
         finally:
             server_dispatch._serving_cntl.set(None)
-            self._request_end(method.full_name,
-                              (time.monotonic_ns() - t0) / 1e3, failed)
+            self.on_request_end(method.full_name,
+                                (time.monotonic_ns() - t0) / 1e3, failed,
+                                cost)
             self._request_done()
         if cntl.failed():
             status = 400 if cntl.error_code == berr.EREQUEST else 500

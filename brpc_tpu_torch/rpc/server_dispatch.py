@@ -46,8 +46,32 @@ dispatcher and after the hop to a worker alike, and cleared in
 ``finally``. A nested ``Channel.call`` reads it to inherit the parent's
 remaining budget and trace. The HTTP path sets it too (``Server``).
 
-The reference's limiter and priority sheds, capture and fast drains are
-still to port (ROADMAP section 1).
+Overload control, before any slot is taken and before the handler
+(brpc_tpu/rpc/server_dispatch.py:208-240): while the server's admission
+controller is engaged, a request whose level (its priority and its
+connection's user slot, ``_request_level``) sits under the threshold is
+shed with EPRIORITYSHED (``server_priority_shed``); a request that
+waited in dispatch past ``queue_delay_shed_ms`` (``_queue_delay_shed``)
+and one the limiters refuse (``Server.on_request_start``) are shed with
+ELIMIT (``server_limit_shed``). The handler's end releases the cost its
+admission charged. While the server sheds by priority, every response
+carries its threshold (``RpcResponseMeta.admission_threshold``), and a
+success then takes the full meta.
+
+Auth, compression and the user's hooks (brpc_tpu/rpc/server_dispatch.py:
+173-198, :360-363, :405-494, :956-959): with ``ServerOptions.auth`` (or
+``auth_token``) a connection's first request has its credential verified
+before the method lookup, so an unauthenticated peer learns nothing of
+the services; a rejected one is answered ERPCAUTH, and the verified
+``AuthContext`` is cached on the connection. A payload sent compressed
+(``RpcMeta.compress_type``) is decompressed before the handler, and the
+response goes back compressed in the same kind. ``ServerOptions.
+interceptor`` may reject a decoded request with its own error code; a
+``session_local_data_factory`` lends the handler an object of its pool;
+with ``usercode_in_pthread`` a handler that is not a coroutine function
+runs on the usercode pool (``rpc/usercode.py``) while its fiber parks.
+The reference's capture and fast drains are still to port (ROADMAP
+section 1).
 """
 
 from __future__ import annotations
@@ -64,15 +88,23 @@ from brpc_tpu_torch.fiber.keys import FiberLocal
 from brpc_tpu_torch.fiber.scheduler import SchedAwaitable, current_group
 from brpc_tpu_torch.protocol import tpu_std
 
+from . import admission
+from . import compress as _compress
 from . import errno_codes as berr
 from . import span as _span
+from .auth import AuthError, InterceptorError
 from .controller import Controller
+from .usercode import run_usercode
 
 log = logging.getLogger("brpc_tpu_torch.rpc")
 
 # requests shed with ERPCTIMEDOUT: their client's budget was gone
 # before the handler would start (exposed by Server.start)
 nshed = Adder()
+# requests shed with ELIMIT by the limiters and the queue-delay gate
+nlimit_shed = Adder()
+# requests shed with EPRIORITYSHED by the admission threshold
+npriority_shed = Adder()
 
 # the controller of the request this fiber serves; set around the
 # request's residence only, since a fiber that served one request must
@@ -102,6 +134,22 @@ async def process_request(proto, msg: tpu_std.RpcMessage, socket) -> None:
                     "no server bound to socket")
         return
     req = msg.meta.request
+    # auth precedes the lookup: an unauthenticated peer must not learn
+    # the services from the error codes. Verified once a connection
+    auth = server._auth
+    if auth is not None and socket.user_data.get("auth_context") is None:
+        try:
+            ctx = auth.verify_credential(req.auth_token,
+                                         socket.remote_endpoint)
+        except AuthError as e:
+            _send_error(proto, socket, cid, berr.ERPCAUTH,
+                        str(e) or "authentication failed")
+            return
+        except Exception:               # boundary: a broken authenticator
+            _send_error(proto, socket, cid, berr.ERPCAUTH,
+                        "authentication failed")
+            return
+        socket.user_data["auth_context"] = ctx
     method = server.find_method(req.service_name, req.method_name)
     if method is None:
         known = req.service_name in server.services()
@@ -112,26 +160,79 @@ async def process_request(proto, msg: tpu_std.RpcMessage, socket) -> None:
     if not server.is_running:
         _send_error(proto, socket, cid, berr.ELOGOFF, "server is stopping")
         return
+    # priority admission, before any slot: while the server is in
+    # overload, a request under the threshold is shed, cheaply and with
+    # an errno of its own
+    level = 0
+    counted = False
+    adm = server._admission
+    if adm is not None and adm.threshold_engaged():
+        level = _request_level(req.priority, socket)
+        counted = True                  # admit_level counts it
+        if not adm.admit_level(level):
+            npriority_shed.add(1)
+            _send_error(proto, socket, cid, berr.EPRIORITYSHED,
+                        "priority below admission threshold "
+                        "(server overloaded)")
+            return
+    if _queue_delay_shed(server, msg.arrival_ns, level, counted):
+        _send_error(proto, socket, cid, berr.ELIMIT,
+                    "queue delay over shed budget (server overloaded)")
+        return
+    cost = server.on_request_start(method.full_name,
+                                   len(msg.payload) + len(msg.attachment),
+                                   level, counted)
+    if not cost:
+        _send_error(proto, socket, cid, berr.ELIMIT,
+                    "max_concurrency reached")
+        return
     server._request_begin()
     try:
-        await _process_request_body(proto, msg, socket, server, method)
+        await _process_request_body(proto, msg, socket, server, method,
+                                    cost)
     finally:
         server._request_done()
 
 
+def _queue_delay_shed(server, arrival_ns: int, level: int = 0,
+                      level_counted: bool = False) -> bool:
+    """True: the request waited from its cut to its dispatch longer than
+    the server's queue-delay budget, and is shed now. A trip is overload
+    evidence for the admission controller."""
+    qns = server._queue_shed_ns
+    if not qns or not arrival_ns:
+        return False
+    if time.monotonic_ns() - arrival_ns <= qns:
+        return False
+    nlimit_shed.add(1)
+    if server._admission is not None:
+        server._admission.signal_overload(level, level_counted)
+    return True
+
+
+def _request_level(priority: int, socket) -> int:
+    """The request's admission level: its wire priority, and the user
+    slot of its connection's client address (the socket's
+    ``remote_endpoint`` is the client's ``local_endpoint``; both sides
+    hash it the same, ``admission.cached_socket_slot``)."""
+    return admission.compose_level(
+        priority, admission.cached_socket_slot(socket,
+                                               socket.remote_endpoint))
+
+
 def _expired(cntl: Controller, method, server, budget_ms: int,
-             where: str) -> bool:
+             where: str, cost: float) -> bool:
     if budget_ms <= 0 or not cntl.deadline_expired():
         return False
     nshed.add(1)
-    server._request_end(method.full_name, 0.0, True)
+    server.on_request_end(method.full_name, 0.0, True, cost)
     cntl.set_failed(berr.ERPCTIMEDOUT,
                     f"deadline {budget_ms}ms expired before {where}")
     return True
 
 
 async def _process_request_body(proto, msg: tpu_std.RpcMessage, socket,
-                                server, method) -> None:
+                                server, method, cost: float) -> None:
     t0 = time.monotonic_ns()
     meta = msg.meta
     req = meta.request
@@ -141,19 +242,22 @@ async def _process_request_body(proto, msg: tpu_std.RpcMessage, socket,
     cntl.trace_id = meta.trace_id
     cntl.span_id = meta.span_id
     cntl.log_id = req.log_id
+    cntl.request_priority = req.priority
+    cntl.auth_token = req.auth_token
+    cntl.auth_context = socket.user_data.get("auth_context")
     cntl.remote_side = socket.remote_endpoint
     if meta.stream_settings is not None:
         cntl._peer_stream_id = meta.stream_settings.stream_id
     _serving_cntl.set(cntl)
     try:
-        await _serve(proto, msg, socket, server, method, cntl, t0)
+        await _serve(proto, msg, socket, server, method, cntl, t0, cost)
     finally:
         _serving_cntl.set(None)
         cntl._drop_cancel_subs()
 
 
 async def _serve(proto, msg: tpu_std.RpcMessage, socket, server, method,
-                 cntl: Controller, t0: int) -> None:
+                 cntl: Controller, t0: int, cost: float) -> None:
     meta = msg.meta
     req = meta.request
     # the client's whole budget, counted from the frame's cut
@@ -166,6 +270,7 @@ async def _serve(proto, msg: tpu_std.RpcMessage, socket, server, method,
             cntl.request_device_arrays = tpu_std.merge_device_arrays(msg)
         except ValueError as e:         # DecodeError, a dtype not known
             cntl.set_failed(berr.EREQUEST, f"bad request tensors: {e}")
+            server.on_request_end(method.full_name, 0.0, True, cost)
             _send_response(proto, socket, cntl, b"")
             return
     span = None
@@ -184,24 +289,48 @@ async def _serve(proto, msg: tpu_std.RpcMessage, socket, server, method,
     if landed is not None and not landed.done():
         await device_ready(landed)
     try:
-        if _expired(cntl, method, server, req.timeout_ms, "dispatch"):
+        if _expired(cntl, method, server, req.timeout_ms, "dispatch",
+                    cost):
             _send_response(proto, socket, cntl, b"", span)
             return
+        request = msg.payload
+        if meta.compress_type:
+            try:
+                request = _compress.decompress(request, meta.compress_type)
+            except Exception as e:      # an unknown codec, corrupt bytes
+                server.on_request_end(method.full_name, 0.0, True, cost)
+                cntl.set_failed(berr.EREQUEST,
+                                f"cannot parse request: {e}")
+                _send_response(proto, socket, cntl, b"", span)
+                return
+            cntl.compress_type = meta.compress_type     # reply in kind
         if span is not None:
-            # the payload is the request's bytes: nothing to parse
             span.parse_done_us = time.monotonic_ns() // 1000
-        if current_group() is None and \
+        if _intercepted(server, method, cntl, cost):
+            _send_response(proto, socket, cntl, b"", span)
+            return
+        in_pool = server.options.usercode_in_pthread and \
+            not inspect.iscoroutinefunction(method.handler)
+        if current_group() is None and not in_pool and \
                 not inspect.iscoroutinefunction(method.handler):
             await _HopToWorker()
             if _expired(cntl, method, server, req.timeout_ms,
-                        "handler entry"):
+                        "handler entry", cost):
                 _send_response(proto, socket, cntl, b"", span)
                 return
+        pool = server.session_local_pool
+        if pool is not None:
+            cntl._session_local = pool.borrow()
         h0 = time.monotonic_ns()
         if span is not None:
             span.handler_start_us = h0 // 1000
         try:
-            response = method.handler(cntl, msg.payload)
+            if in_pool:
+                # blocking user code on the usercode pool; this fiber,
+                # not its worker, waits
+                response = await run_usercode(method.handler, cntl, request)
+            else:
+                response = method.handler(cntl, request)
             if inspect.isawaitable(response):
                 response = await response
         except Exception as e:          # boundary: report, keep serving
@@ -211,9 +340,12 @@ async def _serve(proto, msg: tpu_std.RpcMessage, socket, server, method,
         finally:
             if span is not None:
                 span.handler_end_us = time.monotonic_ns() // 1000
-            server._request_end(method.full_name,
-                                (time.monotonic_ns() - h0) / 1e3,
-                                cntl.failed())
+            if pool is not None:
+                pool.give_back(cntl._session_local)
+                cntl._session_local = None
+            server.on_request_end(method.full_name,
+                                  (time.monotonic_ns() - h0) / 1e3,
+                                  cntl.failed(), cost)
         _send_response(proto, socket, cntl, response or b"", span)
     finally:
         if span is not None:
@@ -222,16 +354,47 @@ async def _serve(proto, msg: tpu_std.RpcMessage, socket, server, method,
             _span.finish_span(span, cntl)
 
 
+def _intercepted(server, method, cntl: Controller, cost: float) -> bool:
+    """True: ``ServerOptions.interceptor`` rejected the decoded request
+    (interceptor.h Accept); ``cntl`` holds its error."""
+    interceptor = server.options.interceptor
+    if interceptor is None:
+        return False
+    try:
+        verdict = interceptor(cntl)
+    except InterceptorError as e:
+        verdict = (e.error_code, e.reason)
+    except Exception as e:              # boundary: a broken interceptor
+        verdict = (berr.EINTERNAL, f"interceptor error: {e}")
+    if verdict is None:
+        return False
+    server.on_request_end(method.full_name, 0.0, True, cost)
+    cntl.set_failed(*verdict)
+    return True
+
+
 def _send_response(proto, socket, cntl: Controller, response: bytes,
                    span=None) -> None:
     accepted = cntl._accepted_stream
     arrays = [] if cntl.failed() else list(cntl.response_device_arrays)
     lane = None
-    if cntl.failed() or accepted is not None or arrays:
+    # while the server sheds by priority its threshold rides every
+    # response (brpc_tpu/rpc/server_dispatch.py:905-948); calm, the wire
+    # stays as it was
+    server = socket.user_data.get("server")
+    adm = getattr(server, "_admission", None)
+    threshold = adm.wire_threshold() if adm is not None else 0
+    if cntl.failed() or accepted is not None or arrays or threshold \
+            or cntl.compress_type:
         meta = tpu_std.RpcMeta(
             response=tpu_std.RpcResponseMeta(cntl.error_code,
-                                             cntl.error_text),
+                                             cntl.error_text, threshold),
             correlation_id=cntl.correlation_id)
+        if cntl.compress_type and response and not cntl.failed():
+            # the response in the kind the request came
+            response = _compress.compress(bytes(response),
+                                          cntl.compress_type)
+            meta.compress_type = cntl.compress_type
         if accepted is not None:
             meta.stream_settings = tpu_std.StreamSettings(
                 stream_id=accepted.id)
@@ -279,7 +442,8 @@ def _failed_tensors_frame(cntl: Controller, meta, e: Exception) -> bytes:
     log.exception("response tensors of call %d", cntl.correlation_id)
     cntl.set_failed(berr.EINTERNAL, f"{type(e).__name__}: {e}")
     meta.device_payloads = []
-    meta.response = tpu_std.RpcResponseMeta(cntl.error_code, cntl.error_text)
+    meta.response = tpu_std.RpcResponseMeta(
+        cntl.error_code, cntl.error_text, meta.response.admission_threshold)
     return tpu_std.pack_frame(meta)[0]
 
 

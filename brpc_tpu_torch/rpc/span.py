@@ -9,11 +9,11 @@ leveldb SpanDB, span.cpp:308, as rotating JSON-lines files):
 ids propagate in RpcMeta (trace_id/span_id/parent_span_id fields), so
 multi-hop call trees link up.
 
-The port has the server, client and serving spans, and the device
-transfer children (``start_device_span``, ``submit_device_recv_span``;
-``transport/device_stats.py`` stamps them). The reference's
-retry-attempt child waits for the cluster channel (ROADMAP section 1),
-and ``_postfork_reset`` and ``_span_census`` wait, unregistered, for the
+The port has the server, client and serving spans, the device transfer
+children (``start_device_span``, ``submit_device_recv_span``;
+``transport/device_stats.py`` stamps them) and one child of a client
+span an attempt (``start_attempt_span``), which ``settle_attempt_spans``
+submits only for a call that made more than one. ``_postfork_reset`` and ``_span_census`` wait, unregistered, for the
 postfork registry and the resource census that come with shard
 groups.
 """
@@ -406,6 +406,48 @@ def start_client_span(cntl, service: str, method: str) -> Span:
     cntl.trace_id = trace_id
     cntl.span_id = span.span_id
     return span
+
+
+def start_attempt_span(parent: Span, service: str, method: str,
+                       attempt: int, backend: str,
+                       backup: bool = False) -> Span:
+    """A child of a client span for one attempt: retries and backup
+    requests spread one call over several backends, which one client
+    span would blur. It carries the attempt's 1-based index and its
+    backend (``remote_side`` and an annotation)."""
+    span = Span(
+        trace_id=parent.trace_id,
+        span_id=new_trace_id(),
+        parent_span_id=parent.span_id,
+        side="client",
+        service=service,
+        method=method,
+        remote_side=backend,
+        start_us=time.monotonic_ns() // 1000,
+        log_id=parent.log_id,
+    )
+    span.annotate(f"attempt={attempt} backend={backend}"
+                  + (" backup" if backup else ""))
+    return span
+
+
+def settle_attempt_spans(cntl) -> None:
+    """After the client span: the attempts still open (the last one, a
+    backup that lost) close with the call's verdict, and the set is
+    submitted only when the call made more than one attempt, so a call
+    of one attempt keeps one client span (brpc_tpu/rpc/channel.py:1313)."""
+    with cntl._arb_lock:
+        spans, cntl._attempt_spans = cntl._attempt_spans, []
+    if not spans:
+        return
+    now = time.monotonic_ns() // 1000
+    for sp in spans:
+        if not sp.end_us:
+            sp.end_us = now
+            sp.error_code = cntl.error_code
+    if len(spans) > 1:
+        for sp in spans:
+            _submit_span(sp)
 
 
 def start_device_span(parent: Span, peer: str, lane: str) -> Span:

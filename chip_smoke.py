@@ -181,9 +181,44 @@ on an 8-shard mesh on cuda:0 at 8 heads x 2048 x 64 fp32, causal and
 not, within FP32_TOL of ``flash_attention`` (which launches
 ``flash_attn_fwd``), with the wall ms of each beside that call's.
 
+Phase cluster (the cluster client, overload control, auth and
+compression): three
+GenerateService replicas, each a port Server on tcp with its own engine
+on cuda:0 at phase 3's width, behind one ``ClusterChannel`` ("la", a
+retry budget), launch counts zeroed before each part and read after it,
+``flash_decode``'s equal to the replicas' decode steps and warm-ups,
+every token list equal to the CPU plain path's, no call failed. (a) 48
+unary Generate calls from 8 threads: each replica serves; beside them
+phase 3's burst (a Channel a thread) at one replica, and calls one at a
+time through the ClusterChannel and a plain Channel in turns (the
+cluster layer's cost: the pick, the stats, the feedback), with each
+replica's tokens a step. (b) Replica 0 restarted with
+``max_concurrency=2`` and 2 waiting, 16 threads: it sheds
+(``server_limit_shed`` or the engine's sheds), calls retry elsewhere
+(``retried_count``), the retry budget keeps its tokens, and the
+balancer takes no latency sample from a reject. (c) Replica 1 killed
+(its connections dropped, then stopped) 150 ms into a burst: the calls
+it held retry elsewhere (``tried_servers``), the health checker marks it
+dead, ``/backends`` and the breaker snapshot show it; the time from the
+kill to the last retried call's end; then it restarts on its port, is
+revived, and serves. (d) The ``Attend`` of phase device_lane (a split
+decode and its combine) on two ``cuda://`` servers, one 50 ms slow,
+through a ClusterChannel ("rr", ``backup_request_ms=5``): every call
+first sent to the slow server used a backup and was answered by the
+fast one, each ``done`` ran once, the late answers were dropped, no
+attempt is left in flight and the backend cells count each call once,
+O within ``_rounding_bound``, p50 within 10 ms of the fast server's
+called directly. (e) Replica 2 restarted with a ``TokenAuthenticator``;
+a second ClusterChannel sends the token and every request with
+``compress_type`` 3 (snappy): every token list right, replica 2 serves,
+every request reaches its handler compressed (the server's
+``cntl.compress_type``) and every response comes back so (its meta's
+``compress_type``); a ClusterChannel with a wrong token to replica 2
+gets ERPCAUTH on every call, none retried. p50/p99 of every part.
+
 ``python3 chip_smoke.py --phase streaming`` (or ``--phase
-observability``, ``--phase device_lane``, ``--phase combo``) runs that
-phase alone (after the card line), so that
+observability``, ``--phase device_lane``, ``--phase combo``, ``--phase
+cluster``) runs that phase alone (after the card line), so that
 two trees' serving can be compared in one call: run each tree's script
 in turns.
 
@@ -3168,6 +3203,655 @@ def phase_combo(dev):
     return out
 
 
+# ------------------------------------------------------- phase cluster
+
+CLUSTER_REPLICAS = 3
+CLUSTER_CALLS = 48
+CLUSTER_THREADS = 8
+CLUSTER_SHED_THREADS = 16
+CLUSTER_SEQ_CALLS = 8           # a turn of calls one at a time
+CLUSTER_KILL_AFTER_S = 0.15
+BACKUP_MS = 5
+SLOW_DELAY_S = 0.05
+BACKUP_CALLS = 20
+CLUSTER_TOKEN = "cluster-secret"
+AUTH_BAD_CALLS = 8
+COMPRESS_SNAPPY = 3
+
+
+def _cluster_prompts(n: int = CLUSTER_CALLS):
+    return [f"replica {i:02d}: {'jumps over the lazy dog '[: 4 + i % 20]}"
+            for i in range(n)]
+
+
+class _Replica:
+    """A GenerateService replica: a port Server on tcp with its own
+    engine on the default device (cuda:0), restartable on its port.
+    Every replica joins ``fleet``, whose decode steps the launch counts
+    are held against, stopped ones too."""
+
+    def __init__(self, fleet: list, port: int = 0, max_waiting=None,
+                 **opts):
+        from brpc_tpu_torch import serving
+        from brpc_tpu_torch.rpc import Server, ServerOptions
+        self.server = Server(ServerOptions(**opts))
+        kw = {} if max_waiting is None else {"max_waiting": max_waiting}
+        self.gs = serving.add_generate_service(self.server, **kw)
+        check(str(self.gs.device) == "cuda:0",
+              f"service device {self.gs.device}")
+        ep = self.server.start(f"tcp://127.0.0.1:{port}")
+        self.port = ep.port
+        self.addr = f"tcp://127.0.0.1:{ep.port}"
+        fleet.append(self)
+
+    def steps(self) -> int:
+        return self.gs.batcher.decode_steps + self.gs.engine.warmup_steps
+
+    def kill(self) -> None:
+        """A replica that dies: its connections drop first, so nothing it
+        was doing answers, then it stops."""
+        for s in self.server.connections():
+            s.set_failed(ConnectionError("replica stopped"))
+        self.server.stop()
+        self.server.join(0)
+
+    def stop(self) -> None:
+        self.server.stop()
+        self.server.join(10)
+
+
+def _cluster_burst(ch, prompts, threads: int, calls=None):
+    """``threads`` client threads share ``ch``, the prompts dealt
+    round-robin; returns ({prompt: tokens}, [(prompt, errno, text)],
+    wall s, [ms a call], [controllers])."""
+    results, errors, latency, cntls = {}, [], [], []
+    lock = threading.Lock()
+
+    def client(idx):
+        for p in prompts[idx::threads]:
+            t0 = time.perf_counter()
+            c = ch.call_sync("GenerateService", "Generate", json.dumps(
+                {"prompt": p, "max_tokens": MAX_TOKENS}).encode())
+            ms = (time.perf_counter() - t0) * 1e3
+            with lock:
+                cntls.append((p, c))
+                if c.failed():
+                    errors.append((p, c.error_code, c.error_text))
+                else:
+                    latency.append(ms)
+                    results[p] = json.loads(c.response)["tokens"]
+    ts = [threading.Thread(target=client, args=(i,)) for i in
+          range(threads)]
+    t0 = time.perf_counter()
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    return results, errors, time.perf_counter() - t0, latency, cntls
+
+
+def _by_replica(cntls, replicas) -> dict:
+    """Calls answered by each replica, by the port of the server whose
+    response completed the call."""
+    ports = {r.port: i for i, r in enumerate(replicas)}
+    out = [0] * len(replicas)
+    for _, c in cntls:
+        if c.responded_server is not None:
+            out[ports[c.responded_server.port]] += 1
+    return out
+
+
+def _mean_batch(gs, before: dict) -> float:
+    """Tokens a decode step since ``before`` (a copy of batch_hist)."""
+    hist = dict(gs.batcher.batch_hist)
+    steps = sum(hist.values()) - sum(before.values())
+    toks = sum(k * v for k, v in hist.items()) - sum(
+        k * v for k, v in before.items())
+    return toks / steps if steps else 0.0
+
+
+def _p50_p99(xs) -> dict:
+    return {"p50_ms": _median(xs), "p99_ms": _p99(xs), "n": len(xs)}
+
+
+def _cluster_spread(replicas, ch, oracle, prompts) -> dict:
+    """(a) The burst through the ClusterChannel, then phase 3's burst
+    (a Channel a thread) at replica 0 alone, then calls one at a time,
+    cluster and plain channel in turns."""
+    from brpc_tpu_torch.rpc import Channel, ChannelOptions
+    hists = [dict(r.gs.batcher.batch_hist) for r in replicas]
+    res, errs, wall, lat, cntls = _cluster_burst(
+        ch, prompts, CLUSTER_THREADS)
+    _check_burst("cluster (a)", res, errs, oracle)
+    served = _by_replica(cntls, replicas)
+    check(all(n > 0 for n in served),
+          f"cluster (a): calls by replica {served}")
+    mean_batch = [_mean_batch(r.gs, h) for r, h in zip(replicas, hists)]
+    h0 = dict(replicas[0].gs.batcher.batch_hist)
+    res2, errs2, wall2, lat2 = _burst(replicas[0].port, prompts,
+                                      MAX_TOKENS)[:4]
+    _check_burst("cluster (a) plain", res2, errs2, oracle)
+    plain_batch = _mean_batch(replicas[0].gs, h0)
+    # the cluster layer's cost: one call at a time, the two channels in
+    # turns (C P C P); the ClusterChannel's picks land anywhere
+    plain = Channel(replicas[0].addr, ChannelOptions(timeout_ms=120000))
+    seq = {"cluster": [], "plain": []}
+    body = json.dumps({"prompt": prompts[0],
+                       "max_tokens": MAX_TOKENS}).encode()
+    try:
+        for turn in ("cluster", "plain", "cluster", "plain"):
+            c_ = ch if turn == "cluster" else plain
+            for _ in range(CLUSTER_SEQ_CALLS):
+                t0 = time.perf_counter()
+                c = c_.call_sync("GenerateService", "Generate", body)
+                check(not c.failed() and json.loads(c.response)[
+                    "tokens"] == oracle[prompts[0]],
+                      f"cluster (a) {turn}: {c.error_code} {c.error_text}")
+                seq[turn].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        plain.close()
+    check(not any(c.current_try for _, c in cntls),
+          "cluster (a): a call retried with every replica up")
+    tokens = sum(len(t) for t in res.values())
+    return {"calls": len(cntls), "by_replica": served, "wall_s": wall,
+            "tokens_per_s": tokens / wall, **_p50_p99(lat),
+            "tokens_per_step": mean_batch,
+            "plain_burst": {"wall_s": wall2, "tokens_per_s": tokens / wall2,
+                            "tokens_per_step": plain_batch,
+                            **_p50_p99(lat2)},
+            "one_at_a_time": {k: _p50_p99(v) for k, v in seq.items()},
+            "cluster_cost_p50_ms": _median(seq["cluster"])
+            - _median(seq["plain"])}
+
+
+def _la_feedback_spy(ch, ep):
+    """Latency samples ``ch``'s balancer takes for ``ep`` (measurement
+    only: the balancer's method is wrapped for the part)."""
+    lb = ch._lb
+    seen = []
+    orig = lb.feedback
+
+    def spy(server, latency_us, failed):
+        if server == ep:
+            seen.append((latency_us, failed))
+        return orig(server, latency_us, failed)
+    lb.feedback = spy
+    return seen, lambda: setattr(lb, "feedback", orig)
+
+
+def _cluster_shed(replicas, ch, oracle, prompts) -> dict:
+    """(b) Replica 0 restarted with max_concurrency 2 and 2 waiting: it
+    sheds, the calls retry elsewhere, no call fails."""
+    from brpc_tpu_torch.rpc import backend_stats as bs
+    from brpc_tpu_torch.rpc import server_dispatch
+    from brpc_tpu_torch.butil.endpoint import str2endpoint
+    r0 = replicas[0]
+    ep0 = str2endpoint(r0.addr)
+    limit0 = server_dispatch.nlimit_shed.get_value()
+    shed0 = r0.gs.batcher.shed
+    rb = ch._retry_budget
+    tokens0 = rb.tokens()
+    cell = bs.global_stats().cell(ch.stats_name, bs.ep_key(ep0))
+    row0 = cell.get_value()
+    rejects0 = (ch._lb.decision_info(ep0) or {}).get("rejects", 0)
+    seen, restore = _la_feedback_spy(ch, ep0)
+    try:
+        res, errs, wall, lat, cntls = _cluster_burst(
+            ch, prompts, CLUSTER_SHED_THREADS)
+    finally:
+        restore()
+    _check_burst("cluster (b)", res, errs, oracle)
+    limit_shed = server_dispatch.nlimit_shed.get_value() - limit0
+    engine_shed = replicas[0].gs.batcher.shed - shed0
+    retried = sum(c.retried_count() for _, c in cntls)
+    check(limit_shed > 0 or engine_shed > 0,
+          "cluster (b): replica 0 shed nothing")
+    check(retried > 0, "cluster (b): no call retried")
+    row = cell.get_value()
+    rejects = row["rejects"] - row0["rejects"]
+    answered = sum(1 for _, c in cntls
+                   if c.responded_server is not None
+                   and c.responded_server.port == r0.port)
+    la_rejects = ch._lb.decision_info(ep0).get("rejects", 0) - rejects0
+    check(rb.tokens() == tokens0,
+          f"cluster (b): retry tokens {tokens0} -> {rb.tokens()}")
+    # rejects return la's slot and nothing else: its latency samples
+    # for replica 0 are the calls replica 0 answered
+    check(rejects > 0 and la_rejects == rejects and len(seen) == answered
+          and not any(f for _, f in seen),
+          f"cluster (b): {rejects} rejects in the cell, {la_rejects} in la,"
+          f" {len(seen)} la samples for {answered} calls answered")
+    return {"calls": len(cntls), "threads": CLUSTER_SHED_THREADS,
+            "server_limit_shed": limit_shed, "engine_shed": engine_shed,
+            "retried": retried, "rejects": rejects,
+            "by_replica": _by_replica(cntls, replicas),
+            "retry_tokens": [tokens0, rb.tokens()], "wall_s": wall,
+            **_p50_p99(lat)}
+
+
+def _http_json(port: int, path: str):
+    return json.loads(_http_page(port, path)[1])
+
+
+def _cluster_failover(replicas, fleet, ch, oracle, prompts) -> dict:
+    """(c) Replica 1 killed while a burst is in flight; every call ends
+    with the right tokens, the ones it held retried elsewhere; then it
+    restarts on its port, is revived, and serves again."""
+    from brpc_tpu_torch.rpc import backend_stats as bs
+    from brpc_tpu_torch.rpc.circuit_breaker import all_breaker_snapshots
+    r1 = replicas[1]
+    kill_us = []
+
+    def kill():
+        kill_us.append(time.monotonic_ns() // 1000)
+        r1.kill()
+    timer = threading.Timer(CLUSTER_KILL_AFTER_S, kill)
+    timer.start()
+    res, errs, wall, lat, cntls = _cluster_burst(ch, prompts,
+                                                 CLUSTER_THREADS)
+    timer.join()
+    _check_burst("cluster (c)", res, errs, oracle)
+    moved = [c for _, c in cntls if c.tried_servers
+             and c.tried_servers[0].port == r1.port and c.current_try]
+    check(moved, "cluster (c): no call in flight on replica 1 retried")
+    check(all(c.responded_server.port != r1.port for c in moved),
+          "cluster (c): a retried call was answered by the dead replica")
+    key = f"tcp://127.0.0.1:{r1.port}"
+    dead = [e.port for e in ch._health.dead_set()]
+    breaker = all_breaker_snapshots().get(key)
+    page = _http_json(replicas[0].port, "/backends")
+    row = page["channels"][ch.stats_name]["backends"][key]
+    check(r1.port in dead and row["state"]["health_dead"],
+          f"cluster (c): replica 1 not dead ({dead}, {row['state']})")
+    check(breaker is not None and breaker["error_rate_long"] > 0,
+          f"cluster (c): breaker {breaker}")
+    failover_ms = (max(c.end_us for c in moved) - kill_us[0]) / 1e3
+    # the restart: the health checker revives it, and it serves again
+    t0 = time.perf_counter()
+    replicas[1] = _Replica(fleet, r1.port)
+    check(_wait_for_value(lambda: not ch._health.dead_set(), True, 10.0),
+          "cluster (c): replica 1 never revived")
+    revive_ms = (time.perf_counter() - t0) * 1e3
+    res2, errs2, _, _, cntls2 = _cluster_burst(ch, prompts[:24],
+                                               CLUSTER_THREADS)
+    _check_burst("cluster (c) after", res2, errs2,
+                 {p: oracle[p] for p in prompts[:24]})
+    after = _by_replica(cntls2, replicas)
+    check(after[1] > 0, f"cluster (c): calls by replica after {after}")
+    return {"calls": len(cntls), "retried_from_dead": len(moved),
+            "retried": sum(c.current_try for _, c in cntls),
+            "failover_ms": failover_ms, "revive_ms": revive_ms,
+            "breaker": breaker, "backends_row": {
+                k: row[k] for k in ("attempts", "completed", "abandoned",
+                                    "connect_errors", "errors")},
+            "by_replica_after": after, "wall_s": wall, **_p50_p99(lat)}
+
+
+class _HandlerSpy:
+    """Wraps a replica's ``Generate`` handler (a coroutine function
+    still) to read each request's codec and verified user on the
+    server's controller: measurement only, for the part."""
+
+    def __init__(self, replicas):
+        self.seen = []
+        self._methods = []
+        for i, r in enumerate(replicas):
+            m = r.server.find_method("GenerateService", "Generate")
+            orig = m.handler
+
+            async def spy(cntl, request, i=i, orig=orig):
+                ctx = cntl.auth_context
+                self.seen.append((i, cntl.compress_type,
+                                  ctx.user if ctx is not None else None))
+                return await orig(cntl, request)
+            m.handler = spy
+            self._methods.append((m, orig))
+
+    def restore(self) -> None:
+        for m, orig in self._methods:
+            m.handler = orig
+
+
+class _ResponseCodecs:
+    """Each response's ``RpcMeta.compress_type``, read on the client as
+    ``client_dispatch`` fills the controller (measurement only)."""
+
+    def __init__(self):
+        from brpc_tpu_torch.rpc import client_dispatch
+        self._mod = client_dispatch
+        self._orig = client_dispatch._fill_response
+        self.seen = []
+
+        def spy(cntl, msg, socket):
+            self.seen.append(msg.meta.compress_type)
+            return self._orig(cntl, msg, socket)
+        client_dispatch._fill_response = spy
+
+    def restore(self) -> None:
+        self._mod._fill_response = self._orig
+
+
+def _cluster_auth(replicas, oracle, prompts) -> dict:
+    """(e) Replica 2 verifies a token; a ClusterChannel that sends it,
+    with every request snappy-compressed, serves the burst; a channel
+    with a wrong token gets ERPCAUTH on every call, none retried."""
+    from brpc_tpu_torch.rpc import (ChannelOptions, ClusterChannel,
+                                    Controller, errno_codes as berr)
+    ch = ClusterChannel(
+        "list://" + ",".join(r.addr for r in replicas), "la",
+        ChannelOptions(timeout_ms=120000, retry_budget=True,
+                       auth_token=CLUSTER_TOKEN, name="cluster-auth"))
+    bad = ClusterChannel(f"list://{replicas[2].addr}", "rr",
+                         ChannelOptions(timeout_ms=20000,
+                                        auth_token="not-the-token",
+                                        name="cluster-auth-bad"))
+    handlers = _HandlerSpy(replicas)
+    codecs = _ResponseCodecs()
+    try:
+        results, errors, latency, cntls = {}, [], [], []
+        lock = threading.Lock()
+
+        def client(idx):
+            for p in prompts[idx::CLUSTER_THREADS]:
+                c = Controller()
+                c.compress_type = COMPRESS_SNAPPY
+                t0 = time.perf_counter()
+                c = ch.call_sync("GenerateService", "Generate", json.dumps(
+                    {"prompt": p, "max_tokens": MAX_TOKENS}).encode(),
+                    cntl=c)
+                ms = (time.perf_counter() - t0) * 1e3
+                with lock:
+                    cntls.append((p, c))
+                    if c.failed():
+                        errors.append((p, c.error_code, c.error_text))
+                    else:
+                        latency.append(ms)
+                        results[p] = json.loads(c.response)["tokens"]
+        ts = [threading.Thread(target=client, args=(i,))
+              for i in range(CLUSTER_THREADS)]
+        t0 = time.perf_counter()
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join()
+        wall = time.perf_counter() - t0
+        _check_burst("cluster (e)", results, errors, oracle)
+        served = _by_replica(cntls, replicas)
+        check(served[2] > 0, f"cluster (e): calls by replica {served}")
+        body = json.dumps({"prompt": prompts[0],
+                           "max_tokens": MAX_TOKENS}).encode()
+        bad_rows, bad_ms = [], []
+        for _ in range(AUTH_BAD_CALLS):
+            t0 = time.perf_counter()
+            c = bad.call_sync("GenerateService", "Generate", body)
+            bad_ms.append((time.perf_counter() - t0) * 1e3)
+            bad_rows.append((c.error_code, c.retried_count()))
+    finally:
+        handlers.restore()
+        codecs.restore()
+        ch.close()
+        bad.close()
+    check(all(r == (berr.ERPCAUTH, 0) for r in bad_rows),
+          f"cluster (e): wrong-token calls {bad_rows}")
+    seen = handlers.seen
+    check(len(seen) >= len(cntls)
+          and all(ct == COMPRESS_SNAPPY for _, ct, _ in seen),
+          f"cluster (e): request codecs on the servers {seen}")
+    check(all(user == "token-peer" for i, _, user in seen if i == 2),
+          f"cluster (e): replica 2's verified users {seen}")
+    check(len(codecs.seen) == len(cntls)
+          and set(codecs.seen) == {COMPRESS_SNAPPY},
+          f"cluster (e): response codecs {codecs.seen}")
+    return {"calls": len(cntls), "by_replica": served, "wall_s": wall,
+            "retried": sum(c.current_try for _, c in cntls),
+            "requests_compressed": len(seen),
+            "responses_compressed": len(codecs.seen),
+            "replica2_authenticated": sum(1 for i, _, _ in seen if i == 2),
+            "wrong_token": {"calls": len(bad_rows),
+                            "erpcauth": sum(1 for r in bad_rows
+                                            if r[0] == berr.ERPCAUTH),
+                            "retried": sum(r[1] for r in bad_rows),
+                            **_p50_p99(bad_ms)},
+            **_p50_p99(latency)}
+
+
+def _cluster_backup(dev, rng, counted) -> dict:
+    """(d) Attend (a split decode and its combine) on two cuda://
+    servers, one 50 ms slow; rr with a 5 ms backup request."""
+    import torch
+
+    from brpc_tpu_torch.fiber import sleep
+    from brpc_tpu_torch.rpc import (Channel, ChannelOptions, ClusterChannel,
+                                    backend_stats as bs, client_dispatch)
+    fa = _fa_module()
+    spec = _device_spec(dev)
+    b, L, d = 4, 4096, 128
+    # each server's requests: arrived, answered, the last arrival
+    seen = {"slow": [0, 0, 0.0], "fast": [0, 0, 0.0]}
+
+    def attend(tag, delay):
+        async def Attend(cntl, request):
+            seen[tag][0] += 1
+            seen[tag][2] = time.monotonic()
+            if delay:
+                await sleep(delay)
+            q, k, v, lengths = cntl.request_device_arrays
+            cntl.response_device_arrays = [fa.decode_attention(q, k, v,
+                                                               lengths)]
+            seen[tag][1] += 1
+            return tag.encode()
+        return Attend
+
+    def settled() -> bool:
+        """Every request answered, none for 0.2 s: the late backups
+        have all run (and their answers were dropped)."""
+        return all(a == f and time.monotonic() - t > 0.2
+                   for a, f, t in seen.values())
+    slow, slow_addr = _combo_server(f"cuda://cluster-slow:1#device={spec}",
+                                    "Part", {"Attend": attend("slow",
+                                                              SLOW_DELAY_S)})
+    fast, fast_addr = _combo_server(f"cuda://cluster-fast:1#device={spec}",
+                                    "Part", {"Attend": attend("fast", 0)})
+    # rr's first pick is the list's second server: the first call goes
+    # to the slow one
+    ch = ClusterChannel(f"list://{fast_addr},{slow_addr}", "rr",
+                        ChannelOptions(timeout_ms=30000,
+                                       backup_request_ms=BACKUP_MS,
+                                       name="cluster-backup"))
+    direct = Channel(fast_addr, ChannelOptions(timeout_ms=30000))
+    lengths = torch.tensor([0, 1, 4096, 3000], dtype=torch.int32,
+                           device=dev)
+    try:
+        inputs = [(_rand(rng, (b, d), torch.bfloat16, dev),
+                   _rand(rng, (b, L, d), torch.bfloat16, dev),
+                   _rand(rng, (b, L, d), torch.bfloat16, dev))
+                  for _ in range(4)]
+        _sync(dev)
+
+        def calls():
+            rows, outs, fast_ms = [], [], []
+            for i in range(BACKUP_CALLS):
+                q, k, v = inputs[i % len(inputs)]
+                done = []
+                t0 = time.perf_counter()
+                c = ch.call("Part", "Attend", b"", done=done.append,
+                            request_device_arrays=[q, k, v, lengths])
+                check(c.join(30), "cluster (d): a call never completed")
+                (o,) = c.response_device_arrays
+                _sync(dev)
+                ms = (time.perf_counter() - t0) * 1e3
+                check(not c.failed(), f"cluster (d): {c.error_code} "
+                                      f"{c.error_text}")
+                rows.append((c.tried_servers[0].host, c.used_backup,
+                             c.response, ms, len(done)))
+                outs.append((i % len(inputs), o))
+                t0 = time.perf_counter()
+                r = direct.call_sync("Part", "Attend", b"",
+                                     request_device_arrays=[q, k, v,
+                                                            lengths])
+                _sync(dev)
+                check(not r.failed(), "cluster (d): the direct call failed")
+                fast_ms.append((time.perf_counter() - t0) * 1e3)
+            check(_wait_for_value(settled, True, 10.0),
+                  f"cluster (d): requests still running {seen}")
+            return rows, outs, fast_ms, sum(v[1] for v in seen.values())
+        rows, outs, fast_ms, _ = counted("d_backup", calls)
+        slow_first = [r for r in rows if r[0] == "cluster-slow"]
+        check(slow_first and all(r[1] and r[2] == b"fast"
+                                 for r in slow_first),
+              f"cluster (d): calls first sent to the slow server {slow_first}")
+        check(all(r[4] == 1 for r in rows), "cluster (d): a done ran twice")
+        cells = {k: bs.global_stats().cell("cluster-backup", k).get_value()
+                 for k in (bs.ep_key(ch.servers()[0]),
+                           bs.ep_key(ch.servers()[1]))}
+        check(all(c["inflight"] == 0
+                  and c["attempts"] == c["completed"] + c["abandoned"]
+                  for c in cells.values()) and
+              sum(c["completed"] for c in cells.values()) == len(rows),
+              f"cluster (d): backend cells {cells}")
+        check(not client_dispatch.inflight_attempts(),
+              "cluster (d): attempts left in flight")
+        worst = max_err = 0.0
+        for idx, o in outs:
+            q, k, v = inputs[idx]
+            want = fa._flash_plain(q[:, None].float(), k.float(), v.float(),
+                                   d ** -0.5, True, 64,
+                                   q_offset=lengths - 1)[:, 0]
+            diff = (o.float() - want).abs()
+            worst = max(worst, float((diff / fa._rounding_bound(
+                want, torch.bfloat16)).max()))
+            max_err = max(max_err, float(diff.max()))
+        check(worst <= 1.0, f"cluster (d): O off the plain version by "
+                            f"{worst:.3f} x its rounding bound")
+        lat = [r[3] for r in rows]
+        p50, fast_p50 = _median(lat), _median(fast_ms)
+        check(p50 <= fast_p50 + 2 * BACKUP_MS,
+              f"cluster (d): p50 {p50:.2f} ms against the fast server's "
+              f"{fast_p50:.2f}")
+        return {"calls": len(rows), "slow_first": len(slow_first),
+                "used_backup": sum(1 for r in rows if r[1]),
+                "requests": {k: v[0] for k, v in seen.items()},
+                "cells": {
+                    k: {f: c[f] for f in ("attempts", "completed",
+                                          "abandoned", "inflight")}
+                    for k, c in cells.items()},
+                "worst_over_bound": worst, "max_abs_err": max_err,
+                **_p50_p99(lat), "fast_direct": _p50_p99(fast_ms)}
+    finally:
+        ch.close()
+        direct.close()
+        for srv in (slow, fast):
+            srv.stop()
+            srv.join()
+
+
+def phase_cluster(dev):
+    """The cluster client and overload control on the card: three
+    GenerateService replicas behind one ClusterChannel ("la"): (a) the
+    spread, (b) a shedding replica, (c) a replica killed and restarted;
+    (d) backup requests on a tensor RPC; (e) a replica that verifies a
+    token, snappy-compressed calls, and a wrong token refused. Launch
+    counts zeroed before each part and read after it."""
+    import numpy as np
+
+    from brpc_tpu_torch.butil.endpoint import str2endpoint
+    from brpc_tpu_torch.rpc import (ChannelOptions, ClusterChannel,
+                                    TokenAuthenticator)
+    from brpc_tpu_torch.serving import TinyDecoder, TinyDecoderConfig
+
+    fa = _fa_module()
+    prompts = _cluster_prompts()
+    cpu_model = TinyDecoder(TinyDecoderConfig(), device="cpu")
+    oracle = {p: cpu_model.generate(list(p.encode()), MAX_TOKENS)
+              for p in prompts}
+    launches = {}
+    out = {}
+    fleet, replicas = [], []
+    ch = None
+
+    def serving_part(part, fn, *args, **kw):
+        """Counts zeroed just before, read just after: flash_decode once
+        a decode step or warm-up of every replica, and nothing else."""
+        progress(f"cluster {part}")
+        fa.reset_launches()
+        before = sum(r.steps() for r in fleet)
+        r = fn(*args, **kw)
+        _sync(dev)
+        got = dict(fa.launches)
+        steps = sum(r_.steps() for r_ in fleet) - before
+        launches[part] = dict(got, steps=steps)
+        check(got["flash_decode"] == steps > 0 and
+              sum(got.values()) == got["flash_decode"],
+              f"cluster {part}: launched {got}, {steps} decode steps and "
+              f"warm-ups")
+        return r
+
+    def start():
+        replicas.extend(_Replica(fleet) for _ in range(CLUSTER_REPLICAS))
+
+    def restart(i, **opts):
+        """Replica ``i`` stopped and started again on its port: the
+        channel sees its socket fail, then the health checker revives
+        it."""
+        old = replicas[i]
+        ep = str2endpoint(old.addr)
+        old.stop()
+
+        def gone():
+            s = ch._sockets.get(ep)
+            return s is None or s.failed
+        check(_wait_for_value(gone, True, 10.0),
+              f"cluster: the channel never saw replica {i} stop")
+        replicas[i] = _Replica(fleet, old.port, **opts)
+        check(_wait_for_value(lambda: not ch._health.dead_set(), True,
+                              10.0), f"cluster: replica {i} not revived")
+
+    try:
+        # the replicas start inside the count: their warm-ups count
+        serving_part("a_start", start)
+        ch = ClusterChannel(
+            "list://" + ",".join(r.addr for r in replicas), "la",
+            ChannelOptions(timeout_ms=120000, retry_budget=True))
+        out["a"] = serving_part("a_spread", _cluster_spread, replicas, ch,
+                                oracle, prompts)
+        serving_part("b_restart", restart, 0, max_concurrency=2,
+                     max_waiting=2)
+        out["b"] = serving_part("b_shed", _cluster_shed, replicas, ch,
+                                oracle, prompts)
+        serving_part("c_restart", restart, 0)
+        out["c"] = serving_part("c_failover", _cluster_failover, replicas,
+                                fleet, ch, oracle, prompts)
+        serving_part("e_restart", restart, 2,
+                     auth=TokenAuthenticator(CLUSTER_TOKEN))
+        out["e"] = serving_part("e_auth", _cluster_auth, replicas, oracle,
+                                prompts)
+    finally:
+        if ch is not None:
+            ch.close()
+        for r in replicas:
+            r.stop()
+
+    def counted(part, fn):
+        progress(f"cluster {part}")
+        fa.reset_launches()
+        r = fn()
+        _sync(dev)
+        got = dict(fa.launches)
+        launches[part] = got
+        n = r[3]
+        check(got["flash_decode"] == got["flash_decode_combine"] == n
+              and sum(got.values()) == 2 * n,
+              f"cluster {part}: launched {got}, {n} Attend handlers")
+        return r
+    out["d"] = _cluster_backup(dev, np.random.RandomState(20261020),
+                               counted)
+    for part in "abcde":
+        emit({"phase": "cluster", "part": part, part: out[part]})
+    emit({"phase": "cluster", "launches": launches})
+    out["launches"] = launches
+    return out
+
+
 def phase_paths(dev, split_inputs):
     """The port's two other paths, each driven through its public entry
     point with every count zeroed just before and read just after:
@@ -3435,6 +4119,10 @@ def main(only: str = "") -> int:
             _build.build_all()
             phase_combo(dev)
             return 0
+        if only == "cluster":
+            # alone, flash_decode builds at the first replica's warm-up
+            phase_cluster(dev)
+            return 0
         if only:
             {"streaming": phase_streaming,
              "observability": phase_observability}[only]()
@@ -3453,6 +4141,8 @@ def main(only: str = "") -> int:
         device_lane = phase_device_lane(dev)
         progress("phase combo")
         combo = phase_combo(dev)
+        progress("phase cluster")
+        cluster = phase_cluster(dev)
         progress("phase paths")
         paths = phase_paths(dev, split_inputs)
         progress("phase times")
@@ -3473,6 +4163,10 @@ def main(only: str = "") -> int:
     by_path["device_lane_attend_ici"] = dl["g_attend_ici"]["flash_decode"]
     cl = combo["launches"]
     by_path["combo_nested_attend"] = cl["c_nested_attend"]["flash_decode"]
+    ul = cluster["launches"]
+    by_path["cluster_replicas"] = sum(
+        v["flash_decode"] for k, v in ul.items() if k != "d_backup")
+    by_path["cluster_backup_attend"] = ul["d_backup"]["flash_decode"]
     combine_by_path = {
         "long_cache_decode": paths["long_cache_decode"][
             "flash_decode_combine"],
@@ -3482,7 +4176,8 @@ def main(only: str = "") -> int:
         "device_lane_attend_ici": dl["g_attend_ici"][
             "flash_decode_combine"],
         "combo_nested_attend": cl["c_nested_attend"][
-            "flash_decode_combine"]}
+            "flash_decode_combine"],
+        "cluster_backup_attend": ul["d_backup"]["flash_decode_combine"]}
     fwd_by_path = {
         "long_context": paths["long_context"]["flash_attn_fwd"],
         "combo_sequence_parallel": cl["d_sequence_parallel"][
@@ -3491,7 +4186,8 @@ def main(only: str = "") -> int:
     tc, simt = long_by["8x2048x64 bf16"], long_by["8x2048x64 fp32"]
     kernels = [
         _row("flash_decode", "serving: unary, stream and HTTP; device "
-             "lanes: Attend; combo: nested Attend",
+             "lanes: Attend; combo: nested Attend; cluster: three "
+             "replicas, backup Attend",
              sum(by_path.values()), sl["flash_decode"],
              sl["flash_decode"] / steps, errs["serving_decode"],
              times["decode"], launches_by_path=by_path,
@@ -3500,7 +4196,8 @@ def main(only: str = "") -> int:
                              max_abs_err=errs["split_decode"]),
              split_first_pass=times["split_first_pass"]),
         _row("flash_decode_combine", "long-cache decode; device lanes: "
-             "Attend; combo: nested Attend", sum(combine_by_path.values()),
+             "Attend; combo: nested Attend; cluster: backup Attend",
+             sum(combine_by_path.values()),
              sl["flash_decode_combine"],
              sl["flash_decode_combine"] / steps,
              errs["flash_decode_combine"], times["combine"],
@@ -3539,7 +4236,7 @@ if __name__ == "__main__":
                              traced="--rpcz" in sys.argv[4:]))
     if sys.argv[1:2] == ["--phase"]:
         if sys.argv[2:3] not in (["streaming"], ["observability"],
-                                 ["device_lane"], ["combo"]):
+                                 ["device_lane"], ["combo"], ["cluster"]):
             sys.exit(f"chip_smoke: unknown phase {sys.argv[2:]}")
         sys.exit(main(only=sys.argv[2]))
     sys.exit(main())

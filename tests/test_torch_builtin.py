@@ -23,14 +23,11 @@ from brpc_tpu_torch.serving import add_generate_service
 # the reference's entries whose source the port does not have yet
 STATUS_LEFT_OUT = {"incidents", "saturation_timeline"}
 SATURATION_LEFT_OUT = {
-    "concurrency_limit", "limit_shed", "deadline_shed", "priority_shed",
-    "admission_threshold", "retry_tokens",           # limiter, shed, retry
     "dispatch_batch_size_avg_10s", "dispatch_batch_size_peak_10s",
     "socket_write_coalesced_frames",                 # input/write batching
     "iobuf_pool_hit_ratio", "iobuf_pool_bytes"}      # IOBuf pool
-CONNECTIONS_LEFT_OUT = {"client_connections", "breakers", "robustness"}
-BUILTIN_METHODS_LEFT_OUT = {"backends", "capture", "census",
-                            "incidents", "lb_trace", "timeline"}
+CONNECTIONS_LEFT_OUT = {"client_connections"}
+BUILTIN_METHODS_LEFT_OUT = {"capture", "census", "incidents", "timeline"}
 # /serving: batcher fields that differ between the two lanes since the
 # port's first slices (the port names its device, keeps steps by fiber
 # worker group under its own name, and its TTFT window; the reference
@@ -41,9 +38,7 @@ ENGINE_PORT_ONLY = {"warmup_steps"}
 # /vars: the families both servers expose; the port's contention
 # counters are exposed at import, the reference's when first contended
 VAR_FAMILIES = ("fiber_", "serving_", "process_", "system_", "server_")
-VARS_LEFT_OUT = {"server_admission_threshold", "server_concurrency_inflight",
-                 "server_concurrency_limit", "server_limit_shed",
-                 "server_priority_shed"}
+VARS_LEFT_OUT = set()
 
 
 def _get(port, path, method="GET", body=None):

@@ -64,10 +64,10 @@ def test_response_meta_both_ways(code, text):
 
 
 def test_unknown_fields_are_skipped():
-    """Device payloads (7), compress_type (3), auth_token and
-    admission_threshold from a brpc_tpu peer are read past; the fields
-    the port knows beside them, stream settings (6) and the trace ids
-    (8-10), are read."""
+    """A meta of every field brpc_tpu writes: the fields the port knows,
+    compress_type (3), auth_token, stream settings (6), the trace ids
+    (8-10) and the response's admission_threshold, are read beside
+    the device payloads (7)."""
     m = _pb_request(service_name="S", method_name="M", timeout_ms=5,
                     auth_token="tok")
     m.correlation_id = 42
@@ -85,8 +85,9 @@ def test_unknown_fields_are_skipped():
     m.parent_span_id = 7
     m.response.admission_threshold = 4
     got = port_std.RpcMeta.decode(m.SerializeToString())
-    assert got.request == port_std.RpcRequestMeta("S", "M", 0, 5, 0)
-    assert got.response == port_std.RpcResponseMeta(0, "")
+    assert got.request == port_std.RpcRequestMeta("S", "M", 0, 5, "tok")
+    assert got.compress_type == 1
+    assert got.response == port_std.RpcResponseMeta(0, "", 4)
     assert got.correlation_id == 42 and got.attachment_size == 3
     assert (got.trace_id, got.span_id, got.parent_span_id) == (
         (1 << 63) + 5, 6, 7)

@@ -5,12 +5,14 @@ One function per page, shared by the ``builtin`` tpu_std service that
 ``add_builtin_services`` registers and the HTTP pages of
 ``protocol/http.py``, so the two views cannot diverge.
 
-The port keeps the entries whose source it has. Left out, until their
-modules are ported (ROADMAP section 1): on ``/status`` the incident
-line, the trend-ring links (``saturation_timeline``) and, in the
-saturation pane, the IOBuf pool, input-batching and write-coalescing
-gauges; on ``/connections`` the client channels' rows, the chaos
-counters, and the read-side bytes and idle class of each row.
+The port keeps the entries whose source it has: ``/timeline``,
+``/census``, ``/capture`` and ``/incidents`` (with their tpu_std twins),
+and on ``/status`` the incident line and the IOBuf pool's gauges. Left
+out, until their modules are ported (ROADMAP section 1): on ``/status``
+the trend-ring links (``saturation_timeline``) and the input-batching
+and write-coalescing gauges; on ``/connections`` the client channels'
+rows, the chaos counters, and the read-side bytes and idle class of
+each row.
 """
 
 from __future__ import annotations
@@ -52,6 +54,111 @@ def connections_page(server) -> dict:
             "robustness": robustness}
 
 
+def census_page_payload(server=None) -> dict:
+    """The /census payload: bytes and objects by subsystem (the
+    providers of ``butil/resource_census.py``) and the connections'
+    roll-up from the sockets provider's one walk."""
+    from brpc_tpu_torch.butil.resource_census import census_page
+    out = census_page()
+    sub = out["subsystems"].get("sockets", {})
+    count = sub.get("count", 0) or 0
+    total = sub.get("bytes", 0) or 0
+    out["connections"] = {
+        "count": count,
+        "resident_bytes": total,
+        # the port's sockets keep no activity stamp (ROADMAP section 1)
+        "idle": sub.get("idle"),
+        "avg_bytes": round(total / count, 1) if count else 0.0,
+    }
+    return out
+
+
+def capture_page_payload(server=None) -> dict:
+    """The /capture payload: the recorder's state, counters, rotation and
+    disk-budget effects, and the corpus files ready to download."""
+    from brpc_tpu_torch.traffic.capture import global_recorder
+    return global_recorder().snapshot()
+
+
+def capture_control(action: str, params: dict) -> dict:
+    """Start or stop the recorder from a page action; ValueError on a bad
+    action or no directory (the callers answer 400 or EREQUEST)."""
+    from brpc_tpu_torch.traffic.capture import start_capture, stop_capture
+    if action == "stop":
+        return stop_capture()
+    if action != "start":
+        raise ValueError(f"unknown capture action {action!r}")
+    kw = {}
+    if params.get("rate") not in (None, ""):
+        kw["default_rate"] = float(params["rate"])
+    if params.get("max_per_second") not in (None, ""):
+        kw["max_per_second"] = int(params["max_per_second"])
+    if params.get("rotate_mb") not in (None, ""):
+        kw["rotate_bytes"] = int(params["rotate_mb"]) << 20
+    if params.get("disk_budget_mb") not in (None, ""):
+        kw["disk_budget_bytes"] = int(params["disk_budget_mb"]) << 20
+    return start_capture(dir=params.get("dir") or None, **kw)
+
+
+def capture_download_bytes(paths=None) -> bytes:
+    """Every corpus file of the capture directory merged, in arrival
+    order, into one .brpccap byte string."""
+    import os
+    import tempfile
+
+    from brpc_tpu_torch.traffic.capture import global_recorder
+    from brpc_tpu_torch.traffic.corpus import merge_corpora
+    if paths is None:
+        paths = global_recorder().corpus_paths()
+    if not paths:
+        return b""
+    if len(paths) == 1:
+        with open(paths[0], "rb") as f:
+            return f.read()
+    fd, tmp = tempfile.mkstemp(suffix=".brpccap")
+    os.close(fd)
+    try:
+        merge_corpora(paths, tmp)
+        with open(tmp, "rb") as f:
+            return f.read()
+    finally:
+        for p in (tmp, tmp + ".idx"):
+            try:
+                os.remove(p)
+            except OSError:
+                pass
+
+
+def timeline_page_payload(server=None, names=None, prefix: str = "",
+                          max_vars=None) -> dict:
+    """The /timeline payload: the trend rings of every tracked variable
+    (``bvar/series.py``), the watchdog's incidents and its keys."""
+    import time
+
+    from brpc_tpu_torch.bvar.anomaly import global_watchdog
+    from brpc_tpu_torch.bvar.series import (HOUR_BUCKETS, MIN_BUCKETS,
+                                            SEC_BUCKETS, global_series,
+                                            series_enabled)
+    wd = global_watchdog()
+    return {
+        "enabled": series_enabled(),
+        "now": time.time(),
+        "resolution": {"sec": SEC_BUCKETS, "min": MIN_BUCKETS,
+                       "hr": HOUR_BUCKETS},
+        "series": global_series().dump_series(names=names, prefix=prefix,
+                                              max_vars=max_vars),
+        "incidents": wd.incident_snapshot(),
+        "watch_keys": wd.tracked_keys(),
+    }
+
+
+def incidents_page_payload(server=None) -> dict:
+    """The /incidents payload: the capture-on-anomaly state, the artifact
+    ledger and the disk budget's accounting."""
+    from brpc_tpu_torch.incident.manager import incidents_snapshot_payload
+    return incidents_snapshot_payload(server)
+
+
 def status_page(server) -> dict:
     """The /status payload: server state, per-method latency windows
     (qps and p50/p90/p99/max, "which method is slow" without scraping
@@ -60,12 +167,17 @@ def status_page(server) -> dict:
     calls in flight, and the overload pane: the limiter's limit, the
     shed counters, the admission threshold and the process's most
     drained retry budget (brpc_tpu/builtin/services.py:228)."""
+    from brpc_tpu_torch.butil.iobuf import pool as iobuf_pool
+    from brpc_tpu_torch.incident.manager import incident_status_line
     from brpc_tpu_torch.rpc.retry_policy import min_retry_tokens
     from brpc_tpu_torch.rpc.server_dispatch import (nlimit_shed,
                                                     npriority_shed, nshed)
     saturation = server.control.saturation_pane()
     saturation["socket_wqueue_bytes"] = sum(
         c.write_backlog() for c in server.connections())
+    # are blocks recycling (a hit ratio near 1 once warm)
+    saturation["iobuf_pool_hit_ratio"] = round(iobuf_pool.hit_ratio(), 4)
+    saturation["iobuf_pool_bytes"] = iobuf_pool.cached_bytes()
     saturation["concurrency_limit"] = server.concurrency_limit()
     saturation["inflight"] = server.concurrency
     saturation["limit_shed"] = nlimit_shed.get_value()
@@ -80,6 +192,8 @@ def status_page(server) -> dict:
     return {
         "running": server.is_running,
         "endpoint": str(server.endpoint) if server.endpoint else None,
+        # capture on anomaly: open window, artifacts, bytes on disk
+        "incidents": incident_status_line(),
         "concurrency": server.concurrency,
         "processed": server.nprocessed,
         "errors": server.nerror,
@@ -158,6 +272,39 @@ def add_builtin_services(server) -> None:
             cntl.set_failed(berr.EREQUEST, f"no such channel {name!r}")
             return b""
         return json.dumps(payload, default=str).encode()
+
+    @builtin.method()
+    def census(cntl, request):
+        return json.dumps(census_page_payload(server), default=str).encode()
+
+    @builtin.method()
+    def timeline(cntl, request):
+        # the request names a prefix (empty: every series)
+        prefix = bytes(request).decode().strip() if request else ""
+        return json.dumps(timeline_page_payload(server, prefix=prefix),
+                          default=str).encode()
+
+    @builtin.method()
+    def capture(cntl, request):
+        # "" for the state, "stop", or "start <dir>" (the dir may be left
+        # out when the capture_dir flag is set); downloads stay on HTTP
+        arg = bytes(request).decode().strip() if request else ""
+        if arg:
+            verb, _, dirpart = arg.partition(" ")
+            try:
+                return json.dumps(
+                    capture_control(verb, {"dir": dirpart.strip()}),
+                    default=str).encode()
+            except (ValueError, OSError) as e:
+                cntl.set_failed(berr.EREQUEST, str(e))
+                return b""
+        return json.dumps(capture_page_payload(server),
+                          default=str).encode()
+
+    @builtin.method()
+    def incidents(cntl, request):
+        return json.dumps(incidents_page_payload(server),
+                          default=str).encode()
 
     @builtin.method()
     def serving(cntl, request):

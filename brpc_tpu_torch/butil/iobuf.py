@@ -87,8 +87,23 @@ class BlockPool:
         lst.append((buf, self.generation))
         self.recycled += 1
 
+    def hit_ratio(self) -> float:
+        n = self.hits + self.misses
+        return self.hits / n if n else 0.0
+
+    def cached_bytes(self) -> int:
+        return sum(cap * len(lst) for cap, lst in self.classes.items())
+
 
 pool = BlockPool()
+
+from brpc_tpu_torch.butil import resource_census as _census  # noqa: E402
+#   (the census registration ships with the pool it measures)
+
+_census.register("iobuf_pool", lambda: {
+    "bytes": pool.cached_bytes(),
+    "count": sum(len(lst) for lst in pool.classes.values()),
+    "hit_ratio": round(pool.hit_ratio(), 4)})
 
 
 def _recycle_buffer(buf: bytearray) -> None:

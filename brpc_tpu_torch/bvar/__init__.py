@@ -3,8 +3,8 @@ whose writes touch only a per-thread agent, windows over them, reservoir
 percentiles, latency recorders, labelled families and the Prometheus
 dump. Pure Python: nothing here imports torch.
 
-The reference's trend rings (``series.py``) and anomaly watchdog
-(``anomaly.py``) are not ported yet (ROADMAP section 1)."""
+The trend rings (``series.py``) and the anomaly watchdog
+(``anomaly.py``) ride the global sampler's tick (``window.py``)."""
 
 from brpc_tpu_torch.bvar.variable import (Variable, describe_exposed,
                                           dump_exposed, expose,

@@ -100,5 +100,9 @@ def expose_default_variables() -> None:
     ]:
         PassiveStatus(_getter(key)).expose(name)
     PassiveStatus(lambda: os.getpid()).expose("process_pid")
-    # the reference adds the IOBuf block pool's iobuf_pool_hit_ratio and
-    # iobuf_pool_bytes here; the port has no IOBuf pool yet
+    # the IOBuf block pool: are blocks recycling (hit ratio near 1 once
+    # warm), and what the freelists hold
+    from brpc_tpu_torch.butil.iobuf import pool as _iobuf_pool
+    PassiveStatus(lambda: round(_iobuf_pool.hit_ratio(), 4)).expose(
+        "iobuf_pool_hit_ratio")
+    PassiveStatus(_iobuf_pool.cached_bytes).expose("iobuf_pool_bytes")

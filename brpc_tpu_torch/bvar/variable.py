@@ -81,3 +81,15 @@ def unexpose_all() -> None:
             v._name = None
         _registry.clear()
 
+
+def _bvar_census() -> dict:
+    """Census: the exposed variables (a leak of per-connection or
+    per-method bvars shows here first)."""
+    with _registry_lock:
+        return {"count": len(_registry)}
+
+
+from brpc_tpu_torch.butil import resource_census as _census  # noqa: E402
+#   (the census registration ships with the registry it measures)
+
+_census.register("bvar", _bvar_census)

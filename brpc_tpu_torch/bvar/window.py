@@ -25,6 +25,9 @@ from collections import deque
 from typing import Deque, Optional, Tuple
 
 from brpc_tpu_torch.bvar.variable import Variable
+# the trend rings ride this module's tick: bound at load, never inside
+# take_sample (the sampler thread does not import)
+from brpc_tpu_torch.bvar.series import series_sample_tick
 
 _MAX_WINDOW = 120
 
@@ -65,9 +68,12 @@ class Sampler:
             series = list(self._series)
         for s in series:
             s.take_sample(now)
-        # the reference's global sampler also ticks the trend rings of
-        # bvar/series.py here (series_sample_tick); the port has no
-        # series module yet (ROADMAP section 1), so nothing more ticks
+        if self is global_sampler:
+            # the trend rings and the anomaly watchdog ride the same 1/s
+            # stamp (bvar/series.py, on the wall clock); only the global
+            # sampler: a private test sampler's clock must not reach the
+            # process's rings
+            series_sample_tick()
 
     def _ensure_thread(self):
         if self._thread is None or not self._thread.is_alive():

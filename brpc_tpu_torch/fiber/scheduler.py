@@ -181,18 +181,59 @@ class Fiber:
 _joiner_init_lock = threading.Lock()
 
 
+class _CurrentCell:
+    """A thread's current fiber, in a plain object registered by thread
+    id (not in thread-local storage), so the flight recorder's sampler
+    can read another thread's fiber and attribute its sample to the RPC
+    that fiber serves. Reads are racy by design: a torn read costs one
+    misattributed sample."""
+
+    __slots__ = ("current",)
+
+    def __init__(self):
+        self.current: Optional[Fiber] = None
+
+
 class _WorkerTLS(threading.local):
     def __init__(self):
         self.group: Optional["TaskGroup"] = None
-        self.current: Optional[Fiber] = None
         self.inline_depth: int = 0
+        # runs once a thread, on its first touch, on that thread
+        self.cell = _CurrentCell()
+        _cell_by_thread[threading.get_ident()] = self.cell
 
+
+# thread id -> its _CurrentCell; the sampler prunes dead threads'
+_cell_by_thread: dict = {}
 
 _tls = _WorkerTLS()
 
 
 def current_fiber() -> Optional[Fiber]:
-    return _tls.current
+    return _tls.cell.current
+
+
+def thread_current_fiber(tid: int) -> Optional[Fiber]:
+    """The fiber being stepped on thread ``tid`` (a racy snapshot for
+    samplers), or None for a thread that is not stepping one."""
+    cell = _cell_by_thread.get(tid)
+    return cell.current if cell is not None else None
+
+
+_prune_suspects: set = set()
+
+
+def prune_thread_registry(live_tids) -> None:
+    """Drop the cells of dead threads, on two strikes: a cell goes only
+    when its thread was missing from two consecutive snapshots, since a
+    new thread may register between the sampler's snapshot and this
+    prune (and its cell, once pruned, would never come back)."""
+    global _prune_suspects
+    # a copy: another thread's first touch inserts while we iterate
+    gone = {tid for tid in list(_cell_by_thread) if tid not in live_tids}
+    for tid in gone & _prune_suspects:
+        _cell_by_thread.pop(tid, None)
+    _prune_suspects = gone
 
 
 def current_group() -> Optional["TaskGroup"]:
@@ -490,8 +531,9 @@ class TaskControl:
 
     def _step(self, group: TaskGroup, fiber: Fiber) -> None:
         """Advance the fiber one leg: run until it finishes or awaits."""
-        prev = _tls.current
-        _tls.current = fiber
+        cell = _tls.cell
+        prev = cell.current
+        cell.current = fiber
         fiber.state = FIBER_STATE_RUNNING
         ready_ns = fiber._ready_ns
         group.nswitches += 1
@@ -512,16 +554,16 @@ class TaskControl:
             token = fiber.coro.send(fiber._resume_value)
         except StopIteration as e:
             group.busy_ns += time.perf_counter_ns() - t0
-            _tls.current = prev
+            cell.current = prev
             fiber._finish(e.value, None)
             return
         except BaseException as e:      # the fiber's own failure: recorded
             group.busy_ns += time.perf_counter_ns() - t0
-            _tls.current = prev
+            cell.current = prev
             fiber._finish(None, e)
             return
         group.busy_ns += time.perf_counter_ns() - t0
-        _tls.current = prev
+        cell.current = prev
         fiber.state = FIBER_STATE_SUSPENDED
         fiber._resume_value = None
         if token is None:
@@ -673,3 +715,23 @@ def _postfork_reset() -> None:
     global _global_control, _global_lock
     _global_control = None
     _global_lock = threading.Lock()
+    # the cells name the parent's threads; only the forking one lives on
+    _cell_by_thread.clear()
+    _cell_by_thread[threading.get_ident()] = _tls.cell
+
+
+def _fiber_census() -> dict:
+    """Census: live fibers from the cheap Adder; peeks, so a census read
+    never builds a TaskControl."""
+    c = _global_control
+    if c is None:
+        return {"count": 0, "workers": 0}
+    return {"count": max(0, int(c.nfibers.get_value() or 0)),
+            "workers": c.concurrency,
+            "runqueue_depth": c.runqueue_depth()}
+
+
+from brpc_tpu_torch.butil import resource_census as _census  # noqa: E402
+#   (the census registration ships with the singleton it measures)
+
+_census.register("fibers", _fiber_census)

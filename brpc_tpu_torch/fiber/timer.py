@@ -125,6 +125,14 @@ def _postfork_reset() -> None:
     _lock = threading.Lock()
 
 
+from brpc_tpu_torch.butil import resource_census as _census  # noqa: E402
+#   (the census registration ships with the singleton it measures;
+#   it peeks: a census read must not start the timer thread)
+
+_census.register("timers", lambda: {
+    "count": _global_timer.pending() if _global_timer is not None else 0})
+
+
 def sleep(seconds: float) -> SchedAwaitable:
     """Awaitable fiber sleep (bthread_usleep)."""
 

@@ -20,8 +20,15 @@ request behind the earlier ones of its connection
 (``?trace_id=``, ``?n=``, ``?history=1``), ``/device`` (the device
 lanes' cells, conns, recv pool and leaks), ``/backends`` (the client
 channels' backend cells), ``/lb_trace`` (``?channel=``, ``?n=``: a
-channel's load-balancing decisions), ``/contentions`` and ``/version``;
-``/health`` asks ``ServerOptions.health_reporter`` when there is one. The reference's other pages wait for their modules
+channel's load-balancing decisions), ``/contentions``, ``/version``;
+``/vars?series=<name>`` and the sparklines on ``/vars``, ``/timeline``
+(``?name=``, ``?prefix=``), ``/hotspots`` and ``/pprof/profile``
+(on-demand, ``?mode=continuous``, ``diff=1``, ``?type=heap|growth``),
+``/fibers`` and ``/bthreads`` (``?stacks=1``), ``/threads``, ``/census``,
+``/capture`` (``?action=start|stop|download``), ``/incidents``
+(``?action=download&path=``) and ``/vlog``. ``/health`` asks
+``ServerOptions.health_reporter`` when there is one. ``/sockets``,
+``/ids``, ``/shards`` and ``/protobufs`` wait for their modules
 (ROADMAP section 1).
 """
 
@@ -203,11 +210,13 @@ def _json(doc) -> Page:
     return 200, "application/json", json.dumps(doc, default=str).encode()
 
 
-def builtin_page(server, req: HttpRequest) -> Optional[Page]:
+def builtin_page(server, req: HttpRequest):
     """(status, content type, body) of a builtin page, or None when
     ``req.path`` names none (the server then dispatches it as a
-    method). The modules behind the pages are imported here, when a
-    page is asked for."""
+    method). An on-demand ``/hotspots`` profile returns an awaitable of
+    the page instead: its fiber parks for the sample window. The
+    modules behind the pages are imported here, when a page is asked
+    for."""
     path = req.path.rstrip("/") or "/"
     if path == "/":
         from brpc_tpu_torch.builtin.tabbed import render_index
@@ -218,11 +227,27 @@ def builtin_page(server, req: HttpRequest) -> Optional[Page]:
         from brpc_tpu_torch.builtin.services import status_page
         return _json(status_page(server))
     if path == "/vars" or path.startswith("/vars/"):
-        from brpc_tpu_torch.bvar.variable import dump_exposed
-        prefix = req.query.get("prefix",
-                               path[6:] if len(path) > 6 else "")
-        lines = [f"{n} : {v}" for n, v in dump_exposed(prefix)]
-        return 200, "text/plain", ("\n".join(lines) + "\n").encode()
+        return _vars_page(req, path)
+    if path == "/timeline":
+        return _timeline_page(server, req)
+    if path in ("/hotspots", "/pprof/profile"):
+        return _hotspots_page(req)
+    if path in ("/fibers", "/bthreads"):
+        if _query_flag(req, "stacks"):
+            from brpc_tpu_torch.fiber.stacks import dump_fiber_stacks
+            return 200, "text/plain", dump_fiber_stacks().encode()
+        return _json(_fibers_payload(server))
+    if path == "/threads":
+        return 200, "text/plain", _thread_stacks()
+    if path == "/census":
+        from brpc_tpu_torch.builtin.services import census_page_payload
+        return _json(census_page_payload(server))
+    if path == "/capture":
+        return _capture_page(server, req)
+    if path == "/incidents":
+        return _incidents_page(server, req)
+    if path == "/vlog":
+        return _vlog_page(req)
     if path in ("/brpc_metrics", "/metrics"):
         from brpc_tpu_torch.bvar.prometheus import dump_prometheus
         return 200, "text/plain", dump_prometheus().encode()
@@ -325,3 +350,229 @@ def _rpcz_page(req: HttpRequest) -> Page:
     spans = (global_collector.find_trace(ids) if ids
              else global_collector.recent(n))
     return _json([s.to_dict() for s in spans])
+
+
+def _vars_page(req: HttpRequest, path: str) -> Page:
+    """``/vars``: every variable, with the last minute's sparkline of
+    each one that has a warm trend ring; ``?series=<name>``: that
+    variable's rings as JSON (400 for a name without one)."""
+    from brpc_tpu_torch.bvar.series import global_series, series_enabled
+    from brpc_tpu_torch.bvar.variable import dump_exposed
+    sname = req.query.get("series")
+    if sname is not None:
+        ser = global_series().dump_series(names=[sname]).get(sname)
+        if ser is None:
+            return 400, "text/plain", f"no series for {sname!r}".encode()
+        return _json({sname: ser})
+    prefix = req.query.get("prefix", path[6:] if len(path) > 6 else "")
+    col = global_series() if series_enabled() else None
+    lines = []
+    for n, v in dump_exposed(prefix):
+        spark = col.spark(n) if col is not None else ""
+        lines.append(f"{n} : {v}  {spark}" if spark else f"{n} : {v}")
+    return 200, "text/plain", ("\n".join(lines) + "\n").encode()
+
+
+def _timeline_page(server, req: HttpRequest) -> Page:
+    """``/timeline?name=a,b&prefix=p``: the trend rings, the watchdog's
+    incidents and its keys; a named series without a ring is a 400."""
+    from brpc_tpu_torch.builtin.services import timeline_page_payload
+    names = req.query.get("name") or req.query.get("names")
+    names = [n for n in names.split(",") if n] if names else None
+    payload = timeline_page_payload(server, names=names,
+                                    prefix=req.query.get("prefix", ""))
+    if names:
+        missing = [n for n in names if n not in payload["series"]]
+        if missing:
+            return (400, "text/plain",
+                    f"no series for {missing[0]!r}".encode())
+    return _json(payload)
+
+
+def _thread_stacks() -> bytes:
+    """Every thread's Python stack (``/threads``: the workers are the
+    threads that run the fibers)."""
+    import sys
+    import threading
+    import traceback
+    names = {t.ident: t.name for t in threading.enumerate()}
+    out = []
+    for tid, frame in sys._current_frames().items():
+        out.append(f"--- thread {tid} ({names.get(tid, '?')}) ---\n")
+        out.extend(traceback.format_stack(frame))
+        out.append("\n")
+    return "".join(out).encode()
+
+
+def _fibers_payload(server) -> dict:
+    c = server.control
+    return {
+        "concurrency": c.concurrency,
+        "alive_fibers": c.nfibers.get_value(),
+        "fibers_created": c.nfibers_created.get_value(),
+        "switches_per_group": {g.index: g.nswitches for g in c.groups},
+        "steals_per_group": {g.index: g.nsteals for g in c.groups},
+        "runqueue_depth": {g.index: g.depth() for g in c.groups},
+    }
+
+
+def _incidents_page(server, req: HttpRequest) -> Page:
+    """``/incidents``: the capture-on-anomaly state and the artifact
+    ledger; ``?action=download&path=`` serves an artifact, and only one
+    the ledger lists (an arbitrary path must not read any file)."""
+    from brpc_tpu_torch.builtin.services import incidents_page_payload
+    from brpc_tpu_torch.incident.artifact import SUFFIX
+    action = req.query.get("action", "")
+    if action == "download":
+        path = req.query.get("path", "")
+        rows = incidents_page_payload(server).get("artifacts") or []
+        known = {r.get("path") for r in rows}
+        if not path or path not in known or not path.endswith(SUFFIX):
+            return 404, "text/plain", b"no such incident artifact"
+        try:
+            with open(path, "rb") as f:
+                data = f.read()
+        except OSError:
+            return 404, "text/plain", b"artifact unreadable"
+        return 200, "application/octet-stream", data
+    if action:
+        return (400, "text/plain",
+                f"unknown incidents action {action!r}".encode())
+    return _json(incidents_page_payload(server))
+
+
+def _capture_page(server, req: HttpRequest) -> Page:
+    """``/capture``: the recorder's state; ``?action=start&dir=&rate=``
+    and ``?action=stop`` control it; ``?action=download`` is the merged
+    corpus."""
+    from brpc_tpu_torch.builtin.services import (capture_control,
+                                                 capture_download_bytes,
+                                                 capture_page_payload)
+    action = req.query.get("action", "")
+    if action in ("start", "stop"):
+        try:
+            return _json(capture_control(action, dict(req.query)))
+        except (ValueError, OSError) as e:
+            return 400, "text/plain", str(e).encode()
+    if action == "download":
+        data = capture_download_bytes()
+        if not data:
+            return 404, "text/plain", b"no captured corpus"
+        return 200, "application/octet-stream", data
+    if action:
+        return (400, "text/plain",
+                f"unknown capture action {action!r}".encode())
+    return _json(capture_page_payload(server))
+
+
+def _hotspots_page(req: HttpRequest):
+    """``/hotspots``: ``?type=heap|growth`` (tracemalloc), the continuous
+    profile (``?mode=continuous``, ``diff=1``), or an on-demand CPU
+    profile of ``seconds`` at ``interval_ms`` (5 by default) sampled by
+    the flight recorder's thread, which the caller awaits. Formats: text,
+    ``folded``, ``svg`` and ``json`` (on demand with the idle samples by
+    thread, the port's addition)."""
+    from brpc_tpu_torch.builtin import flight_recorder as fr
+    from brpc_tpu_torch.builtin.profiler import (growth_profile,
+                                                 heap_profile, heap_stop,
+                                                 render_flamegraph_svg,
+                                                 render_folded, render_text)
+    ptype = req.query.get("type", "cpu")
+    if ptype in ("heap", "growth"):
+        if _query_flag(req, "stop"):
+            return 200, "text/plain", heap_stop().encode()
+        try:
+            top = min(200, int(req.query.get("top", "40")))
+        except ValueError:
+            return 400, "text/plain", b"bad top"
+        text = heap_profile(top) if ptype == "heap" else growth_profile(top)
+        return 200, "text/plain", text.encode()
+    if ptype != "cpu":
+        return 400, "text/plain", b"type must be cpu|heap|growth"
+    fmt = req.query.get("format")
+    rec = fr.global_recorder()
+    if req.query.get("mode") == "continuous":
+        if _query_flag(req, "diff"):
+            return (200, "text/plain",
+                    fr.render_diff_text(rec.window_diff()).encode())
+        from brpc_tpu_torch.transport.event_dispatcher import (
+            stall_ms_max_10s)
+        m = rec.merged()
+        m["stall_ms_max_10s"] = stall_ms_max_10s()
+        if fmt == "folded":
+            return 200, "text/plain", render_folded(m["folded"]).encode()
+        if fmt in ("svg", "flamegraph"):
+            return (200, "image/svg+xml",
+                    render_flamegraph_svg(m["folded"]).encode())
+        if fmt == "json":
+            return _json({
+                "nsamples": m["nsamples"], "nbusy": m["nbusy"],
+                "windows": m.get("windows"), "span_s": m.get("span_s"),
+                "stall_ms_max_10s": m.get("stall_ms_max_10s"),
+                "labels": dict(m["labels"]),
+                "folded": dict(m["folded"].most_common(200))})
+        return 200, "text/plain", fr.render_continuous_text(m).encode()
+    try:
+        seconds = min(30.0, float(req.query.get("seconds", "1")))
+        interval_s = max(1.0, float(req.query.get("interval_ms", "5"))) / 1e3
+    except ValueError:
+        return 400, "text/plain", b"bad seconds or interval_ms"
+    from brpc_tpu_torch.fiber.sync import FiberEvent
+    done = FiberEvent()
+    result: dict = {}
+
+    def on_done(leaves, folded, n, idle):
+        result["v"] = (leaves, folded, n, idle)
+        done.set()
+
+    # one profile at a time: a second is refused, not queued
+    if not rec.request_profile(seconds, interval_s, on_done):
+        return 503, "text/plain", b"another profile is already running"
+
+    async def finish() -> Page:
+        await done.wait(seconds + 30)
+        if "v" not in result:
+            return 503, "text/plain", b"profile did not complete"
+        leaves, folded, n, idle = result["v"]
+        if fmt == "json":
+            return _json({"nsamples": n, "nbusy": sum(folded.values()),
+                          "idle_by_thread": dict(idle),
+                          "leaves": dict(leaves.most_common(200)),
+                          "folded": dict(folded.most_common(400))})
+        if fmt == "folded":
+            return 200, "text/plain", render_folded(folded).encode()
+        if fmt in ("svg", "flamegraph"):
+            return (200, "image/svg+xml",
+                    render_flamegraph_svg(folded).encode())
+        return 200, "text/plain", render_text(leaves, n).encode()
+    return finish()
+
+
+def _vlog_page(req: HttpRequest) -> Page:
+    """``/vlog``: the loggers' levels and the VLOG verbosity;
+    ``?vmodule=pat=N,...`` sets the verbosity, ``?level=&module=`` a
+    logger's level."""
+    import logging as pylog
+
+    from brpc_tpu_torch.butil.logging import set_vmodule, vmodule
+    module = req.query.get("module", "")
+    level = req.query.get("level")
+    vmod = req.query.get("vmodule")
+    if vmod is not None:
+        try:
+            set_vmodule(vmod)
+        except ValueError as e:
+            return 400, "text/plain", f"bad vmodule: {e}".encode()
+        return 200, "text/plain", b"OK"
+    if level is not None:
+        try:
+            pylog.getLogger(module or None).setLevel(level.upper())
+        except ValueError as e:
+            return 400, "text/plain", f"bad level: {e}".encode()
+        return 200, "text/plain", b"OK"
+    loggers = {"root": pylog.getLevelName(pylog.getLogger().level)}
+    for name in sorted(pylog.root.manager.loggerDict):
+        lg = pylog.root.manager.loggerDict[name]
+        if isinstance(lg, pylog.Logger) and lg.level != pylog.NOTSET:
+            loggers[name] = pylog.getLevelName(lg.level)
+    return _json({"loggers": loggers, "vmodule": vmodule()})

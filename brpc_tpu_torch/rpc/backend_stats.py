@@ -318,6 +318,26 @@ def _postfork_reset() -> None:
     _registry_lock = threading.Lock()
 
 
+def _backend_census() -> dict:
+    """Census: cells and buffered ring events, the reservoirs' samples
+    as the bytes (a channel made per request shows as runaway cells)."""
+    reg = _registry
+    if reg is None:
+        return {"count": 0, "events": 0, "bytes": 0}
+    nbytes = 0
+    for _, cell in reg.rows():
+        nbytes += len(cell.samples(1024)) * 8
+    events = sum(reg.ring_names().values())
+    return {"count": reg._dim.count_stats(), "events": events,
+            "bytes": nbytes + events * 200}
+
+
+from brpc_tpu_torch.butil import resource_census as _census  # noqa: E402
+#   (the census registration ships with the registry it measures)
+
+_census.register("backend_stats", _backend_census)
+
+
 # ------------------------------------------------- attempt accounting
 #
 # A call's open attempts ride its controller (``cntl._bs_attempts``:

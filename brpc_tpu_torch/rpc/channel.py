@@ -660,11 +660,20 @@ class Channel:
                       if now - e[1] > ADM_THRESHOLD_TTL_S]:
                 self._adm_cache.pop(k, None)
 
+    def _client_user_slot(self, cntl: Controller, sock) -> int:
+        """This call's user slot as the server computes it
+        (brpc_tpu/rpc/channel.py:1123-1133): the hash of the auth token
+        when the request carries one, else that of the connection's
+        client address (this socket's ``local_endpoint`` is the server's
+        ``remote_endpoint``)."""
+        if cntl.auth_token:
+            return admission.user_slot(cntl.auth_token)
+        return admission.cached_socket_slot(sock, sock.local_endpoint)
+
     def _doomed_by_threshold(self, cntl: Controller, sock) -> bool:
         """True: this send's level is below the backend's threshold and
-        no probe is due. The user slot is the one the server computes
-        from this connection's client address (the port has no auth
-        token, the reference's other identity)."""
+        no probe is due. The level's user slot is the one the server
+        computes (``_client_user_slot``)."""
         key = (_bs.ep_key(sock.remote_endpoint), cntl._service_name)
         ent = self._adm_cache.get(key)
         if ent is None:
@@ -673,9 +682,8 @@ class Channel:
         if now - ent[1] > ADM_THRESHOLD_TTL_S:
             self._adm_cache.pop(key, None)
             return False
-        level = admission.compose_level(
-            cntl.request_priority,
-            admission.cached_socket_slot(sock, sock.local_endpoint))
+        level = admission.compose_level(cntl.request_priority,
+                                        self._client_user_slot(cntl, sock))
         if level >= ent[0]:
             return False
         if now - ent[2] >= ADM_PROBE_INTERVAL_S:

@@ -41,7 +41,11 @@ Observability (``ServerOptions(enable_builtin_services=True)``, the
 default): ``start`` registers the ``builtin`` service and exposes the
 process, scheduler, dispatcher and serving bvars; the HTTP path answers
 the builtin pages (``/status``, ``/vars``, ``/rpcz``, ... in
-``protocol/http.py``) before method dispatch. Every call lands in its
+``protocol/http.py``) before method dispatch. Every ``start`` also
+holds the flight recorder's sampler (``builtin/flight_recorder.py``),
+which the last running server's ``stop`` ends, hands itself to the
+incident manager, and makes sure the trend rings tick
+(``bvar/series.ensure_series``). Every call lands in its
 method's ``LatencyRecorder`` (``method_status``). Under the
 ``rpcz_enabled`` flag a tpu_std call gets a server span, stamped in
 ``server_dispatch.py``; an HTTP call gets none, as in the reference.
@@ -61,6 +65,7 @@ from brpc_tpu_torch.butil.endpoint import EndPoint, str2endpoint
 from brpc_tpu_torch.butil.flags import define_flag, flag
 from brpc_tpu_torch.bvar.latency_recorder import LatencyRecorder
 from brpc_tpu_torch.bvar.reducer import PassiveStatus
+from brpc_tpu_torch.bvar.series import declare_series_kind
 from brpc_tpu_torch.fiber import TaskControl, global_control
 from brpc_tpu_torch.protocol import http
 from brpc_tpu_torch.transport.base import Conn, get_transport
@@ -240,6 +245,9 @@ class Server:
             ici = sys.modules.get("brpc_tpu_torch.transport.ici")
             if ici is not None:
                 ici.expose_ici_vars()
+            # SIGUSR2 prints the fiber stacks (main thread only)
+            from brpc_tpu_torch.fiber.stacks import enable_stack_dump_signal
+            enable_stack_dump_signal()
         self._messenger = InputMessenger(control=self.control)
         self._running = True
         try:
@@ -252,6 +260,19 @@ class Server:
                 self._serving.on_server_stop(self)
             raise
         self.endpoint = self._listener.endpoint
+        # the flight recorder runs while a server does; the incident
+        # bvars outlive an unexpose_all, the manager's snapshots read
+        # this server, and the trend rings' tick runs with the
+        # watchdog's imports bound on this thread (brpc_tpu/rpc/
+        # server.py:433-457)
+        from brpc_tpu_torch.builtin.flight_recorder import hold_recorder
+        from brpc_tpu_torch.bvar.series import ensure_series
+        from brpc_tpu_torch.incident.manager import (attach_incident_server,
+                                                     expose_incident_vars)
+        hold_recorder(self)
+        expose_incident_vars()
+        attach_incident_server(self)
+        ensure_series()
         return self.endpoint
 
     def _on_new_conn(self, conn: Conn) -> None:
@@ -289,6 +310,11 @@ class Server:
             "server_errors")
         PassiveStatus(lambda: read(worst_p99, 0.0)).expose(
             "server_latency_p99_us")
+        # the trend triple: a monotone passive graphs as a rate only
+        # when its ring knows it is a counter
+        declare_series_kind("server_processed", "delta")
+        declare_series_kind("server_errors", "delta")
+        declare_series_kind("server_latency_p99_us", "max")
         # the overload gates (brpc_tpu/rpc/server.py:54-75)
         PassiveStatus(lambda: read(
             lambda s: s.concurrency_limit() or 0)).expose(
@@ -421,6 +447,8 @@ class Server:
             return 403, "text/plain", refused
         if self.options.enable_builtin_services:
             page = http.builtin_page(self, req)
+            if inspect.isawaitable(page):
+                page = await page       # an on-demand /hotspots profile
             if page is not None:
                 return page
         parts = [p for p in req.path.split("/") if p]
@@ -492,6 +520,10 @@ class Server:
         self._listener.stop()
         if self._serving is not None:
             self._serving.on_server_stop(self)
+        # the last running server stops the flight recorder's sampler
+        # (the reference leaves it running; ROADMAP section 3)
+        from brpc_tpu_torch.builtin.flight_recorder import release_recorder
+        release_recorder(self)
 
     def join(self, timeout_s: float = 5.0) -> None:
         """Wait up to ``timeout_s`` for in-flight calls, then close the

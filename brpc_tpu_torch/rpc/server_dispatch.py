@@ -49,7 +49,8 @@ remaining budget and trace. The HTTP path sets it too (``Server``).
 Overload control, before any slot is taken and before the handler
 (brpc_tpu/rpc/server_dispatch.py:208-240): while the server's admission
 controller is engaged, a request whose level (its priority and its
-connection's user slot, ``_request_level``) sits under the threshold is
+user slot: its auth token's, else its connection's,
+``_request_level``) sits under the threshold is
 shed with EPRIORITYSHED (``server_priority_shed``); a request that
 waited in dispatch past ``queue_delay_shed_ms`` (``_queue_delay_shed``)
 and one the limiters refuse (``Server.on_request_start``) are shed with
@@ -70,8 +71,13 @@ interceptor`` may reject a decoded request with its own error code; a
 ``session_local_data_factory`` lends the handler an object of its pool;
 with ``usercode_in_pthread`` a handler that is not a coroutine function
 runs on the usercode pool (``rpc/usercode.py``) while its fiber parks.
-The reference's capture and fast drains are still to port (ROADMAP
-section 1).
+Capture (brpc_tpu/rpc/server_dispatch.py:364-397, :421-423, :499-503):
+while the traffic recorder (``traffic/capture.py``) is on, a request is
+sampled after its payload is decompressed, and its record completes
+with the call's error code and latency, on every way out after that
+(the interceptor's refusal, the deadline at handler entry, the
+handler's end); a request shed before it is not recorded. The
+reference's fast drains are still to port (ROADMAP section 1).
 """
 
 from __future__ import annotations
@@ -87,6 +93,7 @@ from brpc_tpu_torch.fiber.device_poller import device_ready
 from brpc_tpu_torch.fiber.keys import FiberLocal
 from brpc_tpu_torch.fiber.scheduler import SchedAwaitable, current_group
 from brpc_tpu_torch.protocol import tpu_std
+from brpc_tpu_torch.traffic import capture as _cap
 
 from . import admission
 from . import compress as _compress
@@ -167,7 +174,7 @@ async def process_request(proto, msg: tpu_std.RpcMessage, socket) -> None:
     counted = False
     adm = server._admission
     if adm is not None and adm.threshold_engaged():
-        level = _request_level(req.priority, socket)
+        level = _request_level(req.priority, req.auth_token, socket)
         counted = True                  # admit_level counts it
         if not adm.admit_level(level):
             npriority_shed.add(1)
@@ -210,14 +217,15 @@ def _queue_delay_shed(server, arrival_ns: int, level: int = 0,
     return True
 
 
-def _request_level(priority: int, socket) -> int:
-    """The request's admission level: its wire priority, and the user
-    slot of its connection's client address (the socket's
+def _request_level(priority: int, auth_token: str, socket) -> int:
+    """The request's admission level: its wire priority, and a user
+    slot, that of the request's auth token when it carries one, else
+    that of its connection's client address (the socket's
     ``remote_endpoint`` is the client's ``local_endpoint``; both sides
     hash it the same, ``admission.cached_socket_slot``)."""
-    return admission.compose_level(
-        priority, admission.cached_socket_slot(socket,
-                                               socket.remote_endpoint))
+    slot = admission.user_slot(auth_token) if auth_token else \
+        admission.cached_socket_slot(socket, socket.remote_endpoint)
+    return admission.compose_level(priority, slot)
 
 
 def _expired(cntl: Controller, method, server, budget_ms: int,
@@ -246,6 +254,10 @@ async def _process_request_body(proto, msg: tpu_std.RpcMessage, socket,
     cntl.auth_token = req.auth_token
     cntl.auth_context = socket.user_data.get("auth_context")
     cntl.remote_side = socket.remote_endpoint
+    # the flight recorder labels samples by these
+    cntl._service_name = req.service_name
+    cntl._method_name = req.method_name
+    socket.last_method = method.full_name
     if meta.stream_settings is not None:
         cntl._peer_stream_id = meta.stream_settings.stream_id
     _serving_cntl.set(cntl)
@@ -277,6 +289,8 @@ async def _serve(proto, msg: tpu_std.RpcMessage, socket, server, method,
     if flag("rpcz_enabled"):
         span = _span.start_server_span(cntl, req.service_name,
                                        req.method_name)
+        # the flight recorder's stall watchdog annotates it through here
+        cntl._span = span
         span.request_size = len(msg.payload) + len(msg.attachment)
         # the timeline's base is the cut, so latency_us is the whole
         # server residence and received -> dispatch the dispatch wait
@@ -304,9 +318,22 @@ async def _serve(proto, msg: tpu_std.RpcMessage, socket, server, method,
                 _send_response(proto, socket, cntl, b"", span)
                 return
             cntl.compress_type = meta.compress_type     # reply in kind
+        # captured after decompression, so a replay sends plaintext; a
+        # broken capture directory never fails the call
+        cap_rec = None
+        rec = _cap.global_recorder()
+        try:
+            if rec.capture_enabled():
+                cap_rec = rec.sample_request(
+                    method.full_name, "", "", request, msg.attachment,
+                    msg.arrival_ns or t0, req.timeout_ms, req.log_id,
+                    req.priority)
+        except Exception:
+            cap_rec = None
         if span is not None:
             span.parse_done_us = time.monotonic_ns() // 1000
         if _intercepted(server, method, cntl, cost):
+            _capture_done(rec, cap_rec, cntl, t0)
             _send_response(proto, socket, cntl, b"", span)
             return
         in_pool = server.options.usercode_in_pthread and \
@@ -316,6 +343,7 @@ async def _serve(proto, msg: tpu_std.RpcMessage, socket, server, method,
             await _HopToWorker()
             if _expired(cntl, method, server, req.timeout_ms,
                         "handler entry", cost):
+                _capture_done(rec, cap_rec, cntl, t0)
                 _send_response(proto, socket, cntl, b"", span)
                 return
         pool = server.session_local_pool
@@ -346,12 +374,21 @@ async def _serve(proto, msg: tpu_std.RpcMessage, socket, server, method,
             server.on_request_end(method.full_name,
                                   (time.monotonic_ns() - h0) / 1e3,
                                   cntl.failed(), cost)
+        _capture_done(rec, cap_rec, cntl, t0)
         _send_response(proto, socket, cntl, response or b"", span)
     finally:
         if span is not None:
             # with the flush latch armed, the span is submitted once the
             # write's on_done has stamped flushed_us
             _span.finish_span(span, cntl)
+
+
+def _capture_done(rec, cap_rec, cntl: Controller, t0: int) -> None:
+    """Complete a sampled request's record with its verdict; the
+    recorder's writer thread takes it to disk."""
+    if cap_rec is not None:
+        rec.record_complete(cap_rec, cntl.error_code,
+                            (time.monotonic_ns() - t0) / 1e3)
 
 
 def _intercepted(server, method, cntl: Controller, cost: float) -> bool:

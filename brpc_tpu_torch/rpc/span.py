@@ -13,9 +13,9 @@ The port has the server, client and serving spans, the device transfer
 children (``start_device_span``, ``submit_device_recv_span``;
 ``transport/device_stats.py`` stamps them) and one child of a client
 span an attempt (``start_attempt_span``), which ``settle_attempt_spans``
-submits only for a call that made more than one. ``_postfork_reset`` and ``_span_census`` wait, unregistered, for the
-postfork registry and the resource census that come with shard
-groups.
+submits only for a call that made more than one. ``_span_census`` is
+the ``span_store`` provider of ``/census``; ``_postfork_reset`` waits,
+unregistered, for the postfork registry that comes with shard groups.
 """
 
 from __future__ import annotations
@@ -365,6 +365,12 @@ def _span_census() -> dict:
         ring = len(global_collector._ring)
     return {"count": ring, "bytes": buffered,
             "ring_capacity": global_collector._ring.maxlen}
+
+
+from brpc_tpu_torch.butil import resource_census as _census  # noqa: E402
+#   (the census registration ships with the store it measures)
+
+_census.register("span_store", _span_census)
 
 
 def new_trace_id() -> int:

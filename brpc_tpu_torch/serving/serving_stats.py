@@ -30,11 +30,11 @@ runtime flag ``serving_stats_enabled`` turns the layer into one flag
 check per request.
 
 The module stays light: stdlib, butil, bvar and rpc/span, never torch.
-The batcher is read through ``sys.modules``, never imported. The
-reference's trend-ring declaration for ``serving_ttft_p99_us`` waits for
-``bvar/series.py``; ``_postfork_reset`` and ``_serving_census`` wait,
-unregistered, for the postfork registry and the resource census of
-shard groups (ROADMAP section 1).
+The batcher is read through ``sys.modules``, never imported.
+``serving_ttft_p99_us`` is declared a max trend series
+(``bvar/series.py``), and ``_serving_census`` is the ``serving_lane``
+provider of ``/census``; ``_postfork_reset`` waits, unregistered, for
+the postfork registry of shard groups (ROADMAP section 1).
 """
 
 from __future__ import annotations
@@ -51,6 +51,7 @@ from brpc_tpu_torch.butil.flags import define_flag, flag as _flag
 from brpc_tpu_torch.bvar.latency_recorder import LatencyRecorder
 from brpc_tpu_torch.bvar.multi_dimension import MultiDimension
 from brpc_tpu_torch.bvar.reducer import PassiveStatus
+from brpc_tpu_torch.bvar.series import KIND_MAX, declare_series_kind
 from brpc_tpu_torch.bvar.variable import Variable
 from brpc_tpu_torch.rpc import span as _span_mod
 
@@ -402,9 +403,9 @@ def global_serving_stats() -> ServingStats:
 def expose_serving_stats_vars() -> None:
     """(Re-)expose the labeled family + the pooled recorders — called
     from expose_serving_vars (Server.start), surviving a test
-    fixture's unexpose_all. ``serving_ttft_p99_us`` is the instant p99
-    gauge (the reference also declares it a max trend series, which
-    waits for bvar/series.py)."""
+    fixture's unexpose_all. ``serving_ttft_us``/``serving_tpot_us``
+    give ``.p99`` quantile tracks on /timeline (watchdog keys);
+    ``serving_ttft_p99_us`` is the instant p99 gauge, a max series."""
     reg = global_serving_stats()
     reg._dim.expose("serving_stats")
     reg._ttft.expose("serving_ttft_us")
@@ -412,6 +413,7 @@ def expose_serving_stats_vars() -> None:
     PassiveStatus(lambda: float(
         global_serving_stats()._ttft.latency_percentile(0.99))).expose(
         "serving_ttft_p99_us")
+    declare_series_kind("serving_ttft_p99_us", KIND_MAX)
 
 
 # ---------------------------------------------------- generation hooks
@@ -620,3 +622,7 @@ def _serving_census() -> dict:
     return {"count": count, "bytes": nbytes}
 
 
+from brpc_tpu_torch.butil import resource_census as _census  # noqa: E402
+#   (the census registration ships with the registry it measures)
+
+_census.register("serving_lane", _serving_census)

@@ -471,3 +471,29 @@ def _postfork_reset() -> None:
     _registry = None
     _registry_lock = threading.Lock()
     _thread_labels = {}
+
+
+def _device_census() -> dict:
+    """Census: the device receive pool in use, the lanes' buffered
+    bytes and the cells' reservoirs."""
+    count = 0
+    nbytes = 0
+    reg = _registry
+    if reg is not None:
+        for _, cell in reg.rows():
+            nbytes += len(cell.samples(1024)) * 8
+        for row in reg.device_conn_rows():
+            count += 1
+            nbytes += row.get("buffered_bytes", 0) or 0
+    ici = sys.modules.get("brpc_tpu_torch.transport.ici")
+    if ici is not None:
+        pool = ici._default_pool
+        nbytes += pool.used
+        count += sum(pool.reserved_blocks)
+    return {"count": count, "bytes": nbytes}
+
+
+from brpc_tpu_torch.butil import resource_census as _census  # noqa: E402
+#   (the census registration ships with the registry it measures)
+
+_census.register("device_lane", _device_census)

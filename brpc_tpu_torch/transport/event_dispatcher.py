@@ -22,7 +22,13 @@ before they close, and close once.
 
 Stall instrumentation: ``dispatcher_stall_ms_max_10s`` is the longest
 time one wakeup's callback batch held the thread over 10 s, and
-``dispatcher_stalls`` counts the batches longer than ``STALL_MS``.
+``dispatcher_stalls`` counts the batches longer than the
+``dispatcher_stall_ms`` flag. ``_tick_start_ns`` is nonzero exactly
+while a batch runs, so the flight recorder's watchdog
+(``builtin/flight_recorder.py``) sees a stall still in progress: it
+feeds the gauge (``note_stall``), counts the stall once a tick
+(``_tick_seq``), and annotates the rpcz span of the request holding the
+thread. A stall the watchdog did not see is counted when its batch ends.
 """
 
 from __future__ import annotations
@@ -35,13 +41,15 @@ import time
 from collections import deque
 from typing import Callable, Dict, Optional
 
+from brpc_tpu_torch.butil.flags import define_flag, flag
 from brpc_tpu_torch.bvar.reducer import Adder, Maxer, PassiveStatus
 
 log = logging.getLogger("brpc_tpu_torch.transport")
 
-# a callback batch holding the event thread this long is a stall (the
-# reference's dispatcher_stall_ms default)
-STALL_MS = 50.0
+define_flag("dispatcher_stall_ms", 50.0,
+            "an event-dispatcher callback batch holding the event thread "
+            "longer than this is a stall: counted, and annotated into the "
+            "rpcz span it is serving")
 
 _tick_ms_max = Maxer()
 nstalls = Adder()
@@ -66,6 +74,11 @@ def stall_ms_max_10s() -> float:
     win = _stall_window().get_value() or 0.0
     live = _tick_ms_max.get_value() or 0.0
     return round(max(win, live), 3)
+
+
+def note_stall(ms: float) -> None:
+    """A tick overrun the flight recorder saw while it was running."""
+    _tick_ms_max.update(ms)
 
 
 _stall_var = PassiveStatus(stall_ms_max_10s)
@@ -96,6 +109,13 @@ class EventDispatcher:
         self._name = name
         # callbacks posted by fd-less conns, run in order on the thread
         self._posted: deque = deque()
+        # nonzero exactly while a callback batch runs; _tick_seq tells
+        # the ticks apart, so a stall is counted once (by the flight
+        # recorder's watchdog while it runs, or at the batch's end)
+        self._tick_start_ns = 0
+        self._tick_seq = 0
+        self._stall_counted_seq = -1
+        self._stall_lock = threading.Lock()
         # epoll applies interest changes while another thread waits in
         # it; select/poll snapshot the set per call and need a kick
         self._rearm_needs_wakeup = not isinstance(
@@ -236,18 +256,33 @@ class EventDispatcher:
                 fired.append((None, self._posted.popleft()))
             if not fired:
                 continue
-            t0 = time.monotonic_ns()
-            for fd, cb in fired:
-                try:
-                    cb()
-                except Exception:       # boundary: the loop must go on
-                    log.exception("event callback failed for fd %s", fd)
-            dur_ms = (time.monotonic_ns() - t0) / 1e6
-            if dur_ms > 1.0:
-                # sub-ms ticks are the norm and not worth a Maxer lock
-                _tick_ms_max.update(dur_ms)
-                if dur_ms >= STALL_MS:
-                    nstalls.add(1)
+            self._tick_seq += 1
+            self._tick_start_ns = t0 = time.monotonic_ns()
+            try:
+                for fd, cb in fired:
+                    try:
+                        cb()
+                    except Exception:   # boundary: the loop must go on
+                        log.exception("event callback failed for fd %s",
+                                      fd)
+            finally:
+                dur_ms = (time.monotonic_ns() - t0) / 1e6
+                self._tick_start_ns = 0
+                if dur_ms > 1.0:
+                    # sub-ms ticks are the norm, not worth a Maxer lock
+                    _tick_ms_max.update(dur_ms)
+                    if dur_ms >= flag("dispatcher_stall_ms"):
+                        self.count_stall(self._tick_seq)
+
+    def count_stall(self, seq: int) -> bool:
+        """Count tick ``seq``'s stall once, whoever sees it first (the
+        watchdog mid-tick, the loop at its end)."""
+        with self._stall_lock:
+            if self._stall_counted_seq == seq:
+                return False
+            self._stall_counted_seq = seq
+        nstalls.add(1)
+        return True
 
     def stop(self, timeout_s: float = 2.0) -> None:
         """End the thread (for tests); a later consumer starts it again."""
@@ -260,6 +295,12 @@ class EventDispatcher:
 
 _global: Optional[EventDispatcher] = None
 _glock = threading.Lock()
+
+
+def peek_dispatcher() -> Optional[EventDispatcher]:
+    """The global dispatcher if there is one: watchdogs observe, never
+    make one."""
+    return _global
 
 
 def global_dispatcher() -> EventDispatcher:

@@ -44,8 +44,10 @@ its classic Python path; bRPC's socket.h, SURVEY.md §2.4).
   gets a stage tracker in the cell of its (peer, lane), and each batch
   taken is timed into the cell of its receive side.
 
-The reference's native fastcore, ring lane, sync pluck and census rows
-are still to port (ROADMAP section 1).
+Census: ``_socket_census`` (the ``sockets`` provider of ``/census``)
+walks the live sockets of the id pool. The reference's native
+fastcore, ring lane, sync pluck and per-row census (an activity stamp a
+socket) are still to port (ROADMAP section 1).
 """
 
 from __future__ import annotations
@@ -593,3 +595,21 @@ def create_client_socket(ep: EndPoint, on_input: Optional[Callable] = None,
                          control: Optional[TaskControl] = None) -> Socket:
     conn = get_transport(ep.scheme).connect(ep)
     return Socket(conn, on_input=on_input, control=control)
+
+
+def _socket_census() -> dict:
+    """Census: every live socket of the process, client channels' too,
+    with the server-side subset (the sockets /connections lists); a
+    socket's bytes are its unparsed input and its queued output."""
+    with _pool._lock:
+        socks = [s for s in _pool._objs if s is not None and not s.failed]
+    rows = [(s, s.input_portal.size + s.wq_bytes) for s in socks]
+    srv = [b for s, b in rows if s.user_data.get("server") is not None]
+    return {"bytes": sum(b for _, b in rows), "count": len(rows),
+            "server_bytes": sum(srv), "server_count": len(srv)}
+
+
+from brpc_tpu_torch.butil import resource_census as _census  # noqa: E402
+#   (the census registration ships with the registry it measures)
+
+_census.register("sockets", _socket_census)

@@ -216,11 +216,41 @@ every request reaches its handler compressed (the server's
 ``compress_type``); a ClusterChannel with a wrong token to replica 2
 gets ERPCAUTH on every call, none retried. p50/p99 of every part.
 
+Phase incident (trend rings, the anomaly watchdog, the flight
+recorder, capture and incidents), after cluster, at phase 3's width:
+launch counts zeroed before each part and read after it,
+``flash_decode``'s equal to the part's decode steps and warm-ups, every
+token list equal to the CPU plain path's. (a) Phase 3's burst on a
+default server with the rings on and the recorder at 20 Hz: the
+one-second ring of ``/timeline?name=server_processed`` sums to the
+calls served, ``/vars?series=serving_ttft_p99_us`` has buckets, and
+``/hotspots?mode=continuous`` gives busy samples to
+``rpc:GenerateService.Generate``; the busy share by label and the top
+folded stacks. (b) An on-demand ``/hotspots`` profile at 1 ms while 32
+fresh Channels of this process each make their first unary Generate
+call, one after another (one profile holds both sides of the
+connection): the first calls' p50/p99 beside 8 later calls on one
+Channel, and the profile's top 15 self and cumulative frames. (c) A
+server at ``max_concurrency=2`` with ``anomaly_watch_filter=
+server_limit_shed``, 3 warm-up and 3 close ticks, incident capture on
+into a temporary ``incident_dir`` and a 3-tick window: calm calls over
+the warm-up ticks (the bvar sampler's own, once a second), then 24
+concurrent Generate calls: incident #1 opens on ``server_limit_shed``,
+4 calls made inside the window are captured, the artifact appears on
+``/incidents`` and downloads byte for byte, the port's reader finds in
+it the incident document and the in-window requests with their
+prompts, rpcz spans carry ``incident #1``, a continuous-profile window
+is labelled, the incident closes, and ``/census`` lists every
+registered provider; the times from the first shed to the open and from
+the close to the artifact. (d) Phase 3's burst in turns, 3 pairs: the
+recorder at 20 Hz with the rings on against both off, then capture at
+rate 1.0 against capture off; p50/p99 and tokens/s of each.
+
 ``python3 chip_smoke.py --phase streaming`` (or ``--phase
 observability``, ``--phase device_lane``, ``--phase combo``, ``--phase
-cluster``) runs that phase alone (after the card line), so that
-two trees' serving can be compared in one call: run each tree's script
-in turns.
+cluster``, ``--phase incident``) runs that phase alone (after the card
+line), so that two trees' serving can be compared in one call: run each
+tree's script in turns.
 
 The last lines are the card line, the kernels line and the result line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without the
@@ -2617,7 +2647,7 @@ def phase_device_lane(dev):
         _sync(dev)
         got = dict(fa.launches)
         out["launches"][part] = got
-        # dispatcher ticks of STALL_MS or more while the part ran
+        # dispatcher ticks of dispatcher_stall_ms or more while the part ran
         out["stalls"][part] = event_dispatcher.nstalls.get_value() - stalls0
         want = want or {}
         check(all(got[k] == want.get(k, 0) for k in got),
@@ -3852,6 +3882,513 @@ def phase_cluster(dev):
     return out
 
 
+# -------------------------------------------------------- phase incident
+
+INCIDENT_A_BURSTS = 3           # (a): phase 3's burst, cold then warm
+INCIDENT_FIRST_CALLS = 32       # (b): fresh Channels, one first call each
+INCIDENT_PROFILE_S = 4.0        # (b): the on-demand profile's window
+INCIDENT_LATER_CALLS = 8        # (b): later calls on one Channel
+INCIDENT_BURST = 24             # (c): concurrent calls at max_concurrency 2
+INCIDENT_IN_WINDOW = 4          # (c): calls made inside the capture window
+INCIDENT_PAIRS = 3              # (d): turns of each setting against off
+INCIDENT_FLAGS = {"anomaly_watch_filter": "server_limit_shed",
+                  "anomaly_warmup_ticks": 3, "anomaly_close_ticks": 3,
+                  "incident_capture_enabled": True,
+                  "incident_window_ticks": 3, "rpcz_enabled": True}
+
+
+def _generate_body(prompt: str) -> bytes:
+    return json.dumps({"prompt": prompt, "max_tokens": MAX_TOKENS}).encode()
+
+
+def _flags_set(values: dict) -> dict:
+    """Set the port's flags; returns the old values, to restore."""
+    from brpc_tpu_torch.butil.flags import flag, set_flag
+    old = {k: flag(k) for k in values}
+    for k, v in values.items():
+        check(set_flag(k, v), f"cannot set flag {k}={v!r}")
+    return old
+
+
+def _ring(name: str) -> dict:
+    from brpc_tpu_torch.bvar.series import global_series
+    return global_series().dump_series(names=[name]).get(
+        name, {"kind": None, "sec": [], "min": [], "live_sec": 0})
+
+
+def _settled_tick(name: str) -> dict:
+    """One series tick that stored, and ``name``'s ring after it: a tick
+    by hand skips while the sampler's own runs, which then stores within
+    a second."""
+    from brpc_tpu_torch.bvar.series import series_sample_tick
+    p0 = _ring_pushes(_ring(name))
+    series_sample_tick()
+    _wait_for_value(lambda: _ring_pushes(_ring(name)) > p0, True, 3.0)
+    return _ring(name)
+
+
+def _ring_pushes(ser: dict) -> int:
+    """Buckets pushed into a ring so far (exact for its first hour): the
+    seconds ring slides, so new buckets are counted, not found."""
+    return len(ser["min"]) * 60 + ser["live_sec"]
+
+
+def _folded_frames(folded: dict, top: int = 15) -> dict:
+    """Top self and cumulative frames of folded stacks (``label;root;...;
+    leaf``): self counts a stack's leaf, cumulative each frame once a
+    stack."""
+    from collections import Counter
+    selfc, cum = Counter(), Counter()
+    for stack, n in folded.items():
+        frames = stack.split(";")[1:]
+        if not frames:
+            continue
+        selfc[frames[-1]] += n
+        for f in set(frames):
+            cum[f] += n
+    return {"self": selfc.most_common(top),
+            "cumulative": cum.most_common(top)}
+
+
+def _incident_rings_profile(port: int, prompts, oracle) -> dict:
+    """(a) Phase 3's burst with the trend rings on and the recorder at its
+    default rate: the one-second ring of ``server_processed`` sums to the
+    calls served, ``serving_ttft_p99_us`` has a ring, and the continuous
+    profile gives busy samples to the Generate method's label."""
+    from brpc_tpu_torch.builtin import flight_recorder as fr
+    from brpc_tpu_torch.butil.flags import flag
+    from brpc_tpu_torch.bvar.series import series_enabled
+    check(series_enabled() and flag("continuous_profiler_hz") == 20 and
+          fr.global_recorder().running(),
+          "incident a: the rings or the 20 Hz recorder are off")
+    # the baseline of the burst: two ticks that stored since the start
+    _settled_tick("server_processed")
+    ring0 = _settled_tick("server_processed")
+    fr.global_recorder().clear()
+    lat, walls = [], []
+    for k in range(INCIDENT_A_BURSTS):
+        results, errors, wall, lat_k, _ = _burst(port, prompts, MAX_TOKENS)
+        _check_burst(f"incident a {k}", results, errors, oracle)
+        lat += lat_k
+        walls.append(wall)
+    time.sleep(0.3)                     # a few more samples at 20 Hz
+    calls = INCIDENT_A_BURSTS * len(prompts)
+    # until a tick that collected after the burst has stored
+    t_end = time.monotonic() + 3.0
+    while True:
+        ring1 = _settled_tick("server_processed")
+        new = _ring_pushes(ring1) - _ring_pushes(ring0)
+        check(0 < new <= 60, f"incident a: {new} buckets over the burst")
+        served = sum(v for _, v in ring1["sec"][-new:])
+        if served == calls or time.monotonic() > t_end:
+            break
+    check(served == calls,
+          f"incident a: server_processed's ring sums to {served}, "
+          f"{calls} calls served")
+    status, body = _http_page(port, "/vars?series=serving_ttft_p99_us")
+    check(status == 200, f"incident a: /vars?series= answered {status}")
+    ttft_ring = json.loads(body)["serving_ttft_p99_us"]
+    check(ttft_ring["kind"] == "max" and ttft_ring["sec"],
+          f"incident a: serving_ttft_p99_us ring {ttft_ring}")
+    status, body = _http_page(port, "/timeline?name=server_processed")
+    check(status == 200, f"incident a: /timeline answered {status}")
+    tl = json.loads(body)["series"]["server_processed"]
+    check(tl["kind"] == "delta" and ring1["sec"][-1] in tl["sec"],
+          "incident a: /timeline's ring is not the collector's")
+    status, body = _http_page(port,
+                              "/hotspots?mode=continuous&format=json")
+    check(status == 200, f"incident a: /hotspots answered {status}")
+    prof = json.loads(body)
+    labels = prof["labels"]
+    gen = labels.get("rpc:GenerateService.Generate", 0)
+    check(gen > 0, f"incident a: no busy sample labelled Generate: {labels}")
+    nbusy = prof["nbusy"] or 1
+    tokens = sum(len(t) for t in results.values())
+    return {"calls": calls, "ring_sum": served,
+            "ring_buckets": new, "burst_wall_s": walls,
+            "ttft_p99_buckets": len(ttft_ring["sec"]),
+            "tokens_per_s": [tokens / w for w in walls], **_p50_p99(lat),
+            "samples": prof["nsamples"], "busy": prof["nbusy"],
+            "span_s": prof["span_s"],
+            "busy_share_by_label": {k: round(v / nbusy, 4) for k, v in
+                                    sorted(labels.items(),
+                                           key=lambda kv: -kv[1])},
+            "top_folded": sorted(prof["folded"].items(),
+                                 key=lambda kv: -kv[1])[:8]}
+
+
+def _incident_way_in(port: int, prompts, oracle) -> dict:
+    """(b) An on-demand /hotspots profile at 1 ms while INCIDENT_FIRST_CALLS
+    fresh Channels in this process make their first unary Generate call,
+    one after another: one profile holds both sides of the connection.
+    Each first call's Channel construction is timed apart from its
+    call."""
+    from brpc_tpu_torch.builtin import flight_recorder as fr
+    from brpc_tpu_torch.rpc import Channel, ChannelOptions
+    seconds = INCIDENT_PROFILE_S
+    got = {}
+
+    def profile():
+        got["page"] = _http_page(
+            port, f"/hotspots?seconds={seconds}&interval_ms=1"
+                  "&format=json")
+    # the page's own client thread waits in a socket read the sampler
+    # counts as busy: its samples are left out below
+    th = threading.Thread(target=profile, name="hotspots_client")
+    th.start()
+    check(_wait_for_value(fr.global_recorder().profiling, True, 10.0),
+          "incident b: the profile never started")
+    first_ms, ctor_ms, t_calls = [], [], time.monotonic()
+    for i in range(INCIDENT_FIRST_CALLS):
+        p = prompts[i % len(prompts)]
+        t0 = time.perf_counter()
+        ch = Channel(f"tcp://127.0.0.1:{port}",
+                     ChannelOptions(timeout_ms=120000))
+        ctor_ms.append((time.perf_counter() - t0) * 1e3)
+        try:
+            c = ch.call_sync("GenerateService", "Generate",
+                             _generate_body(p))
+            first_ms.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            ch.close()
+        check(not c.failed() and json.loads(c.response)["tokens"] ==
+              oracle[p], f"incident b: first call {i}: {c.error_text}")
+    calls_s = time.monotonic() - t_calls
+    th.join(seconds + 60)
+    check("page" in got and got["page"][0] == 200,
+          f"incident b: /hotspots answered {got.get('page', (None,))[0]}")
+    prof = json.loads(got["page"][1])
+    folded = {k: v for k, v in prof["folded"].items()
+              if not k.startswith("thread:hotspots_client;")}
+    check(folded, "incident b: the profile has no busy sample")
+    later = []
+    ch = Channel(f"tcp://127.0.0.1:{port}",
+                 ChannelOptions(timeout_ms=120000))
+    try:
+        for i in range(INCIDENT_LATER_CALLS + 1):
+            p = prompts[i % len(prompts)]
+            t0 = time.perf_counter()
+            c = ch.call_sync("GenerateService", "Generate",
+                             _generate_body(p))
+            if i:                       # the first is this Channel's own
+                later.append((time.perf_counter() - t0) * 1e3)
+            check(not c.failed() and json.loads(c.response)["tokens"] ==
+                  oracle[p], f"incident b: later call {i}")
+    finally:
+        ch.close()
+    labels = {}
+    for stack, n in folded.items():
+        lbl = stack.split(";", 1)[0]
+        labels[lbl] = labels.get(lbl, 0) + n
+    # the stacks off the decode path: where the way in could spend host
+    # time (the last frames of each)
+    other = sorted(((n, ";".join(k.split(";")[-6:])) for k, n in
+                    folded.items() if not k.startswith(
+                        "rpc:GenerateService.Generate;")), reverse=True)
+    return {"profile_s": seconds, "calls_s": calls_s,
+            "calls_inside_profile": calls_s + 0.1 < seconds,
+            "first_call_ms": _p50_p99(first_ms),
+            "channel_ctor_ms": _p50_p99(ctor_ms),
+            "later_call_ms": _p50_p99(later),
+            "samples": prof["nsamples"],
+            "busy_samples": sum(folded.values()),
+            "busy_by_label": dict(sorted(labels.items(),
+                                         key=lambda kv: -kv[1])[:10]),
+            "idle_by_thread": dict(sorted(prof["idle_by_thread"].items(),
+                                          key=lambda kv: -kv[1])[:12]),
+            "top_other_stacks": other[:10],
+            **_folded_frames(folded)}
+
+
+def _incident_storm(prompts, oracle, window_oracle, gss: list) -> dict:
+    """(c) A shed storm leaves an incident artifact: a server at
+    max_concurrency 2, calm calls over the watchdog's warm-up ticks, then
+    INCIDENT_BURST concurrent Generate calls; the watchdog opens incident
+    #1 on server_limit_shed, calls inside the window are captured, the
+    artifact is bundled, listed on /incidents and downloadable, and the
+    incident closes after its calm ticks. The ticks are the bvar
+    sampler's own, once a second. The server's engine joins ``gss``."""
+    from brpc_tpu_torch.builtin import flight_recorder as fr
+    from brpc_tpu_torch.butil import resource_census
+    from brpc_tpu_torch.bvar.anomaly import global_watchdog
+    from brpc_tpu_torch.incident.artifact import read_artifact
+    from brpc_tpu_torch.incident.manager import global_manager
+    from brpc_tpu_torch.rpc import (Channel, ChannelOptions, Server,
+                                    ServerOptions)
+    from brpc_tpu_torch.rpc import errno_codes as berr
+    from brpc_tpu_torch.rpc.span import global_collector
+    from brpc_tpu_torch.serving import add_generate_service
+    from brpc_tpu_torch.traffic.capture import global_recorder
+    wd, mgr = global_watchdog(), global_manager()
+    wd.reset()
+    server = Server(ServerOptions(max_concurrency=2))
+    gs = add_generate_service(server)
+    check(str(gs.device) == "cuda:0", f"service device {gs.device}")
+    gss.append(gs)
+    port = server.start("tcp://127.0.0.1:0").port
+    out = {}
+    try:
+        ch = Channel(f"tcp://127.0.0.1:{port}",
+                     ChannelOptions(timeout_ms=120000, max_retry=0))
+        key = "server_limit_shed"
+
+        def warm_ticks():
+            st = wd._keys.get(key)
+            return st.n if st is not None else 0
+        # calm calls while the watchdog learns the key's baseline
+        t0 = time.monotonic()
+        i = 0
+        while warm_ticks() < 4 and time.monotonic() - t0 < 15:
+            p = prompts[i % len(prompts)]
+            c = ch.call_sync("GenerateService", "Generate",
+                             _generate_body(p))
+            check(not c.failed() and json.loads(c.response)["tokens"] ==
+                  oracle[p], f"incident c: calm call {i}")
+            i += 1
+        check(warm_ticks() >= 4 and not wd.incident_snapshot(),
+              f"incident c: warm-up: {warm_ticks()} ticks, incidents "
+              f"{wd.incident_snapshot()}")
+        out["calm_calls"] = i
+        shed_at = []
+
+        def done(c):
+            if c.error_code == berr.ELIMIT and not shed_at:
+                shed_at.append(time.monotonic())
+        storm = [(prompts[j % len(prompts)],
+                  ch.call("GenerateService", "Generate",
+                          _generate_body(prompts[j % len(prompts)]),
+                          done=done))
+                 for j in range(INCIDENT_BURST)]
+        for _, c in storm:
+            c.join()
+        sheds = [c for _, c in storm if c.failed()]
+        check(all(c.error_code == berr.ELIMIT for c in sheds) and sheds,
+              f"incident c: {len(sheds)} sheds, codes "
+              f"{sorted({c.error_code for c in sheds})}")
+        for p, c in storm:
+            check(c.failed() or json.loads(c.response)["tokens"] ==
+                  oracle[p], f"incident c: storm tokens for {p!r}")
+        check(_wait_for_value(mgr.window_open_now, 1, 10.0),
+              "incident c: no capture window opened")
+        opened_at = time.monotonic()
+        # the window opens on the sampler's tick, and the recorder starts
+        # just after it: calls count as in the window once it records
+        rec = global_recorder()
+        check(_wait_for_value(lambda: rec.incident_capturing() and
+                              rec.capturing(), True, 5.0),
+              "incident c: the recorder is not capturing the window")
+        in_window = list(window_oracle)
+        for p in in_window:
+            c = ch.call_sync("GenerateService", "Generate",
+                             _generate_body(p))
+            check(not c.failed() and json.loads(c.response)["tokens"] ==
+                  window_oracle[p], f"incident c: in-window call: "
+                                    f"{c.error_text}")
+        out["in_window_calls_inside"] = bool(mgr.window_open_now())
+        incs = wd.incident_snapshot()
+        check(len(incs) == 1 and incs[0]["id"] == 1 and
+              incs[0]["keys"] == [key],
+              f"incident c: incidents {incs}")
+
+        def closed():
+            s = wd.incident_snapshot()
+            return bool(s) and s[0]["state"] == "closed"
+        rows = []
+
+        def artifact_listed():
+            status, body = _http_page(port, "/incidents")
+            check(status == 200, f"incident c: /incidents {status}")
+            rows[:] = json.loads(body)["artifacts"]
+            return bool(rows)
+        closed_at = art_at = None
+        t_end = time.monotonic() + 20
+        while time.monotonic() < t_end and (closed_at is None or
+                                            art_at is None):
+            if closed_at is None and closed():
+                closed_at = time.monotonic()
+            if art_at is None and artifact_listed():
+                art_at = time.monotonic()
+            time.sleep(0.01)
+        check(closed_at is not None, "incident c: incident #1 never "
+                                     f"closed: {wd.incident_snapshot()}")
+        check(art_at is not None, "incident c: no artifact on /incidents")
+        check(len(rows) == 1, f"incident c: artifacts {rows}")
+        path = rows[0]["path"]
+        status, blob = _http_page(
+            port, "/incidents?action=download&path=" + path)
+        with open(path, "rb") as f:
+            on_disk = f.read()
+        check(status == 200 and blob == on_disk,
+              f"incident c: download {status}, {len(blob)} bytes against "
+              f"{len(on_disk)} on disk")
+        art = read_artifact(path)
+        meta = art["meta"]
+        check(meta.get("id") == 1 and key in meta.get("keys", []) and
+              meta.get("peak_key") == key,
+              f"incident c: the incident document {meta}")
+        captured = [json.loads(r.payload)["prompt"] for r in art["corpus"]]
+        check(set(in_window) <= set(captured) and all(
+            r.method_key == "GenerateService.Generate"
+            for r in art["corpus"]),
+              f"incident c: captured {captured}, wanted {in_window}")
+        spans = [s for s in global_collector.recent(1024)
+                 if any("incident #1" in t for _, t in s.annotations)]
+        check(spans, "incident c: no rpcz span carries incident #1")
+        labels = fr.global_recorder().merged()["labels"]
+        marked = [k for k in labels if k.startswith("incident:#1")]
+        check(marked, f"incident c: no profile window labelled: {labels}")
+        status, body = _http_page(port, "/census")
+        census = json.loads(body)
+        names = resource_census.registered_names()
+        check(status == 200 and set(names) <= set(census["subsystems"])
+              and not any("error" in census["subsystems"][n]
+                          for n in names),
+              f"incident c: /census {census} against {names}")
+        out.update({
+            "sheds": len(sheds), "served": INCIDENT_BURST - len(sheds),
+            "incident": wd.incident_snapshot()[0],
+            "first_shed_to_open_s": opened_at - shed_at[0]
+            if shed_at else None,
+            "close_to_artifact_s": art_at - closed_at,
+            "open_to_artifact_s": art_at - opened_at,
+            "artifact_bytes": len(on_disk),
+            "snapshots": sorted(art["snapshots"]),
+            "captured": len(captured), "in_window": len(in_window),
+            "spans_marked": len(spans), "profile_labels": marked,
+            "census": sorted(census["subsystems"]),
+            "census_total_bytes": census["total_bytes"]})
+        ch.close()
+    finally:
+        server.stop()
+        server.join(10)
+    return out
+
+
+def _incident_costs(port: int, prompts, oracle, capture_dir: str) -> dict:
+    """(d) Phase 3's burst in turns, INCIDENT_PAIRS pairs each, the order
+    of a pair alternating: the recorder at 20 Hz with the rings on
+    against both off; then capture at rate 1.0 against capture off."""
+    from brpc_tpu_torch.traffic.capture import (global_recorder,
+                                                start_capture, stop_capture)
+    runs = []
+
+    def burst(setting, on, turn):
+        res, errs, wall, lat, _ = _burst(port, prompts, MAX_TOKENS)
+        _check_burst(f"incident d {setting} {on}", res, errs, oracle)
+        tokens = sum(len(t) for t in res.values())
+        runs.append({"setting": setting, "on": on, "turn": turn,
+                     "tokens_per_s": tokens / wall, **_p50_p99(lat)})
+    for turn in range(INCIDENT_PAIRS):
+        for on in ((False, True) if turn % 2 == 0 else (True, False)):
+            _flags_set({"continuous_profiler_hz": 20 if on else 0,
+                        "bvar_series_enabled": on})
+            burst("recorder_and_rings", on, turn)
+    _flags_set({"continuous_profiler_hz": 20, "bvar_series_enabled": True})
+    for turn in range(INCIDENT_PAIRS):
+        for on in ((False, True) if turn % 2 == 0 else (True, False)):
+            if on:
+                start_capture(dir=capture_dir, default_rate=1.0,
+                              max_per_second=0)
+            burst("capture", on, turn)
+            if on:
+                snap = stop_capture()
+                check(snap["written"] == len(prompts),
+                      f"incident d: capture wrote {snap['written']}")
+    check(not global_recorder().capturing(), "incident d: capture left on")
+    summary = {}
+    for r in runs:
+        k = f"{r['setting']}_{'on' if r['on'] else 'off'}"
+        summary.setdefault(k, []).append(r)
+    return {"runs": runs, "summary": {
+        k: {"p50_ms_median": _median([r["p50_ms"] for r in v]),
+            "p99_ms_median": _median([r["p99_ms"] for r in v]),
+            "tokens_per_s_median": _median([r["tokens_per_s"] for r in v])}
+        for k, v in sorted(summary.items())}}
+
+
+def phase_incident(dev):
+    """Trend rings, the anomaly watchdog, the flight recorder, capture and
+    incidents on the card's Generate path, at phase 3's width: (a) the
+    rings and the continuous profile over phase 3's burst, (b) an
+    on-demand profile of first calls, (c) a shed storm's incident
+    artifact, (d) the cost of the recorder, the rings and capture.
+    Launch counts zeroed before each part and read after it:
+    ``flash_decode``'s equal to the part's decode steps and warm-ups,
+    and nothing else launched."""
+    import tempfile
+
+    # the modules that define the phase's flags
+    import brpc_tpu_torch.builtin.flight_recorder  # noqa: F401
+    import brpc_tpu_torch.incident.manager  # noqa: F401
+    from brpc_tpu_torch.rpc import Server
+    from brpc_tpu_torch.serving import (TinyDecoder, TinyDecoderConfig,
+                                        add_generate_service)
+
+    fa = _fa_module()
+    phase_t0 = time.monotonic()
+    prompts = _prompts()
+    cpu_model = TinyDecoder(TinyDecoderConfig(), device="cpu")
+    oracle = {p: cpu_model.generate(list(p.encode()), MAX_TOKENS)
+              for p in prompts}
+    window_oracle = {}                  # (c)'s calls inside the window
+    for j in range(INCIDENT_IN_WINDOW):
+        p = f"in-window {j}: {prompts[j]}"
+        window_oracle[p] = cpu_model.generate(list(p.encode()), MAX_TOKENS)
+    launches, out = {}, {}
+    gss = []
+
+    def counted(part, fn, *args):
+        progress(f"incident {part}")
+        fa.reset_launches()
+        before = sum(g.batcher.decode_steps + g.engine.warmup_steps
+                     for g in gss)
+        r = fn(*args)
+        _sync(dev)
+        got = dict(fa.launches)
+        steps = sum(g.batcher.decode_steps + g.engine.warmup_steps
+                    for g in gss) - before
+        launches[part] = dict(got, steps=steps)
+        check(got["flash_decode"] == steps > 0 and
+              sum(got.values()) == got["flash_decode"],
+              f"incident {part}: launched {got}, {steps} decode steps and "
+              f"warm-ups")
+        return r
+
+    tmp = tempfile.mkdtemp(prefix="incident-smoke-")
+    old = _flags_set(dict(INCIDENT_FLAGS, incident_dir=tmp))
+    server = None
+    try:
+        def start():
+            nonlocal server
+            server = Server()
+            gss.append(add_generate_service(server))
+            check(str(gss[-1].device) == "cuda:0",
+                  f"service device {gss[-1].device}")
+            return server.start("tcp://127.0.0.1:0").port
+        port = counted("a_start", start)
+        out["a"] = counted("a_rings_profile", _incident_rings_profile, port,
+                           prompts, oracle)
+        out["b"] = counted("b_way_in", _incident_way_in, port, prompts,
+                           oracle)
+        # the storm's server starts inside the count: its warm-up counts
+        out["c"] = counted("c_storm", _incident_storm, prompts, oracle,
+                           window_oracle, gss)
+        out["d"] = counted("d_costs", _incident_costs, port, prompts,
+                           oracle, os.path.join(tmp, "capture"))
+    finally:
+        if server is not None:
+            server.stop()
+            server.join(10)
+        _flags_set(old)
+    out["phase_s"] = time.monotonic() - phase_t0
+    for part in "abcd":
+        emit({"phase": "incident", "part": part, part: out[part]})
+    emit({"phase": "incident", "launches": launches,
+          "phase_s": out["phase_s"]})
+    out["launches"] = launches
+    return out
+
+
 def phase_paths(dev, split_inputs):
     """The port's two other paths, each driven through its public entry
     point with every count zeroed just before and read just after:
@@ -4123,6 +4660,10 @@ def main(only: str = "") -> int:
             # alone, flash_decode builds at the first replica's warm-up
             phase_cluster(dev)
             return 0
+        if only == "incident":
+            # alone, flash_decode builds at the first server's warm-up
+            phase_incident(dev)
+            return 0
         if only:
             {"streaming": phase_streaming,
              "observability": phase_observability}[only]()
@@ -4143,6 +4684,8 @@ def main(only: str = "") -> int:
         combo = phase_combo(dev)
         progress("phase cluster")
         cluster = phase_cluster(dev)
+        progress("phase incident")
+        incident = phase_incident(dev)
         progress("phase paths")
         paths = phase_paths(dev, split_inputs)
         progress("phase times")
@@ -4167,6 +4710,8 @@ def main(only: str = "") -> int:
     by_path["cluster_replicas"] = sum(
         v["flash_decode"] for k, v in ul.items() if k != "d_backup")
     by_path["cluster_backup_attend"] = ul["d_backup"]["flash_decode"]
+    by_path["incident"] = sum(v["flash_decode"]
+                              for v in incident["launches"].values())
     combine_by_path = {
         "long_cache_decode": paths["long_cache_decode"][
             "flash_decode_combine"],
@@ -4187,7 +4732,8 @@ def main(only: str = "") -> int:
     kernels = [
         _row("flash_decode", "serving: unary, stream and HTTP; device "
              "lanes: Attend; combo: nested Attend; cluster: three "
-             "replicas, backup Attend",
+             "replicas, backup Attend; incident: rings, profiles, a shed "
+             "storm, costs",
              sum(by_path.values()), sl["flash_decode"],
              sl["flash_decode"] / steps, errs["serving_decode"],
              times["decode"], launches_by_path=by_path,
@@ -4236,7 +4782,8 @@ if __name__ == "__main__":
                              traced="--rpcz" in sys.argv[4:]))
     if sys.argv[1:2] == ["--phase"]:
         if sys.argv[2:3] not in (["streaming"], ["observability"],
-                                 ["device_lane"], ["combo"], ["cluster"]):
+                                 ["device_lane"], ["combo"], ["cluster"],
+                                 ["incident"]):
             sys.exit(f"chip_smoke: unknown phase {sys.argv[2:]}")
         sys.exit(main(only=sys.argv[2]))
     sys.exit(main())

@@ -21,13 +21,12 @@ from brpc_tpu_torch.rpc.server import ServerOptions
 from brpc_tpu_torch.serving import add_generate_service
 
 # the reference's entries whose source the port does not have yet
-STATUS_LEFT_OUT = {"incidents", "saturation_timeline"}
+STATUS_LEFT_OUT = {"saturation_timeline"}
 SATURATION_LEFT_OUT = {
     "dispatch_batch_size_avg_10s", "dispatch_batch_size_peak_10s",
-    "socket_write_coalesced_frames",                 # input/write batching
-    "iobuf_pool_hit_ratio", "iobuf_pool_bytes"}      # IOBuf pool
+    "socket_write_coalesced_frames"}                 # input/write batching
 CONNECTIONS_LEFT_OUT = {"client_connections"}
-BUILTIN_METHODS_LEFT_OUT = {"capture", "census", "incidents", "timeline"}
+BUILTIN_METHODS_LEFT_OUT = set()
 # /serving: batcher fields that differ between the two lanes since the
 # port's first slices (the port names its device, keeps steps by fiber
 # worker group under its own name, and its TTFT window; the reference
@@ -92,7 +91,11 @@ def ref_server():
 PAGES = ["/", "/health", "/status", "/vars", "/vars/fiber",
          "/vars?prefix=serving_", "/brpc_metrics", "/metrics", "/flags",
          "/connections", "/serving", "/rpcz", "/rpcz?n=3",
-         "/rpcz?history=1", "/contentions", "/contentions?n=5", "/version"]
+         "/rpcz?history=1", "/contentions", "/contentions?n=5", "/version",
+         "/timeline", "/timeline?prefix=server_", "/census", "/capture",
+         "/incidents", "/fibers", "/fibers?stacks=1", "/bthreads",
+         "/threads", "/vlog", "/hotspots?mode=continuous",
+         "/hotspots?seconds=0.1&interval_ms=1", "/pprof/profile?seconds=0.1"]
 
 
 @pytest.mark.parametrize("path", PAGES)

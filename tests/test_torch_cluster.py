@@ -24,7 +24,8 @@ The cases run inside one collected test (``_run_cases``), each under a
 time limit of its own, so every other test file keeps its place in
 pytest-xdist's ``--dist loadfile`` queue (see test_torch_iobuf.py). No
 case may leave a socket registered with the port's dispatcher, nor a
-naming thread, a health-check probe or a PeriodicTask running.
+naming thread, a health-check probe, a PeriodicTask or one of the
+port's sampler, capture-writer and bundler threads running.
 """
 
 import json
@@ -73,20 +74,37 @@ def _wait_for(cond, timeout_s=5.0):
     return cond()
 
 
+# the port's threads that run until stopped: the flight recorder's
+# sampler, a capture recorder's writer and the incident bundler
+_PORT_LOOP_THREADS = ("flight_recorder", "capture_writer",
+                      "incident_bundler")
+
+
+def _port_loop_threads():
+    """Live threads of those names whose target is the port's (brpc_tpu
+    names its own the same)."""
+    return sorted(t.name for t in threading.enumerate()
+                  if t.name in _PORT_LOOP_THREADS and getattr(
+                      getattr(t, "_target", None), "__module__",
+                      "").startswith("brpc_tpu_torch."))
+
+
 def _running_loops():
-    """The port's fibers and timers that run until stopped: naming
-    services, health-check probes and PeriodicTasks."""
+    """The port's fibers, timers and threads that run until stopped:
+    naming services, health-check probes, PeriodicTasks, the flight
+    recorder's sampler, capture writers and the incident bundler."""
     return {"naming threads": port_naming.live_naming_threads(),
             "health checks": port_hc.live_checks(),
-            "PeriodicTasks": port_periodic.live_tasks()}
+            "PeriodicTasks": port_periodic.live_tasks(),
+            "threads": _port_loop_threads()}
 
 
 def _run_cases(cases, limit_s=CASE_LIMIT_S):
     """Run every (name, fn, args) case in order, each in a thread of its
     own under ``limit_s``; none may leave an fd registered with the
-    port's dispatcher, nor a naming thread, health check or
-    PeriodicTask running. Every failure is reported with its
-    traceback."""
+    port's dispatcher, nor a naming thread, health check, PeriodicTask,
+    flight recorder, capture writer or incident bundler running. Every
+    failure is reported with its traceback."""
     d = global_dispatcher()
     failed = []
     for name, fn, args in cases:

@@ -58,6 +58,9 @@ def test_import_leaves_jax_and_brpc_tpu_out():
         "import brpc_tpu_torch, brpc_tpu_torch.rpc, brpc_tpu_torch.ops\n"
         "import brpc_tpu_torch.serving, brpc_tpu_torch.serving.convert\n"
         "import brpc_tpu_torch.ops._build\n"
+        "import brpc_tpu_torch.builtin.flight_recorder\n"
+        "import brpc_tpu_torch.incident, brpc_tpu_torch.traffic\n"
+        "import brpc_tpu_torch.fiber.stacks, brpc_tpu_torch.butil.logging\n"
         f"forbidden = {FORBIDDEN_MODULES!r}\n"
         "bad = sorted(m for m in sys.modules if any(\n"
         "    m == f or m.startswith(f + '.') for f in forbidden))\n"

@@ -13,7 +13,9 @@
 - The sheds end to end, port to port and both ways across the wire:
   the queue-delay gate and the limiter shed ELIMIT before the handler,
   priority admission sheds EPRIORITYSHED and its threshold reaches the
-  client, which then sheds doomed sends itself; a ClusterChannel in
+  client, which then sheds doomed sends itself; the level's user slot
+  is the auth token's when the request has one, the client address's
+  otherwise, on both sides; a ClusterChannel in
   front of a shedding server keeps every call, drains no retry token
   and gives the shedding server no latency penalty.
 - ``/backends``, ``/lb_trace`` and the ``/status`` overload pane have
@@ -53,8 +55,9 @@ from test_torch_cluster import _FakeClock, _run_cases, _Side, _wait_for
 # test_torch_builtin.py)
 SATURATION_LEFT_OUT = {
     "dispatch_batch_size_avg_10s", "dispatch_batch_size_peak_10s",
-    "socket_write_coalesced_frames", "iobuf_pool_hit_ratio",
-    "iobuf_pool_bytes"}
+    "socket_write_coalesced_frames"}
+# a token whose user slot is the highest, 127 (crc32 & 127)
+TOP_SLOT_TOKEN = "tok-3"
 
 
 def _clocked(mods, fn):
@@ -308,6 +311,97 @@ def _priority_sheds():
             assert _counters(srv_kind)[1] == before[1] + 1
 
 
+class _LevelSpy:
+    """Wraps a server module's ``_request_level`` and keeps each call's
+    (priority, token, client address, level)."""
+
+    def __init__(self, sd):
+        self.sd, self.orig, self.seen = sd, sd._request_level, []
+
+    def __enter__(self):
+        def spy(priority, auth_token, socket):
+            level = self.orig(priority, auth_token, socket)
+            ep = socket.remote_endpoint
+            self.seen.append((priority, auth_token,
+                              f"tcp://{ep.host}:{ep.port}", level))
+            return level
+        self.sd._request_level = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.sd._request_level = self.orig
+
+
+def _engage(srv, threshold):
+    """Admission engaged at ``threshold``, with no window to close."""
+    adm = srv._admission
+    adm.WINDOW_S = 1e9
+    adm._armed, adm._threshold = True, threshold
+
+
+def _token_levels():
+    """With and without an auth token, the level a server computes is
+    brpc_tpu.rpc.admission's, both ways across the wire: the token's
+    slot when there is one, else the client address's."""
+    assert ref_adm.user_slot(TOP_SLOT_TOKEN) == 127
+    for cli, srv_kind in PAIRS:
+        with _Side(cli) as c, _Side(srv_kind) as s, \
+                _LevelSpy(port_sd if srv_kind == "port" else ref_sd) as spy:
+            srv, addr = _shed_server(s, priority_admission=True)
+            _engage(srv, 0)                 # engaged, sheds nothing
+            ch = c.channel(addr, max_retry=0)
+            for token in ("", "alice", TOP_SLOT_TOKEN):
+                for prio in (0, 2):
+                    cntl = c.controller()
+                    cntl.request_priority = prio
+                    cntl.auth_token = token
+                    r = ch.call_sync("Svc", "Who", b"", cntl=cntl)
+                    assert not r.failed(), (cli, srv_kind, r.error_text)
+            assert len(spy.seen) == 6, spy.seen
+            for prio, token, client, level in spy.seen:
+                slot = ref_adm.user_slot(token) if token \
+                    else ref_adm.user_slot(client)
+                assert level == ref_adm.compose_level(prio, slot), \
+                    (cli, srv_kind, prio, token, level)
+                assert level == port_adm.compose_level(
+                    prio, port_adm.user_slot(token or client))
+
+
+def _token_doomed_send():
+    """A client judges a doomed send by the server's level: with the
+    threshold at class 0's top slot, a call with a top-slot token still
+    goes out after the threshold came back, one without it fails at the
+    client (EPRIORITYSHED, client_priority_shed) before the wire."""
+    top = ref_adm.compose_level(0, 127)
+    for cli, srv_kind in PAIRS:
+        with _Side(cli) as c, _Side(srv_kind) as s:
+            srv, addr = _shed_server(s, priority_admission=True)
+            _engage(srv, top)
+            ch = c.channel(addr, max_retry=0)
+            cps = port_cps if cli == "port" else ref_cps
+
+            def call(token):
+                cntl = c.controller()
+                cntl.auth_token = token
+                return ch.call_sync("Svc", "Who", b"", cntl=cntl)
+            r = call(TOP_SLOT_TOKEN)    # at the threshold: served
+            assert not r.failed(), (cli, srv_kind, r.error_text)
+            # the connection's own slot is under 127 for this address
+            sock_slot = ref_adm.user_slot(
+                "tcp://127.0.0.1:%d" % next(iter(
+                    srv.connections())).remote_endpoint.port)
+            if sock_slot == 127:
+                continue                # the address is at the top too
+            before, n0 = _counters(srv_kind), cps.get_value()
+            r = call("")
+            assert r.error_code == berr.EPRIORITYSHED, (cli, srv_kind)
+            assert cps.get_value() == n0 + 1, (cli, srv_kind)
+            assert _counters(srv_kind) == before    # never reached it
+            r = call(TOP_SLOT_TOKEN)    # not doomed: the token's level
+            assert not r.failed(), (cli, srv_kind, r.error_text)
+            assert cps.get_value() == n0 + 1
+
+
 def _reject_discipline():
     """la over a server that sheds everything and one that serves: every
     call succeeds, the budget keeps its tokens, the shedding server's
@@ -419,6 +513,8 @@ CASES = [
     ("RpcResponseMeta field 3", _field3, ()),
     ("queue-delay and limiter sheds", _gate_sheds, ()),
     ("priority sheds and the client's cache", _priority_sheds, ()),
+    ("levels with and without a token, both ways", _token_levels, ()),
+    ("a token changes a doomed send's slot", _token_doomed_send, ()),
     ("the reject discipline", _reject_discipline, ()),
     ("/backends, /lb_trace and /status keys", _page_keys, ()),
 ]

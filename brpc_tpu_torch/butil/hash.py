@@ -2,13 +2,16 @@
 (butil/crc32c.cc) and murmur3 x64-128 (butil/third_party/murmurhash3,
 policy/hasher.cpp), which keys the ``c_murmurhash`` balancer's ring.
 
-Pure Python: brpc_tpu computes both through its native library when it
-loads and falls back to the same arithmetic, bit for bit.
+Both go through the port's native library (``brpc_tpu_torch.native``,
+hash.cc) when it loads; ``crc32c_py`` and ``murmur3_x64_128_py`` are the
+same arithmetic in Python, bit for bit, for a process without it.
 """
 
 from __future__ import annotations
 
 from typing import List
+
+from brpc_tpu_torch import native
 
 _CRC_POLY = 0x82F63B78
 _M64 = 0xFFFFFFFFFFFFFFFF
@@ -28,6 +31,11 @@ _CRC_TABLE = _crc_table()
 
 
 def crc32c(data: bytes, init: int = 0) -> int:
+    v = native.crc32c(data, init)
+    return crc32c_py(data, init) if v is None else v
+
+
+def crc32c_py(data: bytes, init: int = 0) -> int:
     crc = init ^ 0xFFFFFFFF
     for b in data:
         crc = _CRC_TABLE[(crc ^ b) & 0xFF] ^ (crc >> 8)
@@ -49,6 +57,11 @@ def _fmix64(k: int) -> int:
 
 def murmur3_x64_128(data: bytes, seed: int = 0) -> int:
     """The 128-bit hash as an int: ``(h2 << 64) | h1``."""
+    v = native.murmur3_x64_128(data, seed)
+    return murmur3_x64_128_py(data, seed) if v is None else v
+
+
+def murmur3_x64_128_py(data: bytes, seed: int = 0) -> int:
     c1, c2 = 0x87C37B91114253D5, 0x4CF5AD432745937F
     h1 = h2 = seed
     length = len(data)

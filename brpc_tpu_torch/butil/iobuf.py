@@ -446,6 +446,14 @@ class IOBuf:
                 n = 0
         return dropped
 
+    def first_host_view(self) -> Optional[memoryview]:
+        """A memoryview of the first ref: the contiguous head window the
+        native scanners read without a copy. None when empty or when the
+        head is a device ref."""
+        if self._refs and not self._refs[0].is_device:
+            return self._refs[0].memoryview()
+        return None
+
     # ------------------------------------------------------------ consume
     def to_bytes(self) -> bytes:
         if len(self._refs) == 1:

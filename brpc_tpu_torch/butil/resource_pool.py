@@ -64,3 +64,8 @@ class ResourcePool(Generic[T]):
             self._versions[slot] += 1
             self._free.append(slot)
             return obj
+
+    def live(self) -> int:
+        """The number of live ids."""
+        with self._lock:
+            return len(self._objs) - len(self._free)

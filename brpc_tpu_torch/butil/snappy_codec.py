@@ -1,6 +1,8 @@
-"""Snappy block format, pure Python (the port of
-brpc_tpu/butil/snappy_codec.py without its native path; the reference's
-policy/snappy_compress.cpp registers snappy as a wire compressor).
+"""Snappy block format (the port of brpc_tpu/butil/snappy_codec.py; the
+reference's policy/snappy_compress.cpp registers snappy as a wire
+compressor). ``compress_auto``/``decompress_auto`` take the port's native
+codec (``brpc_tpu_torch.native``, snappy.cc) when it loads and
+``compress``/``decompress``, pure Python, otherwise.
 
 A greedy hash-table matcher emits literal and copy elements over
 independent 64 KB fragments, with the same matcher and the same emission
@@ -203,3 +205,19 @@ def decompress(data) -> bytes:
     if len(out) != n:
         raise SnappyError(f"length mismatch: preamble {n}, got {len(out)}")
     return bytes(out)
+
+
+def compress_auto(data) -> bytes:
+    """Native snappy when the library loads, Python otherwise."""
+    from brpc_tpu_torch import native
+    v = native.snappy_compress(data)
+    return compress(data) if v is None else v
+
+
+def decompress_auto(data) -> bytes:
+    from brpc_tpu_torch import native
+    try:
+        v = native.snappy_decompress(data)
+    except ValueError as e:
+        raise SnappyError(str(e)) from None
+    return decompress(data) if v is None else v

@@ -1,0 +1,75 @@
+"""Loader of the ``_brpc_fastcore`` CPython extension (the port of
+brpc_tpu/native/fastcore.py).
+
+``get()`` returns the extension module, building it at the first call,
+or None: ``BRPC_TPU_TORCH_NO_NATIVE`` is set, or the build or the load
+failed (``load_error`` says why). Every consumer keeps its pure-Python
+lane. The extension puts the native cores on the per-call path:
+``pack_frame``/``pack_frame_head``/``parse_head`` (tpu_std framing),
+``scan_frames`` (the turbo lane), ``serve_scan``/``serve_drain`` (the
+echo loops), ``pluck_scan`` (the sync pluck lane), ``http_parse_request``,
+``Pool`` (versioned ids), ``Mpsc`` (the socket write queue) and
+``syscall_counts``.
+"""
+
+from __future__ import annotations
+
+import importlib.util
+import logging
+import sys
+import threading
+from typing import Optional
+
+from . import native_disabled
+
+log = logging.getLogger("brpc_tpu_torch.native")
+
+_lock = threading.Lock()
+_mod = None
+_tried = False
+load_error: Optional[str] = None
+
+
+def get():
+    global _mod, _tried, load_error
+    if _tried:
+        return _mod
+    with _lock:
+        if _tried:
+            return _mod
+        if not native_disabled():
+            try:
+                from .build import build_fastcore
+                path = build_fastcore()
+                spec = importlib.util.spec_from_file_location(
+                    "_brpc_fastcore", str(path))
+                # brpc_tpu's extension has the same name: the port's
+                # must not take its place in sys.modules
+                prev = sys.modules.get("_brpc_fastcore")
+                try:
+                    mod = importlib.util.module_from_spec(spec)
+                    spec.loader.exec_module(mod)
+                finally:
+                    if prev is None:
+                        sys.modules.pop("_brpc_fastcore", None)
+                    else:
+                        sys.modules["_brpc_fastcore"] = prev
+                _mod = mod
+            except Exception as e:      # no compiler, no Python.h
+                load_error = f"{type(e).__name__}: {e}"
+                log.warning("fastcore extension unavailable: %s",
+                            load_error)
+        _tried = True
+    return _mod
+
+
+def available() -> bool:
+    return get() is not None
+
+
+def _postfork_reset() -> None:
+    """A forked child keeps the loaded module; only the latch lock must
+    be fresh (left unregistered until the postfork registry is ported,
+    ROADMAP section 1 item 4)."""
+    global _lock
+    _lock = threading.Lock()

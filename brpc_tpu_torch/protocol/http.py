@@ -30,6 +30,13 @@ channel's load-balancing decisions), ``/contentions``, ``/version``;
 ``ServerOptions.health_reporter`` when there is one. ``/sockets``,
 ``/ids``, ``/shards`` and ``/protobufs`` wait for their modules
 (ROADMAP section 1).
+
+The native parse (brpc_tpu/protocol/http.py:41-160): with fastcore
+loaded, one C pass (``http_parse_request``, httpparse.cc) finds the
+head's end, splits the request line and builds the lowercased header
+dict; it answers exactly what ``parse_head`` would or defers (-2) to it,
+so the two lanes cannot differ. ``nnative_heads`` counts the requests
+whose head it read.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ import urllib.parse
 from dataclasses import dataclass, field
 from typing import Dict, Optional, Tuple
 
+from brpc_tpu_torch.bvar.reducer import Adder
 from brpc_tpu_torch.protocol.registry import (PARSE_NOT_ENOUGH_DATA,
                                               PARSE_OK, PARSE_TRY_OTHERS,
                                               Protocol, register_protocol)
@@ -132,6 +140,46 @@ def chunk(data: bytes) -> bytes:
 LAST_CHUNK = b"0\r\n\r\n"
 
 
+_fc = False             # the extension, resolved at the first head
+
+
+def _fastcore():
+    global _fc
+    if _fc is False:
+        from brpc_tpu_torch.native import fastcore
+        _fc = fastcore.get()
+    return _fc
+
+
+# request heads the native parse read
+nnative_heads = Adder().expose("http_native_heads")
+
+
+def native_parse_head(raw: bytes):
+    """``(head_len, HttpRequest)`` from fastcore's parse of ``raw`` (the
+    portal's first bytes, the body's not yet cut), ``None`` for more
+    bytes, ``"defer"`` when only ``parse_head`` can judge them (or no
+    extension), or raises HttpError where ``parse_head`` would."""
+    fc = _fastcore()
+    if fc is None:
+        return "defer"
+    r = fc.http_parse_request(raw, MAX_HEADER, MAX_BODY)
+    if r is None:
+        return None
+    if r == -2:
+        return "defer"
+    if not isinstance(r, tuple):
+        raise HttpError("unreadable request head")
+    head_len, method, target, n, keep_alive, headers = r
+    if "transfer-encoding" in headers:
+        raise HttpError("chunked request bodies are not supported")
+    split = urllib.parse.urlsplit(target)
+    return head_len, HttpRequest(
+        method=method.upper(), path=split.path, headers=headers,
+        content_length=n, keep_alive=bool(keep_alive),
+        query=dict(urllib.parse.parse_qsl(split.query)))
+
+
 class HttpProtocol(Protocol):
     name = "http"
     min_probe_bytes = PROBE_BYTES
@@ -140,18 +188,29 @@ class HttpProtocol(Protocol):
         if not is_request_start(portal.peek_bytes(PROBE_BYTES)):
             return PARSE_TRY_OTHERS, None
         raw = portal.peek_bytes(MAX_HEADER)
-        sep = raw.find(b"\r\n\r\n")
-        if sep < 0:
-            if portal.size >= MAX_HEADER:
-                return PARSE_TRY_OTHERS, None   # header flood: drop
-            return PARSE_NOT_ENOUGH_DATA, None
         try:
-            req = parse_head(raw[:sep])
+            got = native_parse_head(raw)
         except HttpError:
             return PARSE_TRY_OTHERS, None       # unreadable: drop
-        if portal.size < sep + 4 + req.content_length:
+        if got is None:
             return PARSE_NOT_ENOUGH_DATA, None
-        portal.pop_front(sep + 4)
+        native = got != "defer"
+        if not native:
+            sep = raw.find(b"\r\n\r\n")
+            if sep < 0:
+                if portal.size >= MAX_HEADER:
+                    return PARSE_TRY_OTHERS, None   # header flood: drop
+                return PARSE_NOT_ENOUGH_DATA, None
+            try:
+                got = sep + 4, parse_head(raw[:sep])
+            except HttpError:
+                return PARSE_TRY_OTHERS, None       # unreadable: drop
+        head_len, req = got
+        if portal.size < head_len + req.content_length:
+            return PARSE_NOT_ENOUGH_DATA, None
+        if native:
+            nnative_heads.add(1)
+        portal.pop_front(head_len)
         req.body = portal.cut(req.content_length).to_bytes()
         return PARSE_OK, req
 

@@ -40,6 +40,29 @@ which is the request's arrival for its deadline and its span);
 ``process`` sends requests to server dispatch and responses to client
 dispatch; ``process_inline`` hands bare stream frames to their stream in
 parse order.
+
+The native lanes (brpc_tpu/protocol/tpu_std.py:74-130, :261-290,
+:339-520), on fastcore (``brpc_tpu_torch/native``) when it loads:
+``pack_small_frame`` and ``pack_frame_head`` assemble a frame in one C
+allocation (their ``_py_`` twins give the same bytes); ``parse`` reads
+the header with fastcore's ``parse_head``; ``turbo_scan`` cuts every
+complete small frame off the portal's head and decodes the meta subset
+dispatch needs in one call (``scan_frames``), and ``turbo_dispatch``
+sends its records down the slim paths; ``native_serve`` serves a
+server's ``native="echo"`` method in C (``serve_scan``). (brpc_tpu's
+``batch_parse``, off by default there behind ``tpu_std_batch_parse`` and
+measured at parity with the per-frame path, is not ported: the ctypes
+``trpc_scan`` it runs is, in ``brpc_tpu_torch.native``.)
+
+The scanner judges a frame or defers it to the classic lane: it takes
+a request whose meta holds service, method and log id only, a response
+with an error code and text only, a bare stream frame with stream id,
+frame seq, credits (within int32) and close, each with a correlation id
+and an attachment size in bounds. Anything else stops the scan at that
+frame: device payloads (field 7), compression, trace ids, stream
+settings on a call or outside that vocabulary, ``timeout_ms``,
+``priority``, ``auth_token``, an admission threshold, unknown fields, a
+lying attachment size, a body over ``SMALL_FRAME_MAX``.
 """
 
 from __future__ import annotations
@@ -49,6 +72,7 @@ import time
 from dataclasses import dataclass, field
 from typing import List, Optional, Tuple
 
+from brpc_tpu_torch.bvar.reducer import Adder
 from brpc_tpu_torch.protocol.registry import (PARSE_NOT_ENOUGH_DATA,
                                               PARSE_OK, PARSE_TRY_OTHERS,
                                               Protocol, register_protocol)
@@ -57,6 +81,22 @@ MAGIC = b"TRPC"
 HEADER_SIZE = 12
 _HDR = struct.Struct(">4sII")
 MAX_BODY_SIZE = 64 << 20
+# frames up to this size take the one-allocation pack and the scan lanes
+SMALL_FRAME_MAX = 32768
+# scan_frames admits complete stream DATA frames up to this size beyond
+# SMALL_FRAME_MAX (0: off, as brpc_tpu measured no gain on big frames)
+STREAM_SCAN_MAX = 0
+
+# the extension resolves at first use, not at import (get() may build
+# it); False: not resolved yet
+_fc = False
+
+
+def _resolve_fc():
+    global _fc
+    from brpc_tpu_torch.native import fastcore
+    _fc = fastcore.get()
+    return _fc
 
 _TAG_CORRELATION_ID = 0x20   # field 4, wire type 0
 _TAG_ATTACHMENT_SIZE = 0x28  # field 5, wire type 0
@@ -427,17 +467,59 @@ class RpcMeta:
 # --------------------------------------------------------------- frames
 
 def pack_small_frame(meta_prefix: bytes, cid: int, payload: bytes,
-                         attachment: bytes = b"",
-                         magic: bytes = MAGIC) -> bytes:
+                     attachment: bytes = b"",
+                     magic: bytes = MAGIC) -> bytes:
     """A frame from an already-encoded constant meta prefix plus the
     per-call correlation_id and attachment_size (brpc_tpu's small-call
-    fast path; the same bytes as encoding the whole meta)."""
+    fast path; the same bytes as encoding the whole meta): fastcore's
+    ``pack_frame`` when it loads, ``_py_pack_small_frame`` else."""
+    fc = _fc if _fc is not False else _resolve_fc()
+    if fc is not None:
+        return fc.pack_frame(magic, meta_prefix, cid, payload, attachment)
+    return _py_pack_small_frame(meta_prefix, cid, payload, attachment,
+                                magic)
+
+
+def _py_pack_small_frame(meta_prefix: bytes, cid: int, payload: bytes,
+                         attachment: bytes = b"",
+                         magic: bytes = MAGIC) -> bytes:
     meta = meta_prefix + bytes((_TAG_CORRELATION_ID,)) + _varint(cid)
     if attachment:
         meta += bytes((_TAG_ATTACHMENT_SIZE,)) + _varint(len(attachment))
     body = len(meta) + len(payload) + len(attachment)
     return b"".join((_HDR.pack(magic, body, len(meta)), meta, payload,
                      attachment))
+
+
+def pack_frame_head(meta_prefix: bytes, cid: int, att_size: int,
+                    tail_len: int, magic: bytes = MAGIC) -> bytes:
+    """Header and meta of a frame whose payload (``tail_len`` bytes) and
+    attachment (``att_size``) follow as separate buffers: fastcore's
+    ``pack_frame_head``, or ``_py_pack_frame_head``."""
+    fc = _fc if _fc is not False else _resolve_fc()
+    if fc is not None:
+        return fc.pack_frame_head(magic, meta_prefix, cid, att_size,
+                                  tail_len)
+    return _py_pack_frame_head(meta_prefix, cid, att_size, tail_len, magic)
+
+
+def _py_pack_frame_head(meta_prefix: bytes, cid: int, att_size: int,
+                        tail_len: int, magic: bytes = MAGIC) -> bytes:
+    meta = meta_prefix + bytes((_TAG_CORRELATION_ID,)) + _varint(cid)
+    if att_size:
+        meta += bytes((_TAG_ATTACHMENT_SIZE,)) + _varint(att_size)
+    return _HDR.pack(magic, len(meta) + tail_len + att_size,
+                     len(meta)) + meta
+
+
+def request_meta_prefix(request: RpcRequestMeta,
+                        compress_type: int = 0) -> bytes:
+    """The meta's part before the correlation id for a call with no
+    stream, tensors or trace: ``pack_small_frame`` appends the rest."""
+    out = _len_field(1, request.encode())
+    if compress_type:
+        out += _key(3, _WT_VARINT) + _varint(compress_type)
+    return out
 
 
 def pack_stream_frame(peer_id: int, seq: int = 0, credits: int = 0,
@@ -567,21 +649,54 @@ def merge_device_arrays(msg: RpcMessage) -> List:
             for dp, t in zip(msg.meta.device_payloads, inline)]
 
 
+# records the turbo lane cut
+nscan_records = Adder().expose("tpu_std_scan_records")
+
+
+def _probe_head(portal):
+    """``(body_size, meta_size)`` from fastcore's ``parse_head`` on the
+    portal's head window, -1 for a definite disclaim, None when the
+    probe cannot say (no extension, a window shorter than a header)."""
+    fc = _fc if _fc is not False else _resolve_fc()
+    if fc is None:
+        return None
+    win = portal.first_host_view()
+    if win is None:
+        return None
+    try:
+        r = fc.parse_head(win, MAGIC)
+    finally:
+        win.release()
+    if r is None or r == -1:
+        return r
+    return r[0], r[1]
+
+
 class TpuStdProtocol(Protocol):
     name = "tpu_std"
     min_probe_bytes = len(MAGIC)
+    _scan_fn = False        # scan_frames, resolved at the first turbo scan
+    _serve_fn = False       # serve_scan, at the first native_serve
 
     def parse(self, portal, socket):
-        if portal.size < HEADER_SIZE:
-            head = portal.peek_bytes(len(MAGIC))
-            return (PARSE_NOT_ENOUGH_DATA if MAGIC.startswith(head)
-                    else PARSE_TRY_OTHERS), None
-        try:
-            body_size, meta_size = parse_header(
-                portal.peek_bytes(HEADER_SIZE))
-        except DecodeError:
-            # another magic, or sizes no frame has (a body past
-            # MAX_BODY_SIZE would buffer toward bytes that never come)
+        sizes = _probe_head(portal)
+        if sizes == -1:
+            # a mismatch is final even on a short window
+            return PARSE_TRY_OTHERS, None
+        if sizes is None:
+            if portal.size < HEADER_SIZE:
+                head = portal.peek_bytes(len(MAGIC))
+                return (PARSE_NOT_ENOUGH_DATA if MAGIC.startswith(head)
+                        else PARSE_TRY_OTHERS), None
+            try:
+                sizes = parse_header(portal.peek_bytes(HEADER_SIZE))
+            except DecodeError:
+                # another magic, or sizes no frame has
+                return PARSE_TRY_OTHERS, None
+        body_size, meta_size = sizes
+        if body_size > MAX_BODY_SIZE:
+            # a body past MAX_BODY_SIZE would buffer toward bytes that
+            # never come
             return PARSE_TRY_OTHERS, None
         if portal.size < HEADER_SIZE + body_size:
             # the input loop skips re-probing until the frame is here
@@ -600,6 +715,118 @@ class TpuStdProtocol(Protocol):
             # the lane batch went out right before this frame
             lane, recv = socket.take_device_payload_with_recv()
         return PARSE_OK, RpcMessage(meta, payload, attachment, lane, recv)
+
+    # -------------------------------------------------------- turbo lane
+    def turbo_scan(self, portal, socket):
+        """The records of every complete small frame at the portal's
+        head, cut and meta-decoded in one ``scan_frames`` call, their
+        payloads copied out before the pop; None when nothing was taken
+        (no extension, a short window, a frame it defers first). The cut
+        time of the run is left in ``socket.turbo_cut_ns``: a request
+        that falls back to the classic body takes it as its arrival. A
+        subclass keeps the classic path (its parse or process may differ,
+        which the records would skip)."""
+        if type(self) is not TpuStdProtocol:
+            return None
+        scan = self._scan_fn
+        if scan is False:
+            fc = _fc if _fc is not False else _resolve_fc()
+            scan = self._scan_fn = getattr(fc, "scan_frames", None)
+        if scan is None:
+            return None
+        win = portal.first_host_view()
+        if win is None:
+            return None
+        try:
+            if len(win) < HEADER_SIZE:
+                return None
+            consumed, recs = scan(win, MAGIC, SMALL_FRAME_MAX, 128,
+                                  STREAM_SCAN_MAX, 1)
+        finally:
+            win.release()
+        if not recs:
+            return None
+        socket.turbo_cut_ns = time.monotonic_ns()
+        portal.pop_front(consumed)
+        nscan_records.add(len(recs))
+        return recs
+
+    def native_serve(self, portal, socket) -> bool:
+        """Serve the portal's front run of small requests to the server's
+        ``native="echo"`` method in C (``serve_scan``: parse, dispatch
+        and the response frames in one call, one write). True when a
+        batch was served."""
+        if type(self) is not TpuStdProtocol:
+            return False
+        server = socket.user_data.get("server")
+        if server is None or server._native_echo is None:
+            return False
+        serve = self._serve_fn
+        if serve is False:
+            fc = _fc if _fc is not False else _resolve_fc()
+            serve = self._serve_fn = getattr(fc, "serve_scan", None)
+        if serve is None:
+            return False
+        from brpc_tpu_torch.rpc.server_dispatch import (native_echo_target,
+                                                        nserve_scan)
+        tgt = native_echo_target(server)
+        if tgt is None:
+            return False
+        win = portal.first_host_view()
+        if win is None:
+            return False
+        t0 = time.monotonic_ns()
+        try:
+            if len(win) < HEADER_SIZE:
+                return False
+            consumed, out, n = serve(win, MAGIC, tgt[0], tgt[1],
+                                     SMALL_FRAME_MAX)
+        finally:
+            win.release()
+        if not n:
+            return False
+        portal.pop_front(consumed)
+        socket.write(out)
+        nserve_scan.add(n)
+        server.account_native_batch(tgt[2], n,
+                                    (time.monotonic_ns() - t0) / 1e3)
+        return True
+
+    def turbo_dispatch(self, recs, socket):
+        """Dispatch ``turbo_scan`` records in parse order; returns the
+        pending processing of a request that fell back to the classic
+        body, as ``process`` does, for the caller to step."""
+        from brpc_tpu_torch.rpc.client_dispatch import process_response_fast
+        from brpc_tpu_torch.rpc.server_dispatch import process_request_fast
+        from brpc_tpu_torch.rpc.stream import process_stream_frame_fast
+        server = socket.user_data.get("server")
+        cut_ns = getattr(socket, "turbo_cut_ns", 0)
+        pending = []
+        last = len(recs) - 1
+        for i, rec in enumerate(recs):
+            kind = rec[0]
+            if kind == 1:
+                process_response_fast(rec[1], rec[2], rec[3], rec[4],
+                                      rec[5], socket)
+            elif kind == 2:
+                # order-critical: here, in parse order
+                process_stream_frame_fast(rec[1], rec[2], rec[3], rec[4],
+                                          rec[5], rec[6])
+            else:
+                r = process_request_fast(self, socket, server, rec[1],
+                                         rec[2], rec[3], rec[4], rec[5],
+                                         rec[6], is_last=(i == last),
+                                         arrival_ns=cut_ns)
+                if r is not None:
+                    pending.append(r)
+        if not pending:
+            return None
+        if len(pending) > 1:
+            # earlier fallbacks get fibers of their own, the last steps
+            # in place (the classic loop's rule)
+            socket._control.spawn_many(pending[:-1],
+                                       name="process_tpu_std")
+        return pending[-1]
 
     def process(self, msg: RpcMessage, socket):
         if msg.meta.request is not None:

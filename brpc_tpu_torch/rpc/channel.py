@@ -65,6 +65,18 @@ order; on tcp they are copied to the host and go inline in the frame.
 The response's tensors come back in ``cntl.response_device_arrays``.
 ``device_lane_kind()`` names the lane of the channel's connection.
 
+The native lanes (brpc_tpu/rpc/channel.py:117-127, :660-775): a call
+with no stream, tensors or trace and a request of at most
+``SMALL_FRAME_MAX`` bytes is framed in one C allocation from its meta
+prefix (``tpu_std.pack_small_frame``) and arms the sync pluck lane
+(``cntl._pluck_fast``): ``call_sync`` on a thread that is not a fiber
+worker claims the socket's input before the write
+(``Socket.pluck_preclaim``), and ``Controller.join`` reads the response
+itself (``Socket.pluck_until`` over fastcore's ``pluck_scan``). Every
+socket of a channel gets the client's chunk lane
+(``client_dispatch.make_client_fast_drain``), which turns itself off on
+an fd conn.
+
 Under the ``rpcz_enabled`` flag a call gets a client span
 (brpc_tpu/rpc/channel.py:487, :876; client_dispatch.py:137-150): its
 trace and span ids ride the request meta (fields 8-9), ``write_done_us``
@@ -86,6 +98,7 @@ from brpc_tpu_torch.butil.endpoint import str2endpoint
 from brpc_tpu_torch.butil.flags import flag
 from brpc_tpu_torch.bvar.reducer import Adder
 from brpc_tpu_torch.fiber import global_control
+from brpc_tpu_torch.fiber.scheduler import current_group
 from brpc_tpu_torch.fiber.timer import global_timer
 from brpc_tpu_torch.protocol import tpu_std
 from brpc_tpu_torch.transport.input_messenger import InputMessenger
@@ -150,6 +163,16 @@ def _client_messenger() -> InputMessenger:
     return _messenger
 
 
+_client_fdr = None      # the chunk lane's hook; False: no extension
+
+
+def _client_fast_drain():
+    global _client_fdr
+    if _client_fdr is None:
+        _client_fdr = client_dispatch.make_client_fast_drain() or False
+    return _client_fdr or None
+
+
 @dataclass
 class ChannelOptions:
     """The options of brpc_tpu/rpc/channel.py:131-188 that the port has:
@@ -209,6 +232,9 @@ class Channel:
         self._lock = threading.Lock()
         self._socket: Optional[Socket] = None
         self._closed = False
+        # the native core loads here, not on the first call: eight
+        # threads' first calls would queue behind its load
+        client_dispatch.warm()
 
     def _default_stats_name(self) -> str:
         return f"channel-{next(_chan_seq)}"
@@ -222,6 +248,7 @@ class Channel:
     def _dial(self, ep) -> Socket:
         s = create_client_socket(
             ep, on_input=_client_messenger().on_new_messages)
+        s.fast_drain = _client_fast_drain()
         # an ici:// dial completes with the peer's hello (the QP
         # bring-up): the first batch then goes, and is counted, on the
         # lane it really takes
@@ -287,6 +314,8 @@ class Channel:
         its priority, and a parent whose budget is spent fails it with
         ERPCTIMEDOUT before any socket work."""
         cntl = cntl or Controller()
+        # call_sync's mark: the first attempt may claim the pluck lane
+        sync = cntl.__dict__.pop("_sync_fast", False)
         if cntl.start_us:
             cntl._reset_for_call()      # a reused controller
         cntl.start_us = time.monotonic_ns() // 1000
@@ -344,13 +373,23 @@ class Channel:
             cntl._add_complete_hook(
                 lambda c, s=span: (_span.finish_span(s, c),
                                    _span.settle_attempt_spans(c)))
+        if sync:
+            cntl._sync_fast = True
         self._issue_rpc(cntl)
         # the deadline timer (HandleTimeout, final) and the backup timer.
         # The call may have completed during the issue: arming then would
         # pin the controller in the timer heap, so check before, and
         # after, since a completion on another thread can interleave
         seq = cntl._call_seq
-        if cntl.timeout_ms:
+        if cntl.timeout_ms and sync:
+            # call_sync's lazy deadline (brpc_tpu/rpc/channel.py:534-549):
+            # the joiner about to pluck enforces it, so a call answered
+            # in time never touches the timer heap; join() arms the timer
+            # as soon as the call leaves the pluck lane
+            if not cntl._completed:
+                cntl._pending_deadline = (self, seq,
+                                          cntl._deadline_ns / 1e9)
+        elif cntl.timeout_ms:
             self._arm(cntl, cntl.timeout_ms,
                       lambda: self._on_timeout(cntl, seq))
         if cntl.backup_request_ms and cntl.backup_request_ms > 0:
@@ -374,6 +413,8 @@ class Channel:
         ``response``, the response's tensors in
         ``response_device_arrays``, and ``stream`` when ``stream_options``
         set a stream up."""
+        cntl = cntl or Controller()
+        cntl._sync_fast = current_group() is None
         cntl = self.call(service, method, request, cntl=cntl, **kw)
         cntl.join(_join_budget(cntl))
         return cntl
@@ -397,6 +438,14 @@ class Channel:
         socket, register, write. A failure to connect or to write goes
         to the verdict like any other failed attempt."""
         cntl._issue_seq += 1
+        # per attempt: a retry may take the other framing, and only a
+        # first attempt of call_sync may claim the pluck lane
+        d = cntl.__dict__
+        d.pop("_pluck_fast", None)
+        sync = d.pop("_sync_fast", False)
+        pre = d.pop("_pluck_preclaimed", None)
+        if pre is not None:
+            pre.pluck_release()
         try:
             sock = self._pick_socket(cntl)
         except (OSError, ValueError) as e:
@@ -421,6 +470,7 @@ class Channel:
         if not cid:
             return                      # the call was taken meanwhile
         cntl.remote_side = sock.remote_endpoint
+        cntl._issue_socket = sock
         if _bs.enabled():
             self._bs_attempt_begin(cntl, sock)
         if cntl._client_span is not None:
@@ -442,9 +492,22 @@ class Channel:
                 stream_id=cntl.stream.id)
         arrays = cntl.request_device_arrays
         try:
-            wire, lane = tpu_std.pack_frame(
-                meta, cntl._request_bytes, device_arrays=arrays,
-                device_lane=bool(arrays) and sock.conn.supports_device_lane)
+            if not arrays and cntl.stream is None and not cntl.trace_id \
+                    and len(cntl._request_bytes) <= tpu_std.SMALL_FRAME_MAX:
+                # the small-call path: the same bytes as pack_frame, in
+                # one allocation, and a response the pluck scan can read
+                wire, lane = tpu_std.pack_small_frame(
+                    tpu_std.request_meta_prefix(meta.request,
+                                                cntl.compress_type),
+                    cid, cntl._request_bytes), None
+                d["_pluck_fast"] = (tpu_std.MAGIC, tpu_std.SMALL_FRAME_MAX)
+                if sync and sock.pluck_preclaim():
+                    d["_pluck_preclaimed"] = sock
+            else:
+                wire, lane = tpu_std.pack_frame(
+                    meta, cntl._request_bytes, device_arrays=arrays,
+                    device_lane=bool(arrays)
+                    and sock.conn.supports_device_lane)
             if lane is None:
                 written = sock.write(wire)
             else:

@@ -2,10 +2,10 @@
 (the port of brpc_tpu/rpc/compress.py; brpc/compress.{h,cpp} with
 policy/gzip_compress.cpp and snappy_compress.cpp).
 
-0 is none, 1 gzip (level 6), 2 zlib and 3 snappy (the port's pure codec,
-``butil/snappy_codec.py``). A client compresses its request once, before
-the first attempt; the server decompresses it and answers in the same
-kind. An unknown type is an error, never passed through.
+0 is none, 1 gzip (level 6), 2 zlib and 3 snappy (``butil/
+snappy_codec.py``: native when the port's library loads, else pure
+Python). A client compresses its request once, before the first
+attempt; the server decompresses it and answers in the same kind. An unknown type is an error, never passed through.
 """
 
 from __future__ import annotations
@@ -25,7 +25,8 @@ _codecs: Dict[int, Tuple[Callable[[bytes], bytes],
                          Callable[[bytes], bytes]]] = {
     COMPRESS_GZIP: (lambda b: gzip.compress(b, 6), gzip.decompress),
     COMPRESS_ZLIB: (zlib.compress, zlib.decompress),
-    COMPRESS_SNAPPY: (snappy_codec.compress, snappy_codec.decompress),
+    COMPRESS_SNAPPY: (snappy_codec.compress_auto,
+                      snappy_codec.decompress_auto),
 }
 
 

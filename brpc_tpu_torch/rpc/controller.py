@@ -2,7 +2,7 @@
 budget, the response, the call's tensors, the call's stream or
 progressive body, its trace, and on the client its retries and backup
 request, its credential and its payload's codec (the port of
-brpc_tpu/rpc/controller.py without the sync pluck lane).
+brpc_tpu/rpc/controller.py).
 
 Client side, a call has one completion point, ``_complete``
 (brpc_tpu/rpc/controller.py:428). A call may make several attempts (a
@@ -35,20 +35,41 @@ the request, and the server answers in the kind it was sent.
 
 Server side, ``is_canceled`` and ``notify_on_cancel`` follow the
 client's connection (``Socket.on_failed``).
+
+The sync pluck lane (brpc_tpu/rpc/controller.py:569-619): a joiner on a
+thread that is not a fiber worker reads its own response. It takes over
+the input of the socket its attempt went on (``_issue_socket``) with
+``Socket.pluck_until``, consuming the claim ``call_sync`` took before
+the write (``_pluck_preclaimed``), with fastcore's ``pluck_scan`` when
+the issue path armed it (``_pluck_fast``), until the call completes or
+the join's budget, clamped to the call's deadline, runs out; then it
+waits on the done event as before. A claim left on another socket (a
+retry moved the call) is released first. ``call_sync`` leaves the
+deadline to the plucker (``_pending_deadline``, the lazy deadline of
+brpc_tpu/rpc/controller.py:602-684): the joiner registers as the
+socket's lazy plucker while its attempt is the socket's one, fires the
+timeout itself when the pluck reaches the deadline, and arms the real
+timer (``_arm_lazy_deadline``) as soon as the call leaves the pluck
+lane, or when another attempt registers on the socket.
 """
 
 from __future__ import annotations
 
+import logging
 import threading
 import time
 from typing import Callable, List, Optional
 
+from brpc_tpu_torch.fiber.scheduler import current_group
 from brpc_tpu_torch.fiber.sync import FiberEvent
 from brpc_tpu_torch.fiber.timer import global_timer
 
 from . import errno_codes as berr
-from .client_dispatch import take_controller
+from . import client_dispatch
+from .client_dispatch import process_response_fast, take_controller
 from .progressive import ProgressiveAttachment
+
+log = logging.getLogger("brpc_tpu_torch.rpc")
 
 
 class Controller:
@@ -143,6 +164,8 @@ class Controller:
         self._request_bytes = b""
         self._call_seq = 0
         self._issue_seq = 0
+        # the socket of the attempt in flight (the pluck lane reads it)
+        self._issue_socket = None
         self._attempt_cids: List[int] = []
         self._taken = False
         # backend stats (rpc/backend_stats.py), attempt spans, the
@@ -235,6 +258,8 @@ class Controller:
         self.responded_server = None
         self.request_priority = 0
         self._issue_seq = 0
+        self._issue_socket = None
+        self.__dict__.pop("_pending_deadline", None)
         self._bs_attempts = []
         self._bs_resp_bytes = 0
         self._attempt_spans = []
@@ -323,13 +348,83 @@ class Controller:
 
     def join(self, timeout_s: Optional[float] = None) -> bool:
         """Block the calling thread until the call has completed; False
-        if ``timeout_s`` passed first."""
+        if ``timeout_s`` passed first. A thread that is not a fiber
+        worker plucks its response off the socket first."""
+        pre = self.__dict__.pop("_pluck_preclaimed", None)
+        try:
+            sock = self._issue_socket
+            if pre is not None and pre is not sock:
+                # a retry moved the call: the old claim holds that
+                # socket's reads off
+                pre.pluck_release()
+                pre = None
+            if not self._finalized and sock is not None \
+                    and not sock.failed and current_group() is None:
+                now = time.monotonic()
+                end = now + (timeout_s if timeout_s is not None
+                             else 86400.0)
+                pend = self.__dict__.get("_pending_deadline")
+                if pend is not None and \
+                        not client_dispatch.lazy_pluck_begin(sock, self):
+                    self._arm_lazy_deadline()
+                    pend = None
+                dl = self._deadline_ns
+                # past the deadline the timer (or, lazily, this thread)
+                # completes the call
+                pluck_end = end if dl is None else min(end, dl / 1e9)
+                pf = self.__dict__.get("_pluck_fast")
+                fast = None if pf is None else \
+                    (pf[0], self.correlation_id, pf[1],
+                     process_response_fast)
+                claimed = pre is sock
+                pre = None
+                try:
+                    done = sock.pluck_until(lambda: self._finalized,
+                                            pluck_end, fast=fast,
+                                            preclaimed=claimed)
+                except Exception:       # the lane is a way, not a verdict
+                    log.exception("pluck lane failed; waiting instead")
+                    done = self._finalized
+                finally:
+                    if pend is not None:
+                        client_dispatch.lazy_pluck_end(sock, self)
+                if not done and pend is not None and \
+                        self.__dict__.get("_pending_deadline") is pend \
+                        and time.monotonic() >= pend[2]:
+                    # the pluck reached the deadline: the timeout path,
+                    # as the timer would take it
+                    self.__dict__.pop("_pending_deadline", None)
+                    pend[0]._on_timeout(self, pend[1])
+                    done = self._finalized
+                if done:
+                    self.__dict__.pop("_pending_deadline", None)
+                    return True
+                if timeout_s is not None:
+                    timeout_s = max(0.0, end - time.monotonic())
+        finally:
+            if pre is not None:
+                pre.pluck_release()
+        # off the pluck lane (a fiber caller, a failed socket, an
+        # escalation): the deadline needs its timer
+        self._arm_lazy_deadline()
         ev = self._join_event()
         return True if ev is None else ev.wait_pthread(timeout_s)
+
+    def _arm_lazy_deadline(self) -> None:
+        """Arm the timer of a deadline left to the plucker; from here on
+        the deadline is enforced as an eager one is. Any thread may call
+        it: the pending deadline is taken once."""
+        pend = self.__dict__.pop("_pending_deadline", None)
+        if pend is None or self._finalized:
+            return
+        ch, seq, dl = pend
+        ch._arm(self, max(0.0, dl - time.monotonic()) * 1e3,
+                lambda: ch._on_timeout(self, seq))
 
     async def join_async(self, timeout_s: Optional[float] = None) -> bool:
         """Park the calling fiber until the call has completed; False if
         ``timeout_s`` passed first."""
+        self._arm_lazy_deadline()       # a fiber cannot pluck
         ev = self._join_event()
         return True if ev is None else await ev.wait(timeout_s)
 

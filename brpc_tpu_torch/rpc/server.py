@@ -49,6 +49,13 @@ incident manager, and makes sure the trend rings tick
 method's ``LatencyRecorder`` (``method_status``). Under the
 ``rpcz_enabled`` flag a tpu_std call gets a server span, stamped in
 ``server_dispatch.py``; an HTTP call gets none, as in the reference.
+
+The native core (brpc_tpu/rpc/server.py:474-495): a server with a
+``native="echo"`` method gives each new connection the per-event hook
+of ``server_dispatch.make_fast_drain`` (fastcore's ``serve_drain``), and
+``account_native_batch`` counts what the C echo loops served.
+``start`` exposes the syscall counters (``transport/syscall_stats.py``).
+The ring-lane branch waits for the ring lane (ROADMAP section 1).
 """
 
 from __future__ import annotations
@@ -158,6 +165,10 @@ class Server:
         self.method_status: Dict[str, LatencyRecorder] = {}
         self.nprocessed = 0
         self.nerror = 0
+        # (service, method, "Service.Method") bytes of the first
+        # native="echo" method, and its per-event hook (False: none)
+        self._native_echo: Optional[Tuple[bytes, bytes, str]] = None
+        self._fast_drain_hook = None
         self._build_limiters()
         # resolved once, as the reference does at Server::Start
         self._auth = resolve_server_auth(self.options)
@@ -205,6 +216,9 @@ class Server:
         for name, m in service.methods.items():
             m.full_name = f"{service.name}.{name}"
             self._methods[(service.name, name)] = m
+            if m.native_kind == "echo" and self._native_echo is None:
+                self._native_echo = (service.name.encode(), name.encode(),
+                                     m.full_name)
 
     def services(self) -> Dict[str, Service]:
         return dict(self._services)
@@ -281,6 +295,13 @@ class Server:
         s = Socket(conn, on_input=self._messenger.on_new_messages,
                    control=self.control)
         s.user_data["server"] = self
+        if self._native_echo is not None:
+            hook = self._fast_drain_hook
+            if hook is None:            # resolved once; False: none
+                hook = self._fast_drain_hook = \
+                    server_dispatch.make_fast_drain(self) or False
+            if hook is not False:
+                s.fast_drain = hook
         with self._sockets_lock:
             self._sockets.add(s)
         s.on_failed(self._forget)
@@ -325,6 +346,9 @@ class Server:
             lambda s: s._admission.wire_threshold()
             if s._admission is not None else 0)).expose(
             "server_admission_threshold")
+        from brpc_tpu_torch.transport.syscall_stats import (
+            expose_syscall_vars)
+        expose_syscall_vars()
         server_dispatch.nshed.expose("server_deadline_shed")
         server_dispatch.nlimit_shed.expose("server_limit_shed")
         server_dispatch.npriority_shed.expose("server_priority_shed")
@@ -386,6 +410,19 @@ class Server:
         if ml is not None:
             ml.on_responded(latency_us, failed, cost)
         lr.record(latency_us)
+
+    def account_native_batch(self, method_key: str, n: int,
+                             total_us: float) -> None:
+        """What a C echo loop served: the counts and the method's
+        latencies. Such methods never block, so they pass no limiter."""
+        from brpc_tpu_torch.transport.syscall_stats import note_rpc_messages
+        note_rpc_messages(n)
+        with self._idle:
+            self.nprocessed += n
+            lr = self.method_status.get(method_key)
+            if lr is None:
+                lr = self.method_status[method_key] = LatencyRecorder()
+        lr.record_batch(total_us / n, n)
 
     def _request_done(self) -> None:
         """A call answered: ``join`` waits for the last one."""

@@ -76,8 +76,26 @@ while the traffic recorder (``traffic/capture.py``) is on, a request is
 sampled after its payload is decompressed, and its record completes
 with the call's error code and latency, on every way out after that
 (the interceptor's refusal, the deadline at handler entry, the
-handler's end); a request shed before it is not recorded. The
-reference's fast drains are still to port (ROADMAP section 1).
+handler's end); a request shed before it is not recorded.
+
+The native lanes (brpc_tpu/rpc/server_dispatch.py:550-893).
+``process_request_fast`` takes a request record of the turbo lane
+(``TpuStdProtocol.turbo_scan``): the scanner has already refused every
+meta that needs more than service, method and log id, so the slim body
+(``_drive_fast``) keeps the gates that still apply (``is_running``, the
+admission level of priority 0 and the connection's slot, the queue-delay
+shed before and after the hop to a worker, the limiters, capture) and
+drops the rest. A server whose options need the classic body (auth, an
+interceptor, a session pool, ``usercode_in_pthread``:
+``_server_turbo_ok``), or a process under ``rpcz_enabled``, sends each
+record through ``process_request`` instead, as a message rebuilt from
+it. ``make_fast_drain`` builds the per-event hook of a server with a
+``native="echo"`` method: fastcore's ``serve_drain`` reads the fd and
+serves the echo frames in one C call; what it cannot serve goes back
+into the portal, and a connection that keeps deferring (16 passes in a
+row) or speaks another protocol loses the hook. Both echo loops stand
+down while rpcz, capture or the admission threshold is on
+(``native_echo_target``): they cannot record or judge levels.
 """
 
 from __future__ import annotations
@@ -112,6 +130,12 @@ nshed = Adder()
 nlimit_shed = Adder()
 # requests shed with EPRIORITYSHED by the admission threshold
 npriority_shed = Adder()
+# turbo-lane requests served by the slim body, and those sent back to the
+# classic body; echo calls the C loops served, by loop
+nturbo_requests = Adder().expose("turbo_requests")
+nturbo_fallbacks = Adder().expose("turbo_fallbacks")
+nserve_drain = Adder().expose("native_echo_drain_calls")
+nserve_scan = Adder().expose("native_echo_scan_calls")
 
 # the controller of the request this fiber serves; set around the
 # request's residence only, since a fiber that served one request must
@@ -489,3 +513,261 @@ def _send_error(proto, socket, cid: int, code: int, text: str) -> None:
     cntl.correlation_id = cid
     cntl.set_failed(code, text)
     _send_response(proto, socket, cntl, b"")
+
+
+# ----------------------------------------------------------- native lanes
+
+def _server_turbo_ok(server) -> bool:
+    """Whether the slim body can serve this server's requests, resolved
+    once: auth, an interceptor, a session pool and usercode_in_pthread
+    need the classic body."""
+    ok = server.__dict__.get("_turbo_ok")
+    if ok is None:
+        o = server.options
+        ok = server._turbo_ok = (
+            server._auth is None and o.interceptor is None
+            and server.session_local_pool is None
+            and not o.usercode_in_pthread)
+    return ok
+
+
+def native_echo_target(server):
+    """``(service, method, key)`` bytes of the server's ``native="echo"``
+    method while the C echo loops may serve it, else None: they cannot
+    record spans or capture, judge admission levels or answer ELOGOFF."""
+    tgt = server._native_echo
+    if tgt is None or not server.is_running or \
+            not _server_turbo_ok(server) or flag("rpcz_enabled") or \
+            _cap.global_recorder().capture_enabled():
+        return None
+    adm = server._admission
+    if adm is not None and adm.threshold_engaged():
+        return None
+    return tgt
+
+
+def _synth_request_msg(cid: int, service: str, method_name: str,
+                       log_id: int, payload: bytes, att: bytes,
+                       arrival_ns: int) -> tpu_std.RpcMessage:
+    """The classic body's message for a turbo record."""
+    meta = tpu_std.RpcMeta(
+        request=tpu_std.RpcRequestMeta(service, method_name, log_id),
+        correlation_id=cid, attachment_size=len(att))
+    msg = tpu_std.RpcMessage(meta, payload, att)
+    if arrival_ns:
+        msg.arrival_ns = arrival_ns
+    return msg
+
+
+def process_request_fast(proto, socket, server, cid: int, service: str,
+                         method_name: str, log_id: int, payload: bytes,
+                         att: bytes, is_last: bool = True,
+                         arrival_ns: int = 0):
+    """Dispatch one request record of the turbo lane. None when it was
+    handled here (answered, run in place or spawned), or the classic
+    ``process_request`` coroutine for the caller to run."""
+    if server is None or not _server_turbo_ok(server) or \
+            flag("rpcz_enabled"):
+        nturbo_fallbacks.add(1)
+        return process_request(
+            proto, _synth_request_msg(cid, service, method_name, log_id,
+                                      payload, att, arrival_ns), socket)
+    method = server.find_method(service, method_name)
+    if method is None:
+        known = service in server.services()
+        _send_error(proto, socket, cid,
+                    berr.ENOMETHOD if known else berr.ENOSERVICE,
+                    f"{service}.{method_name} not found")
+        return None
+    if not server.is_running:
+        _send_error(proto, socket, cid, berr.ELOGOFF, "server is stopping")
+        return None
+    # the record carries no priority and no token by construction (the
+    # scanner defers both): the level is class 0 and the connection's slot
+    level = 0
+    counted = False
+    adm = server._admission
+    if adm is not None and adm.threshold_engaged():
+        level = _request_level(0, "", socket)
+        counted = True
+        if not adm.admit_level(level):
+            npriority_shed.add(1)
+            _send_error(proto, socket, cid, berr.EPRIORITYSHED,
+                        "priority below admission threshold "
+                        "(server overloaded)")
+            return None
+    if _queue_delay_shed(server, arrival_ns, level, counted):
+        _send_error(proto, socket, cid, berr.ELIMIT,
+                    "queue delay over shed budget (server overloaded)")
+        return None
+    cost = server.on_request_start(method.full_name,
+                                   len(payload) + len(att), level, counted)
+    if not cost:
+        _send_error(proto, socket, cid, berr.ELIMIT,
+                    "max_concurrency reached")
+        return None
+    nturbo_requests.add(1)
+    server._request_begin()
+    coro = _drive_fast(proto, socket, server, method, cid, log_id, payload,
+                       att, arrival_ns, cost)
+    if not method.is_coroutine and not is_last:
+        # a blocking handler of a burst's earlier request gets a fiber of
+        # its own, so it cannot hold the burst behind it
+        socket._control.spawn(coro, name=method.full_name)
+    else:
+        socket._control.run_inline(coro, name=method.full_name)
+    return None
+
+
+async def _drive_fast(proto, socket, server, method, cid: int, log_id: int,
+                      payload: bytes, att: bytes, arrival_ns: int,
+                      cost: float) -> None:
+    """The slim request body: the classic ``_serve`` without what the
+    record cannot carry (a deadline, tensors, a span, a codec, a stream,
+    auth)."""
+    t0 = time.monotonic_ns()
+    cntl = Controller()
+    cntl.correlation_id = cid
+    cntl._server_socket = socket
+    cntl.log_id = log_id
+    cntl.remote_side = socket.remote_endpoint
+    cntl._service_name, _, cntl._method_name = \
+        method.full_name.partition(".")
+    socket.last_method = method.full_name
+    _serving_cntl.set(cntl)
+    try:
+        rec = _cap.global_recorder()
+        cap_rec = None
+        try:
+            if rec.capture_enabled():
+                cap_rec = rec.sample_request(method.full_name, "", "",
+                                             payload, att, arrival_ns or t0,
+                                             0, log_id, 0)
+        except Exception:
+            cap_rec = None
+        if not method.is_coroutine and current_group() is None:
+            await _HopToWorker()
+            if _queue_delay_shed(server, arrival_ns):
+                # aged behind busy workers past the budget
+                server.on_request_end(method.full_name, 0.0, True, cost)
+                cntl.set_failed(berr.ELIMIT,
+                                "queue delay over shed budget before "
+                                "handler entry (server overloaded)")
+                _capture_done(rec, cap_rec, cntl, t0)
+                _send_response(proto, socket, cntl, b"")
+                return
+        h0 = time.monotonic_ns()
+        try:
+            response = method.handler(cntl, payload)
+            if inspect.isawaitable(response):
+                response = await response
+        except Exception as e:          # boundary: report, keep serving
+            log.exception("handler %s failed", method.full_name)
+            cntl.set_failed(berr.EINTERNAL, f"{type(e).__name__}: {e}")
+            response = b""
+        server.on_request_end(method.full_name,
+                              (time.monotonic_ns() - h0) / 1e3,
+                              cntl.failed(), cost)
+        _capture_done(rec, cap_rec, cntl, t0)
+        _send_response(proto, socket, cntl, response or b"")
+    finally:
+        _serving_cntl.set(None)
+        cntl._drop_cancel_subs()
+        server._request_done()
+
+
+def make_fast_drain(server):
+    """The per-event hook of a server with a ``native="echo"`` method
+    (``Socket.fast_drain``): one ``serve_drain`` call reads the readable
+    fd and echo-serves its front run of frames; the bytes it cannot
+    serve go back into the portal for the classic pass. On a chunk conn
+    (``mem://``) ``serve_scan`` reads the writer's chunks instead. None
+    without the extension."""
+    from brpc_tpu_torch.native import fastcore
+    from brpc_tpu_torch.transport.socket import nreads, pull_chunks
+    fc = fastcore.get()
+    sd = getattr(fc, "serve_drain", None) if fc is not None else None
+    ss = getattr(fc, "serve_scan", None) if fc is not None else None
+    if sd is None or ss is None:
+        return None
+    magic, max_body = tpu_std.MAGIC, tpu_std.SMALL_FRAME_MAX
+
+    def _defer_streak(sock, served: bool) -> None:
+        """A connection that keeps deferring (a tpu_std client that
+        never calls the echo method) loses the hook after 16 passes in a
+        row; a served frame resets the streak."""
+        ud = sock.user_data
+        if served:
+            ud["_fdrain_defer_streak"] = 0
+            return
+        streak = ud["_fdrain_defer_streak"] = \
+            ud.get("_fdrain_defer_streak", 0) + 1
+        if streak >= 16:
+            sock.fast_drain = None
+
+    def _served(sock, tgt, out, n, t0) -> None:
+        sock.write(out)
+        nserve_drain.add(n)
+        server.account_native_batch(tgt[2], n,
+                                    (time.monotonic_ns() - t0) / 1e3)
+
+    def fast_drain(sock) -> bool:
+        tgt = native_echo_target(server)
+        if tgt is None or sock.input_portal or sock.input_need:
+            return False
+        if getattr(sock.conn, "pluck_fd", None) is not None:
+            dfd = sock.pin_fd_acquire()
+            if dfd < 0:
+                return False
+            t0 = time.monotonic_ns()
+            try:
+                r = sd(dfd, magic, tgt[0], tgt[1], max_body)
+            finally:
+                sock.pin_fd_release()
+            if r[-1]:
+                nreads.add(r[-1])
+            if r[0] == 0:
+                _, out, n, leftover, _nr = r
+                _served(sock, tgt, out, n, t0)
+                _defer_streak(sock, True)
+                if leftover:
+                    sock.input_portal.append_user_data(leftover)
+                    return False
+                return True
+            if r[0] == 1:
+                leftover = r[1]
+                if not leftover:
+                    return True         # a spurious wake
+                if not magic.startswith(leftover[:4]):
+                    # at a frame boundary: another protocol (HTTP)
+                    sock.fast_drain = None
+                else:
+                    _defer_streak(sock, False)
+                sock.input_portal.append_user_data(leftover)
+                return False
+            # 2: the end or an error; bytes before it go first, and the
+            # classic drain sees the end again
+            if r[2]:
+                sock.input_portal.append_user_data(r[2])
+                return False
+            sock.set_failed(ConnectionResetError(r[1]))
+            return True
+        data, handled = pull_chunks(sock)
+        if data is None:
+            return handled
+        t0 = time.monotonic_ns()
+        consumed, out, n = ss(data, magic, tgt[0], tgt[1], max_body)
+        if n:
+            _served(sock, tgt, out, n, t0)
+        if consumed < len(data):
+            rest = data[consumed:] if consumed else data
+            if not n and not magic.startswith(rest[:4]):
+                sock.fast_drain = None
+            else:
+                _defer_streak(sock, bool(n))
+            sock.input_portal.append_user_data(rest)
+            return False
+        _defer_streak(sock, bool(n))
+        return True
+
+    return fast_drain

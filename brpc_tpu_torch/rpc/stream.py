@@ -1,5 +1,5 @@
 """Streaming RPC: the port of brpc_tpu/rpc/stream.py (bRPC's stream.h,
-SURVEY.md §2.6), without the native scan lane.
+SURVEY.md §2.6).
 
 A stream is set up on an RPC: the client's request carries its stream
 id in ``stream_settings``, the handler accepts (``stream_accept``) and
@@ -40,6 +40,16 @@ stream's pair without the lock).
 Stream ids come from one registry per process, as the reference's
 ResourcePool: frames name their stream by id whichever connection they
 arrive on. Id 0 is invalid (proto3's default), and ids are not reused.
+
+The scan lane (brpc_tpu/rpc/stream.py:351-420): a bare stream frame that
+fastcore's ``scan_frames`` cut and decoded (the turbo lane, the chunk
+drain) goes to ``process_stream_frame_fast``, the twin of
+``Stream._on_frame``: keep the two in lockstep. The scanner defers a
+frame with tensors or with stream settings outside its record (a set
+``need_feedback``, credits past int32), so the fast twin delivers the
+same ``StreamMessage`` the classic lane does. (brpc_tpu's
+``FastStreamMsg`` exists to rebuild a protobuf meta lazily; the port's
+``StreamMessage`` carries no meta, so it has no such class.)
 """
 
 from __future__ import annotations
@@ -51,6 +61,7 @@ import threading
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional
 
+from brpc_tpu_torch.bvar.reducer import Adder
 from brpc_tpu_torch.fiber import (WAIT_TIMEOUT, Butex, ExecutionQueue,
                                   FiberEvent)
 from brpc_tpu_torch.protocol import tpu_std
@@ -315,6 +326,28 @@ def process_stream_frame(msg: tpu_std.RpcMessage) -> None:
     stream = _registry.address(msg.meta.stream_settings.stream_id)
     if stream is not None:
         stream._on_frame(msg)
+
+
+# frames delivered by the scan lane (process_stream_frame_fast)
+nfast_frames = Adder().expose("stream_fast_frames")
+
+
+def process_stream_frame_fast(sid: int, seq: int, credits: int, close: int,
+                              payload: bytes, att: bytes) -> None:
+    """A ``scan_frames`` stream record, in parse order: the twin of
+    ``Stream._on_frame`` (brpc_tpu/rpc/stream.py:398)."""
+    stream = _registry.address(sid)
+    if stream is None:
+        return                  # closed or unknown: dropped
+    nfast_frames.add(1)
+    if credits:
+        stream._credits.fetch_add(credits)
+        stream._credits.wake_all()
+    if close:
+        stream._remote_close_once()
+        return
+    if seq:
+        stream._recv_q.execute(StreamMessage(payload, att, []))
 
 
 def stream_accept(cntl, options: Optional[StreamOptions] = None

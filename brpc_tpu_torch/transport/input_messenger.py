@@ -21,6 +21,16 @@ suspends.
 A prefix that every protocol disclaims drops the connection, unless it
 is shorter than some protocol's ``min_probe_bytes``: then it waits for
 more bytes.
+
+The turbo lane (brpc_tpu/transport/input_messenger.py:172-260): a
+protocol with ``turbo_scan`` (tpu_std, on fastcore) first serves what its
+``native_serve`` can in C, then cuts and meta-decodes every complete
+small frame of the whole portal, scan after scan, before it dispatches
+any (``turbo_dispatch``); the classic loop takes what the scans left. The
+lane is tried on a connection's first bytes too, where no protocol has
+claimed the connection yet (the reference waits for one classic parse):
+the scan disclaims bytes that are not its protocol's by returning
+nothing.
 """
 
 from __future__ import annotations
@@ -35,6 +45,7 @@ from brpc_tpu_torch.bvar.reducer import Adder
 from brpc_tpu_torch.fiber import TaskControl, global_control
 from brpc_tpu_torch.protocol.registry import (PARSE_NOT_ENOUGH_DATA,
                                               PARSE_OK, get_protocols)
+from brpc_tpu_torch.transport import syscall_stats as _syscall_stats
 
 define_flag("dispatch_inline_budget", 16,
             "responses of one input burst processed in place before the "
@@ -49,6 +60,7 @@ _batch_cycles = Adder().expose("dispatch_batches")
 def record_dispatch_batch(n: int) -> None:
     _batch_msgs.add(n)
     _batch_cycles.add(1)
+    _syscall_stats.note_rpc_messages(n)
 
 
 async def _drive(work) -> None:
@@ -79,6 +91,9 @@ class InputMessenger:
                 return None
             socket.input_need = 0
         protocols = self.protocols()
+        tail = self._turbo(socket, protocols)
+        if tail is not None or not portal:
+            return tail
         msgs = []
         while portal:
             idx = socket.preferred_protocol
@@ -131,6 +146,50 @@ class InputMessenger:
         proto, msg = msgs[-1]
         r = proto.process(msg, socket)
         return r if inspect.isawaitable(r) else None
+
+
+    def _turbo(self, socket, protocols):
+        """The turbo lane over the whole portal; the last fallback's
+        pending processing when the lane took every byte (None
+        otherwise: the classic loop goes on)."""
+        idx = socket.preferred_protocol
+        if idx < 0:
+            idx = next((i for i, p in enumerate(protocols)
+                        if getattr(p, "turbo_scan", None) is not None), -1)
+        if idx < 0:
+            return None
+        proto = protocols[idx]
+        ts = getattr(proto, "turbo_scan", None)
+        if ts is None:
+            return None
+        portal = socket.input_portal
+        nserve = getattr(proto, "native_serve", None)
+        all_recs = None
+        served = False
+        while portal:
+            if nserve is not None and nserve(portal, socket):
+                served = True
+                continue
+            recs = ts(portal, socket)
+            if not recs:
+                break
+            if all_recs is None:
+                all_recs = recs
+            else:
+                all_recs.extend(recs)
+        if served or all_recs:
+            socket.preferred_protocol = idx
+        if not all_recs:
+            return None
+        record_dispatch_batch(len(all_recs))
+        tail = proto.turbo_dispatch(all_recs, socket)
+        if not portal:
+            return tail
+        if tail is not None:
+            # bytes the scans left go through the classic loop; this
+            # fallback gets a fiber of its own
+            self._control.spawn(tail, name="process_tpu_std")
+        return None
 
 
 def process_in_parse_order(socket, key: str, item,

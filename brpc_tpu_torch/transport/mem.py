@@ -106,6 +106,24 @@ class MemConn(Conn):
             peer._notify_writable()
         return n
 
+    def read_chunks(self):
+        """``(chunks, eof)``: every pending chunk as the writer queued it,
+        without a copy (the chunk lanes scan them straight off,
+        ``transport/socket.py``'s ``pull_chunks``); ``eof`` once the pipe
+        closed and is empty."""
+        with self._rx.lock:
+            chunks = self._rx.chunks
+            if not chunks:
+                return [], self._rx.closed
+            out = list(chunks)
+            chunks.clear()
+            n, self._rx.size = self._rx.size, 0
+            was_full = n >= _MAX_BUFFER
+        peer = self.peer
+        if was_full and peer is not None:
+            peer._notify_writable()
+        return out, False
+
     # -------------------------------------------------------- device lane
     def write_device_payload(self, arrays) -> bool:
         """Hand a batch to the peer by reference."""

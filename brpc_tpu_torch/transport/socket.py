@@ -44,15 +44,40 @@ its classic Python path; bRPC's socket.h, SURVEY.md §2.4).
   gets a stage tracker in the cell of its (peer, lane), and each batch
   taken is timed into the cell of its receive side.
 
+- **Native core** (``brpc_tpu_torch/native``, the port of
+  brpc_tpu/transport/socket.py:98-185, :351-362, :531-570, :1301-1575):
+  the write queue is fastcore's ``Mpsc`` (queues.cc) when the extension
+  loads, ``_PyMpsc`` otherwise, with the same contract. The native fd
+  loops read a refcounted dup of the conn's fd (``pin_fd_acquire`` /
+  ``pin_fd_release``): a ``set_failed`` that closes the conn while a C
+  loop sits in ``poll`` must not let the fd number go to a new
+  connection whose bytes the loop would eat. ``fast_drain`` is a hook a
+  server installs (``server_dispatch.make_fast_drain``) that serves a
+  readable pass in C before the classic drain; ``pull_chunks`` is the
+  chunk conns' (``mem://``) front half of such hooks.
+- **Sync pluck lane** (``pluck_until``): a joining thread that is not a
+  fiber worker takes this socket's input processing over until its call
+  completes, so its response needs no dispatcher round trip and no
+  cross-thread wake. The claim (``pluck_preclaim``, taken before the
+  request is written) pauses read interest and makes dispatcher events
+  count as owed; ``pluck_release`` settles them. With ``fast`` armed,
+  fastcore's ``pluck_scan`` runs poll, recv and the frame scan in one C
+  call a slice; a frame only the classic path can judge is put back
+  into the portal and processed there (``_pluck_process``), and a pass
+  whose handler suspends escalates to the normal machinery. Every
+  release re-arms read interest: brpc_tpu's sticky pause (reads left off
+  between sync calls) is not ported (ROADMAP section 1).
+
 Census: ``_socket_census`` (the ``sockets`` provider of ``/census``)
-walks the live sockets of the id pool. The reference's native
-fastcore, ring lane, sync pluck and per-row census (an activity stamp a
-socket) are still to port (ROADMAP section 1).
+walks the live sockets of the id pool. The ring lane and the per-row
+census (an activity stamp a socket) are still to port (ROADMAP
+section 1).
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import threading
 import time
 from collections import deque
@@ -66,6 +91,7 @@ from brpc_tpu_torch.butil.resource_pool import ResourcePool, VersionedId
 from brpc_tpu_torch.bvar.reducer import Adder
 from brpc_tpu_torch.fiber import TaskControl, global_control
 from brpc_tpu_torch.transport import device_stats as _device_stats
+from brpc_tpu_torch.transport import syscall_stats as _syscall_stats
 from brpc_tpu_torch.transport.base import Conn, get_transport
 
 log = logging.getLogger("brpc_tpu_torch.transport")
@@ -85,6 +111,11 @@ nreads = Adder().expose("socket_read_bytes")
 nwqueue_bytes = Adder().expose("socket_wqueue_bytes")
 # frames that left in a merged batch beyond its first: sends saved
 ncoalesced = Adder().expose("socket_write_coalesced_frames")
+# the sync pluck lane: responses its native loop completed, frames it put
+# back for the classic path, and pluck_scan calls (slices)
+npluck_fast = Adder().expose("pluck_fast_responses")
+npluck_defer = Adder().expose("pluck_defers")
+npluck_scans = Adder().expose("pluck_scans")
 
 SocketId = VersionedId
 
@@ -97,10 +128,11 @@ def address_socket(sid: SocketId) -> Optional["Socket"]:
 
 
 class _PyMpsc:
-    """The write queue with writer-retire arbitration: ``push`` returns
-    True when the caller became the writer; the writer drains in order
-    and leaves through ``try_retire``, which refuses while items remain
-    (socket.cpp StartWrite / IsWriteComplete)."""
+    """The write queue with writer-retire arbitration, the fallback of
+    fastcore's ``Mpsc`` with its contract: ``push`` returns True when the
+    caller became the writer; the writer drains in order and leaves
+    through ``try_retire``, which refuses while items remain (socket.cpp
+    StartWrite / IsWriteComplete)."""
 
     __slots__ = ("_q", "_lock", "_writing")
 
@@ -127,6 +159,46 @@ class _PyMpsc:
                 return False
             self._writing = False
             return True
+
+
+# the extension resolves at the first socket, not at import: get() may
+# compile it, and an import must stay cheap. False: not resolved yet
+_fc_mod = False
+
+
+def _fastcore():
+    global _fc_mod
+    if _fc_mod is False:
+        from brpc_tpu_torch.native import fastcore
+        _fc_mod = fastcore.get()
+    return _fc_mod
+
+
+def _new_mpsc():
+    fc = _fastcore()
+    return fc.Mpsc() if fc is not None else _PyMpsc()
+
+
+def pull_chunks(sock):
+    """The front half of the chunk lanes (``mem://``): the writer's own
+    bytes objects off the conn, with the end-of-stream and accounting
+    rules in one place. ``(data, handled)``: data None means nothing to
+    scan, and then ``handled`` is what the hook returns (True: a
+    spurious wake or the end, dealt with; False: not a chunk conn, and
+    the hook disabled itself)."""
+    rc = getattr(sock.conn, "read_chunks", None)
+    if rc is None:
+        sock.fast_drain = None
+        return None, False
+    chunks, eof = rc()
+    if eof:
+        sock.set_failed(ConnectionResetError("peer closed"))
+        return None, True
+    if not chunks:
+        return None, True
+    data = chunks[0] if len(chunks) == 1 else b"".join(chunks)
+    nreads.add(len(data))
+    return data, False
 
 
 def _fire(cb, err) -> None:
@@ -160,7 +232,7 @@ class Socket:
         self.input_portal = IOPortal()
         self.failed = False
         self.fail_reason: Optional[BaseException] = None
-        self._wq = _PyMpsc()
+        self._wq = _new_mpsc()
         # a parked writer's rest: (IOBuf, on_done). Non-None exactly while
         # the writership waits on a writable event; taking it (under the
         # lock) is taking the writership
@@ -169,6 +241,23 @@ class Socket:
         self._nevent = 0
         self._nevent_lock = threading.Lock()
         self._busy_paused = False       # read interest paused (busy pass)
+        # a sync joiner owns input processing (the pluck lane)
+        self._plucking = False
+        # the native fd loops' refcounted dup of the conn's fd
+        self._pin_lock = threading.Lock()
+        self._pin_fd = -1
+        self._pin_refs = 0
+        self._pin_closed = False
+        # a server's native per-event hook (server_dispatch.make_fast_drain)
+        # ``(socket) -> bool``, tried before the classic drain; True: the
+        # pass was handled. It disables itself by setting this to None
+        self.fast_drain: Optional[Callable] = None
+        # the correlation ids of client attempts registered on this
+        # socket and not yet ended, and the sync joiner plucking it with
+        # its deadline unarmed (client_dispatch keeps both, under its
+        # lock)
+        self.client_cids: set = set()
+        self.lazy_plucker = None
         self._read_hint = DEFAULT_BLOCK_SIZE
         self.preferred_protocol = -1    # the InputMessenger's memo
         # bytes the portal must hold before the next parse can succeed
@@ -205,6 +294,48 @@ class Socket:
     def write_backlog(self) -> int:
         """Bytes accepted by ``write`` and not yet taken by the kernel."""
         return max(0, self.wq_bytes)
+
+    # ---------------------------------------------------------- pinned fd
+    def pin_fd_acquire(self) -> int:
+        """The cached dup of the conn's fd for a native loop, or -1 (no
+        fd, closed, the dup failed). The dup pins the kernel socket: a
+        ``set_failed`` closes the conn's own fd while the loop may sit in
+        ``poll`` without the interpreter lock. Balance with
+        ``pin_fd_release``."""
+        with self._pin_lock:
+            if self._pin_closed:
+                return -1
+            if self._pin_fd < 0:
+                pfd = getattr(self.conn, "pluck_fd", None)
+                if pfd is None:
+                    return -1
+                try:
+                    self._pin_fd = os.dup(pfd())
+                except OSError:
+                    return -1
+            self._pin_refs += 1
+            return self._pin_fd
+
+    def pin_fd_release(self) -> None:
+        with self._pin_lock:
+            self._pin_refs -= 1
+            self._close_pin_locked()
+
+    def _close_pin_locked(self) -> None:
+        if self._pin_refs == 0 and self._pin_closed and self._pin_fd >= 0:
+            fd, self._pin_fd = self._pin_fd, -1
+            try:
+                os.close(fd)
+            except OSError:
+                pass
+
+    def _pin_fd_shutdown(self) -> None:
+        """``set_failed``'s half: the dup closes as soon as no loop holds
+        it (a loop in flight sees the reset through it and releases; the
+        last releaser closes)."""
+        with self._pin_lock:
+            self._pin_closed = True
+            self._close_pin_locked()
 
     # -------------------------------------------------------------- write
     def write(self, data, on_done: Optional[Callable] = None) -> bool:
@@ -431,7 +562,9 @@ class Socket:
         """On the dispatcher thread; only the 0 -> 1 step starts a pass."""
         with self._nevent_lock:
             self._nevent += 1
-            busy = self._nevent > 1
+            # a plucking joiner owns the input: events defer to it as
+            # they do to a busy pass
+            busy = self._nevent > 1 or self._plucking
         if not busy:
             if self._inline_process:
                 self._process_input_entry()
@@ -466,6 +599,17 @@ class Socket:
         while True:
             with self._nevent_lock:
                 pending = self._nevent
+            fde = self.fast_drain
+            if fde is not None and not self.failed:
+                handled = False
+                try:
+                    handled = fde(self)
+                except BaseException as e:
+                    self._input_error(e)
+                if handled:
+                    if not self._finish_input_cycle(pending):
+                        return
+                    continue
             self._drain_readable()
             if self._on_input is not None and \
                     (self.input_portal or self.failed):
@@ -512,9 +656,10 @@ class Socket:
             self._nevent -= pending
             if self._nevent > 0:
                 return True
-            if self._busy_paused:
+            if self._busy_paused and not self._plucking:
                 # under the same lock as the pause: the flag and the fd's
-                # read interest never disagree
+                # read interest never disagree. A plucker keeps the pause
+                # (its release restores read interest)
                 self._busy_paused = False
                 if not self.failed:
                     self.conn.resume_read_events()
@@ -551,6 +696,183 @@ class Socket:
             nreads.add(total)
         return total
 
+    # ---------------------------------------------------- sync pluck lane
+    def pluck_preclaim(self) -> bool:
+        """Claim the pluck lane, before the request is written: with
+        reads paused first, the dispatcher cannot win the race to the
+        response. True when claimed; the caller hands the claim to
+        ``pluck_until(preclaimed=True)`` or gives it back with
+        ``pluck_release``."""
+        if getattr(self.conn, "pluck_fd", None) is None \
+                or self._on_input is None or self.failed:
+            return False
+        with self._nevent_lock:
+            if self._nevent > 0 or self._plucking:
+                return False
+            self._plucking = True
+            if self._level_triggered and not self._busy_paused:
+                self._busy_paused = True
+                try:
+                    self.conn.pause_read_events()
+                except Exception:       # the conn closed under us
+                    self._busy_paused = False
+        return True
+
+    def pluck_release(self) -> None:
+        """Settle a claim: read interest comes back, and events owed
+        meanwhile get one normal pass."""
+        with self._nevent_lock:
+            if not self._plucking:
+                return
+            self._plucking = False
+            leftover = self._nevent > 0
+            if self._busy_paused and not leftover:
+                self._busy_paused = False
+                if not self.failed:
+                    try:
+                        self.conn.resume_read_events()
+                    except Exception:   # closed under us
+                        pass
+        if leftover and not self.failed:
+            self._process_input_entry()
+
+    def _pluck_process(self) -> bool:
+        """One drain and parse pass on the plucking thread. True when it
+        escalated: a message's processing suspended, and the pass (with
+        its owed events) went to the normal machinery; the plucker
+        stops."""
+        with self._nevent_lock:
+            pending = self._nevent
+        self._drain_readable()
+        if self.input_portal or self.failed:
+            r = None
+            try:
+                r = self._on_input(self)
+            except BaseException as e:
+                self._input_error(e)
+            if r is not None:
+                # one more owed event keeps the pass busy through the
+                # hand-off: a dispatcher event in between must not start
+                # a second pass over the same portal
+                with self._nevent_lock:
+                    self._nevent += 1
+                    self._plucking = False
+                self._control.run_inline(
+                    self._input_async_tail(r, pending + 1),
+                    name="socket_input")
+                return True
+        if pending:
+            self._finish_input_cycle(pending)
+        return False
+
+    def pluck_until(self, pred, deadline_s: float, fast=None,
+                    preclaimed: bool = False) -> bool:
+        """The sync pluck lane: the calling thread (not a fiber worker)
+        processes this socket's input until ``pred()`` or the monotonic
+        ``deadline_s``; returns ``pred()``. Claims only when no pass is
+        in flight (unless ``preclaimed``).
+
+        ``fast=(magic, cid, max_body, on_resp)`` arms fastcore's
+        ``pluck_scan``: poll, recv and the frame scan in one C call a
+        slice, and the response for ``cid`` completes through
+        ``on_resp(cid, ec, et, payload, att, socket)``. What only the
+        classic path can judge (another call's frame, a meta the scanner
+        defers, bytes behind the response) goes back into the portal and
+        through ``_pluck_process``, so the lanes cannot differ."""
+        if not preclaimed and not self.pluck_preclaim():
+            return pred()
+        pfd = getattr(self.conn, "pluck_fd", None)
+        try:
+            fd = pfd() if pfd is not None else -1
+        except OSError:
+            fd = -1
+        if fd < 0:
+            self.pluck_release()
+            return pred()
+        scan = None
+        dup_fd = -1
+        if fast is not None and not self.input_portal \
+                and not self.input_need:
+            fc = _fastcore()
+            scan = getattr(fc, "pluck_scan", None) if fc is not None \
+                else None
+            if scan is not None:
+                dup_fd = self.pin_fd_acquire()
+                if dup_fd < 0:
+                    scan = None
+        poller = None
+        escalated = False
+        carry = b""
+        try:
+            while not pred() and not self.failed:
+                remaining = deadline_s - time.monotonic()
+                if remaining <= 0:
+                    break
+                # short slices: pred() can turn without traffic (the
+                # deadline timer, another thread completing the call)
+                slice_s = min(remaining, 0.2)
+                if scan is not None:
+                    magic, cid, max_body, on_resp = fast
+                    npluck_scans.add(1)
+                    r = scan(dup_fd, magic, cid, int(slice_s * 1000) + 1,
+                             max_body, carry)
+                    tag, nr = r[0], r[-1]
+                    if nr:
+                        nreads.add(nr)
+                    if tag == 2:            # slice over: keep the carry
+                        carry = r[1]
+                        continue
+                    carry = b""
+                    if tag == 0:            # the response for cid
+                        npluck_fast.add(1)
+                        _syscall_stats.note_rpc_messages(1)
+                        _, ec, et, payload, att, leftover, _nr = r
+                        if leftover:
+                            self.input_portal.append_user_data(leftover)
+                        on_resp(cid, ec, et, payload, att, self)
+                        if not self.input_portal:
+                            continue
+                        scan = None         # bytes behind it: classic
+                    elif tag == 1:          # defer: the classic path
+                        npluck_defer.add(1)
+                        if r[1]:
+                            self.input_portal.append_user_data(r[1])
+                        scan = None
+                    else:                   # 3: the end or an error
+                        scan = None
+                        if r[2]:
+                            # frames that came before it still count,
+                            # as the classic drain would take them
+                            self.input_portal.append_user_data(r[2])
+                        else:
+                            if not pred():
+                                self.set_failed(ConnectionError(r[1]))
+                            continue
+                    escalated = self._pluck_process()
+                    if escalated:
+                        break
+                    continue
+                if poller is None:
+                    import select
+                    poller = select.poll()
+                    poller.register(fd, select.POLLIN | select.POLLHUP
+                                    | select.POLLERR)
+                if not poller.poll(slice_s * 1000):
+                    continue
+                escalated = self._pluck_process()
+                if escalated:
+                    break
+        finally:
+            if dup_fd >= 0:
+                self.pin_fd_release()
+            if carry:
+                # a partial frame the C loop read: back into the portal;
+                # its rest arrives with a readable event
+                self.input_portal.append_user_data(carry)
+            if not escalated:
+                self.pluck_release()
+        return pred()
+
     # ------------------------------------------------------------ failure
     def set_failed(self, reason: Optional[BaseException] = None) -> None:
         """Once: stale id, conn unregistered and closed, parked and queued
@@ -563,6 +885,8 @@ class Socket:
             cbs, self._on_failed_cbs = self._on_failed_cbs, []
         _pool.remove(self.id)
         self.conn.close()
+        # the dup must not outlive the close (it would hold the FIN back)
+        self._pin_fd_shutdown()
         # a parked writer is woken by no event now: take its writership
         # (the event continuation that loses the race does nothing) and
         # fail its batch and everything queued behind it

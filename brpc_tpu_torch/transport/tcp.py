@@ -25,6 +25,9 @@ from brpc_tpu_torch.butil.flags import define_flag, flag
 from brpc_tpu_torch.bvar.reducer import Adder
 from brpc_tpu_torch.transport.base import Conn, Listener, Transport
 from brpc_tpu_torch.transport.event_dispatcher import global_dispatcher
+from brpc_tpu_torch.transport.syscall_stats import (py_accept as _c_accept,
+                                                    py_recv as _c_recv,
+                                                    py_writev as _c_writev)
 
 define_flag("acceptor_backoff_ms", 100,
             "pause accepting for this long after accept hits descriptor "
@@ -64,6 +67,7 @@ class TcpConn(Conn):
         self._on_writable: Optional[Callable[[], None]] = None
 
     def write(self, mv) -> int:
+        _c_writev.add(1)
         try:
             return self._sock.send(mv)
         except OSError as e:
@@ -73,6 +77,7 @@ class TcpConn(Conn):
 
     def writev(self, views) -> int:
         """One sendmsg for a chain of buffers (iobuf.h:177)."""
+        _c_writev.add(1)
         try:
             return self._sock.sendmsg(views)
         except OSError as e:
@@ -81,12 +86,21 @@ class TcpConn(Conn):
             raise
 
     def read_into(self, mv: memoryview) -> int:
+        _c_recv.add(1)
         try:
             return self._sock.recv_into(mv)
         except OSError as e:
             if e.errno in _WOULD_BLOCK:
                 raise BlockingIOError from e
             raise
+
+    def pluck_fd(self) -> int:
+        """The fd for the native fd loops (the sync pluck lane and the
+        server's ``serve_drain``): a thread may poll and read this conn
+        directly. ``Socket.pin_fd_acquire`` dups it first."""
+        if self._closed:
+            raise OSError("connection closed")
+        return self._fd
 
     def peek_closed(self) -> bool:
         """True only when the peer's FIN arrived and no data is left to
@@ -156,6 +170,7 @@ class _TcpListener(Listener):
     def _on_acceptable(self) -> None:
         """Accept until EAGAIN (acceptor.cpp:253)."""
         while not self._stopped:
+            _c_accept.add(1)
             try:
                 s, addr = self._sock.accept()
             except BlockingIOError:

@@ -246,9 +246,34 @@ the close to the artifact. (d) Phase 3's burst in turns, 3 pairs: the
 recorder at 20 Hz with the rings on against both off, then capture at
 rate 1.0 against capture off; p50/p99 and tokens/s of each.
 
+Phase native (the native host core and the lanes on it), after
+incident, at phase 3's width: (a) the core's build: ``g++ --version``,
+the Python.h path, each output's cold and cached build seconds, and the
+process's own core loaded (a build or load failure fails the smoke, so
+no lane quietly runs its Python path); (b) phase 3's burst with no
+deadline in the request meta, warm (after one such burst): every request through the turbo lane's
+slim body, every sync call plucked by ``pluck_scan``, every response
+through ``process_response_fast``; p50/p99, tokens/s, arrival ->
+handler, syscalls a message; (c) phase 4's stream and HTTP bursts from
+a client process: the client's stream frames through
+``process_stream_frame_fast``, the server's heads through the native
+parse; (d) phase 3's burst (a deadline in every request: the classic
+lane on the server) and (b)'s deadline-less one, each against a server
+child with the native lanes and one with ``BRPC_TPU_TORCH_NO_NATIVE=1``
+(the client process likewise), N P P N, three rounds, then the two
+mixed pairings: medians of p50 (and of a channel's first and later
+calls), p99, tokens/s, server CPU ms and syscalls a call; (e) a ``native="echo"`` method at 4 B, 64 B, 1 KiB and
+4 KiB, 2,000 pipelined calls each, against the same handler without the
+native kind, in turns: p50, calls/s and the calls ``serve_drain``
+served; (f) phase device_lane's 4 MiB ``cudad://`` echo in child
+processes with and without ``mallopt`` (T U U T twice). Launch counts
+zeroed before each decoding part and read after it, ``flash_decode``'s
+equal to the decode steps and warm-ups; every token list equal to the
+CPU plain path's.
+
 ``python3 chip_smoke.py --phase streaming`` (or ``--phase
 observability``, ``--phase device_lane``, ``--phase combo``, ``--phase
-cluster``, ``--phase incident``) runs that phase alone (after the card
+cluster``, ``--phase incident``, ``--phase native``) runs that phase alone (after the card
 line), so that two trees' serving can be compared in one call: run each
 tree's script in turns.
 
@@ -640,19 +665,23 @@ def _real_us() -> int:
     return time.time_ns() // 1000
 
 
-def _burst(port: int, prompts, max_tokens: int, calls=None):
+def _burst(port: int, prompts, max_tokens: int, calls=None,
+           timeout_ms=120000, waves=None):
     """N_CLIENTS threads, one Channel each, the prompts dealt round-robin;
     returns ({prompt: tokens}, [(prompt, errno, text)], wall seconds,
     [client ms per call: the first token comes with the last], []).
     ``calls``: a list that gets each call's trace id and its wall-clock
-    issue and response times."""
+    issue and response times. ``timeout_ms`` None: no deadline in the
+    request meta, which the turbo lane's scanner would defer. ``waves``:
+    a list that gets each latency's call number on its channel (0: the
+    call that opened the connection)."""
     from brpc_tpu_torch.rpc import Channel, ChannelOptions
 
     results, errors, latency = {}, [], []
 
     def client(idx):
         ch = Channel(f"tcp://127.0.0.1:{port}",
-                     ChannelOptions(timeout_ms=120000))
+                     ChannelOptions(timeout_ms=timeout_ms))
         try:
             for seq, p in enumerate(prompts[idx::N_CLIENTS]):
                 t0, issue = time.perf_counter(), _real_us()
@@ -664,6 +693,8 @@ def _burst(port: int, prompts, max_tokens: int, calls=None):
                     errors.append((p, c.error_code, c.error_text))
                 else:
                     latency.append((time.perf_counter() - t0) * 1e3)
+                    if waves is not None:
+                        waves.append(seq)
                     results[p] = json.loads(c.response)["tokens"]
                     if calls is not None:
                         calls.append({"prompt": p, "seq": seq,
@@ -1027,7 +1058,14 @@ def _run_clients(client) -> float:
     return time.monotonic() - t0
 
 
-BURSTS = {"stream": _stream_burst, "http": _http_burst, "unary": _burst}
+def _burst_nodl(port: int, prompts, max_tokens: int, calls=None,
+                waves=None):
+    return _burst(port, prompts, max_tokens, calls, timeout_ms=None,
+                  waves=waves)
+
+
+BURSTS = {"stream": _stream_burst, "http": _http_burst, "unary": _burst,
+          "unary_nodl": _burst_nodl}
 
 
 def client_main(kind: str, port: int, traced: bool = False) -> int:
@@ -1044,15 +1082,23 @@ def client_main(kind: str, port: int, traced: bool = False) -> int:
         return 0
     if kind == "hold":
         return _hold_connections(port)
+    if kind == "native_server":
+        return _native_server_session()
+    if kind == "malloc_turn":
+        return _malloc_turn()
     calls = None
     if traced:
         from brpc_tpu_torch.butil.flags import set_flag
         check(set_flag("rpcz_enabled", True), "cannot turn rpcz on")
         calls = []
+    waves = [] if kind.startswith("unary") else None
+    kw = {} if waves is None else {"waves": waves}
+    cpu0 = time.process_time()
     res, errs, wall, ttft, gaps = BURSTS[kind](port, _prompts(), MAX_TOKENS,
-                                               calls=calls)
+                                               calls=calls, **kw)
     doc = {"results": res, "errors": errs, "wall_s": wall, "ttft_ms": ttft,
-           "gaps_ms": gaps}
+           "gaps_ms": gaps, "cpu_s": time.process_time() - cpu0,
+           "native": _native_counters(), "waves": waves}
     if traced:
         from brpc_tpu_torch.rpc.span import global_collector
         doc["calls"] = calls
@@ -1082,10 +1128,11 @@ def _hold_connections(port: int) -> int:
     return 0
 
 
-def _client_process(args, timeout_s: float = 300) -> dict:
+def _client_process(args, timeout_s: float = 300, env=None) -> dict:
     out = subprocess.run(
         [sys.executable, str(Path(__file__).resolve()), "--client", *args],
-        capture_output=True, text=True, timeout=timeout_s)
+        capture_output=True, text=True, timeout=timeout_s,
+        env=None if env is None else dict(os.environ, **env))
     check(out.returncode == 0,
           f"{args[0]} client process failed: {out.stderr[-2000:]}")
     return json.loads(out.stdout.strip().splitlines()[-1])
@@ -4389,6 +4436,510 @@ def phase_incident(dev):
     return out
 
 
+# ------------------------------------------------------------ phase native
+
+NATIVE_ROUNDS = 3
+ECHO_SIZES = (4, 64, 1024, 4096)
+ECHO_CALLS = 2000
+ECHO_WINDOW = 64
+MALLOC_ECHO_BYTES = 4 << 20
+MALLOC_ECHO_CALLS = 30
+NO_NATIVE = {"BRPC_TPU_TORCH_NO_NATIVE": "1"}
+
+
+def _native_counters() -> dict:
+    """The native lanes' counters of this process."""
+    from brpc_tpu_torch.protocol import http, tpu_std
+    from brpc_tpu_torch.rpc import client_dispatch, server_dispatch, stream
+    from brpc_tpu_torch.transport import socket as sk
+    return {k: a.get_value() for k, a in (
+        ("scan_records", tpu_std.nscan_records),
+        ("turbo_requests", server_dispatch.nturbo_requests),
+        ("turbo_fallbacks", server_dispatch.nturbo_fallbacks),
+        ("client_fast_responses", client_dispatch.nfast_responses),
+        ("client_chunk_drain", client_dispatch.nchunk_drained),
+        ("pluck_fast", sk.npluck_fast),
+        ("pluck_defers", sk.npluck_defer),
+        ("pluck_scans", sk.npluck_scans),
+        ("stream_fast_frames", stream.nfast_frames),
+        ("http_native_heads", http.nnative_heads),
+        ("serve_drain", server_dispatch.nserve_drain),
+        ("serve_scan", server_dispatch.nserve_scan))}
+
+
+def _delta(before: dict, after: dict) -> dict:
+    return {k: after[k] - before[k] for k in after}
+
+
+def _native_build() -> dict:
+    """(a): the compiler, Python.h, and each output's build seconds,
+    cold (into an empty directory) and then cached; the process's own
+    core must have loaded."""
+    import sysconfig
+    import tempfile
+
+    import brpc_tpu_torch.native as native
+    from brpc_tpu_torch.native import build, fastcore
+    gxx = subprocess.run([build.CXX, "--version"], capture_output=True,
+                         text=True)
+    check(gxx.returncode == 0, f"{build.CXX} --version failed")
+    header = Path(sysconfig.get_paths()["include"]) / "Python.h"
+    check(header.is_file(), f"Python.h is missing ({header}): the fastcore "
+                            "extension cannot be built on this machine")
+    out = {"gxx": gxx.stdout.splitlines()[0], "python_h": str(header)}
+    saved = build.BUILD_DIR
+    with tempfile.TemporaryDirectory() as tmp:
+        build.BUILD_DIR = Path(tmp)
+        try:
+            for name, fn in (("ctypes_library", build.build),
+                             ("fastcore", build.build_fastcore)):
+                t0 = time.monotonic()
+                fn()
+                cold = time.monotonic() - t0
+                t0 = time.monotonic()
+                fn()
+                out[name] = {"cold_s": cold,
+                             "cached_s": time.monotonic() - t0}
+        finally:
+            build.BUILD_DIR = saved
+    check(native.lib() is not None,
+          f"the native library did not load: {native.load_error}")
+    check(fastcore.get() is not None,
+          f"the fastcore extension did not load: {fastcore.load_error}")
+    out["loaded"] = dict(build.build_info)
+    return out
+
+
+class _ArrivalSpy:
+    """Wraps Generate's handler: arrival (the turbo scan's cut) -> the
+    handler's start, a call."""
+
+    def __init__(self, server):
+        self.m = server.find_method("GenerateService", "Generate")
+        self.real, self.ms = self.m.handler, []
+
+        def spy(cntl, request):
+            sock = cntl._server_socket
+            cut = getattr(sock, "turbo_cut_ns", 0) if sock else 0
+            if cut:
+                self.ms.append((time.monotonic_ns() - cut) / 1e6)
+            return self.real(cntl, request)
+        # the method keeps its kind (is_coroutine): the spy returns the
+        # handler's coroutine
+        self.m.handler = spy
+
+    def close(self) -> list:
+        self.m.handler = self.real
+        return self.ms
+
+
+def _native_unary(port, prompts, oracle, server) -> dict:
+    """(b): phase 3's burst with no deadline in the meta, in this
+    process, warm: every request through the turbo lane's slim body,
+    every sync call plucked natively."""
+    from brpc_tpu_torch.transport import syscall_stats
+    # a first burst warms the server up (a cold burst pays the serving
+    # lane's start-up);
+    # the second is measured
+    res, errs = _burst(port, prompts, MAX_TOKENS, timeout_ms=None)[:2]
+    _check_burst("native unary warm-up", res, errs, oracle)
+    spy = _ArrivalSpy(server)
+    c0, s0 = _native_counters(), syscall_stats.snapshot()
+    try:
+        res, errs, wall, lat, _ = _burst(port, prompts, MAX_TOKENS,
+                                         timeout_ms=None)
+    finally:
+        arrival = spy.close()
+    d = _delta(c0, _native_counters())
+    sysc = syscall_stats.snapshot()
+    _check_burst("native unary burst", res, errs, oracle)
+    check(d["turbo_requests"] == N_REQUESTS and d["turbo_fallbacks"] == 0,
+          f"turbo lane took {d['turbo_requests']} requests of "
+          f"{N_REQUESTS} ({d['turbo_fallbacks']} fell back)")
+    check(d["client_fast_responses"] == N_REQUESTS,
+          f"the client's fast path took {d['client_fast_responses']} "
+          f"responses of {N_REQUESTS}")
+    check(d["pluck_fast"] == N_REQUESTS and d["pluck_scans"] > 0,
+          f"{d['pluck_fast']} of {N_REQUESTS} sync calls plucked "
+          f"natively ({d['pluck_scans']} pluck_scan calls)")
+    tokens = sum(len(t) for t in res.values())
+    return {"lanes": d, "wall_s": wall, "tokens_per_s": tokens / wall,
+            "p50_ms": _median(lat), "p99_ms": _p99(lat),
+            "arrival_to_handler_p50_ms": _median(arrival),
+            "arrival_to_handler_p99_ms": _p99(arrival),
+            "syscalls": _delta(s0, sysc),
+            "syscalls_per_msg": syscall_stats.per_rpc(s0, sysc)}
+
+
+def _native_stream_http(port, oracle) -> dict:
+    """(c): phase 4's stream and HTTP bursts from a client process: the
+    stream frames through ``process_stream_frame_fast`` there, the
+    request heads through the native parse here."""
+    out = {}
+    for kind in ("stream", "http"):
+        c0 = _native_counters()
+        doc = _client_process([kind, str(port)])
+        d = _delta(c0, _native_counters())
+        _check_burst(f"native {kind} burst", doc["results"], doc["errors"],
+                     oracle)
+        line = _burst_line(doc["results"], doc["wall_s"], doc["ttft_ms"],
+                           doc["gaps_ms"])
+        line.update(server_lanes=d, client_lanes=doc["native"])
+        if kind == "stream":
+            # every token frame and the d frame, in the client process
+            want = N_REQUESTS * (MAX_TOKENS + 1)
+            check(doc["native"]["stream_fast_frames"] >= want,
+                  f"{doc['native']['stream_fast_frames']} stream frames on "
+                  f"the fast path, want at least {want}")
+        else:
+            check(d["http_native_heads"] == N_REQUESTS,
+                  f"{d['http_native_heads']} of {N_REQUESTS} HTTP heads "
+                  "parsed natively")
+        out[kind] = line
+    return out
+
+
+def _native_server_session() -> int:
+    """``--client native_server``: a default Generate server on cuda:0
+    whose lanes follow this process's environment; prints its port, then
+    a snapshot (CPU seconds, syscalls, decode steps, launches, lanes) on
+    every line read from stdin, and stops at the end of stdin."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from brpc_tpu_torch.native import fastcore
+    from brpc_tpu_torch.rpc import Server
+    from brpc_tpu_torch.serving import add_generate_service
+    from brpc_tpu_torch.transport import syscall_stats
+    fa = _fa_module()
+    fa.reset_launches()
+    server = Server()
+    gs = add_generate_service(server)
+    ep = server.start("tcp://127.0.0.1:0")
+    emit({"port": ep.port, "fastcore": fastcore.get() is not None})
+    try:
+        while sys.stdin.readline():
+            import torch
+            torch.cuda.synchronize()
+            emit({"cpu_s": time.process_time(),
+                  "sys": syscall_stats.snapshot(),
+                  "steps": gs.batcher.decode_steps + gs.engine.warmup_steps,
+                  "launches": dict(fa.launches),
+                  "processed": server.nprocessed,
+                  "lanes": _native_counters()})
+    finally:
+        server.stop()
+        server.join(10)
+    return 0
+
+
+def _native_turns(oracle) -> dict:
+    """(d): (b)'s burst against a server child with the native lanes and
+    one with ``BRPC_TPU_TORCH_NO_NATIVE=1``, the client process taking
+    the same setting, in the order N P P N, NATIVE_ROUNDS rounds; then a
+    round of each side alone on the native lanes (server N client P,
+    server P client N). Both kinds of burst: phase 3's own (``unary``,
+    a deadline in every request, which the turbo scan defers to the
+    classic lane) and one with no deadline (``unary_nodl``, the turbo
+    lane's traffic). p50 over 16 calls sits between a channel's first
+    call, which opens its connection, and its second: each row gives
+    both waves' p50 too."""
+    from brpc_tpu_torch.transport import syscall_stats
+    envs = {"native": None, "pure": NO_NATIVE}
+    sessions = {k: _Session(["native_server", "0"], env=e)
+                for k, e in envs.items()}
+    kinds = ("unary", "unary_nodl")
+    runs = {kind: {k: [] for k in envs} for kind in kinds}
+    mixed = {kind: {"server_native_client_pure": [],
+                    "server_pure_client_native": []} for kind in kinds}
+    try:
+        hello = {k: s.read() for k, s in sessions.items()}
+        check(hello["native"]["fastcore"] and not hello["pure"]["fastcore"],
+              f"server children's lanes: {hello}")
+        for k in envs:                  # warm-up: flash_decode, the engine
+            doc = _client_process(["unary", str(hello[k]["port"])],
+                                  env=envs[k])
+            _check_burst(f"{k} warm-up", doc["results"], doc["errors"],
+                         oracle)
+        plan = []
+        for kind in kinds:
+            plan += [(kind, k, k) for _ in range(NATIVE_ROUNDS)
+                     for k in ("native", "pure", "pure", "native")]
+            plan += [(kind, "native", "pure"), (kind, "pure", "native"),
+                     (kind, "pure", "native"), (kind, "native", "pure")]
+        for kind, k, client in plan:
+            a = sessions[k].step()
+            doc = _client_process([kind, str(hello[k]["port"])],
+                                  env=envs[client])
+            b = sessions[k].step()
+            _check_burst(f"{k} {kind} turn", doc["results"], doc["errors"],
+                         oracle)
+            steps = b["steps"] - a["steps"]
+            fd = (b["launches"]["flash_decode"]
+                  - a["launches"]["flash_decode"])
+            check(fd == steps > 0, f"{k} turn: flash_decode {fd} != "
+                                   f"{steps} decode steps")
+            lanes = _delta(a["lanes"], b["lanes"])
+            # a deadline defers every request from the turbo lane
+            want = N_REQUESTS if k == "native" and kind == "unary_nodl" \
+                else 0
+            check(lanes["turbo_requests"] == want,
+                  f"{k} {kind} turn: {lanes['turbo_requests']} turbo "
+                  f"requests, want {want}")
+            plucked = doc["native"]["pluck_fast"]
+            check(plucked == (N_REQUESTS if client == "native" else 0),
+                  f"{client} client: {plucked} calls plucked")
+            calls = b["processed"] - a["processed"]
+            tokens = sum(len(t) for t in doc["results"].values())
+            lat, waves = doc["ttft_ms"], doc["waves"]
+            row = runs[kind][k] if k == client else \
+                mixed[kind][f"server_{k}_client_{client}"]
+            row.append({
+                "p50_ms": _median(lat),
+                "p99_ms": _p99(lat),
+                "first_p50_ms": _median([x for x, w in zip(lat, waves)
+                                         if w == 0]),
+                "later_p50_ms": _median([x for x, w in zip(lat, waves)
+                                         if w > 0]),
+                "tokens_per_s": tokens / doc["wall_s"],
+                "server_cpu_ms_per_call":
+                    (b["cpu_s"] - a["cpu_s"]) * 1e3 / calls,
+                "client_cpu_ms_per_call": doc["cpu_s"] * 1e3 / calls,
+                "server_syscalls_per_call": sum(
+                    b["sys"][x] - a["sys"][x]
+                    for x in ("recv", "writev", "accept")) / calls,
+                "server_syscalls_per_msg":
+                    syscall_stats.per_rpc(a["sys"], b["sys"]),
+                "decode_steps": steps})
+    finally:
+        for sess in sessions.values():
+            sess.close()
+    keys = runs["unary"]["native"][0].keys()
+    return {"order": "N P P N", "rounds": NATIVE_ROUNDS, "runs": runs,
+            "medians": {kind: {k: {m: _median([r[m] for r in v])
+                                   for m in keys}
+                               for k, v in by.items()}
+                        for kind, by in runs.items()},
+            "mixed": mixed,
+            "mixed_medians": {kind: {k: {m: _median([r[m] for r in v])
+                                         for m in keys}
+                                     for k, v in by.items()}
+                              for kind, by in mixed.items()}}
+
+
+def _echo_servers():
+    """Echo.Echo served natively (serve_drain), and the same handler
+    without the native kind."""
+    from brpc_tpu_torch.rpc import Server, Service
+    out = {}
+    for lane, kind in (("native", "echo"), ("off", None)):
+        svc = Service("Echo")
+        svc.register_method("Echo", lambda cntl, req: req, native=kind)
+        srv = Server()
+        srv.add_service(svc)
+        out[lane] = (srv, srv.start("tcp://127.0.0.1:0"))
+    return out
+
+
+def _pipelined_echo(ch, body: bytes, calls: int) -> dict:
+    """``calls`` echoes with ECHO_WINDOW in flight on one connection."""
+    window = threading.Semaphore(ECHO_WINDOW)
+    lat, bad, done = [], [], threading.Event()
+    left = [calls]
+    lock = threading.Lock()
+
+    def on_done(c, t0):
+        lat.append((time.perf_counter() - t0) * 1e3)
+        if c.failed() or c.response != body:
+            bad.append((c.error_code, c.error_text))
+        window.release()
+        with lock:
+            left[0] -= 1
+            if not left[0]:
+                done.set()
+
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        window.acquire()
+        issued = time.perf_counter()
+        ch.call("Echo", "Echo", body,
+                done=lambda c, t=issued: on_done(c, t))
+    check(done.wait(120), "echo calls hung")
+    wall = time.perf_counter() - t0
+    check(not bad, f"echo failed or differed: {bad[:3]}")
+    return {"p50_ms": _median(lat), "p99_ms": _p99(lat),
+            "calls_per_s": calls / wall}
+
+
+def _native_echo() -> dict:
+    """(e): 4 B to 4 KiB echoes, ECHO_CALLS each, pipelined, on the
+    native echo lane and off it, in turns (N O O N); the calls
+    ``serve_drain`` served."""
+    import numpy as np
+    from brpc_tpu_torch.rpc import Channel, ChannelOptions
+    servers = _echo_servers()
+    chans = {k: Channel(f"tcp://127.0.0.1:{ep.port}",
+                        ChannelOptions(timeout_ms=None))
+             for k, (_, ep) in servers.items()}
+    rng = np.random.default_rng(20260803)
+    out = {}
+    try:
+        for size in ECHO_SIZES:
+            body = rng.integers(0, 256, size, dtype=np.uint8).tobytes()
+            rows = {"native": [], "off": []}
+            for lane in ("native", "off", "off", "native"):
+                c0 = _native_counters()
+                srv = servers[lane][0]
+                n0 = srv.nprocessed
+                r = _pipelined_echo(chans[lane], body, ECHO_CALLS)
+                d = _delta(c0, _native_counters())
+                check(srv.nprocessed - n0 == ECHO_CALLS,
+                      f"echo {size} B {lane}: {srv.nprocessed - n0} served")
+                r["serve_drain"] = d["serve_drain"]
+                r["serve_scan"] = d["serve_scan"]
+                if lane == "off":
+                    check(d["serve_drain"] + d["serve_scan"] == 0,
+                          "the plain echo went through a C loop")
+                rows[lane].append(r)
+            drained = sum(r["serve_drain"] for r in rows["native"])
+            check(drained > 0, f"echo {size} B: serve_drain served nothing")
+            out[f"{size}B"] = rows
+    finally:
+        for ch in chans.values():
+            ch.close()
+        for srv, _ in servers.values():
+            srv.stop()
+            srv.join(10)
+    return out
+
+
+def _malloc_turn() -> int:
+    """``--client malloc_turn``: phase device_lane's 4 MiB ``cudad://``
+    echo, server and client in this process, whose malloc follows its
+    environment (``BRPC_TPU_TORCH_NO_MALLOPT``)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import torch
+
+    from brpc_tpu_torch.butil import malloc_tune
+    from brpc_tpu_torch.rpc import Channel, ChannelOptions, Server, Service
+    svc = Service("Perf")
+
+    @svc.method()
+    def Echo(cntl, request):
+        cntl.response_device_arrays = cntl.request_device_arrays
+        return request
+    srv = Server()
+    srv.add_service(svc)
+    ep = srv.start("cudad://127.0.0.1:0#device=0")
+    ch = Channel(str(ep), ChannelOptions(timeout_ms=30000))
+    x = torch.randn(MALLOC_ECHO_BYTES // 4, device="cuda:0")
+    lat = []
+    try:
+        for i in range(MALLOC_ECHO_CALLS + 3):
+            t0 = time.perf_counter()
+            c = ch.call_sync("Perf", "Echo", b"",
+                             request_device_arrays=[x])
+            check(not c.failed(), f"echo failed: {c.error_text}")
+            y = c.response_device_arrays[0]
+            torch.cuda.synchronize()
+            if i >= 3:
+                lat.append((time.perf_counter() - t0) * 1e3)
+        check(torch.equal(y, x), "the 4 MiB echo differs")
+    finally:
+        ch.close()
+        srv.stop()
+        srv.join(10)
+    emit({"mallopt": malloc_tune.applied(), "p50_ms": _median(lat),
+          "p99_ms": _p99(lat), "calls": len(lat)})
+    return 0
+
+
+def _malloc_turns() -> dict:
+    """The malloc A/B: the 4 MiB cudad:// echo with mallopt (T) and with
+    glibc's defaults (U), T U U T twice."""
+    envs = {"tuned": None, "untuned": {"BRPC_TPU_TORCH_NO_MALLOPT": "1"}}
+    runs = {k: [] for k in envs}
+    for k in ("tuned", "untuned", "untuned", "tuned") * 2:
+        doc = _client_process(["malloc_turn", "0"], env=envs[k])
+        check(doc["mallopt"] == (k == "tuned"),
+              f"{k} turn ran with mallopt={doc['mallopt']}")
+        runs[k].append(doc)
+    return {"runs": runs, "p50_ms": {k: _median([r["p50_ms"] for r in v])
+                                      for k, v in runs.items()}}
+
+
+def phase_native(dev):
+    """The native host core and the lanes on it, on the card's machine,
+    at phase 3's width: (a) the build, (b) the unary burst through the
+    turbo and pluck lanes, (c) stream and HTTP, (d) native against pure
+    in turns, (e) the per-event echo, and the malloc A/B. Launch counts
+    zeroed before each part that decodes and read after it."""
+    from brpc_tpu_torch.rpc import Server
+    from brpc_tpu_torch.serving import (TinyDecoder, TinyDecoderConfig,
+                                        add_generate_service)
+    fa = _fa_module()
+    phase_t0 = time.monotonic()
+    prompts = _prompts()
+    cpu_model = TinyDecoder(TinyDecoderConfig(), device="cpu")
+    oracle = {p: cpu_model.generate(list(p.encode()), MAX_TOKENS)
+              for p in prompts}
+    out, launches = {}, {}
+    progress("native a_build")
+    out["a"] = _native_build()
+    emit({"phase": "native", "part": "a", "a": out["a"]})
+    server = None
+    gss = []
+
+    def counted(part, fn, *args):
+        progress(f"native {part}")
+        fa.reset_launches()
+        before = sum(g.batcher.decode_steps + g.engine.warmup_steps
+                     for g in gss)
+        r = fn(*args)
+        _sync(dev)
+        got = dict(fa.launches)
+        steps = sum(g.batcher.decode_steps + g.engine.warmup_steps
+                    for g in gss) - before
+        launches[part] = dict(got, steps=steps)
+        check(got["flash_decode"] == steps > 0 and
+              sum(got.values()) == got["flash_decode"],
+              f"native {part}: launched {got}, {steps} decode steps and "
+              f"warm-ups")
+        return r
+
+    try:
+        def start():
+            nonlocal server
+            server = Server()
+            gss.append(add_generate_service(server))
+            check(str(gss[-1].device) == "cuda:0",
+                  f"service device {gss[-1].device}")
+            return server.start("tcp://127.0.0.1:0").port
+        port = counted("b_start", start)
+        out["b"] = counted("b_unary", _native_unary, port, prompts, oracle,
+                           server)
+        emit({"phase": "native", "part": "b", "b": out["b"]})
+        out["c"] = counted("c_stream_http", _native_stream_http, port,
+                           oracle)
+        emit({"phase": "native", "part": "c", "c": out["c"]})
+    finally:
+        if server is not None:
+            server.stop()
+            server.join(10)
+    progress("native d_turns")
+    out["d"] = _native_turns(oracle)
+    emit({"phase": "native", "part": "d", "d": out["d"]})
+    progress("native e_echo")
+    out["e"] = _native_echo()
+    emit({"phase": "native", "part": "e", "e": out["e"]})
+    progress("native f_malloc")
+    out["f"] = _malloc_turns()
+    emit({"phase": "native", "part": "f", "f": out["f"]})
+    out["phase_s"] = time.monotonic() - phase_t0
+    emit({"phase": "native", "launches": launches,
+          "phase_s": out["phase_s"]})
+    out["launches"] = launches
+    return out
+
+
 def phase_paths(dev, split_inputs):
     """The port's two other paths, each driven through its public entry
     point with every count zeroed just before and read just after:
@@ -4664,6 +5215,11 @@ def main(only: str = "") -> int:
             # alone, flash_decode builds at the first server's warm-up
             phase_incident(dev)
             return 0
+        if only == "native":
+            # alone, the core builds at its first use and flash_decode at
+            # the first server's warm-up
+            phase_native(dev)
+            return 0
         if only:
             {"streaming": phase_streaming,
              "observability": phase_observability}[only]()
@@ -4686,6 +5242,8 @@ def main(only: str = "") -> int:
         cluster = phase_cluster(dev)
         progress("phase incident")
         incident = phase_incident(dev)
+        progress("phase native")
+        native = phase_native(dev)
         progress("phase paths")
         paths = phase_paths(dev, split_inputs)
         progress("phase times")
@@ -4712,6 +5270,8 @@ def main(only: str = "") -> int:
     by_path["cluster_backup_attend"] = ul["d_backup"]["flash_decode"]
     by_path["incident"] = sum(v["flash_decode"]
                               for v in incident["launches"].values())
+    by_path["native"] = sum(v["flash_decode"]
+                            for v in native["launches"].values())
     combine_by_path = {
         "long_cache_decode": paths["long_cache_decode"][
             "flash_decode_combine"],
@@ -4733,7 +5293,7 @@ def main(only: str = "") -> int:
         _row("flash_decode", "serving: unary, stream and HTTP; device "
              "lanes: Attend; combo: nested Attend; cluster: three "
              "replicas, backup Attend; incident: rings, profiles, a shed "
-             "storm, costs",
+             "storm, costs; native: the turbo, pluck and scan lanes",
              sum(by_path.values()), sl["flash_decode"],
              sl["flash_decode"] / steps, errs["serving_decode"],
              times["decode"], launches_by_path=by_path,
@@ -4783,7 +5343,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--phase"]:
         if sys.argv[2:3] not in (["streaming"], ["observability"],
                                  ["device_lane"], ["combo"], ["cluster"],
-                                 ["incident"]):
+                                 ["incident"], ["native"]):
             sys.exit(f"chip_smoke: unknown phase {sys.argv[2:]}")
         sys.exit(main(only=sys.argv[2]))
     sys.exit(main())

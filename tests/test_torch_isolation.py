@@ -1,6 +1,8 @@
 """The port stands alone: no file of brpc_tpu_torch, and not
 chip_smoke.py, imports jax, brpc_tpu or google.protobuf (the machine with
-the card has none of them)."""
+the card has none of them), and the port's native core builds from its
+own sources only (``brpc_tpu_torch/native/src``), never from
+``brpc_tpu/native``."""
 
 import ast
 import os
@@ -61,6 +63,11 @@ def test_import_leaves_jax_and_brpc_tpu_out():
         "import brpc_tpu_torch.builtin.flight_recorder\n"
         "import brpc_tpu_torch.incident, brpc_tpu_torch.traffic\n"
         "import brpc_tpu_torch.fiber.stacks, brpc_tpu_torch.butil.logging\n"
+        "import brpc_tpu_torch.native, brpc_tpu_torch.native.fastcore\n"
+        "import brpc_tpu_torch.native.build\n"
+        "import brpc_tpu_torch.butil.malloc_tune\n"
+        "import brpc_tpu_torch.transport.syscall_stats\n"
+        "import brpc_tpu_torch.rpc.lane_ab\n"
         f"forbidden = {FORBIDDEN_MODULES!r}\n"
         "bad = sorted(m for m in sys.modules if any(\n"
         "    m == f or m.startswith(f + '.') for f in forbidden))\n"
@@ -71,3 +78,45 @@ def test_import_leaves_jax_and_brpc_tpu_out():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+NATIVE_SRC = ROOT / "brpc_tpu_torch" / "native" / "src"
+
+
+def test_native_build_reads_the_ports_sources():
+    from brpc_tpu_torch.native import build
+    assert build.SRC_DIR.resolve() == NATIVE_SRC.resolve()
+    assert build.BUILD_DIR.resolve() == (ROOT / "brpc_tpu_torch"
+                                         / "_build").resolve()
+    for name in build.LIB_SRCS + build.FASTCORE_SRCS:
+        assert (NATIVE_SRC / name).is_file(), name
+    # no string of the build's code (its docstrings aside) names the
+    # reference's directory: no command, flag or path can reach it
+    for path in sorted((ROOT / "brpc_tpu_torch" / "native").glob("*.py")):
+        tree = ast.parse(path.read_text())
+        docs = {id(n.body[0].value) for n in ast.walk(tree)
+                if isinstance(n, (ast.Module, ast.FunctionDef,
+                                  ast.ClassDef)) and n.body
+                and isinstance(n.body[0], ast.Expr)}
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Constant) and \
+                    isinstance(node.value, str) and id(node) not in docs:
+                v = node.value.replace("brpc_tpu_torch", "")
+                assert "brpc_tpu/native" not in v and \
+                    "brpc_tpu.native" not in v, (path, node.value)
+
+
+def test_native_sources_include_nothing_outside_their_directory():
+    sources = sorted(NATIVE_SRC.glob("*"))
+    assert len(sources) == 10
+    for src in sources:
+        for line in src.read_text().splitlines():
+            line = line.strip()
+            if not line.startswith("#include"):
+                continue
+            target = line[len("#include"):].strip()
+            if target.startswith("<"):
+                continue            # the system's and Python's headers
+            name = target.strip('"')
+            assert "/" not in name and (NATIVE_SRC / name).is_file(), \
+                (src.name, line)

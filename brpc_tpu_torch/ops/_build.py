@@ -29,7 +29,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-HEADERS = [CSRC / "tile_order.cuh"]
+HEADERS = [CSRC / "tile_order.cuh", CSRC / "decode_rows.cuh"]
 
 _p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # the tile kernels' C signature: q, k, v, o, q_offset, q_offset_add, bh,
@@ -41,13 +41,11 @@ LIBRARIES = {
                         {"flash_attn_fwd": _TILE_ARGS}),
     "flash_attention_tc": ("flash_attention_tc.cu",
                            {"flash_attn_fwd_tc": _TILE_ARGS}),
-    # q, k, v, lengths, out, m_l, o_part, b, L, d, splits, chunk, scale,
-    # dtype, stream; then m_l, o_part, out, b, d, splits, dtype, stream
+    # q, k, v, lengths, out, part, tickets, b, L, d, splits, min_rows,
+    # scale, dtype, stream
     "flash_decode": ("flash_decode.cu",
                      {"flash_decode": [_p, _p, _p, _p, _p, _p, _p, _i, _i,
-                                       _i, _i, _i, _f, _i, _p],
-                      "flash_decode_combine": [_p, _p, _p, _i, _i, _i, _i,
-                                               _p]}),
+                                       _i, _i, _i, _f, _i, _p]}),
 }
 LIBRARY_OF = {fn: lib for lib, (_, fns) in LIBRARIES.items() for fn in fns}
 

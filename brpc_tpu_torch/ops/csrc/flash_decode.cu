@@ -1,5 +1,6 @@
 // flash_decode: single-query attention over per-sequence KV caches, the
-// decode step of the serving path, for Hopper (sm_90a).
+// decode step of the serving path, for Hopper (sm_90a). One launch for
+// every decode call, split or not.
 //
 // Replaces: brpc_tpu/ops/flash_attention.py:104 `_flash_pallas_2d` on the
 // path of `decode_attention` (:221), which runs the same online-softmax
@@ -7,47 +8,103 @@
 // b only cache rows 0 .. lengths[b]-1 are visible, whatever the tail
 // holds. Numerics follow `_online_softmax_step` (:34) and `_finalize`
 // (:58): fp32 (m, l, o), masked scores NEG_INF = -1e30 with probability 0,
-// a length-0 sequence gives zeros. Inputs fp32, fp16 or bf16; head dim 16,
-// 32, 64 or 128. lengths are read here, on the device: no host sync.
+// a length-0 sequence gives zeros in q's dtype. Inputs fp32, fp16 or bf16;
+// head dim 16, 32, 64 or 128. lengths are read here, on the device: no
+// host sync.
 //
-// What bounds it on an H100. One decode step reads each valid K and V row
-// once: at the serving shape (8 sequences, a 160-row fp32 cache, d 32) at
-// most 327,680 bytes, 0.1 us at 3.35 TB/s. So the time is latency: the
-// launch, and the chain of dependent loads inside a block. A design that
-// walks the cache in tiles with a block-wide barrier between load and use
-// pays one memory round trip per tile, in series.
+// What bounds it on an H100. A decode step reads each valid K and V row
+// once: 3.6 MB at the long-cache case (4 sequences of a 4096-row bf16 d 128
+// cache, lengths 0/1/4096/3000), 1.1 us at 3.35 TB/s; at the serving shape
+// (8 sequences, a 160-row fp32 cache, d 32) 0.1 us. Neither is reachable
+// by one launch: an empty kernel takes 1.7-1.9 us back to back
+// (`torch.cuda._sleep(0)`), and a block waits on dependent memory round
+// trips, the length, then its rows, then, split, the merge's three. So the
+// design cuts launches and round trips (times: ops/kernel_ab.py on an
+// NVIDIA H100 80GB HBM3 at 700 W, L2 warm, against the two-launch version
+// that this one replaces):
 //
-// Design. No barrier inside the key loop. Each key row is read by a group
-// of D*sizeof(T)/16 lanes with one 16-byte load each; a warp scores
-// 32/group keys at a time, the block's 8 warps side by side, and each lane
-// issues the loads of kUnroll keys before it uses any, so a block has
-// kUnroll * 8 * 32/group rows in flight. A lane group keeps its own
-// (m, l, o) in registers, in log2 units (exp2 of scores pre-scaled by
-// log2 e). Groups merge by warp shuffles and warps through shared memory
-// once, at the end. Where the cache is long and batch*heads small, the host
-// (`_plan`) splits it over `splits` blocks per sequence (gridDim.y), from
-// the shapes alone, so that the grid covers the 132 SMs; each split writes
-// its (m, l, o) to scratch and flash_decode_combine merges them in a second
-// launch. A split that lies past lengths[b] writes m = NEG_INF, l = 0,
-// o = 0, and every merge weights a partial by (l > 0 ? exp(m - max) : 0),
-// so exp(NEG_INF - NEG_INF) = 1 never reaches l. batch*heads is
-// gridDim.x (no 65,535 limit). The kernel allocates nothing and launches
-// on the caller's stream; the C entries return cudaGetLastError().
+// 1. The merge is in the kernel. With more than one live block a block
+//    writes its (m, l, o) to a small fp32 scratch; one thread publishes
+//    it and takes a ticket on the sequence's int32 counter in one
+//    acq_rel atomic. The block that draws the last ticket merges the
+//    sequence's partials in block order 0..live-1 (never in arrival
+//    order, so a result does not change from run to run), all its loads
+//    in flight at once, writes out[b] and sets the counter back to 0, so
+//    the next launch on the stream, or a graph replay, finds it zero. The
+//    wrapper keeps scratch and counters per (device, stream), zeroed once
+//    when made. With one live block (one block a sequence, the serving
+//    shape; or a short sequence) the block writes out[b] itself: no
+//    ticket, no scratch. The merge's round trips (the partial's stores
+//    acknowledged, the ticket, the partials' loads) cost 1.3-2.3 us (a
+//    build without the merge took 4.4-4.7 us at the long-cache case)
+//    against the second launch's 3.2: the long-cache case takes 6.0-6.1
+//    us against the two launches' 7.4-7.8.
+// 2. The split follows the valid rows. The host picks `splits` blocks per
+//    sequence from the shapes alone, about one block an SM over the grid
+//    (two an SM, or a grid that is not a multiple of the SMs, measured
+//    slower: 6.8-7.5 us); here sequence b uses only
+//    live = min(splits, ceil(len / min_rows)) of them and cuts its rows
+//    evenly among them (decode_rows.cuh). Blocks past `live` exit at once.
+// 3. Each lane issues the 16-byte K and V loads of its 8 keys before it
+//    uses any, so a block's whole share (at most 128 rows at the long-cache
+//    case, 160 at the serving shape) is one burst of loads in flight. A
+//    key row is scored by a group of D*sizeof(T)/16 lanes, a warp scores
+//    32/group rows at a time, the block's 8 warps side by side; a lane
+//    group keeps its (m, l, o) in registers in log2 units (exp2 of scores
+//    pre-scaled by log2 e). Groups merge by warp shuffles and warps
+//    through shared memory once, at the end. Staging the rows instead by
+//    1-D bulk copies (cp.async.bulk onto an mbarrier, a two-stage ring of
+//    16 KB of K and of V a stage) was slower at every shape measured with
+//    one block an SM, by 0.04-0.3 us at the serving shape and 0.08-1.0 us
+//    at the long-cache, full-cache and 128 KB ones, and is not used. With
+//    one block a sequence the cut skips decode_rows' divisions, which
+//    sit between the length's load and the first row's (0.3-0.5 us at
+//    the serving shape).
+//
+// Every merge weights a partial by (l > 0 ? exp2(m - max) : 0), so
+// exp(NEG_INF - NEG_INF) = 1 never reaches l. batch*heads is gridDim.x (no
+// 65,535 limit). The kernel allocates nothing and launches on the caller's
+// stream; the C entry returns cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "decode_rows.cuh"
 
 namespace {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kUnroll = 8;                 // keys a lane loads before use
-constexpr int kCombineThreads = 256;
-constexpr int kMaxSplits = 1024;           // combine's shared weights
+constexpr int kMaxSplits = 128;            // blocks a sequence, at most
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
+
+template <typename T, int D>
+struct Cfg {
+  static constexpr int kVec = 16 / sizeof(T);          // elements a load
+  static constexpr int kGroup = D / kVec;               // lanes a key row
+  static constexpr int kKeysPerWarp = 32 / kGroup;
+  static constexpr int kKeysPerStep = kWarps * kKeysPerWarp;
+  static_assert(kGroup >= 2 && kGroup <= 32 && 32 % kGroup == 0,
+                "a key row must span 2..32 lanes");
+  static_assert((kMaxSplits * D / 4) % kThreads == 0,
+                "the merge's float4 loads fill whole rounds");
+};
+
+// ------------------------------------------------------------ PTX helpers
+
+// *p += 1 at gpu scope, acquire and release; returns the old value
+__device__ __forceinline__ int ticket_add(int* p) {
+  int old;
+  asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;"
+               : "=r"(old)
+               : "l"(reinterpret_cast<uint64_t>(p))
+               : "memory");
+  return old;
+}
 
 __device__ __forceinline__ uint4 load16(const void* p) {
   return __ldg(static_cast<const uint4*>(p));
@@ -97,61 +154,69 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
-// Grid (batch*heads, splits), kThreads threads. Split s covers cache rows
-// [s*chunk, min((s+1)*chunk, lengths[b])). With splits == 1 the block
-// writes out[b] itself; otherwise it writes its (m, l) in natural-log
-// units to m_l[b][s] and its unnormalised o to o_part[b][s].
+// Grid (batch*heads, splits), kThreads threads. Block (b, split) takes the
+// rows decode_rows gives it. With one live block for b it writes out[b];
+// otherwise it writes its (m, l) in log2 units to
+// part[B*splits*D + 2*(b*splits + split)] and its unnormalised o to
+// part[(b*splits + split)*D], and the last of b's live blocks to take a
+// ticket on tickets[b] merges them into out[b].
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const int* __restrict__ lengths,
-                    T* __restrict__ out, float* __restrict__ m_l,
-                    float* __restrict__ o_part, int L, int chunk,
+                    T* __restrict__ out, float* __restrict__ part,
+                    int* __restrict__ tickets, int L, int min_rows,
                     float scale_log2) {
-  constexpr int kVec = 16 / sizeof(T);          // elements per 16 bytes
-  constexpr int kGroup = D / kVec;              // lanes per key row
-  static_assert(kGroup >= 2 && kGroup <= 32 && 32 % kGroup == 0,
-                "a key row must span 2..32 lanes");
-  constexpr int kKeysPerWarp = 32 / kGroup;
-  constexpr int kKeysPerStep = kWarps * kKeysPerWarp;
-
+  using C = Cfg<T, D>;
   __shared__ float warp_m[kWarps];
   __shared__ float warp_l[kWarps];
   __shared__ float warp_o[kWarps][D];
+  __shared__ float weight[kMaxSplits];
+  __shared__ float4 quad_sum[kThreads];
+  __shared__ float merged_l;
+  __shared__ int ticket;
 
-  const int bh = blockIdx.x;
+  const int b = blockIdx.x;
   const int split = blockIdx.y;
   const int splits = gridDim.y;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int group = lane / kGroup;
-  const int col = (lane % kGroup) * kVec;       // this lane's first column
-  const int len = min(max(lengths[bh], 0), L);
-  const int start = split * chunk;
-  const int end = min(start + chunk, len);
-  const long long row0 = static_cast<long long>(bh) * L;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int group = lane / C::kGroup;
+  const int col = (lane % C::kGroup) * C::kVec;   // this lane's first column
 
-  float qv[kVec];
-  unpack(load16(q + static_cast<long long>(bh) * D + col), qv,
+  const int len = min(max(lengths[b], 0), L);
+  float qv[C::kVec];
+  unpack(load16(q + static_cast<long long>(b) * D + col), qv,
          static_cast<const T*>(nullptr));
+  // one block a sequence (the serving shape): the cut without its
+  // divisions, which are on the path to the first load
+  const DecodeRows cut = splits == 1 ? DecodeRows{len > 0, 0, len}
+                                     : decode_rows(len, splits, min_rows,
+                                                   split);
+  if (cut.rows == 0) {
+    // a block past the live ones; with no row at all, block 0 writes zeros
+    if (cut.live == 0 && split == 0)
+      for (int c = tid; c < D; c += kThreads)
+        out[static_cast<long long>(b) * D + c] = from_float<T>(0.f);
+    return;
+  }
 #pragma unroll
-  for (int e = 0; e < kVec; ++e) qv[e] *= scale_log2;
+  for (int e = 0; e < C::kVec; ++e) qv[e] *= scale_log2;
 
+  const long long row0 = static_cast<long long>(b) * L + cut.first;
   float m = kNegInf, l = 0.f;
-  float acc[kVec];
+  float acc[C::kVec];
 #pragma unroll
-  for (int e = 0; e < kVec; ++e) acc[e] = 0.f;
-
-  // the trip count depends on the warp only, so every shuffle below has
-  // all 32 lanes
-  for (int base = start + warp * kKeysPerWarp; base < end;
-       base += kKeysPerStep * kUnroll) {
+  for (int e = 0; e < C::kVec; ++e) acc[e] = 0.f;
+  for (int base = warp * C::kKeysPerWarp; base < cut.rows;
+       base += C::kKeysPerStep * kUnroll) {
     uint4 kr[kUnroll], vr[kUnroll];
     bool ok[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
-      const int key = base + group + u * kKeysPerStep;
-      ok[u] = key < end;
+      const int key = base + group + u * C::kKeysPerStep;
+      ok[u] = key < cut.rows;
       kr[u] = vr[u] = make_uint4(0u, 0u, 0u, 0u);
       if (ok[u]) {
         const long long off = (row0 + key) * D + col;
@@ -163,13 +228,13 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float tile_max = kNegInf;
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
-      float kf[kVec];
+      float kf[C::kVec];
       unpack(kr[u], kf, static_cast<const T*>(nullptr));
       float dot = 0.f;
 #pragma unroll
-      for (int e = 0; e < kVec; ++e) dot = fmaf(qv[e], kf[e], dot);
+      for (int e = 0; e < C::kVec; ++e) dot = fmaf(qv[e], kf[e], dot);
 #pragma unroll
-      for (int off = kGroup / 2; off > 0; off >>= 1)
+      for (int off = C::kGroup / 2; off > 0; off >>= 1)
         dot += __shfl_xor_sync(0xffffffffu, dot, off);
       s[u] = ok[u] ? dot : kNegInf;
       tile_max = fmaxf(tile_max, s[u]);
@@ -178,15 +243,15 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float corr = exp2f(m - m_new);
     l *= corr;
 #pragma unroll
-    for (int e = 0; e < kVec; ++e) acc[e] *= corr;
+    for (int e = 0; e < C::kVec; ++e) acc[e] *= corr;
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const float p = ok[u] ? exp2f(s[u] - m_new) : 0.f;
-      float vf[kVec];
+      float vf[C::kVec];
       unpack(vr[u], vf, static_cast<const T*>(nullptr));
       l += p;
 #pragma unroll
-      for (int e = 0; e < kVec; ++e) acc[e] = fmaf(p, vf[e], acc[e]);
+      for (int e = 0; e < C::kVec; ++e) acc[e] = fmaf(p, vf[e], acc[e]);
     }
     m = m_new;
   }
@@ -194,21 +259,21 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // merge the lane groups of a warp: lanes `off` apart hold the same
   // columns of two groups
 #pragma unroll
-  for (int off = kGroup; off < 32; off <<= 1) {
+  for (int off = C::kGroup; off < 32; off <<= 1) {
     const float m_o = __shfl_xor_sync(0xffffffffu, m, off);
     const float l_o = __shfl_xor_sync(0xffffffffu, l, off);
     const float m_n = fmaxf(m, m_o);
     const float a = l > 0.f ? exp2f(m - m_n) : 0.f;
-    const float b = l_o > 0.f ? exp2f(m_o - m_n) : 0.f;
+    const float w = l_o > 0.f ? exp2f(m_o - m_n) : 0.f;
 #pragma unroll
-    for (int e = 0; e < kVec; ++e)
-      acc[e] = acc[e] * a + __shfl_xor_sync(0xffffffffu, acc[e], off) * b;
-    l = l * a + l_o * b;
+    for (int e = 0; e < C::kVec; ++e)
+      acc[e] = acc[e] * a + __shfl_xor_sync(0xffffffffu, acc[e], off) * w;
+    l = l * a + l_o * w;
     m = m_n;
   }
   if (group == 0) {
 #pragma unroll
-    for (int e = 0; e < kVec; ++e) warp_o[warp][col + e] = acc[e];
+    for (int e = 0; e < C::kVec; ++e) warp_o[warp][col + e] = acc[e];
     if (col == 0) {
       warp_m[warp] = m;
       warp_l[warp] = l;
@@ -217,7 +282,9 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __syncthreads();
 
   // merge the warps, one thread per column
-  for (int c = threadIdx.x; c < D; c += kThreads) {
+  const long long slot = static_cast<long long>(b) * splits + split;
+  float* part_ml = part + static_cast<long long>(gridDim.x) * splits * D;
+  for (int c = tid; c < D; c += kThreads) {
     float m_max = kNegInf;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w)
@@ -229,169 +296,178 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       l_sum += wt * warp_l[w];
       o_sum += wt * warp_o[w][c];
     }
-    if (splits == 1) {
-      out[static_cast<long long>(bh) * D + c] =
+    if (cut.live == 1) {
+      out[static_cast<long long>(b) * D + c] =
           from_float<T>(l_sum > 0.f ? o_sum / l_sum : 0.f);
     } else {
-      const long long slot = static_cast<long long>(bh) * splits + split;
-      o_part[slot * D + c] = o_sum;
+      part[slot * D + c] = o_sum;
       if (c == 0) {
-        m_l[slot * 2] = l_sum > 0.f ? m_max * kLn2 : kNegInf;
-        m_l[slot * 2 + 1] = l_sum;
+        part_ml[slot * 2] = m_max;
+        part_ml[slot * 2 + 1] = l_sum;
       }
     }
   }
-}
+  if (cut.live == 1) return;
 
-// Grid batch*heads: out[b] = sum_s w_s o_s / sum_s w_s l_s over the
-// splits, w_s = (l_s > 0 ? exp(m_s - max m) : 0); 0 where nothing was seen.
-// The splits are spread over the block's threads for the max and the
-// weights, and kCombineThreads / d threads share a column of o, so no
-// thread walks the splits alone.
-template <typename T>
-__global__ void __launch_bounds__(kCombineThreads)
-flash_decode_combine_kernel(const float* __restrict__ m_l,
-                            const float* __restrict__ o_part,
-                            T* __restrict__ out, int d, int splits) {
-  constexpr int kWarpsC = kCombineThreads / 32;
-  __shared__ float weight[kMaxSplits];
-  __shared__ float red_m[kWarpsC];
-  __shared__ float red_l[kWarpsC];
-  const long long bh = blockIdx.x;
-  const float* ml = m_l + bh * splits * 2;
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int warp = tid / 32;
-
-  float m_max = kNegInf;
-  for (int s = tid; s < splits; s += kCombineThreads)
-    if (ml[2 * s + 1] > 0.f) m_max = fmaxf(m_max, ml[2 * s]);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    m_max = fmaxf(m_max, __shfl_xor_sync(0xffffffffu, m_max, off));
-  if (lane == 0) red_m[warp] = m_max;
+  // the last of the sequence's live blocks to arrive merges. One thread
+  // publishes the block's partial (written by the threads above, ordered
+  // before it by the barrier) and takes a ticket in one acq_rel atomic,
+  // which also makes the other blocks' partials visible to it
   __syncthreads();
-#pragma unroll
-  for (int w = 0; w < kWarpsC; ++w) m_max = fmaxf(m_max, red_m[w]);
+  if (tid == 0) ticket = ticket_add(&tickets[b]);
+  __syncthreads();
+  if (ticket != cut.live - 1) return;
 
-  float l_sum = 0.f;
-  for (int s = tid; s < splits; s += kCombineThreads) {
-    const float ls = ml[2 * s + 1];
-    const float wt = ls > 0.f ? expf(ml[2 * s] - m_max) : 0.f;
-    weight[s] = wt;
-    l_sum += wt * ls;
+  // m and l of every live block (warp 0) and every thread's share of their
+  // o, [live, D] as float4, all in flight at once; written by other SMs,
+  // so read from L2 (__ldcg), not L1
+  constexpr int kQuads = D / 4;                  // float4 columns
+  constexpr int kLoads = kMaxSplits * kQuads / kThreads;
+  const float2* ml = reinterpret_cast<const float2*>(
+      part_ml + static_cast<long long>(b) * splits * 2);
+  float2 mlj[kMaxSplits / 32];
+  if (warp == 0) {
+#pragma unroll
+    for (int u = 0; u < kMaxSplits / 32; ++u) {
+      const int j = lane + 32 * u;
+      mlj[u] = j < cut.live ? __ldcg(ml + j) : make_float2(kNegInf, 0.f);
+    }
   }
+  const float4* src = reinterpret_cast<const float4*>(
+      part + static_cast<long long>(b) * splits * D);
+  const int n4 = cut.live * kQuads;
+  float4 o4[kLoads];
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    l_sum += __shfl_xor_sync(0xffffffffu, l_sum, off);
-  if (lane == 0) red_l[warp] = l_sum;
+  for (int u = 0; u < kLoads; ++u) {
+    const int i = u * kThreads + tid;
+    o4[u] = i < n4 ? __ldcg(src + i) : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  // the weights: w_j = (l_j > 0 ? exp2(m_j - max m) : 0)
+  if (warp == 0) {
+    float m_max = kNegInf;
+#pragma unroll
+    for (int u = 0; u < kMaxSplits / 32; ++u)
+      if (mlj[u].y > 0.f) m_max = fmaxf(m_max, mlj[u].x);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      m_max = fmaxf(m_max, __shfl_xor_sync(0xffffffffu, m_max, off));
+    float l_sum = 0.f;
+#pragma unroll
+    for (int u = 0; u < kMaxSplits / 32; ++u) {
+      const float w = mlj[u].y > 0.f ? exp2f(mlj[u].x - m_max) : 0.f;
+      if (lane + 32 * u < cut.live) weight[lane + 32 * u] = w;
+      l_sum += w * mlj[u].y;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      l_sum += __shfl_xor_sync(0xffffffffu, l_sum, off);
+    if (lane == 0) merged_l = l_sum;
+  }
   __syncthreads();
-  l_sum = 0.f;
+  // thread tid holds column quad tid % kQuads of blocks tid / kQuads + u *
+  // (kThreads / kQuads), u ascending: each sums its own in block order,
+  // then the quad's kThreads / kQuads sums are added in order
+  float4 acc4 = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
-  for (int w = 0; w < kWarpsC; ++w) l_sum += red_l[w];
-
-  // d is a power of two <= 128: per_col lanes of one warp share column c
-  const int per_col = kCombineThreads / d;
-  const int c = tid / per_col;
-  float o_sum = 0.f;
+  for (int u = 0; u < kLoads; ++u) {
+    const int i = u * kThreads + tid;
+    if (i < n4) {
+      const float w = weight[i / kQuads];
+      acc4.x = fmaf(w, o4[u].x, acc4.x);
+      acc4.y = fmaf(w, o4[u].y, acc4.y);
+      acc4.z = fmaf(w, o4[u].z, acc4.z);
+      acc4.w = fmaf(w, o4[u].w, acc4.w);
+    }
+  }
+  quad_sum[tid] = acc4;
+  __syncthreads();
+  if (tid < kQuads) {
+    float4 total = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll 8
-  for (int s = tid % per_col; s < splits; s += per_col)
-    o_sum += weight[s] * o_part[(bh * splits + s) * d + c];
-  for (int off = per_col / 2; off > 0; off >>= 1)
-    o_sum += __shfl_xor_sync(0xffffffffu, o_sum, off);
-  if (tid % per_col == 0)
-    out[bh * d + c] = from_float<T>(l_sum > 0.f ? o_sum / l_sum : 0.f);
+    for (int g = 0; g < kThreads / kQuads; ++g) {
+      const float4 x = quad_sum[g * kQuads + tid];
+      total.x += x.x;
+      total.y += x.y;
+      total.z += x.z;
+      total.w += x.w;
+    }
+    const float inv = merged_l > 0.f ? 1.f / merged_l : 0.f;
+    T* o = out + static_cast<long long>(b) * D + 4 * tid;
+    o[0] = from_float<T>(total.x * inv);
+    o[1] = from_float<T>(total.y * inv);
+    o[2] = from_float<T>(total.z * inv);
+    o[3] = from_float<T>(total.w * inv);
+    if (tid == 0) tickets[b] = 0;
+  }
+}
+
+template <typename T, int D>
+cudaError_t launch_d(const void* q, const void* k, const void* v,
+                     const int* lengths, void* out, float* part,
+                     int* tickets, int b, int L, int splits, int min_rows,
+                     float scale, cudaStream_t stream) {
+  flash_decode_kernel<T, D><<<dim3(b, splits), kThreads, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), lengths, static_cast<T*>(out), part, tickets,
+      L, min_rows, scale * kLog2e);
+  return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* lengths, void* out, float* m_l, float* o_part,
-                   int b, int L, int d, int splits, int chunk, float scale,
+cudaError_t launch(int d, const void* q, const void* k, const void* v,
+                   const int* lengths, void* out, float* part, int* tickets,
+                   int b, int L, int splits, int min_rows, float scale,
                    cudaStream_t stream) {
-  const dim3 grid(b, splits);
-  const float sl = scale * kLog2e;
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  T* ot = static_cast<T*>(out);
-#define BRPC_DECODE_CASE(DIM)                                               \
-  case DIM:                                                                 \
-    flash_decode_kernel<T, DIM><<<grid, kThreads, 0, stream>>>(             \
-        qt, kt, vt, lengths, ot, m_l, o_part, L, chunk, sl);                \
-    break;
   switch (d) {
-    BRPC_DECODE_CASE(16)
-    BRPC_DECODE_CASE(32)
-    BRPC_DECODE_CASE(64)
-    BRPC_DECODE_CASE(128)
+    case 16:
+      return launch_d<T, 16>(q, k, v, lengths, out, part, tickets, b, L,
+                             splits, min_rows, scale, stream);
+    case 32:
+      return launch_d<T, 32>(q, k, v, lengths, out, part, tickets, b, L,
+                             splits, min_rows, scale, stream);
+    case 64:
+      return launch_d<T, 64>(q, k, v, lengths, out, part, tickets, b, L,
+                             splits, min_rows, scale, stream);
+    case 128:
+      return launch_d<T, 128>(q, k, v, lengths, out, part, tickets, b, L,
+                              splits, min_rows, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
-#undef BRPC_DECODE_CASE
-  return cudaGetLastError();
 }
 
 }  // namespace
 
 // q [b, d], k and v [b, L, d], out [b, d]: contiguous, one dtype (0 fp32,
-// 1 fp16, 2 bf16), 16-byte aligned; lengths int32 [b] on the device. With
-// splits > 1, m_l [b, splits, 2] and o_part [b, splits, d] (fp32) receive
-// the per-split partials and out is not written. Returns 0 or the CUDA
-// error of the launch.
+// 1 fp16, 2 bf16), 16-byte aligned; lengths int32 [b] on the device.
+// `splits` blocks a sequence (1..128), each live one taking at least
+// `min_rows` rows. With splits > 1, part holds at least b*splits*(d+2)
+// fp32 and tickets b int32, all zero before the first launch on the
+// stream (the kernel leaves them zero). Returns 0 or the CUDA error of the
+// launch.
 extern "C" int flash_decode(const void* q, const void* k, const void* v,
-                            const void* lengths, void* out, void* m_l,
-                            void* o_part, int b, int L, int d, int splits,
-                            int chunk, float scale, int dtype,
+                            const void* lengths, void* out, void* part,
+                            void* tickets, int b, int L, int d, int splits,
+                            int min_rows, float scale, int dtype,
                             void* stream) {
-  if (b <= 0 || splits < 1 || splits > kMaxSplits || chunk < 1 ||
-      (splits > 1 && (m_l == nullptr || o_part == nullptr)))
+  if (b <= 0 || L < 0 || splits < 1 || splits > kMaxSplits || min_rows < 1 ||
+      (splits > 1 && (part == nullptr || tickets == nullptr)))
     return cudaErrorInvalidValue;
   const int* len = static_cast<const int*>(lengths);
-  float* ml = static_cast<float*>(m_l);
-  float* op = static_cast<float*>(o_part);
+  float* p = static_cast<float*>(part);
+  int* t = static_cast<int*>(tickets);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return launch<float>(q, k, v, len, out, ml, op, b, L, d, splits, chunk,
-                           scale, s);
+      return launch<float>(d, q, k, v, len, out, p, t, b, L, splits,
+                           min_rows, scale, s);
     case 1:
-      return launch<__half>(q, k, v, len, out, ml, op, b, L, d, splits,
-                            chunk, scale, s);
+      return launch<__half>(d, q, k, v, len, out, p, t, b, L, splits,
+                            min_rows, scale, s);
     case 2:
-      return launch<__nv_bfloat16>(q, k, v, len, out, ml, op, b, L, d,
-                                   splits, chunk, scale, s);
+      return launch<__nv_bfloat16>(d, q, k, v, len, out, p, t, b, L, splits,
+                                   min_rows, scale, s);
     default:
       return cudaErrorInvalidValue;
   }
-}
-
-// m_l [b, splits, 2] and o_part [b, splits, d] from flash_decode -> out
-// [b, d] in dtype. Returns 0 or the CUDA error of the launch.
-extern "C" int flash_decode_combine(const void* m_l, const void* o_part,
-                                    void* out, int b, int d, int splits,
-                                    int dtype, void* stream) {
-  if (b <= 0 || splits < 1 || splits > kMaxSplits ||
-      (d != 16 && d != 32 && d != 64 && d != 128))
-    return cudaErrorInvalidValue;
-  const float* ml = static_cast<const float*>(m_l);
-  const float* op = static_cast<const float*>(o_part);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      flash_decode_combine_kernel<float><<<b, kCombineThreads, 0, s>>>(
-          ml, op, static_cast<float*>(out), d, splits);
-      break;
-    case 1:
-      flash_decode_combine_kernel<__half><<<b, kCombineThreads, 0, s>>>(
-          ml, op, static_cast<__half*>(out), d, splits);
-      break;
-    case 2:
-      flash_decode_combine_kernel<__nv_bfloat16>
-          <<<b, kCombineThreads, 0, s>>>(
-              ml, op, static_cast<__nv_bfloat16*>(out), d, splits);
-      break;
-    default:
-      return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
 }

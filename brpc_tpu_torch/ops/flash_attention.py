@@ -3,10 +3,11 @@
 One online-softmax recurrence, four versions:
 
   * ``flash_decode`` (``csrc/flash_decode.cu``): single-query attention
-    over per-sequence KV caches, the serving path's kernel. Warps score
-    keys in parallel with 16-byte loads; a long cache is split over
-    several blocks per sequence and a second launch,
-    ``flash_decode_combine``, merges the per-split ``(m, l, o)``;
+    over per-sequence KV caches, the serving path's kernel, one launch a
+    call. A long cache is split over several blocks per sequence; each
+    sequence uses as many of them as its valid rows need
+    (``_decode_rows``), and the last of them to finish merges the
+    per-block ``(m, l, o)`` inside the kernel;
   * ``flash_attn_fwd_tc`` (``csrc/flash_attention_tc.cu``): fp16/bf16
     tiles on the tensor cores (``wgmma``), K/V streamed by TMA through
     rings of shared-memory stages, every head dim the port takes (16, 32,
@@ -36,7 +37,8 @@ calls), so a run can show that its path went through the kernels.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, NamedTuple, Optional, Union
+import threading
+from typing import Dict, List, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -45,11 +47,21 @@ NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 TC_DTYPES = (torch.float16, torch.bfloat16)
-# the card's streaming multiprocessors (H100 SXM): decode splits a cache
-# until the grid covers them, keeping at least this many keys a split
+# the card's streaming multiprocessors (H100 SXM). flash_decode gives each
+# sequence up to DECODE_GRID_BLOCKS / batch*heads blocks, about one block
+# an SM over the grid, so that it covers the card even when only some
+# sequences are long; at most DECODE_MAX_SPLITS (``kMaxSplits`` in its
+# source), and no more than a full cache fills at DECODE_MIN_ROWS rows a
+# block. A cache whose K and V at full capacity take DECODE_SPLIT_BYTES or
+# less is read by one block a sequence: the in-kernel merge costs more
+# than one block's read of them. In the kernel a sequence uses only the
+# blocks its valid rows need, at least DECODE_MIN_ROWS rows each
+# (``_decode_rows``). PERF.md gives the times these were chosen by.
 SM_COUNT = 132
-DECODE_MIN_KEYS_PER_SPLIT = 128
-DECODE_MAX_SPLITS = 64
+DECODE_GRID_BLOCKS = SM_COUNT
+DECODE_MIN_ROWS = 128
+DECODE_MAX_SPLITS = 128
+DECODE_SPLIT_BYTES = 128 * 1024
 GRID_Y_MAX = 65535
 # query rows a block of each tile kernel (``kBQ`` in its source, which the
 # CPU tests read): the launch's q tiles, gridDim.y, come from it
@@ -57,8 +69,8 @@ TILE_BLOCK_Q = {"flash_attn_fwd": 64, "flash_attn_fwd_tc": 64}
 # fp32 summation-order slack of the 16-bit kernels' checks (_rounding_bound)
 LOWP_ATOL = 1e-5
 
-launches: Dict[str, int] = {"flash_decode": 0, "flash_decode_combine": 0,
-                            "flash_attn_fwd_tc": 0, "flash_attn_fwd": 0}
+launches: Dict[str, int] = {"flash_decode": 0, "flash_attn_fwd_tc": 0,
+                            "flash_attn_fwd": 0}
 
 
 # ------------------------------------------------------------ plain version
@@ -126,24 +138,44 @@ def _flash_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _finalize(m, l, o, q.dtype)[0]
 
 
+def _decode_rows(length: int, splits: int, min_rows: int,
+                 split: int) -> Tuple[int, int, int]:
+    """``decode_rows`` of ``csrc/decode_rows.cuh``, step for step: of a
+    sequence with ``length`` valid rows and ``splits`` blocks, how many
+    blocks are live, and block ``split``'s first row and row count (0
+    past the live blocks). The CPU tests hold this mirror to the
+    header's text."""
+    live = min(splits, (length + min_rows - 1) // min_rows)
+    base = length // max(live, 1)
+    extra = length % max(live, 1)
+    first = split * base + min(split, extra)
+    rows = (split < live) * (base + (split < extra))
+    return live, first, rows
+
+
 def _decode_partials_plain(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, lengths: torch.Tensor,
-                           scale: float, splits: int, chunk: int):
-    """``flash_decode``'s first pass: per split s, the unnormalised
-    ``(m, l, o)`` of rows ``s*chunk .. min((s+1)*chunk, lengths)-1``.
-    Returns m, l [B, splits] and o [B, splits, d], fp32; an empty split
-    has m = NEG_INF, l = 0, o = 0."""
+                           scale: float, splits: int,
+                           min_rows: int = DECODE_MIN_ROWS):
+    """``flash_decode``'s blocks: for block s of sequence b, the
+    unnormalised ``(m, l, o)`` of the rows ``_decode_rows`` gives it.
+    Returns m, l [B, splits] and o [B, splits, d], fp32; a block with no
+    rows has m = NEG_INF, l = 0, o = 0."""
     b, L, d = k.shape
     dev = q.device
     s = torch.einsum("bd,bkd->bk", q.float(), k.float()) * scale   # [B, L]
-    pos = torch.arange(L, device=dev)
-    valid = pos[None, :] < lengths.to(dev).long()[:, None]
-    split_of = pos // chunk
+    # the block each row belongs to, -1 past the sequence's length
+    split_of = torch.full((b, L), -1, dtype=torch.long)
+    for i, n in enumerate(lengths.clamp(0, L).tolist()):
+        for j in range(splits):
+            _, first, rows = _decode_rows(n, splits, min_rows, j)
+            split_of[i, first:first + rows] = j
+    split_of = split_of.to(dev)
     m = torch.full((b, splits), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((b, splits), dtype=torch.float32, device=dev)
     o = torch.zeros((b, splits, d), dtype=torch.float32, device=dev)
     for i in range(splits):
-        mask = valid & (split_of == i)[None, :]
+        mask = split_of == i
         si = torch.where(mask, s, NEG_INF)
         m[:, i] = si.amax(dim=-1)
         p = torch.where(mask, torch.exp(si - m[:, i, None]), 0.0)
@@ -154,9 +186,10 @@ def _decode_partials_plain(q: torch.Tensor, k: torch.Tensor,
 
 def _decode_combine_plain(m: torch.Tensor, l: torch.Tensor,
                           o: torch.Tensor, dtype: torch.dtype):
-    """``flash_decode_combine``: merge per-split partials. A split that
-    saw no rows (l = 0) gets weight 0, so exp(NEG_INF - NEG_INF) = 1
-    never leaks into the sum; a sequence with no rows gives zeros."""
+    """The merge that ``flash_decode``'s last block of a sequence runs:
+    per-block partials to out. A block that saw no rows (l = 0) gets
+    weight 0, so exp(NEG_INF - NEG_INF) = 1 never leaks into the sum; a
+    sequence with no rows gives zeros."""
     live = l > 0
     m_max = torch.where(live, m, NEG_INF).amax(dim=-1, keepdim=True)
     w = torch.where(live, torch.exp(m - m_max), 0.0)
@@ -168,14 +201,14 @@ def _decode_combine_plain(m: torch.Tensor, l: torch.Tensor,
 
 def _decode_split_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         lengths: torch.Tensor, splits: int,
-                        scale: Optional[float] = None) -> torch.Tensor:
-    """``flash_decode``'s arithmetic end to end: per-split partials, then
-    the combine, with the chunk ``_plan`` would give for ``splits``."""
+                        scale: Optional[float] = None,
+                        min_rows: int = DECODE_MIN_ROWS) -> torch.Tensor:
+    """``flash_decode``'s arithmetic end to end: the blocks' partials
+    under the cut of ``_decode_rows``, then the merge."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    chunk = -(-k.shape[1] // splits)
     return _decode_combine_plain(
-        *_decode_partials_plain(q, k, v, lengths, scale, splits, chunk),
+        *_decode_partials_plain(q, k, v, lengths, scale, splits, min_rows),
         q.dtype)
 
 
@@ -200,15 +233,18 @@ def _rounding_bound(want: torch.Tensor, dtype: torch.dtype,
 class Plan(NamedTuple):
     kernel: str                  # "plain" or the name of a CUDA kernel
     splits: int = 1              # flash_decode: blocks per sequence
-    chunk: int = 0               # flash_decode: cache rows per split
 
 
-def _decode_splits(bh: int, cache_len: int) -> int:
+def _decode_splits(bh: int, cache_len: int, row_bytes: int) -> int:
     """Blocks per sequence for flash_decode, from the shapes alone (never
-    from the lengths, which live on the device): enough to cover the SMs,
-    at least DECODE_MIN_KEYS_PER_SPLIT cache rows each."""
-    want = -(-SM_COUNT // max(bh, 1))
-    return max(1, min(want, cache_len // DECODE_MIN_KEYS_PER_SPLIT,
+    from the lengths, which live on the device): 1 where a sequence's K
+    and V at full capacity take at most DECODE_SPLIT_BYTES; else enough
+    that the grid holds about DECODE_GRID_BLOCKS blocks, no more than
+    ceil(cache_len / DECODE_MIN_ROWS), at most DECODE_MAX_SPLITS."""
+    if 2 * cache_len * row_bytes <= DECODE_SPLIT_BYTES:
+        return 1
+    want = -(-DECODE_GRID_BLOCKS // max(bh, 1))
+    return max(1, min(want, -(-cache_len // DECODE_MIN_ROWS),
                       DECODE_MAX_SPLITS))
 
 
@@ -243,8 +279,8 @@ def _plan(op: str, device: Union[str, torch.device], dtype: torch.dtype,
     if device.type != "cuda":
         raise ValueError(f"no attention path for device {device}")
     if op == "decode":
-        splits = _decode_splits(bh, sk)
-        return Plan("flash_decode", splits, -(-sk // splits))
+        return Plan("flash_decode",
+                    _decode_splits(bh, sk, d * dtype.itemsize))
     if op != "attention":
         raise ValueError(f"unknown op {op!r}")
     if dtype in TC_DTYPES:
@@ -331,50 +367,56 @@ def _launch_tile(kernel: str, q3: torch.Tensor, k3: torch.Tensor,
     return out
 
 
+# flash_decode's scratch and tickets, per (device index, stream): a split
+# decode's blocks write their partials there and count themselves in, and
+# the merging block sets its ticket back to 0. Zeroed once when made (or
+# grown), so no call pays a memset; never shared by two streams.
+_workspaces: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+_workspace_lock = threading.Lock()
+
+
+def _decode_workspace(device: torch.device, floats: int,
+                      seqs: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(scratch fp32, tickets int32) of at least ``floats`` and ``seqs``
+    elements for the current stream of ``device``. Made on that stream
+    when first asked for there, so a warm-up call makes it before any
+    CUDA graph capture; made anew, zeroed, when a call needs more."""
+    stream = torch.cuda.current_stream(device)
+    key = (device.index, stream.cuda_stream)
+    with _workspace_lock:
+        ws = _workspaces.get(key)
+        if ws is None or ws[0].numel() < floats or ws[1].numel() < seqs:
+            floats = max(floats, ws[0].numel() if ws else 0)
+            seqs = max(seqs, ws[1].numel() if ws else 0)
+            ws = (torch.zeros(floats, dtype=torch.float32, device=device),
+                  torch.zeros(seqs, dtype=torch.int32, device=device))
+            _workspaces[key] = ws
+    return ws
+
+
 def _launch_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   lengths: torch.Tensor, scale: float, plan: Plan):
-    """flash_decode over q [B, d], caches [B, L, d], int32 lengths [B]
-    on the device. With one split it writes and returns out [B, d]; with
-    ``plan.splits`` > 1 it returns the per-split partials (m_l
-    [B, splits, 2], o_part [B, splits, d], fp32) for ``_launch_combine``."""
+                   lengths: torch.Tensor, scale: float,
+                   splits: int) -> torch.Tensor:
+    """One launch of flash_decode over q [B, d], caches [B, L, d], int32
+    lengths [B] on the device, with ``splits`` blocks per sequence.
+    Returns out [B, d]."""
     from . import _build
 
     b, L, d = k.shape
-    splits = plan.splits
-    out = ml = o_part = None
-    if splits == 1:
-        out = torch.empty_like(q)
-    else:
-        ml = torch.empty((b, splits, 2), dtype=torch.float32, device=q.device)
-        o_part = torch.empty((b, splits, d), dtype=torch.float32,
-                             device=q.device)
-    if b > 0:
-        lib = _build.load("flash_decode")
-        with torch.cuda.device(q.device):
-            err = lib.flash_decode(
-                _ptr(q), _ptr(k), _ptr(v), _ptr(lengths), _ptr(out),
-                _ptr(ml), _ptr(o_part), b, L, d, splits, plan.chunk,
-                float(scale), _DTYPE_CODES[q.dtype], _stream(q))
-        _raise_on(err, "flash_decode")
-        launches["flash_decode"] += 1
-    return out if splits == 1 else (ml, o_part)
-
-
-def _launch_combine(ml: torch.Tensor, o_part: torch.Tensor,
-                    out: torch.Tensor) -> torch.Tensor:
-    """flash_decode_combine: per-split partials -> out [B, d]."""
-    from . import _build
-
-    b, splits, d = o_part.shape
+    out = torch.empty_like(q)
     if b == 0:
         return out
+    part = tickets = None
+    if splits > 1:
+        part, tickets = _decode_workspace(q.device, b * splits * (d + 2), b)
     lib = _build.load("flash_decode")
-    with torch.cuda.device(out.device):
-        err = lib.flash_decode_combine(
-            _ptr(ml), _ptr(o_part), _ptr(out), b, d, splits,
-            _DTYPE_CODES[out.dtype], _stream(out))
-    _raise_on(err, "flash_decode_combine")
-    launches["flash_decode_combine"] += 1
+    with torch.cuda.device(q.device):
+        err = lib.flash_decode(
+            _ptr(q), _ptr(k), _ptr(v), _ptr(lengths), _ptr(out), _ptr(part),
+            _ptr(tickets), b, L, d, splits, DECODE_MIN_ROWS, float(scale),
+            _DTYPE_CODES[q.dtype], _stream(q))
+    _raise_on(err, "flash_decode")
+    launches["flash_decode"] += 1
     return out
 
 
@@ -430,10 +472,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                          f"for caches {tuple(k_cache.shape)}")
     if lengths.dtype != torch.int32 or not lengths.is_contiguous():
         lengths = lengths.to(torch.int32).contiguous()
-    first = _launch_decode(q, k_cache, v_cache, lengths, scale, plan)
-    if plan.splits == 1:
-        return first
-    return _launch_combine(*first, torch.empty_like(q))
+    return _launch_decode(q, k_cache, v_cache, lengths, scale, plan.splits)
 
 
 def kernel_launches() -> int:

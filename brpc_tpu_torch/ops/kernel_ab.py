@@ -1,10 +1,13 @@
-"""Times builds of one tile kernel against each other on one card.
+"""Times builds of one kernel against each other on one card.
 
     python3 -m brpc_tpu_torch.ops.kernel_ab LIBRARY BUILD [BUILD ...]
         [--shape HEADSxSEQxD:DTYPE ...] [--last-rows N]
+    python3 -m brpc_tpu_torch.ops.kernel_ab flash_decode BUILD [BUILD ...]
+        [--config SPLITS:MIN_ROWS ...]
 
 Run from a checkout's root, on a card. LIBRARY is ``flash_attention``
-(``flash_attn_fwd``) or ``flash_attention_tc`` (``flash_attn_fwd_tc``).
+(``flash_attn_fwd``), ``flash_attention_tc`` (``flash_attn_fwd_tc``) or
+``flash_decode`` (the decode step; see ``decode_main`` below).
 Each BUILD is one argument: a directory holding the library's source and
 the headers it includes, then any ``nvcc`` defines, for example
 
@@ -68,7 +71,8 @@ fa = importlib.import_module("brpc_tpu_torch.ops.flash_attention")
 
 FP32_TOL = 1e-4
 ENTRY = {"flash_attention": "flash_attn_fwd",
-         "flash_attention_tc": "flash_attn_fwd_tc"}
+         "flash_attention_tc": "flash_attn_fwd_tc",
+         "flash_decode": "flash_decode"}
 ROUNDS_P = {"flash_attention_tc"}    # rounds P to the inputs' dtype
 REFUSED = 1     # cudaErrorInvalidValue: the C entry does not take the shape
 SHAPES = {  # (heads, seq, head dim, dtype)
@@ -150,6 +154,191 @@ def device_us(fn, iters: int = 50) -> float:
     return start.elapsed_time(end) / iters * 1e3
 
 
+# ------------------------------------------------------------ flash_decode
+
+# (name, batch*heads, cache rows L, head dim, dtype, lengths): the shapes
+# chip_smoke.py checks and times
+DECODE_SHAPES = [
+    ("serving", 8, 160, 32, torch.float32, [0, 1, 160, 37, 80, 5, 159, 100]),
+    ("split", 4, 4096, 128, torch.bfloat16, [0, 1, 4096, 3000]),
+    ("full", 4, 4096, 128, torch.bfloat16, [4096] * 4),
+    # short lengths in a long cache: how many blocks a sequence should use
+    ("short", 4, 4096, 128, torch.bfloat16, [100, 200, 300, 50]),
+    # K and V at DECODE_SPLIT_BYTES a sequence: where a split starts to pay
+    ("threshold", 8, 512, 64, torch.bfloat16, [512] * 8),
+]
+# the two-launch ABI (a build that also has flash_decode_combine): m_l,
+# o_part, out, b, d, splits, dtype, stream
+COMBINE_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p]
+FLUSH_BYTES = 128 << 20      # written before each L2-cold launch
+
+
+def _two_pass_splits(b: int, L: int) -> int:
+    """The two-launch kernel's split rule: enough blocks to cover the 132
+    SMs, at least 128 cache rows each, at most 64."""
+    return max(1, min(-(-132 // b), L // 128, 64))
+
+
+def decode_launcher(lib, q, k, v, lengths, config):
+    """A function that runs one decode step of ``lib`` on these inputs and
+    returns out: the one-launch ABI with ``config`` = (splits, min_rows)
+    (None: the package's plan), or the two-launch ABI (the first pass,
+    then ``flash_decode_combine`` when it splits) with its own rule."""
+    b, L, d = k.shape
+    scale = d ** -0.5
+    dt = fa._DTYPE_CODES[q.dtype]
+    out = torch.empty_like(q)
+    if hasattr(lib, "flash_decode_combine"):
+        lib.flash_decode_combine.argtypes = COMBINE_ARGS
+        lib.flash_decode_combine.restype = ctypes.c_int
+        splits = _two_pass_splits(b, L)
+        chunk = -(-L // splits)
+        ml = torch.empty((b, splits, 2), dtype=torch.float32,
+                         device=q.device)
+        op = torch.empty((b, splits, d), dtype=torch.float32,
+                         device=q.device)
+        first = (None, None) if splits == 1 else (ml, op)
+
+        def run():
+            fa._raise_on(lib.flash_decode(
+                fa._ptr(q), fa._ptr(k), fa._ptr(v), fa._ptr(lengths),
+                fa._ptr(out if splits == 1 else None), fa._ptr(first[0]),
+                fa._ptr(first[1]), b, L, d, splits, chunk, scale, dt,
+                fa._stream(q)), "flash_decode")
+            if splits > 1:
+                fa._raise_on(lib.flash_decode_combine(
+                    fa._ptr(ml), fa._ptr(op), fa._ptr(out), b, d, splits,
+                    dt, fa._stream(q)), "flash_decode_combine")
+            return out
+        return run, {"launches": 1 + (splits > 1), "splits": splits}
+    splits, min_rows = config or (
+        fa._plan("decode", q.device, q.dtype, d, bh=b, sk=L).splits,
+        fa.DECODE_MIN_ROWS)
+    part = tickets = None
+    if splits > 1:
+        # a workspace of the build's own: a fault in one build's counters
+        # must not show up as another's
+        part = torch.zeros(b * splits * (d + 2), dtype=torch.float32,
+                           device=q.device)
+        tickets = torch.zeros(b, dtype=torch.int32, device=q.device)
+
+    def run():
+        fa._raise_on(lib.flash_decode(
+            fa._ptr(q), fa._ptr(k), fa._ptr(v), fa._ptr(lengths),
+            fa._ptr(out), fa._ptr(part), fa._ptr(tickets), b, L, d, splits,
+            min_rows, scale, dt, fa._stream(q)), "flash_decode")
+        return out
+    return run, {"launches": 1, "splits": splits, "min_rows": min_rows}
+
+
+def cold_us(fn, flush: torch.Tensor, iters: int = 50) -> float:
+    """Median µs of one call with the L2 cold: before each call a
+    ``FLUSH_BYTES`` write evicts the cache's 50 MB, then a device-side
+    sleep lets the host enqueue the call; CUDA events around the call
+    alone."""
+    pairs = []
+    for i in range(iters):
+        flush.fill_(float(i))
+        torch.cuda._sleep(200_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(b) * 1e3 for a, b in pairs]))
+
+
+def decode_main(args) -> int:
+    """flash_decode's A/B. Each BUILD is a directory holding a
+    ``flash_decode.cu`` (the package's, a parent commit's with its two C
+    entries, or a patched copy), with any nvcc defines. For each shape of
+    ``DECODE_SHAPES`` and each ``--config SPLITS:MIN_ROWS`` (default: the
+    package's plan), one JSON line: each build's error against the plain
+    version (fp32: the largest absolute difference, within FP32_TOL;
+    16-bit: the worst ratio to ``_rounding_bound``), its µs with the L2
+    warm (CUDA events over back-to-back calls behind a device-side sleep)
+    and cold (``cold_us``), each taken in turns, the builds in order then
+    in reverse; the launch floor (``torch.cuda._sleep(0)``, warm) and
+    SDPA with the lengths as a mask, warm and cold, as yardsticks. A
+    two-launch build runs its own split rule and ignores ``--config``.
+    Then the card line. Exits 1 if a build disagrees or fails to
+    launch."""
+    with ThreadPoolExecutor(len(args.builds)) as pool:
+        built = list(pool.map(lambda s: build("flash_decode", s),
+                              args.builds))
+    libs = {}
+    for spec, (lib, ptxas) in zip(args.builds, built):
+        libs[spec] = lib
+        print(json.dumps({"build": spec, "ptxas": ptxas,
+                          "two_launch": hasattr(lib,
+                                                "flash_decode_combine")}),
+              flush=True)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    floor = device_us(lambda: torch.cuda._sleep(0), 500)
+    print(json.dumps({"launch_floor_us": floor}), flush=True)
+    rng = np.random.RandomState(20260803)
+    ok = True
+    for name, b, L, d, dtype, lens in DECODE_SHAPES:
+        q, k, v = (torch.from_numpy(rng.randn(*shape).astype(np.float32))
+                   .to(dev).to(dtype) for shape in ((b, d), (b, L, d),
+                                                    (b, L, d)))
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        want = fa._flash_plain(q[:, None].float(), k.float(), v.float(),
+                               d ** -0.5, True, 64,
+                               q_offset=lengths - 1)[:, 0]
+        bound = (FP32_TOL if dtype == torch.float32
+                 else fa._rounding_bound(want, dtype))
+        mask = (torch.arange(L, device=dev)[None, :]
+                < lengths[:, None].long())[:, None, None, :]
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                q[:, None, None, :], k[:, None], v[:, None],
+                attn_mask=mask, scale=d ** -0.5)
+        for config in [None, *(args.config or [])]:
+            # a two-launch build has its own split rule: timed once a shape
+            runs = {spec: decode_launcher(lib, q, k, v, lengths, config)
+                    for spec, lib in libs.items()
+                    if config is None
+                    or not hasattr(lib, "flash_decode_combine")}
+            row = {"shape": name, "q": [b, d], "kv": [b, L, d],
+                   "dtype": str(dtype)[6:], "lengths": lens,
+                   "config": config, "err": {},
+                   "plan": {s: r[1] for s, r in runs.items()},
+                   "us": {s: [] for s in runs},
+                   "cold_us": {s: [] for s in runs}}
+            for spec, (run, _) in runs.items():
+                got = run()
+                torch.cuda.synchronize()
+                diff = (got.float() - want).abs()
+                worst = float((diff / bound).max())
+                row["err"][spec] = (worst * bound if dtype == torch.float32
+                                    else worst)
+                ok &= bool(np.isfinite(worst) and worst <= 1.0)
+            for spec in [*runs, *reversed(runs)]:
+                row["us"][spec].append(device_us(runs[spec][0], 300))
+                row["cold_us"][spec].append(cold_us(runs[spec][0], flush))
+            row["sdpa_us"] = device_us(sdpa, 100)
+            row["sdpa_cold_us"] = cold_us(sdpa, flush)
+            print(json.dumps(row), flush=True)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+    print(card)
+    return 0 if ok else 1
+
+
+def parse_config(text: str):
+    """``64:32`` -> (64, 32): splits, min_rows."""
+    splits, min_rows = (int(x) for x in text.split(":"))
+    return splits, min_rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python3 -m brpc_tpu_torch.ops.kernel_ab",
@@ -160,10 +349,15 @@ def main(argv=None) -> int:
     ap.add_argument("--shape", action="append", type=parse_shape,
                     help="HEADSxSEQxD:DTYPE, e.g. 8x2048x64:float32")
     ap.add_argument("--last-rows", type=int, default=0, metavar="N")
+    ap.add_argument("--config", action="append", type=parse_config,
+                    metavar="SPLITS:MIN_ROWS",
+                    help="flash_decode: blocks a sequence and rows a block")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_ab: needs a CUDA card", file=sys.stderr)
         return 2
+    if args.library == "flash_decode":
+        return decode_main(args)
     entry = ENTRY[args.library]
     with ThreadPoolExecutor(len(args.builds)) as pool:
         built = list(pool.map(lambda s: build(args.library, s), args.builds))

@@ -325,16 +325,22 @@ class ContinuousBatcher:
                                   n_evicted, n_canceled, 0,
                                   len(self._waiting), len(self._free), 0)
             return bool(done)
-        # prefill outside the lock: only step() writes the caches and the
-        # lengths, and steps are serialized by the engine
+        # prefill outside the lock: only step() writes the caches, and
+        # steps are serialized by the engine. stop() may retire an
+        # admitted request meanwhile (a server going down): its slot is
+        # then free and keeps its idle-safe length
         for req in admitted:
             i = req.slot
+            if i is None:
+                continue
             kp, vp, hl = self.model.prefill(req.prompt)
             n = len(req.prompt)
             self._k[i, :n] = kp
             self._v[i, :n] = vp
             self._h[i] = hl
-            self._lens[i] = n
+            with self._lock:
+                if self._slots[i] is req:
+                    self._lens[i] = n
             if req.tracker is not None:
                 req.tracker.gen_prefilled(time.monotonic_ns())
         t_admit = time.monotonic_ns() if stats_on else 0

@@ -12,14 +12,21 @@ Phases, one JSON line each:
    each one's build time and ptxas lines, and the count of HGMMA (wgmma)
    instructions in ``flash_attn_fwd_tc``'s SASS, which must not be 0;
 2. kernel check: every kernel against its plain PyTorch version, both on
-   the card, at the serving shape, a split decode cache, and long,
-   ragged and sq != sk shapes, in fp32, fp16 and bf16: fp32 within
-   FP32_TOL, fp16/bf16 element by element within ``_rounding_bound``
-   (the error the kernel's own roundings explain), and four controls, a
-   split decode with one split dropped and bf16 (d 64, d 32) and fp32
-   attention with their last 64 keys dropped, that these bounds must
-   reject; each case names the kernel ``_plan`` chose and checks that it
-   was the one launched. ``flash_attn_fwd_tc`` takes every 16-bit head
+   the card, at the serving shape, split decode caches (lengths
+   0/1/4096/3000; one sequence at the most blocks a sequence takes;
+   lengths that leave most of the grid's blocks idle; every length at
+   the capacity; two streams running 100 split decodes each, interleaved,
+   every result equal to the first and within the bound, so the
+   kernel's counters go back to 0; a larger batch right after a smaller
+   one on a fresh stream, so the workspace grows), and long, ragged and
+   sq != sk shapes, in fp32, fp16 and bf16: fp32 within FP32_TOL,
+   fp16/bf16 element by element within ``_rounding_bound`` (the error
+   the kernel's own roundings explain), and four controls, a split
+   decode with one block's partial dropped and bf16 (d 64, d 32) and
+   fp32 attention with their last 64 keys dropped, that these bounds
+   must reject; each case names the kernel ``_plan`` chose and checks
+   that it was the one launched, once: a decode is one ``flash_decode``
+   launch, split or not. ``flash_attn_fwd_tc`` takes every 16-bit head
    dim: it is held at one tile (sq 64 x sk 64 at d 16 and 32), inside
    one tile (sq 16 x sk 40) and at ragged, causal and sq != sk shapes.
    ``flash_attn_fwd`` is also held at its 64-row block's edges (sq < 64,
@@ -51,7 +58,7 @@ Phases, one JSON line each:
    read just after: long-context attention (``flash_attention`` at 8
    heads x 2048 x 64, bf16 and fp32, and x 32 bf16, causal and not) and
    a long-cache decode step (``decode_attention`` at B 4, L 4096, d 128,
-   bf16, split);
+   bf16, split: one ``flash_decode`` launch);
 4. streaming (the main path since the stream and HTTP transports): a
    fresh default server on cuda:0, launch counts zeroed before each part
    and read after it, each part's ``flash_decode`` launches equal to its
@@ -74,7 +81,11 @@ Phases, one JSON line each:
 5. kernel times: device times of each kernel, its plain version and one
    PyTorch call (``scaled_dot_product_attention``, a yardstick the port
    never calls), from CUDA events and from the profiler, beside the bound
-   from bytes and operations, and, in the same run, the CUDA-core tile
+   from bytes and operations; the launch floor (``torch.cuda._sleep(0)``
+   timed the same way); each decode case also with the L2 cold (a 128 MB
+   write before each launch, events around the launch alone, median of
+   50), and a split decode with every length at the capacity, L2 cold,
+   beside its byte bound; and, in the same run, the CUDA-core tile
    kernel (``flash_attn_fwd`` through ``_launch_tile``) on the same
    inputs as ``ms_simt`` where another kernel serves the call (decode,
    and every 16-bit row); ``flash_attn_fwd_tc`` at 8 x 2048 x 16 fp16,
@@ -122,14 +133,15 @@ lane, the async handler waits until all 4 calls have arrived (parked
 on a Future, so that the 4 parks below overlap however far apart the
 requests came in), runs ``decode_attention``, parks on a CUDA event
 (``device_ready``) and returns O as a response tensor; each call
-launches ``flash_decode`` and ``flash_decode_combine`` once and nothing
-else, O is within ``_rounding_bound`` of the plain version computed from
-the client's tensors, every handler resumed on a fiber worker after its
-event completed, and the poller's waiter threads never outnumbered the
-calls in flight; a thread waiting in ``Event.synchronize`` must not hold
-the interpreter lock. (e) A stream of 16 tensor frames of 64 KiB from
-the server beside unary device calls on the same connection, on both
-lanes: every frame and every response pairs with its own tensor.
+launches ``flash_decode`` once (a split decode, merged in the kernel)
+and nothing else, O is within ``_rounding_bound`` of the plain version
+computed from the client's tensors, every handler resumed on a fiber
+worker after its event completed, and the poller's waiter threads never
+outnumbered the calls in flight; a thread waiting in
+``Event.synchronize`` must not hold the interpreter lock. (e) A stream
+of 16 tensor frames of 64 KiB from the server beside unary device calls
+on the same connection, on both lanes: every frame and every response
+pairs with its own tensor.
 (f) The sweep on ``ici://127.0.0.1:0#device=0`` from a client process
 run with ``BRPC_TPU_TORCH_ICI_REQUIRE_PULL=1`` (``--client ici``, a
 session of steps, the next on the server's go): lane ``cuda-ipc`` on
@@ -171,8 +183,8 @@ devices=[cuda:0] * 8)``: ``collective_fused`` up by one a call,
 calls: an async handler fans ``Attend`` out by head (PR 10's case: q [4,
 128], K/V [4, 4096, 128] bf16, lengths 0/1/4096/3000) through a
 PartitionChannel of 4 ``cuda://`` servers and awaits ``call_async``:
-each partition call launches ``flash_decode`` and
-``flash_decode_combine`` once (a split decode) and nothing else, the
+each partition call launches ``flash_decode`` once (a split decode,
+merged in the kernel) and nothing else, the
 merged O is within ``_rounding_bound`` of the plain version, every
 sub-call's meta ``timeout_ms`` is at most the handler's remaining budget,
 and a handler whose budget is spent gets ERPCTIMEDOUT from a nested call
@@ -202,7 +214,7 @@ it held retry elsewhere (``tried_servers``), the health checker marks it
 dead, ``/backends`` and the breaker snapshot show it; the time from the
 kill to the last retried call's end; then it restarts on its port, is
 revived, and serves. (d) The ``Attend`` of phase device_lane (a split
-decode and its combine) on two ``cuda://`` servers, one 50 ms slow,
+decode, one launch) on two ``cuda://`` servers, one 50 ms slow,
 through a ClusterChannel ("rr", ``backup_request_ms=5``): every call
 first sent to the slow server used a backup and was answered by the
 fast one, each ``done`` ran once, the late answers were dropped, no
@@ -371,6 +383,31 @@ def cuda_time_ms(fn, iters: int, warmup: int = 5):
     return start.elapsed_time(end) / iters, host_s * 1e3
 
 
+FLUSH_BYTES = 128 << 20    # written before each L2-cold launch
+
+
+def cold_time_ms(fn, flush, iters: int = 50) -> float:
+    """Median device ms of one call with the L2 cold: before each call a
+    write of ``flush`` (``FLUSH_BYTES``) evicts the cache's 50 MB and a
+    device-side sleep lets the host enqueue the call; CUDA events around
+    the call alone."""
+    import statistics
+
+    import torch
+    pairs = []
+    for i in range(iters):
+        flush.fill_(float(i))
+        torch.cuda._sleep(200_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in pairs)
+
+
 def profiled_device_ms(fn, iters: int) -> float:
     """Device time per call from the profiler: the summed durations of the
     device activities (kernels, copies) that ``iters`` calls ran, so a
@@ -394,8 +431,6 @@ def profiled_device_ms(fn, iters: int) -> float:
 KERNELS = {
     # kernel -> (library, source)
     "flash_decode": ("flash_decode", "brpc_tpu_torch/ops/csrc/flash_decode.cu"),
-    "flash_decode_combine": ("flash_decode",
-                             "brpc_tpu_torch/ops/csrc/flash_decode.cu"),
     "flash_attn_fwd_tc": ("flash_attention_tc",
                           "brpc_tpu_torch/ops/csrc/flash_attention_tc.cu"),
     "flash_attn_fwd": ("flash_attention",
@@ -453,7 +488,7 @@ def phase_kernel_check(dev):
     version on the same inputs, on the card. fp32 cases hold the largest
     difference to FP32_TOL; fp16/bf16 cases hold every element to
     ``_rounding_bound``, the error the kernel's own roundings explain, and
-    two controls show that bound rejects a dropped split and a dropped K
+    controls show that bound rejects a dropped block and a dropped K
     tile. Returns the serving-shape and split-decode inputs (for phase 5)
     and the largest error seen by each kernel."""
     import numpy as np
@@ -492,6 +527,16 @@ def phase_kernel_check(dev):
               "worst_over_bound": worst, "rejected": worst > 1.0})
         results.append(worst > 1.0)
 
+    def decode_want(q, k, v, lengths):
+        """The plain version of a decode step and the bound its kernel is
+        held to."""
+        d = q.shape[-1]
+        want = fa._flash_plain(q[:, None].float(), k.float(), v.float(),
+                               d ** -0.5, True, 64,
+                               q_offset=lengths - 1)[:, 0]
+        return want, (FP32_TOL if q.dtype == torch.float32
+                      else fa._rounding_bound(want, q.dtype))
+
     def decode_case(name, b, L, d, dtype, lengths):
         lengths = torch.tensor(lengths, dtype=torch.int32, device=dev)
         q = _rand(rng, (b, d), dtype, dev)
@@ -501,46 +546,111 @@ def phase_kernel_check(dev):
         before = dict(fa.launches)
         got = fa.decode_attention(q, k, v, lengths, block_k=64)
         launched = _launched(fa, before)
-        want = fa._flash_plain(q[:, None].float(), k.float(), v.float(),
-                               d ** -0.5, True, 64,
-                               q_offset=lengths - 1)[:, 0]
-        want_kernels = ["flash_decode"] + (["flash_decode_combine"]
-                                           if plan.splits > 1 else [])
-        check(launched == sorted(want_kernels),
-              f"{name}: launched {launched}, planned {want_kernels}")
-        bound = (FP32_TOL if dtype == torch.float32
-                 else fa._rounding_bound(want, dtype))
+        n = fa.launches["flash_decode"] - before["flash_decode"]
+        want, bound = decode_want(q, k, v, lengths)
+        # one launch a decode, split or not: the merge is in the kernel
+        check(launched == ["flash_decode"] and n == 1,
+              f"{name}: launched {launched} ({n} flash_decode), want one "
+              f"flash_decode")
         err = record(f"{name} (splits {plan.splits})", launched, got, want,
                      bound)
         check(got.dtype == dtype and not got[lengths == 0].any().item(),
               f"{name}: a length-0 slot must give zeros in q's dtype")
         return (q, k, v, lengths, plan), err, want, bound
 
-    # the serving shape: 8 slots, 160-row fp32 cache, d 32: one launch
+    # the serving shape: 8 slots, 160-row fp32 cache, d 32: one block a
+    # sequence, no workspace
     decode_inputs, errs["serving_decode"], _, _ = decode_case(
         "decode B8 L160 d32 fp32 lengths 0/1/160", 8, 160, 32, torch.float32,
         [0, 1, 160, 37, 80, 5, 159, 100])
     check(decode_inputs[4].splits == 1, "the serving shape must not split")
-    # a long cache over few sequences: split over blocks, then combined
+    # a long cache over few sequences: split over blocks, merged in the
+    # kernel by the last block of each sequence
     split_inputs, errs["split_decode"], want, bound = decode_case(
         "decode B4 L4096 d128 bf16 lengths 0/1/4096/3000", 4, 4096, 128,
         torch.bfloat16, [0, 1, 4096, 3000])
     q, k, v, lengths, plan = split_inputs
     check(plan.splits > 1, "the long cache must split")
     m, l, o = fa._decode_partials_plain(q, k, v, lengths, 128 ** -0.5,
-                                        plan.splits, plan.chunk)
+                                        plan.splits)
     l[:, plan.splits // 2] = 0.0
-    control(f"split decode without split {plan.splits // 2} of "
+    control(f"split decode without block {plan.splits // 2} of "
             f"{plan.splits}",
             fa._decode_combine_plain(m, l, o, torch.float32), want, bound)
-    # the combine pass alone, on the first pass's own partials
-    ml, o_part = fa._launch_decode(q, k, v, lengths, 128 ** -0.5, plan)
-    got = fa._launch_combine(ml, o_part, torch.empty_like(q))
-    want = fa._decode_combine_plain(ml[..., 0], ml[..., 1], o_part,
-                                    torch.float32)
-    record("combine B4 splits %d d128 bf16" % plan.splits,
-           ["flash_decode_combine"], got, want,
-           fa._rounding_bound(want, q.dtype))
+    # the most blocks a sequence takes (one long sequence), all live
+    big = decode_case("decode B1 L16384 d128 bf16 length 16300", 1, 16384,
+                      128, torch.bfloat16, [16300])
+    check(big[0][4].splits == fa.DECODE_MAX_SPLITS,
+          f"B1 L16384 planned {big[0][4].splits} blocks, not "
+          f"{fa.DECODE_MAX_SPLITS}")
+    # lengths that use 1, 2 or 3 of a sequence's blocks (below
+    # DECODE_MIN_ROWS, just past it, and past twice it)
+    decode_case("decode B4 L4096 d128 bf16 lengths 5/127/129/300", 4, 4096,
+                128, torch.bfloat16, [5, 127, 129, 300])
+    decode_case("decode B6 L2048 d64 fp16 lengths 0/2/128/129/1/2048", 6,
+                2048, 64, torch.float16, [0, 2, 128, 129, 1, 2048])
+    # every length at the capacity, fp32 and bf16
+    decode_case("decode B4 L4096 d128 bf16 every length 4096", 4, 4096, 128,
+                torch.bfloat16, [4096] * 4)
+    decode_case("decode B2 L1000 d32 fp32 every length 1000", 2, 1000, 32,
+                torch.float32, [1000, 1000])
+
+    # two streams, 100 split decodes each, interleaved: each stream has a
+    # workspace of its own, and the last block of a sequence sets its
+    # ticket back to 0, so every result equals the first and the plain
+    inputs = [(_rand(rng, (4, 128), torch.bfloat16, dev),
+               _rand(rng, (4, 4096, 128), torch.bfloat16, dev),
+               _rand(rng, (4, 4096, 128), torch.bfloat16, dev),
+               torch.tensor(lens, dtype=torch.int32, device=dev))
+              for lens in ([0, 1, 4096, 3000], [4096, 2500, 700, 33])]
+    streams = [torch.cuda.Stream(dev), torch.cuda.Stream(dev)]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream(dev))
+    outs = [[], []]
+    before = fa.launches["flash_decode"]
+    for _ in range(100):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                outs[i].append(fa.decode_attention(*inputs[i]))
+    torch.cuda.synchronize(dev)
+    check(fa.launches["flash_decode"] - before == 200,
+          "two streams: 200 decodes must be 200 launches")
+    for i in range(2):
+        want2, bound2 = decode_want(*inputs[i])
+        record(f"two streams x 100 split decodes, stream {i} (the last)",
+               ["flash_decode"], outs[i][-1], want2, bound2)
+        same = all(torch.equal(x, outs[i][0]) for x in outs[i])
+        emit({"phase": "kernel_check", "case": f"two streams: stream {i}'s "
+              f"100 results equal", "ok": same})
+        results.append(same)
+        worst = max(float(((x.float() - want2).abs() / bound2).max())
+                    for x in outs[i])
+        check(worst <= 1.0, f"two streams: stream {i} left the bound "
+                            f"({worst})")
+    # a larger batch right after a smaller one on a fresh stream: the
+    # workspace is made for the first, then made anew, zeroed, for the
+    # second
+    st = torch.cuda.Stream(dev)
+    st.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(st):
+        for b in (2, 8):
+            lens = torch.tensor([4096, 3000, 1, 0, 2048, 4095, 64, 4096][:b],
+                                dtype=torch.int32, device=dev)
+            x = [_rand(rng, (b, 128), torch.bfloat16, dev),
+                 _rand(rng, (b, 4096, 128), torch.bfloat16, dev),
+                 _rand(rng, (b, 4096, 128), torch.bfloat16, dev), lens]
+            ws = fa._workspaces.get((dev.index, st.cuda_stream))
+            got = fa.decode_attention(*x)
+            st.synchronize()
+            want2, bound2 = decode_want(*x)
+            record(f"workspace growth: B{b} L4096 d128 bf16 after "
+                   f"{'nothing' if ws is None else ws[1].numel()}",
+                   ["flash_decode"], got, want2, bound2)
+    ws = fa._workspaces[(dev.index, st.cuda_stream)]
+    plan8 = fa._plan("decode", dev, torch.bfloat16, 128, bh=8, sk=4096)
+    check(ws[1].numel() >= 8 and ws[0].numel() >= 8 * plan8.splits * 130,
+          "the workspace did not grow for B8")
+    check(not ws[1].any().item(), "a ticket was left set after the merge")
 
     # flash_attn_fwd with a per-head device q_offset, as decode_attention
     # used it before flash_decode: row r of head b at lengths[b] - 1 + r
@@ -872,8 +982,8 @@ def phase_serving():
         hist = dict(gs.batcher.batch_hist)
         ttft_first = gs.ttft_samples()
         _check_burst("burst 1", results, errors, oracle)
-        # the serving shape takes one flash_decode launch a step, and no
-        # combine pass (one split)
+        # the serving shape takes one flash_decode launch a step (one
+        # block a sequence)
         check(launches["flash_decode"] == steps + warm and
               sum(launches.values()) == launches["flash_decode"],
               f"kernel launches {launches} != decode steps {steps} + "
@@ -2642,8 +2752,7 @@ def _ici_parts(dev, spec: str, seen: dict, counted, parked,
                   "transfer_lane": transfer_lane_status()})
             out["sweep"] = doc["sweep"]
             doc = parked("ici", counted, "g_attend_ici", session.step,
-                         want={"flash_decode": ATTEND_CALLS,
-                               "flash_decode_combine": ATTEND_CALLS})
+                         want={"flash_decode": ATTEND_CALLS})
             out["attend"] = doc["attend"]
             _check_ici_cells(doc["cells"], "attend client process", dev)
             progress("device_lane h_spans_ici (client process)")
@@ -2765,8 +2874,7 @@ def phase_device_lane(dev):
             attend["cuda"] = parked(
                 "cuda", counted, "d_attend_cuda", _attend, str(ep), dev,
                 ATTEND_CALLS, rng,
-                want={"flash_decode": ATTEND_CALLS,
-                      "flash_decode_combine": ATTEND_CALLS})
+                want={"flash_decode": ATTEND_CALLS})
             streams = {"cuda": counted("e_streams_cuda",
                                        _frames_beside_unary, ch, dev)}
             progress("device_lane h_spans_cuda")
@@ -2825,8 +2933,7 @@ def phase_device_lane(dev):
                 attend["cudad"] = parked(
                     "cudad", counted, "d_attend_cudad", _attend, str(ep),
                     dev, ATTEND_CALLS, rng,
-                    want={"flash_decode": ATTEND_CALLS,
-                          "flash_decode_combine": ATTEND_CALLS})
+                    want={"flash_decode": ATTEND_CALLS})
                 streams["cudad"] = counted("e_streams_cudad",
                                            _frames_beside_unary, ch, dev)
                 ch.close()
@@ -3131,8 +3238,7 @@ def _nested_attend(dev, rng, counted) -> dict:
         with _MetaTimeouts() as meta:
             times, outs = counted(
                 "c_nested_attend", calls,
-                want={"flash_decode": b * COMBO_ATTEND_CALLS,
-                      "flash_decode_combine": b * COMBO_ATTEND_CALLS})
+                want={"flash_decode": b * COMBO_ATTEND_CALLS})
             sub_timeouts = meta.of("Part")
             n_before = len(sub_timeouts)
             c = Channel(front_addr, ChannelOptions(timeout_ms=40))
@@ -3693,8 +3799,8 @@ def _cluster_auth(replicas, oracle, prompts) -> dict:
 
 
 def _cluster_backup(dev, rng, counted) -> dict:
-    """(d) Attend (a split decode and its combine) on two cuda://
-    servers, one 50 ms slow; rr with a 5 ms backup request."""
+    """(d) Attend (a split decode, one launch) on two cuda:// servers,
+    one 50 ms slow; rr with a 5 ms backup request."""
     import torch
 
     from brpc_tpu_torch.fiber import sleep
@@ -3916,8 +4022,7 @@ def phase_cluster(dev):
         got = dict(fa.launches)
         launches[part] = got
         n = r[3]
-        check(got["flash_decode"] == got["flash_decode_combine"] == n
-              and sum(got.values()) == 2 * n,
+        check(got["flash_decode"] == n and sum(got.values()) == n,
               f"cluster {part}: launched {got}, {n} Attend handlers")
         return r
     out["d"] = _cluster_backup(dev, np.random.RandomState(20261020),
@@ -4946,7 +5051,7 @@ def phase_paths(dev, split_inputs):
     long-context attention (examples/long_context's 8 heads x 2048 x 64,
     bf16 to flash_attn_fwd_tc, fp32 to flash_attn_fwd, and 8 x 2048 x 32
     bf16 to flash_attn_fwd_tc, causal and not)
-    and a decode step over a long cache (split, then combined)."""
+    and a decode step over a long cache (split, one launch)."""
     import numpy as np
     import torch
 
@@ -4974,7 +5079,7 @@ def phase_paths(dev, split_inputs):
     out["long_cache_decode"] = dict(fa.launches)
     check(bool(torch.isfinite(o).all()), "long-cache decode: non-finite")
     check(out["long_cache_decode"]["flash_decode"] == 1
-          and out["long_cache_decode"]["flash_decode_combine"] == 1,
+          and sum(out["long_cache_decode"].values()) == 1,
           f"long-cache decode launched {out['long_cache_decode']}")
     emit({"phase": "paths", **out, "long_cache_splits": plan.splits})
     return out
@@ -5030,6 +5135,16 @@ def phase_times(decode_inputs, split_inputs):
     fa = _fa_module()
     times = {}
 
+    # an empty kernel back to back, timed as every kernel here: what one
+    # launch costs at least
+    times["launch_floor"] = {
+        "ms": cuda_time_ms(lambda: torch.cuda._sleep(0), 500)[0],
+        "what": "torch.cuda._sleep(0), CUDA events over 500 launches"}
+    emit(dict(phase="kernel_times", case="launch floor",
+              **times["launch_floor"]))
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32,
+                        device=decode_inputs[0].device)
+
     def decode_times(name, q, k, v, lengths, iters, shape):
         b, L, d = k.shape
         scale = d ** -0.5
@@ -5038,13 +5153,18 @@ def phase_times(decode_inputs, split_inputs):
         mask = (torch.arange(L, device=q.device)[None, :]
                 < lengths[:, None].long())[:, None, None, :]
         q4, k4, v4 = q[:, None, None, :], k[:, None], v[:, None]
+
+        def kernel():
+            return fa.decode_attention(q, k, v, lengths, block_k=64)
+
+        def library():
+            return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,
+                                                  scale=scale)
         t = _timed(
-            lambda: fa.decode_attention(q, k, v, lengths, block_k=64),
+            kernel,
             lambda: fa._flash_plain(q[:, None], k, v, scale, True, 64,
                                     q_offset=lengths - 1),
-            lambda: F.scaled_dot_product_attention(q4, k4, v4,
-                                                   attn_mask=mask,
-                                                   scale=scale),
+            library,
             lambda: fa._launch_tile("flash_attn_fwd", q[:, None], k, v,
                                     scale, True, q_offset=lengths,
                                     q_offset_add=-1),
@@ -5052,7 +5172,10 @@ def phase_times(decode_inputs, split_inputs):
         t.update(shape=shape, bound_ms=bound_ms, bound_by=bound_by,
                  bytes=nbytes, flops=flops,
                  splits=fa._plan("decode", q.device, q.dtype, d, bh=b,
-                                 sk=L).splits)
+                                 sk=L).splits,
+                 ms_l2_cold=cold_time_ms(kernel, flush),
+                 library_ms_l2_cold=cold_time_ms(library, flush),
+                 launch_floor_ms=times["launch_floor"]["ms"])
         emit(dict(phase="kernel_times", case=name, **t))
         return t
 
@@ -5067,34 +5190,12 @@ def phase_times(decode_inputs, split_inputs):
     times["split_decode"] = decode_times(
         "split decode", q, k, v, lengths, (300, 30, 5, 100),
         "q [4,128], k/v cache [4,4096,128] bf16, lengths 0/1/4096/3000")
-
-    # each pass alone: the first writes per-split partials, the combine
-    # merges them
-    nbytes, flops = _decode_bound(q, k, lengths)
-    bound_ms, bound_by = _bound(nbytes, flops, "bf16")
-    t = _timed(lambda: fa._launch_decode(q, k, v, lengths, 128 ** -0.5,
-                                         plan),
-               lambda: fa._decode_partials_plain(q, k, v, lengths,
-                                                 128 ** -0.5, plan.splits,
-                                                 plan.chunk),
-               None, None, (300, None, 5, None))
-    t.update(shape=times["split_decode"]["shape"], bound_ms=bound_ms,
-             bound_by=bound_by, bytes=nbytes, flops=flops)
-    emit(dict(phase="kernel_times", case="split decode first pass", **t))
-    times["split_first_pass"] = t
-    ml, o_part = fa._launch_decode(q, k, v, lengths, 128 ** -0.5, plan)
-    out = torch.empty_like(q)
-    nbytes = ml.numel() * 4 + o_part.numel() * 4 + out.numel() * 2
-    bound_ms, bound_by = _bound(nbytes, 3.0 * o_part.numel(), "fp32")
-    t = _timed(lambda: fa._launch_combine(ml, o_part, out),
-               lambda: fa._decode_combine_plain(ml[..., 0], ml[..., 1],
-                                                o_part, q.dtype),
-               None, None, (500, None, 20, None))
-    t.update(shape=f"m_l [4,{plan.splits},2], o [4,{plan.splits},128] fp32 "
-                   f"-> out [4,128] bf16", bound_ms=bound_ms,
-             bound_by=bound_by, bytes=nbytes)
-    emit(dict(phase="kernel_times", case="combine", **t))
-    times["combine"] = t
+    # every row of the cache valid: the most bytes this cache can need
+    full = torch.full_like(lengths, k.shape[1])
+    times["full_decode"] = decode_times(
+        "split decode, every length 4096", q, k, v, full, (300, 30, 5, 100),
+        "q [4,128], k/v cache [4,4096,128] bf16, lengths 4096 x 4")
+    del flush
 
     long_cases = []
     rng = np.random.RandomState(1)
@@ -5272,17 +5373,7 @@ def main(only: str = "") -> int:
                               for v in incident["launches"].values())
     by_path["native"] = sum(v["flash_decode"]
                             for v in native["launches"].values())
-    combine_by_path = {
-        "long_cache_decode": paths["long_cache_decode"][
-            "flash_decode_combine"],
-        "device_lane_attend": (dl["d_attend_cuda"]["flash_decode_combine"]
-                               + dl["d_attend_cudad"][
-                                   "flash_decode_combine"]),
-        "device_lane_attend_ici": dl["g_attend_ici"][
-            "flash_decode_combine"],
-        "combo_nested_attend": cl["c_nested_attend"][
-            "flash_decode_combine"],
-        "cluster_backup_attend": ul["d_backup"]["flash_decode_combine"]}
+    by_path["long_cache_decode"] = paths["long_cache_decode"]["flash_decode"]
     fwd_by_path = {
         "long_context": paths["long_context"]["flash_attn_fwd"],
         "combo_sequence_parallel": cl["d_sequence_parallel"][
@@ -5293,22 +5384,17 @@ def main(only: str = "") -> int:
         _row("flash_decode", "serving: unary, stream and HTTP; device "
              "lanes: Attend; combo: nested Attend; cluster: three "
              "replicas, backup Attend; incident: rings, profiles, a shed "
-             "storm, costs; native: the turbo, pluck and scan lanes",
+             "storm, costs; native: the turbo, pluck and scan lanes; the "
+             "long-cache decode",
              sum(by_path.values()), sl["flash_decode"],
              sl["flash_decode"] / steps, errs["serving_decode"],
              times["decode"], launches_by_path=by_path,
              shape=times["decode"]["shape"],
+             launch_floor_ms=times["launch_floor"]["ms"],
+             ms_l2_cold=times["decode"]["ms_l2_cold"],
              split_case=dict(times["split_decode"],
                              max_abs_err=errs["split_decode"]),
-             split_first_pass=times["split_first_pass"]),
-        _row("flash_decode_combine", "long-cache decode; device lanes: "
-             "Attend; combo: nested Attend; cluster: backup Attend",
-             sum(combine_by_path.values()),
-             sl["flash_decode_combine"],
-             sl["flash_decode_combine"] / steps,
-             errs["flash_decode_combine"], times["combine"],
-             shape=times["combine"]["shape"],
-             launches_by_path=combine_by_path),
+             full_cache_case=times["full_decode"]),
         _row("flash_attn_fwd_tc", "long-context attention",
              paths["long_context"]["flash_attn_fwd_tc"],
              sl["flash_attn_fwd_tc"], sl["flash_attn_fwd_tc"] / steps,

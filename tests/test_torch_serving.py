@@ -276,6 +276,50 @@ class TestBatcherScheduling:
         assert fin == [CANCELED] * 3 and not b.has_work()
         assert not b.submit(GenRequest(list(b"after"), 3))
 
+    @pytest.mark.parametrize("when", ["before_prefill", "during_prefill"])
+    def test_stop_during_a_step_spares_the_step(self, model, when):
+        """A server stopped while a step is outside the batcher's lock
+        retires the step's admissions; the step then finishes without
+        writing them, and leaves the retired slots idle-safe."""
+        b = ContinuousBatcher(model, max_batch=2, max_waiting=4)
+        fin = []
+        reqs = [GenRequest(list(b"race%d" % i), 20,
+                           on_finish=lambda r, s: fin.append(s))
+                for i in range(2)]
+        for r in reqs:
+            assert b.submit(r)
+        calls = []
+        if when == "during_prefill":
+            class Stopping:
+                config, device = model.config, model.device
+
+                def prefill(self, tokens):
+                    calls.append(len(tokens))
+                    b.stop()
+                    return model.prefill(tokens)
+
+                def decode_step(self, *a):
+                    return model.decode_step(*a)
+            b.model = Stopping()
+        else:
+            lock = b._lock
+
+            class StopOnRelease:
+                # the step's admission releases the lock, then stop() runs
+                def __enter__(self):
+                    return lock.__enter__()
+
+                def __exit__(self, *exc):
+                    lock.__exit__(*exc)
+                    if not b.stopped and b.running_count():
+                        b.stop()
+            b._lock = StopOnRelease()
+        assert b.step()
+        assert fin == [CANCELED, CANCELED]
+        assert all(r.slot is None for r in reqs)
+        assert b._lens == [1, 1] and not b.has_work()
+        assert len(calls) == (1 if when == "during_prefill" else 0)
+
     def test_full_batch_equals_oracle(self, model, ref_model):
         """Eight slots at once, staggered budgets, each sequence equal to
         the reference's single-sequence oracle."""

@@ -26,9 +26,8 @@ Collaborators that import back into this package are bound on the
 thread that starts the sampler (``_bind_sampler_imports``); the sampler
 never imports. The port stops the sampler when its last running
 ``Server`` stops (``hold_recorder``/``release_recorder``), where the
-reference leaves it running. ``merge_dump_states`` (the shard groups'
-merge) and the postfork registration wait for shard groups (ROADMAP
-section 1).
+reference leaves it running. ``merge_dump_states`` is the shard
+groups' merge of the shards' recorder states (``rpc/shard_group.py``).
 """
 
 from __future__ import annotations
@@ -536,6 +535,30 @@ class FlightRecorder:
             self._cur = None
 
 
+def merge_dump_states(states: List[dict]) -> dict:
+    """A shard group's continuous profile: the shards' ``dump_state``
+    payloads with their sample counters summed and the stall maxima
+    maxed (brpc_tpu/builtin/flight_recorder.py:573-592)."""
+    folded: Counter = Counter()
+    labels: Counter = Counter()
+    out = {"nsamples": 0, "nbusy": 0, "windows": 0, "span_s": 0.0,
+           "stall_ms_max_10s": 0.0, "shards_reporting": len(states)}
+    for st in states:
+        folded.update({k: int(v) for k, v in st.get("folded", {}).items()})
+        labels.update({k: int(v) for k, v in st.get("labels", {}).items()})
+        out["nsamples"] += int(st.get("nsamples", 0) or 0)
+        out["nbusy"] += int(st.get("nbusy", 0) or 0)
+        out["windows"] = max(out["windows"], int(st.get("windows", 0) or 0))
+        out["span_s"] = max(out["span_s"],
+                            float(st.get("span_s", 0.0) or 0.0))
+        out["stall_ms_max_10s"] = max(
+            out["stall_ms_max_10s"],
+            float(st.get("stall_ms_max_10s", 0.0) or 0.0))
+    out["folded"] = folded
+    out["labels"] = labels
+    return out
+
+
 # ---------------------------------------------------------------- render
 
 def render_continuous_text(m: dict, top: int = 40) -> str:
@@ -609,10 +632,13 @@ def release_recorder(owner, join_s: float = 1.0) -> None:
 
 
 def _postfork_reset() -> None:
-    """Fork hygiene: the sampler thread exists only in the parent. Not
-    registered: the postfork registry comes with shard groups (ROADMAP
-    section 1)."""
+    """Fork hygiene: the sampler thread exists only in the parent."""
     global _recorder, _recorder_lock, _holders
     _recorder = None
     _recorder_lock = threading.Lock()
     _holders = weakref.WeakSet()
+
+
+from brpc_tpu_torch.butil import postfork as _postfork  # noqa: E402
+
+_postfork.register("builtin.flight_recorder", _postfork_reset)

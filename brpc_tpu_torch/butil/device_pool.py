@@ -220,6 +220,23 @@ def global_pinned_stager() -> DevicePinnedStager:
         return _stager
 
 
+def _postfork_reset_stager() -> None:
+    """Fork hygiene: a child must not use the parent's side streams (CUDA
+    objects of a context the child does not have), nor free them: the
+    parent's stager is kept out of service (``postfork.keep_inherited``)
+    and the child makes its own, under a fresh lock (brpc_tpu/butil/
+    device_pool.py:272-282)."""
+    global _stager, _stager_lock
+    _postfork.keep_inherited(_stager)
+    _stager = None
+    _stager_lock = threading.Lock()
+
+
+from brpc_tpu_torch.butil import postfork as _postfork  # noqa: E402
+
+_postfork.register("butil.device_pool.stager", _postfork_reset_stager)
+
+
 class GroupReservation:
     """Release-once holder shared by every tensor of a coalesced group:
     its footprint was reserved once (``reserve_group``) and goes back

@@ -176,6 +176,28 @@ class PinnedBlockPool:
 pinned_pool = PinnedBlockPool()
 
 
+def _postfork_reset() -> None:
+    """Fork hygiene, in place (other modules hold ``pool`` and
+    ``pinned_pool``): the cached host buffers are dropped and the
+    counters restart (brpc_tpu/butil/iobuf.py:177-192). The cached pinned
+    blocks are CUDA host allocations of the parent: they are kept out of
+    service, never freed in the child (``postfork.keep_inherited``), and
+    whether to pin is decided anew."""
+    for lst in pool.classes.values():
+        lst.clear()
+    pool.hits = pool.misses = pool.recycled = pool.dropped = 0
+    pool.generation = 0
+    _postfork.keep_inherited(pinned_pool.classes)
+    pinned_pool.classes = {}
+    pinned_pool.hits = pinned_pool.misses = 0
+    pinned_pool.pin = None
+
+
+from brpc_tpu_torch.butil import postfork as _postfork  # noqa: E402
+
+_postfork.register("butil.iobuf", _postfork_reset)
+
+
 class PinnedStaging:
     """Host staging memory for one H2D copy: ``tensor`` is a 1-D
     ``torch.uint8`` block of at least ``nbytes`` (page-locked when

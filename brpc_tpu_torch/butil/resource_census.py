@@ -69,10 +69,14 @@ def census_page() -> dict:
 
 def _postfork_reset() -> None:
     """Fork hygiene: the registrations stay valid, the lock may have been
-    held by a parent thread. Not registered: the postfork registry comes
-    with shard groups (ROADMAP section 1)."""
+    held by a parent thread."""
     global _lock
     _lock = threading.Lock()
+
+
+from brpc_tpu_torch.butil import postfork as _postfork  # noqa: E402
+
+_postfork.register("butil.resource_census", _postfork_reset)
 
 
 def _fd_census() -> dict:

@@ -275,8 +275,12 @@ def watchdog_sample_pass(points: Dict[str, float], t: int) -> None:
 
 def _postfork_reset() -> None:
     """Fork hygiene: the baselines and incidents describe the parent's
-    traffic. Not registered: the postfork registry comes with shard
-    groups (ROADMAP section 1)."""
+    traffic."""
     global _watchdog, _watchdog_lock
     _watchdog = None
     _watchdog_lock = threading.Lock()
+
+
+from brpc_tpu_torch.butil import postfork as _postfork  # noqa: E402
+
+_postfork.register("bvar.anomaly", _postfork_reset)

@@ -59,6 +59,19 @@ class _ReducerBase(Variable):
             val = self._op(val, ag.value)
         return val
 
+    def postfork_clear(self) -> None:
+        """In a forked child: forget every count (the parent's, and its
+        threads', which do not exist here) and take a fresh lock, which a
+        dead parent thread may have held. The owning module's postfork
+        reset calls it for the counters that must count this process's
+        own work only."""
+        self._lock = threading.Lock()
+        self._agents = {}
+        self._folded = self._identity
+        self._tls = threading.local()
+        if hasattr(self, "_reset_offset"):
+            self._reset_offset = self._identity
+
     # which sampling mode Window uses for this reducer (window.py):
     # "cumulative" = snapshot get_value and subtract; "delta" = reset per tick
     SERIES_MODE = "delta"

@@ -25,8 +25,8 @@ history and re-baselines its delta, so a restart never makes a spike.
 The anomaly watchdog (``bvar/anomaly.py``) rides the same tick: each
 stored bucket of a watch key feeds its pass. Everything the tick reaches
 binds its imports at module load, never on the sampler thread.
-``merge_timeline_states`` (the shard groups' merge) and the postfork
-registration wait for shard groups (ROADMAP section 1).
+``merge_timeline_states`` is the shard groups' merge of the shards'
+rings (``rpc/shard_group.py``).
 """
 
 from __future__ import annotations
@@ -380,11 +380,82 @@ def ensure_series() -> None:
     _window.global_sampler._ensure_thread()
 
 
+# --------------------------------------------------------------- merges
+
+def merge_timeline_states(states: List[Tuple[Optional[int], dict]],
+                          names: Optional[List[str]] = None,
+                          prefix: str = "") -> dict:
+    """A shard group supervisor's ``/timeline`` (brpc_tpu/bvar/series.py:
+    441-510): ``states`` are (shard index, ``timeline_page_payload``)
+    pairs from the dumps. A bucket's counters sum, maxima max, quantile
+    series keep each field's worst case with the counts summed (never
+    an average), and gauges take the rules of merged ``/vars``
+    (``shard_group.merge_var_values``), so the two merged views agree.
+    Incidents concatenate, each tagged with its shard."""
+    from brpc_tpu_torch.rpc.shard_group import merge_var_values
+    out: dict = {"mode": "shard_group", "shards_reporting": len(states),
+                 "enabled": any(s.get("enabled") for _, s in states),
+                 "resolution": {"sec": SEC_BUCKETS, "min": MIN_BUCKETS,
+                                "hr": HOUR_BUCKETS}}
+    merged: Dict[str, dict] = {}
+    # each shard rolls its minute and hour buckets at its own 60th push,
+    # so coarse buckets align on the epoch grid here: else two shards'
+    # minutes would interleave instead of summing
+    grid = {"sec": 1, "min": 60, "hr": 3600}
+    for _, st in states:
+        for name, ser in (st.get("series") or {}).items():
+            if names is not None and name not in names:
+                continue
+            if prefix and not name.startswith(prefix):
+                continue
+            m = merged.setdefault(name, {"kind": ser.get("kind"),
+                                         "sec": {}, "min": {}, "hr": {}})
+            kind = m["kind"]
+            for level in ("sec", "min", "hr"):
+                buckets = m[level]
+                step = grid[level]
+                for t, v in ser.get(level) or ():
+                    t -= t % step
+                    if kind == KIND_LAST:
+                        buckets.setdefault(t, []).append(v)
+                    else:
+                        buckets[t] = _combine(kind, buckets.get(t), v)
+    series: Dict[str, dict] = {}
+    for name, m in merged.items():
+        d = {"kind": m["kind"]}
+        for level in ("sec", "min", "hr"):
+            if m["kind"] == KIND_LAST:
+                d[level] = [[t, merge_var_values(vals, name=name)]
+                            for t, vals in sorted(m[level].items())]
+            else:
+                d[level] = [[t, v] for t, v in sorted(m[level].items())]
+        series[name] = d
+    out["series"] = series
+    incidents = []
+    for shard, st in states:
+        for inc in st.get("incidents") or ():
+            row = dict(inc)
+            row["shard"] = shard
+            incidents.append(row)
+    incidents.sort(key=lambda r: (r.get("opened_t") or 0,
+                                  r.get("shard") or 0))
+    out["incidents"] = incidents
+    keys = set()
+    for _, st in states:
+        keys.update(st.get("watch_keys") or ())
+    out["watch_keys"] = sorted(keys)
+    return out
+
+
 def _postfork_reset() -> None:
     """Fork hygiene: the rings describe the parent's counters and the
-    locks may be held at the fork. Not registered: the postfork registry
-    comes with shard groups (ROADMAP section 1)."""
+    locks may be held at the fork."""
     global _collector, _collector_lock, _tick_serial
     _collector = None
     _collector_lock = threading.Lock()
     _tick_serial = threading.Lock()
+
+
+from brpc_tpu_torch.butil import postfork as _postfork  # noqa: E402
+
+_postfork.register("bvar.series", _postfork_reset)

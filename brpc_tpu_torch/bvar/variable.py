@@ -14,6 +14,19 @@ _registry_lock = threading.Lock()
 _registry: Dict[str, "Variable"] = {}
 
 
+def _postfork_reset() -> None:
+    """Fork hygiene: the registry is plain references (each shard keeps
+    its copy: the per-shard bvar store), but a parent thread may have
+    held its lock mid-expose at the fork."""
+    global _registry_lock
+    _registry_lock = threading.Lock()
+
+
+from brpc_tpu_torch.butil import postfork as _postfork  # noqa: E402
+
+_postfork.register("bvar.variable", _postfork_reset)
+
+
 class Variable:
     """Base of every metric. Subclasses implement get_value()."""
 

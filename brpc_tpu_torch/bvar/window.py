@@ -93,6 +93,23 @@ class Sampler:
 global_sampler = Sampler()
 
 
+def _postfork_reset() -> None:
+    """Fork hygiene: the sampler thread exists only in the parent, and
+    that dead thread may hold its lock (a fork mid-sample). A fresh lock,
+    and the tick thread restarted when anything is registered: the
+    inherited windows go on sampling in the child."""
+    global_sampler._lock = threading.Lock()
+    global_sampler._stop = threading.Event()
+    global_sampler._thread = None
+    if global_sampler._series:
+        global_sampler._ensure_thread()
+
+
+from brpc_tpu_torch.butil import postfork as _postfork  # noqa: E402
+
+_postfork.register("bvar.window", _postfork_reset)
+
+
 class Window(Variable):
     """Value accumulated over the last ``window_size`` seconds."""
 

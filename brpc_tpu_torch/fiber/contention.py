@@ -30,6 +30,21 @@ class ContentionSample(NamedTuple):
 global_contention_collector = Collector(200, name="contention")
 
 
+def _postfork_reset() -> None:
+    """Fork hygiene: the samples describe the parent's lock waits and the
+    budget lock may have been held by a dead thread; a shard starts with
+    a clean contention profile."""
+    import threading
+    global_contention_collector._lock = threading.Lock()
+    global_contention_collector._ring.clear()
+    global_contention_collector._window_used = 0
+
+
+from brpc_tpu_torch.butil import postfork as _postfork  # noqa: E402
+
+_postfork.register("fiber.contention", _postfork_reset)
+
+
 def record_contention(mutex, wait_us: float) -> None:
     if not flag("contention_profiler_enabled"):
         return

@@ -199,12 +199,16 @@ def global_poller() -> DeviceEventPoller:
 
 
 def _postfork_reset() -> None:
-    """Fork hygiene: the pump and the parked fibers belong to the parent.
-    Not registered, as the other fiber modules' resets are not
-    (scheduler.py ``_postfork_reset``)."""
+    """Fork hygiene: the pump and the parked fibers belong to the
+    parent."""
     global _global_poller, _lock
     _global_poller = None
     _lock = threading.Lock()
+
+
+from brpc_tpu_torch.butil import postfork as _postfork  # noqa: E402
+
+_postfork.register("fiber.device_poller", _postfork_reset)
 
 
 class _Ready(SchedAwaitable):

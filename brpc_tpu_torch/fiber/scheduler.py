@@ -709,15 +709,18 @@ def spawn_urgent(fn, *args, **kwargs) -> Fiber:
 def _postfork_reset() -> None:
     """Fork hygiene: the worker threads exist only in the parent, so the
     inherited control would queue every spawn forever; drop it so the
-    first spawn in the child builds a control with live workers. Not
-    registered yet: the port's postfork registry comes with shard groups
-    (ROADMAP §1), its only forking caller."""
+    first spawn in the child builds a control with live workers."""
     global _global_control, _global_lock
     _global_control = None
     _global_lock = threading.Lock()
     # the cells name the parent's threads; only the forking one lives on
     _cell_by_thread.clear()
     _cell_by_thread[threading.get_ident()] = _tls.cell
+
+
+from brpc_tpu_torch.butil import postfork as _postfork  # noqa: E402
+
+_postfork.register("fiber.scheduler", _postfork_reset)
 
 
 def _fiber_census() -> dict:

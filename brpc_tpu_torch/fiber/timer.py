@@ -118,11 +118,15 @@ def global_timer() -> TimerThread:
 
 def _postfork_reset() -> None:
     """Fork hygiene: the timer thread died with the parent, and every
-    heaped callback closes over the parent's state. Not registered yet:
-    the port's postfork registry comes with shard groups (ROADMAP §1)."""
+    heaped callback closes over the parent's state."""
     global _global_timer, _lock
     _global_timer = None
     _lock = threading.Lock()
+
+
+from brpc_tpu_torch.butil import postfork as _postfork  # noqa: E402
+
+_postfork.register("fiber.timer", _postfork_reset)
 
 
 from brpc_tpu_torch.butil import resource_census as _census  # noqa: E402

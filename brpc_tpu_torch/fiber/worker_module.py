@@ -124,9 +124,13 @@ def notify_stop(group_index: int) -> None:
 def _postfork_reset() -> None:
     """A forked shard must not inherit the parent's engines: their state
     belongs to threads that do not exist in the child. Each shard
-    registers its own engine when its server starts. Not registered yet:
-    the port's postfork registry comes with shard groups (ROADMAP §1)."""
+    registers its own engine when its server starts."""
     global _modules, _lock, _active
     _modules = []
     _lock = threading.Lock()
     _active = {}
+
+
+from brpc_tpu_torch.butil import postfork as _postfork  # noqa: E402
+
+_postfork.register("fiber.worker_module", _postfork_reset)

@@ -516,8 +516,11 @@ def expose_incident_vars() -> None:
 def _postfork_reset() -> None:
     """Fork hygiene: the window, spool and ledger describe the PARENT;
     a shard child starts idle with a fresh leaf lock (the parent's may
-    be mid-hold at fork time). Not registered: the postfork registry
-    comes with shard groups (ROADMAP section 1)."""
+    be mid-hold at fork time)."""
     global _manager
     _manager = IncidentManager()
 
+
+from brpc_tpu_torch.butil import postfork as _postfork  # noqa: E402
+
+_postfork.register("incident.manager", _postfork_reset)

@@ -189,10 +189,14 @@ def available() -> bool:
 
 def _postfork_reset() -> None:
     """A forked child keeps the parent's loaded library; only the latch
-    lock must be fresh (registered with the postfork registry once it is
-    ported, ROADMAP section 1 item 4)."""
+    lock must be fresh."""
     global _lock
     _lock = threading.Lock()
+
+
+from brpc_tpu_torch.butil import postfork as _postfork  # noqa: E402
+
+_postfork.register("native", _postfork_reset)
 
 
 # ------------------------------------------------------------ wrappers

@@ -69,7 +69,11 @@ def available() -> bool:
 
 def _postfork_reset() -> None:
     """A forked child keeps the loaded module; only the latch lock must
-    be fresh (left unregistered until the postfork registry is ported,
-    ROADMAP section 1 item 4)."""
+    be fresh."""
     global _lock
     _lock = threading.Lock()
+
+
+from brpc_tpu_torch.butil import postfork as _postfork  # noqa: E402
+
+_postfork.register("native.fastcore", _postfork_reset)

@@ -56,6 +56,21 @@ _libs: Dict[str, ctypes.CDLL] = {}
 build_info: Dict[str, dict] = {}
 
 
+def _postfork_reset() -> None:
+    """Fork hygiene (the port's own): a fresh lock, which a parent thread
+    may have held mid-build, and an empty table of loaded libraries. A
+    shard group's supervisor only builds (``rpc/shard_group.py``), so no
+    kernel's CUDA runtime ran in the process a shard is forked from."""
+    global _lock, _libs
+    _lock = threading.Lock()
+    _libs = {}
+
+
+from brpc_tpu_torch.butil import postfork as _postfork  # noqa: E402
+
+_postfork.register("ops._build", _postfork_reset)
+
+
 def nvcc_path() -> str:
     for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
         if cand and (Path(cand) / "bin" / "nvcc").exists():

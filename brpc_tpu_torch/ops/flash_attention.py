@@ -73,6 +73,15 @@ launches: Dict[str, int] = {"flash_decode": 0, "flash_attn_fwd_tc": 0,
                             "flash_attn_fwd": 0}
 
 
+def expose_kernel_vars() -> None:
+    """``<kernel>_launches`` in ``/vars``: this process's launch counts,
+    so that a shard group's dumps (and its merged ``/vars``) say which
+    shard launched what. Exposed by the serving lane's start."""
+    from brpc_tpu_torch.bvar.reducer import PassiveStatus
+    for name in launches:
+        PassiveStatus(lambda n=name: launches[n]).expose(f"{name}_launches")
+
+
 # ------------------------------------------------------------ plain version
 
 def _online_softmax_step(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -373,6 +382,26 @@ def _launch_tile(kernel: str, q3: torch.Tensor, k3: torch.Tensor,
 # grown), so no call pays a memset; never shared by two streams.
 _workspaces: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
 _workspace_lock = threading.Lock()
+
+
+def _postfork_reset() -> None:
+    """Fork hygiene (the port's own): the launch counts restart at zero
+    in place (callers hold ``launches``), so a shard counts its own
+    launches; the decode workspaces are CUDA scratch and ticket counters
+    of the parent's context, which a child must never reuse nor free:
+    they are kept out of service (``postfork.keep_inherited``), and the
+    child makes its own under a fresh lock."""
+    global _workspaces, _workspace_lock
+    for k in launches:
+        launches[k] = 0
+    _postfork.keep_inherited(_workspaces)
+    _workspaces = {}
+    _workspace_lock = threading.Lock()
+
+
+from brpc_tpu_torch.butil import postfork as _postfork  # noqa: E402
+
+_postfork.register("ops.flash_attention", _postfork_reset)
 
 
 def _decode_workspace(device: torch.device, floats: int,

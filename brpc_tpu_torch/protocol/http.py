@@ -28,8 +28,15 @@ channel's load-balancing decisions), ``/contentions``, ``/version``;
 ``/capture`` (``?action=start|stop|download``), ``/incidents``
 (``?action=download&path=``) and ``/vlog``. ``/health`` asks
 ``ServerOptions.health_reporter`` when there is one. ``/sockets``,
-``/ids``, ``/shards`` and ``/protobufs`` wait for their modules
-(ROADMAP section 1).
+``/ids`` and ``/protobufs`` wait for their modules (ROADMAP section 1).
+
+A shard group supervisor's admin server (a Server with a
+``shard_aggregator``, ``rpc/shard_group.py``) answers ``/status``,
+``/vars``, the Prometheus dump, ``/serving``, ``/device``,
+``/timeline``, ``/hotspots?mode=continuous``, ``/capture``,
+``/incidents`` and ``/census`` with the shards' merged view, one
+shard's with ``?shard=i``, and ``/shards`` with the group's state
+(brpc_tpu/protocol/http.py:83-97, :298-360, :423-430).
 
 The native parse (brpc_tpu/protocol/http.py:41-160): with fastcore
 loaded, one C pass (``http_parse_request``, httpparse.cc) finds the
@@ -269,6 +276,203 @@ def _json(doc) -> Page:
     return 200, "application/json", json.dumps(doc, default=str).encode()
 
 
+def _shard_param(agg, req: HttpRequest):
+    """``?shard=i`` against the aggregator: (index or None, error page or
+    None). No index means the merged view; a malformed or out-of-range
+    value is the client's error, never a fallback to the merged view."""
+    raw = req.query.get("shard")
+    if raw is None:
+        return None, None
+    try:
+        i = int(raw)
+    except ValueError:
+        return None, (400, "text/plain", f"bad shard {raw!r}".encode())
+    if not 0 <= i < agg.num_shards:
+        return None, (400, "text/plain",
+                      f"shard {i} out of range 0.."
+                      f"{agg.num_shards - 1}".encode())
+    return i, None
+
+
+def _shard_page(agg, req: HttpRequest, key: str, merged, what: str):
+    """A supervisor's page: one shard's dump section ``key`` with
+    ``?shard=i`` (404 while it has none), else ``merged()``."""
+    shard, err = _shard_param(agg, req)
+    if err is not None:
+        return err
+    if shard is None:
+        return _json(merged())
+    dump = agg.shard_dump(shard)
+    if dump is None or not dump.get(key):
+        return 404, "text/plain", f"no {what} for shard {shard}".encode()
+    return _json(dump[key])
+
+
+def _supervisor_page(agg, req: HttpRequest, path: str):
+    """The merged pages of a shard group supervisor, or None for a page
+    that is this process's own."""
+    if path == "/status":
+        shard, err = _shard_param(agg, req)
+        if err is not None:
+            return err
+        if shard is None:
+            return _json(agg.merged_status())
+        dump = agg.shard_dump(shard)
+        if dump is None:
+            return 404, "text/plain", f"no dump for shard {shard}".encode()
+        view = dict(dump.get("status", {}))
+        view.update(shard=dump.get("shard"), pid=dump.get("pid"))
+        return _json(view)
+    if (path == "/vars" or path.startswith("/vars/")) \
+            and req.query.get("series") is None:
+        prefix = req.query.get("prefix", path[6:] if len(path) > 6 else "")
+        shard, err = _shard_param(agg, req)
+        if err is not None:
+            return err
+        if shard is None:
+            items = sorted(agg.merged_vars(prefix).items())
+        else:
+            dump = agg.shard_dump(shard)
+            if dump is None:
+                return (404, "text/plain",
+                        f"no dump for shard {shard}".encode())
+            items = sorted((n, v) for n, v in dump.get("vars", {}).items()
+                           if n.startswith(prefix))
+        lines = [f"{n} : {v}" for n, v in items]
+        return 200, "text/plain", ("\n".join(lines) + "\n").encode()
+    if path == "/vars":
+        sname = req.query.get("series")
+        ser = agg.merged_timeline(names=[sname]).get(
+            "series", {}).get(sname)
+        if ser is None:
+            return 400, "text/plain", f"no series for {sname!r}".encode()
+        return _json({sname: ser})
+    if path in ("/brpc_metrics", "/metrics"):
+        from brpc_tpu_torch.bvar.prometheus import dump_prometheus_items
+        shard, err = _shard_param(agg, req)
+        if err is not None:
+            return err
+        if shard is None:
+            return 200, "text/plain", agg.prometheus_text().encode()
+        dump = agg.shard_dump(shard)
+        if dump is None:
+            return 404, "text/plain", f"no dump for shard {shard}".encode()
+        return 200, "text/plain", dump_prometheus_items(
+            sorted(dump.get("vars", {}).items())).encode()
+    if path == "/timeline":
+        return _supervisor_timeline(agg, req)
+    if path == "/shards":
+        out = {"shards": agg.num_shards,
+               "heartbeat_age_s": {str(i): agg.heartbeat_age_s(i)
+                                   for i in range(agg.num_shards)}}
+        if agg.group is not None:
+            out["group"] = agg.group.group_status()
+        return _json(out)
+    if path == "/serving":
+        return _shard_page(agg, req, "serving", agg.merged_serving,
+                           "serving dump")
+    if path == "/device":
+        return _shard_page(agg, req, "device", agg.merged_device,
+                           "device dump")
+    if path == "/census":
+        return _shard_page(agg, req, "census", agg.merged_census,
+                           "census")
+    if path == "/incidents" and not req.query.get("action"):
+        return _shard_page(agg, req, "incidents", agg.merged_incidents,
+                           "incidents")
+    if path == "/incidents":
+        return _incidents_page(None, req, agg=agg)
+    if path == "/capture":
+        return _supervisor_capture(agg, req)
+    if path in ("/hotspots", "/pprof/profile") \
+            and req.query.get("mode") == "continuous":
+        return _supervisor_hotspots(agg, req)
+    return None
+
+
+def _supervisor_timeline(agg, req: HttpRequest) -> Page:
+    names = req.query.get("name") or req.query.get("names")
+    names = [n for n in names.split(",") if n] if names else None
+    prefix = req.query.get("prefix", "")
+    shard, err = _shard_param(agg, req)
+    if err is not None:
+        return err
+    if shard is None:
+        payload = agg.merged_timeline(names=names, prefix=prefix)
+    else:
+        dump = agg.shard_dump(shard)
+        if dump is None or not dump.get("timeline"):
+            return (404, "text/plain",
+                    f"no timeline for shard {shard}".encode())
+        payload = dict(dump["timeline"])
+        if names or prefix:
+            payload["series"] = {
+                k: v for k, v in (payload.get("series") or {}).items()
+                if (names is None or k in names) and k.startswith(prefix)}
+    if names:
+        missing = [n for n in names if n not in payload.get("series", {})]
+        if missing:
+            return (400, "text/plain",
+                    f"no series for {missing[0]!r}".encode())
+    return _json(payload)
+
+
+def _supervisor_capture(agg, req: HttpRequest) -> Page:
+    """A supervisor's ``/capture``: start and stop write the control file
+    the shards apply at their next dump tick; the download merges every
+    shard's corpus files."""
+    from brpc_tpu_torch.builtin.services import capture_download_bytes
+    action = req.query.get("action", "")
+    group = agg.group
+    if action in ("start", "stop"):
+        if group is None:
+            return 404, "text/plain", b"no supervisor for capture control"
+        seq = group.write_capture_control(action, dict(req.query))
+        return _json({"control": action, "seq": seq,
+                      "applied_within_s": group.options.dump_interval_s})
+    if action == "download":
+        data = capture_download_bytes(agg.capture_paths())
+        if not data:
+            return 404, "text/plain", b"no captured corpus"
+        return 200, "application/octet-stream", data
+    if action:
+        return (400, "text/plain",
+                f"unknown capture action {action!r}".encode())
+    return _json(agg.merged_capture())
+
+
+def _supervisor_hotspots(agg, req: HttpRequest) -> Page:
+    """A supervisor's continuous profile: the shards' recorder states,
+    counters summed; ``?shard=i`` narrows (a diff is one process's)."""
+    from brpc_tpu_torch.builtin import flight_recorder as fr
+    from brpc_tpu_torch.builtin.profiler import (render_flamegraph_svg,
+                                                 render_folded)
+    if _query_flag(req, "diff"):
+        return (400, "text/plain",
+                b"diff is per-process; use ?shard=i on a worker")
+    shard, err = _shard_param(agg, req)
+    if err is not None:
+        return err
+    dumps = [agg.shard_dump(shard)] if shard is not None \
+        else agg.read_dumps()
+    m = fr.merge_dump_states([d["hotspots"] for d in dumps
+                              if d and d.get("hotspots")])
+    fmt = req.query.get("format")
+    if fmt == "folded":
+        return 200, "text/plain", render_folded(m["folded"]).encode()
+    if fmt in ("svg", "flamegraph"):
+        return (200, "image/svg+xml",
+                render_flamegraph_svg(m["folded"]).encode())
+    if fmt == "json":
+        return _json({"nsamples": m["nsamples"], "nbusy": m["nbusy"],
+                      "windows": m.get("windows"), "span_s": m.get("span_s"),
+                      "stall_ms_max_10s": m.get("stall_ms_max_10s"),
+                      "shards_reporting": m.get("shards_reporting"),
+                      "labels": dict(m["labels"]),
+                      "folded": dict(m["folded"].most_common(200))})
+    return 200, "text/plain", fr.render_continuous_text(m).encode()
+
+
 def builtin_page(server, req: HttpRequest):
     """(status, content type, body) of a builtin page, or None when
     ``req.path`` names none (the server then dispatches it as a
@@ -277,6 +481,13 @@ def builtin_page(server, req: HttpRequest):
     modules behind the pages are imported here, when a page is asked
     for."""
     path = req.path.rstrip("/") or "/"
+    agg = getattr(server, "shard_aggregator", None)
+    if agg is not None:
+        page = _supervisor_page(agg, req, path)
+        if page is not None:
+            return page
+    if path == "/shards":
+        return 404, "text/plain", b"not a shard-group supervisor"
     if path == "/":
         from brpc_tpu_torch.builtin.tabbed import render_index
         return 200, "text/html", render_index(server)
@@ -475,16 +686,18 @@ def _fibers_payload(server) -> dict:
     }
 
 
-def _incidents_page(server, req: HttpRequest) -> Page:
+def _incidents_page(server, req: HttpRequest, agg=None) -> Page:
     """``/incidents``: the capture-on-anomaly state and the artifact
     ledger; ``?action=download&path=`` serves an artifact, and only one
-    the ledger lists (an arbitrary path must not read any file)."""
+    the ledger lists (an arbitrary path must not read any file; a
+    supervisor's ledger is the shards' merged one)."""
     from brpc_tpu_torch.builtin.services import incidents_page_payload
     from brpc_tpu_torch.incident.artifact import SUFFIX
     action = req.query.get("action", "")
     if action == "download":
         path = req.query.get("path", "")
-        rows = incidents_page_payload(server).get("artifacts") or []
+        rows = (agg.merged_incidents() if agg is not None
+                else incidents_page_payload(server)).get("artifacts") or []
         known = {r.get("path") for r in rows}
         if not path or path not in known or not path.endswith(SUFFIX):
             return 404, "text/plain", b"no such incident artifact"

@@ -25,8 +25,7 @@ the HTTP pages and the builtin methods alike.
 
 ``BRPC_TPU_BACKEND_STATS=0`` (read at import) or the flag
 ``backend_stats_enabled`` turns the layer into one flag check a call.
-``_postfork_reset`` waits, unregistered, for the postfork registry
-(ROADMAP section 1 item 9).
+``_postfork_reset`` is registered with the postfork registry.
 """
 
 from __future__ import annotations
@@ -316,6 +315,11 @@ def _postfork_reset() -> None:
     global _registry, _registry_lock
     _registry = None
     _registry_lock = threading.Lock()
+
+
+from brpc_tpu_torch.butil import postfork as _postfork  # noqa: E402
+
+_postfork.register("rpc.backend_stats", _postfork_reset)
 
 
 def _backend_census() -> dict:

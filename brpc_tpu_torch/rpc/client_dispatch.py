@@ -93,12 +93,17 @@ def warm() -> None:
 
 
 def _postfork_reset() -> None:
-    """A forked child has no call in flight: a fresh pool and lock (left
-    unregistered until the postfork registry is ported, ROADMAP section
-    1 item 4)."""
+    """A forked child has no call in flight: a fresh pool and lock (the
+    reference keeps its pool in ``rpc/controller.py``, brpc_tpu/rpc/
+    controller.py:65-77)."""
     global _call_pool, _lock
     _call_pool = None
     _lock = threading.Lock()
+
+
+from brpc_tpu_torch.butil import postfork as _postfork  # noqa: E402
+
+_postfork.register("rpc.client_dispatch", _postfork_reset)
 
 
 def register_call(cntl, socket) -> int:

@@ -17,8 +17,7 @@ nothing. ``shared_retry_budget`` gives every channel of one
 ``budget_group`` the same bucket; ``retry_tokens_min`` is the lowest
 bucket of the process.
 
-``_postfork_reset`` waits, unregistered, for the postfork registry
-(ROADMAP section 1 item 9).
+``_postfork_reset`` is registered with the postfork registry.
 """
 
 from __future__ import annotations
@@ -232,3 +231,8 @@ def _postfork_reset() -> None:
     _tokens_var_exposed = False
     _group_budgets = {}
     _group_lock = threading.Lock()
+
+
+from brpc_tpu_torch.butil import postfork as _postfork  # noqa: E402
+
+_postfork.register("rpc.retry_policy", _postfork_reset)

@@ -50,6 +50,16 @@ method's ``LatencyRecorder`` (``method_status``). Under the
 ``rpcz_enabled`` flag a tpu_std call gets a server span, stamped in
 ``server_dispatch.py``; an HTTP call gets none, as in the reference.
 
+Shard groups (brpc_tpu/rpc/server.py:293-316): ``start(address,
+num_shards=N)`` with N > 1 on tcp makes this process the supervisor of N
+forked shards behind one SO_REUSEPORT port (``rpc/shard_group.py``):
+it serves no traffic itself, and ``stop``/``join`` drain the group.
+Each shard re-arms its copy of this Server (``_postfork_child_reset``)
+and starts it; ``shard_index`` is its index there, and the admin server
+of the supervisor has the ``shard_aggregator`` the merged pages read.
+``run_until_asked_to_quit`` blocks until SIGINT or SIGTERM with a
+pidfile under ``.pids/`` and an orphan watchdog.
+
 The native core (brpc_tpu/rpc/server.py:474-495): a server with a
 ``native="echo"`` method gives each new connection the per-event hook
 of ``server_dispatch.make_fast_drain`` (fastcore's ``serve_drain``), and
@@ -169,6 +179,9 @@ class Server:
         # native="echo" method, and its per-event hook (False: none)
         self._native_echo: Optional[Tuple[bytes, bytes, str]] = None
         self._fast_drain_hook = None
+        self._shard_group = None        # the supervisor's (num_shards > 1)
+        self.shard_index: Optional[int] = None      # set in a shard
+        self.shard_aggregator = None    # set on a supervisor's admin server
         self._build_limiters()
         # resolved once, as the reference does at Server::Start
         self._auth = resolve_server_auth(self.options)
@@ -235,11 +248,19 @@ class Server:
         """Calls admitted and not yet answered."""
         return self._inflight
 
-    def start(self, address: str) -> EndPoint:
-        """Listen on ``tcp://host:port`` (port 0 picks a free port)."""
+    def start(self, address: Union[str, EndPoint],
+              num_shards: Optional[int] = None,
+              shard_options=None) -> EndPoint:
+        """Listen on ``tcp://host:port`` (port 0 picks a free port).
+        ``num_shards=N``, N > 1 and tcp only, makes this process the
+        supervisor of a shard group (``rpc/shard_group.py``): N forked
+        shards serve the port, and this process serves none of it."""
         if self._running:
             raise RuntimeError("server already started")
-        ep = str2endpoint(address)
+        if num_shards is not None and num_shards > 1:
+            return self.start_group(address, num_shards, shard_options)
+        ep = address if isinstance(address, EndPoint) \
+            else str2endpoint(address)
         transport = get_transport(ep.scheme)
         if self.options.enable_builtin_services:
             from brpc_tpu_torch.builtin.services import add_builtin_services
@@ -554,6 +575,9 @@ class Server:
         if not self._running:
             return
         self._running = False
+        if self._shard_group is not None:
+            self._shard_group.stop()
+            return
         self._listener.stop()
         if self._serving is not None:
             self._serving.on_server_stop(self)
@@ -564,10 +588,90 @@ class Server:
 
     def join(self, timeout_s: float = 5.0) -> None:
         """Wait up to ``timeout_s`` for in-flight calls, then close the
-        connections."""
+        connections (a supervisor: for its monitor to end)."""
+        if self._shard_group is not None:
+            self._shard_group.join(timeout_s)
+            return
         with self._idle:
             self._idle.wait_for(lambda: not self._inflight, timeout_s)
         with self._sockets_lock:
             socks = list(self._sockets)
         for s in socks:
             s.set_failed(ConnectionError("server stopped"))
+
+    def start_group(self, address: Union[str, EndPoint], num_shards: int,
+                    shard_options=None) -> EndPoint:
+        """Make this process the supervisor of ``num_shards`` forked
+        shards on ``address`` (tcp), one shard included: ``start`` takes
+        the plain path for one, this gives one shard the group's
+        supervisor, dumps, merged pages and restarts."""
+        import copy
+
+        from .shard_group import ShardGroup, ShardGroupOptions
+        if self._running:
+            raise RuntimeError("server already started")
+        # a copy: the caller may reuse the options for another group
+        opts = copy.copy(shard_options) if shard_options is not None \
+            else ShardGroupOptions()
+        opts.num_shards = num_shards
+        self._shard_group = ShardGroup(self, address, opts)
+        self.endpoint = self._shard_group.start()
+        self._running = True
+        return self.endpoint
+
+    def run_until_asked_to_quit(self) -> None:
+        """Block until SIGINT or SIGTERM, then stop and join
+        (brpc_tpu/rpc/server.py:541-569). Meanwhile a pidfile under
+        ``.pids/`` names this process (``butil/pidfile.py``), and an
+        orphaned server (its parent died without a signal) stops by
+        itself unless ``BRPC_TPU_TORCH_NO_PARENT_WATCHDOG`` is set; so
+        does a supervisor whose group failed (``ShardGroup.failed``)."""
+        import os
+        import signal
+
+        from brpc_tpu_torch.butil.pidfile import (remove_pidfile,
+                                                  write_pidfile)
+        ev = threading.Event()
+        for sig in (signal.SIGINT, signal.SIGTERM):
+            signal.signal(sig, lambda *_: ev.set())
+        watchdog = not os.environ.get("BRPC_TPU_TORCH_NO_PARENT_WATCHDOG")
+        pidfile = write_pidfile(f"server-{self.endpoint}")
+        parent = os.getppid()
+        try:
+            while not ev.is_set():
+                ev.wait(1.0)
+                if watchdog and os.getppid() != parent:
+                    break
+                grp = self._shard_group
+                if grp is not None and grp.failed:
+                    break
+        finally:
+            remove_pidfile(pidfile)
+        self.stop()
+        self.join()
+
+    def _postfork_child_reset(self) -> None:
+        """Re-arm this Server in a forked shard (brpc_tpu/rpc/server.py:
+        571-600): its services and options cross the fork as plain data,
+        but its TaskControl, listener, sockets, counters, recorders and
+        limiters belong to the parent's machinery, and are made anew
+        against the child's fresh singletons before ``start``."""
+        self.control = global_control()
+        self._messenger = None
+        self._listener = None
+        self.endpoint = None
+        self._running = False
+        self._idle = threading.Condition()
+        self._inflight = 0
+        self._sockets_lock = threading.Lock()
+        self._sockets = set()
+        self._fast_drain_hook = None
+        self.method_status = {}
+        self.nprocessed = 0
+        self.nerror = 0
+        self._build_limiters()
+        self._shard_group = None
+        if self.session_local_pool is not None:
+            self.session_local_pool = SimpleDataPool(
+                self.options.session_local_data_factory,
+                reset=self.options.session_local_data_reset)

@@ -14,8 +14,8 @@ children (``start_device_span``, ``submit_device_recv_span``;
 ``transport/device_stats.py`` stamps them) and one child of a client
 span an attempt (``start_attempt_span``), which ``settle_attempt_spans``
 submits only for a call that made more than one. ``_span_census`` is
-the ``span_store`` provider of ``/census``; ``_postfork_reset`` waits,
-unregistered, for the postfork registry that comes with shard groups.
+the ``span_store`` provider of ``/census``; ``_postfork_reset`` is
+registered with the postfork registry (``butil/postfork.py``).
 """
 
 from __future__ import annotations
@@ -354,6 +354,11 @@ def _postfork_reset() -> None:
             pass
     global_collector._lock = threading.Lock()
     global_collector._ring.clear()
+
+
+from brpc_tpu_torch.butil import postfork as _postfork  # noqa: E402
+
+_postfork.register("rpc.span", _postfork_reset)
 
 
 def _span_census() -> dict:

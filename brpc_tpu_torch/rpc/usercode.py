@@ -34,6 +34,20 @@ def _get_pool() -> ThreadPoolExecutor:
         return _pool
 
 
+def _postfork_reset() -> None:
+    """Fork hygiene: the pool's threads exist only in the parent, so work
+    submitted to the inherited pool would wait for ever (brpc_tpu/rpc/
+    usercode.py:35-46)."""
+    global _pool, _pool_lock
+    _pool = None
+    _pool_lock = threading.Lock()
+
+
+from brpc_tpu_torch.butil import postfork as _postfork  # noqa: E402
+
+_postfork.register("rpc.usercode", _postfork_reset)
+
+
 async def run_usercode(fn, *args):
     """``fn(*args)`` on the pool; the calling fiber parks (not its
     worker) until it returns, and gets its result or its exception."""

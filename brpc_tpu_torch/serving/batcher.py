@@ -96,6 +96,23 @@ def expose_serving_vars() -> None:
     _sstats.expose_serving_stats_vars()
 
 
+def _postfork_reset() -> None:
+    """A forked shard inherits the parent's batchers through the weak
+    set; its lane counters count its own requests only, and the rate
+    window is made anew on its next expose (brpc_tpu/serving/batcher.py:
+    101-112)."""
+    global _live_batchers, _tokens_ps
+    _live_batchers = weakref.WeakSet()
+    _tokens_ps = None
+    for c in (nsubmitted, ncompleted, nevicted, nshed, ncanceled, ntokens):
+        c.postfork_clear()
+
+
+from brpc_tpu_torch.butil import postfork as _postfork  # noqa: E402
+
+_postfork.register("serving.batcher", _postfork_reset)
+
+
 class RequestTooLong(ValueError):
     """The prompt alone would overflow a KV slot: unservable anywhere,
     unlike a shed."""

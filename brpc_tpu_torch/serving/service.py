@@ -51,7 +51,7 @@ import threading
 from collections import deque
 from typing import List, Optional, Tuple
 
-from brpc_tpu_torch.butil.device import DeviceLike, resolve_device
+from brpc_tpu_torch.butil.device import DeviceLike, parse_device
 from brpc_tpu_torch.fiber import FiberEvent
 from brpc_tpu_torch.fiber.worker_module import (register_module,
                                                 unregister_module)
@@ -208,7 +208,9 @@ class GenerateService:
                  cache_len: int = DEFAULT_CACHE_LEN,
                  max_waiting: int = DEFAULT_MAX_WAITING,
                  device: DeviceLike = None):
-        self.device = resolve_device(device)
+        # named here, checked where the model is built (on_server_start):
+        # a shard group's supervisor must reach its forks with no CUDA call
+        self.device = parse_device(device)
         self._max_batch = int(max_batch)
         self._cache_len = int(cache_len)
         self._max_waiting = int(max_waiting)
@@ -229,8 +231,20 @@ class GenerateService:
         self.engine = ServingEngine(self.batcher,
                                     label=f"{SERVICE_NAME}.Generate")
         expose_serving_vars()
+        from brpc_tpu_torch.ops.flash_attention import expose_kernel_vars
+        expose_kernel_vars()
         self.engine.warm_up()
         register_module(self.engine)
+
+    def build_kernels(self) -> None:
+        """Compile the decode kernel's library without loading it (nvcc
+        is a subprocess: no CUDA call here). A shard group's supervisor
+        runs this before it forks, so that the shards' warm-ups load a
+        built library instead of all compiling it at once against the
+        group's hang check."""
+        if self.device.type == "cuda":
+            from brpc_tpu_torch.ops import _build
+            _build.build("flash_decode")
 
     def on_server_stop(self, server) -> None:
         if self.engine is not None:

@@ -33,8 +33,8 @@ The module stays light: stdlib, butil, bvar and rpc/span, never torch.
 The batcher is read through ``sys.modules``, never imported.
 ``serving_ttft_p99_us`` is declared a max trend series
 (``bvar/series.py``), and ``_serving_census`` is the ``serving_lane``
-provider of ``/census``; ``_postfork_reset`` waits, unregistered, for
-the postfork registry of shard groups (ROADMAP section 1).
+provider of ``/census``; ``_postfork_reset`` is registered with the
+postfork registry of shard groups.
 """
 
 from __future__ import annotations
@@ -596,6 +596,11 @@ def _postfork_reset() -> None:
     _registry = None
     _registry_lock = threading.Lock()
     _thread_labels = {}
+
+
+from brpc_tpu_torch.butil import postfork as _postfork  # noqa: E402
+
+_postfork.register("serving.serving_stats", _postfork_reset)
 
 
 # --------------------------------------------------------------- census

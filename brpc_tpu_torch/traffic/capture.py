@@ -590,9 +590,7 @@ def _postfork_reset() -> None:
     the PARENT keeps its own reference so nothing of the parent's is
     torn). The CONFIG and active state survive, so a capturing shard
     child keeps capturing — into its own per-pid file (_open_writer
-    names files by os.getpid()), and counters restart at zero. Not
-    registered: the postfork registry comes with shard groups (ROADMAP
-    section 1)."""
+    names files by os.getpid()), and counters restart at zero."""
     r = _recorder
     if r._incident_mode:
         # the incident window belongs to the PARENT (its watchdog, its
@@ -618,3 +616,7 @@ def _postfork_reset() -> None:
     r.dropped_queue = r.dropped_budget = 0
     r.rotations = r.deleted_files = 0
 
+
+from brpc_tpu_torch.butil import postfork as _postfork  # noqa: E402
+
+_postfork.register("traffic.capture", _postfork_reset)

@@ -178,6 +178,25 @@ _mapped: Dict[Tuple[bytes, int], list] = {}
 _map_lock = threading.Lock()
 
 
+def _postfork_reset() -> None:
+    """Fork hygiene (the port's own: the reference has no such lane): the
+    primary contexts and the peer mappings belong to the parent's CUDA
+    state, which the child does not have. They are kept out of service,
+    never released here (``postfork.keep_inherited``); the library handle
+    stays (ctypes never unloads), and the locks are fresh."""
+    global _primary, _mapped, _lock, _map_lock
+    _postfork.keep_inherited((_primary, _mapped))
+    _primary = {}
+    _mapped = {}
+    _lock = threading.Lock()
+    _map_lock = threading.Lock()
+
+
+from brpc_tpu_torch.butil import postfork as _postfork  # noqa: E402
+
+_postfork.register("transport.cuda_ipc", _postfork_reset)
+
+
 def acquire(handle: bytes, device_index: int) -> Tuple[int, int]:
     """(base, size) of the peer allocation ``handle`` names, mapped once
     and counted; every acquire is matched by one ``release`` once no

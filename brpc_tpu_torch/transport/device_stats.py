@@ -37,11 +37,10 @@ and waiter threads.
 Cost gating: ``BRPC_TPU_DEVICE_STATS=0`` (read at import) or the flag
 ``device_stats_enabled`` turns the layer into one flag check a transfer.
 
-Two pieces of the reference wait for shard groups (ROADMAP section 1):
-``merge_device_payloads`` (the supervisor's merged view) and the
-``device_probe_path`` pane; the census row waits for the resource
-census, and ``_postfork_reset`` waits, unregistered, for the postfork
-registry.
+``merge_device_payloads`` is a shard group supervisor's merged view
+(``rpc/shard_group.py``); ``_postfork_reset`` is registered with the
+postfork registry. The reference's probe pane waits for a probe of the
+card that writes its artifact (ROADMAP section 1).
 """
 
 from __future__ import annotations
@@ -65,7 +64,6 @@ define_flag("device_stats_enabled",
             "per-(peer, lane) device transfer stat cells + stage "
             "trackers (/device); BRPC_TPU_DEVICE_STATS=0 sets the "
             "default off for overhead A/B runs")
-
 # a runaway caller (a conn per request) degrades to a bounded table:
 # overflow lands on one cell
 MAX_CELLS = 1024
@@ -460,17 +458,85 @@ def device_page_payload(server=None, samples: int = 128) -> dict:
     return out
 
 
+def merge_device_payloads(payloads: List[dict]) -> dict:
+    """A shard group supervisor's ``/device`` (brpc_tpu/transport/
+    device_stats.py:514-585): counters sum, latency samples pool (a
+    percentile is never averaged), the conn panes concatenate, and the
+    lane status is the worst reading."""
+    out: dict = {"mode": "shard_group", "shards_reporting": len(payloads),
+                 "enabled": any(p.get("enabled") for p in payloads)}
+    cells: Dict[str, dict] = {}
+    pooled: Dict[str, List[float]] = {}
+    totals: Dict[str, int] = {}
+    conns: List[dict] = []
+    lane_status: List[str] = []
+    leaks: Dict[str, int] = {}
+    for p in payloads:
+        for key, row in (p.get("cells") or {}).items():
+            m = cells.setdefault(key, {})
+            for k, v in row.items():
+                if k == "latency_samples":
+                    pooled.setdefault(key, []).extend(v or ())
+                elif k.startswith("max"):
+                    if isinstance(v, (int, float)):
+                        m[k] = max(m.get(k, 0), v)
+                elif isinstance(v, (int, float)) and \
+                        not isinstance(v, bool):
+                    m[k] = m.get(k, 0) + v
+        for k, v in (p.get("totals") or {}).items():
+            totals[k] = totals.get(k, 0) + (v or 0)
+        conns.extend(p.get("conns") or ())
+        if p.get("transfer_lane"):
+            lane_status.append(p["transfer_lane"])
+        for k, v in (p.get("leaks") or {}).items():
+            if isinstance(v, (int, float)):
+                leaks[k] = leaks.get(k, 0) + v
+    for key, m in cells.items():
+        s = sorted(pooled.get(key, ()))
+        m["latency_p50_us"] = DeviceCell._pick(s, 0.5)
+        m["latency_p99_us"] = DeviceCell._pick(s, 0.99)
+        # an even stride over the sorted pool, not its head: a head
+        # would hand a later pooler a tail-less set
+        if len(s) > 256:
+            step = len(s) / 256.0
+            m["latency_samples"] = [s[int(i * step)] for i in range(256)]
+        else:
+            m["latency_samples"] = s
+        done = (m.get("completed", 0) or 0) + (m.get("failed", 0) or 0)
+        tot = (m.get("stage_us_sum", 0) or 0) + \
+            (m.get("wire_us_sum", 0) or 0) + (m.get("ack_us_sum", 0) or 0)
+        m["latency_avg_us"] = round(tot / done, 1) if done else 0.0
+    out["cells"] = cells
+    out["totals"] = totals
+    out["conns"] = conns
+    out["leaks"] = leaks
+    # a real "down" wins; a host-only shard's "not loaded" must not hide
+    # a sibling whose lane is up
+    down = [s for s in lane_status if s.startswith("down")]
+    if down:
+        out["transfer_lane"] = down[0]
+    elif "up" in lane_status:
+        out["transfer_lane"] = "up"
+    else:
+        out["transfer_lane"] = lane_status[0] if lane_status \
+            else "not loaded"
+    return out
+
+
 # ------------------------------------------------------ fork hygiene
 
 def _postfork_reset() -> None:
     """Fork hygiene: every cell describes the parent's transfers on
-    conns the child does not own; a forked shard starts from zero. Not
-    registered, as the port's other resets are not (ROADMAP section 1,
-    shard groups)."""
+    conns the child does not own; a forked shard starts from zero."""
     global _registry, _registry_lock, _thread_labels
     _registry = None
     _registry_lock = threading.Lock()
     _thread_labels = {}
+
+
+from brpc_tpu_torch.butil import postfork as _postfork  # noqa: E402
+
+_postfork.register("transport.device_stats", _postfork_reset)
 
 
 def _device_census() -> dict:

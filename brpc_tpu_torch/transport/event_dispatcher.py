@@ -310,3 +310,38 @@ def global_dispatcher() -> EventDispatcher:
             if _global is None:
                 _global = EventDispatcher()
     return _global
+
+
+def _postfork_reset() -> None:
+    """Fork hygiene: the dispatcher's thread exists only in the parent,
+    and the inherited epoll fd is the parent's kernel object: an
+    ``epoll_ctl`` from the child would change the parent's interest set.
+    The instance is abandoned (only the child's copies of its fds are
+    closed; ``close`` never changes the shared interest list), so the
+    first consumer after the fork builds a dispatcher of its own
+    (brpc_tpu/transport/event_dispatcher.py:324-356). The stall window
+    rode the parent's sampler series, and the stall counters count this
+    process's ticks only."""
+    global _global, _glock, _stall_win, _stall_win_lock
+    d, _global = _global, None
+    _glock = threading.Lock()
+    _stall_win = None
+    _stall_win_lock = threading.Lock()
+    _tick_ms_max.postfork_clear()
+    nstalls.postfork_clear()
+    if d is not None:
+        d._stop = True
+        try:
+            d._selector.close()
+        except Exception:
+            pass
+        for s in (d._wakeup_r, d._wakeup_w):
+            try:
+                s.close()
+            except Exception:
+                pass
+
+
+from brpc_tpu_torch.butil import postfork as _postfork  # noqa: E402
+
+_postfork.register("transport.event_dispatcher", _postfork_reset)

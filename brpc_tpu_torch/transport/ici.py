@@ -344,6 +344,40 @@ _reclaim_queue: Deque[Tuple[float, int]] = deque()
 _grace_uid_bytes: Dict[int, Tuple[int, Optional[str]]] = {}
 
 
+def _postfork_reset() -> None:
+    """Fork hygiene: a forked shard is a process of its own. It gets a
+    fresh identity (a peer tells this process's batches and leaks apart
+    by it), probes its own IPC lane, and starts with no exchange entry,
+    no grace ledger and no leak count. The parent's exchange entries hold
+    its device tensors: they are kept out of service, never freed here
+    (``postfork.keep_inherited``). brpc_tpu's reset drops its PjRt
+    transfer server instead, and its children crash in that destructor
+    (brpc_tpu/transport/ici.py:134-152)."""
+    global _PROC_UUID, _local_exchange, _local_lock, _uuid_base
+    global _uuid_counter, _lane_lock, _lane_probed, _lane_error
+    global _reclaim_queue, _grace_uid_bytes
+    _PROC_UUID = uuidlib.uuid4().hex
+    _postfork.keep_inherited(_local_exchange)
+    _local_exchange = {}
+    _local_lock = threading.Lock()
+    _uuid_base = int.from_bytes(os.urandom(4), "big")
+    _uuid_counter = itertools.count(1)
+    _lane_lock = threading.Lock()
+    _lane_probed = False
+    _lane_error = None
+    _reclaim_queue = deque()
+    _grace_uid_bytes = {}
+    _leaked_pull_bytes[0] = 0
+    _leaked_by_epoch.clear()
+    _epoch_trips_logged.clear()
+    _leak_breaker_logged[0] = False
+
+
+from brpc_tpu_torch.butil import postfork as _postfork  # noqa: E402
+
+_postfork.register("transport.ici", _postfork_reset)
+
+
 def _credit_grace(uid: int) -> int:
     """Under _local_lock: take ``uid`` off the grace ledger."""
     nb, epoch = _grace_uid_bytes.pop(uid, (0, None))

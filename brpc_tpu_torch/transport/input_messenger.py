@@ -57,6 +57,21 @@ _batch_msgs = Adder().expose("dispatch_batch_msgs")
 _batch_cycles = Adder().expose("dispatch_batches")
 
 
+def _postfork_reset() -> None:
+    """Fork hygiene: the batch counters count this process's dispatch
+    cycles only (a shard's merged ``/vars`` is the sum of the shards',
+    and a restarted shard must not carry its supervisor's cycles). The
+    reference resets its batch windows here (brpc_tpu/transport/
+    input_messenger.py:73-83); the port keeps none."""
+    _batch_msgs.postfork_clear()
+    _batch_cycles.postfork_clear()
+
+
+from brpc_tpu_torch.butil import postfork as _postfork  # noqa: E402
+
+_postfork.register("transport.input_messenger", _postfork_reset)
+
+
 def record_dispatch_batch(n: int) -> None:
     _batch_msgs.add(n)
     _batch_cycles.add(1)

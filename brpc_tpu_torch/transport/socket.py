@@ -122,6 +122,23 @@ SocketId = VersionedId
 _pool: ResourcePool = ResourcePool()
 
 
+def _postfork_reset() -> None:
+    """Fork hygiene: the versioned-id pool addresses the parent's sockets
+    (the child holds mere copies of their fds, registered with the
+    parent's dispatcher), and the traffic counters count this process's
+    sockets only (brpc_tpu/transport/socket.py:319-341)."""
+    global _pool
+    _pool = ResourcePool()
+    for c in (nwrites, nreads, nwqueue_bytes, ncoalesced, npluck_fast,
+              npluck_defer, npluck_scans):
+        c.postfork_clear()
+
+
+from brpc_tpu_torch.butil import postfork as _postfork  # noqa: E402
+
+_postfork.register("transport.socket", _postfork_reset)
+
+
 def address_socket(sid: SocketId) -> Optional["Socket"]:
     """The live Socket of ``sid``; None once it failed."""
     return _pool.address(sid)

@@ -95,7 +95,11 @@ def expose_syscall_vars() -> None:
 
 
 def _postfork_reset() -> None:
-    """A forked child re-resolves the native counters (left unregistered
-    until the postfork registry is ported, ROADMAP section 1 item 4)."""
+    """A forked child re-resolves the native counters."""
     global _native_fn
     _native_fn = False
+
+
+from brpc_tpu_torch.butil import postfork as _postfork  # noqa: E402
+
+_postfork.register("transport.syscall_stats", _postfork_reset)

@@ -9,6 +9,10 @@ socket is a dispatcher consumer whose read event accepts until EAGAIN
 (EMFILE/ENFILE), the listener pauses accepting for
 ``acceptor_backoff_ms`` instead of spinning the dispatcher.
 
+A listener with the endpoint extra ``reuse_port=1`` sets
+``SO_REUSEPORT`` before it binds: the shards of a shard group
+(``rpc/shard_group.py``) share one port that way.
+
 fd lifetime: a ``TcpConn`` owns its ``socket.socket``; ``close``
 unregisters the fd from the dispatcher first and then closes the socket,
 once. Nothing here closes an fd number it does not own.
@@ -213,6 +217,13 @@ class TcpTransport(Transport):
         sock = pysocket.socket(pysocket.AF_INET, pysocket.SOCK_STREAM)
         try:
             sock.setsockopt(pysocket.SOL_SOCKET, pysocket.SO_REUSEADDR, 1)
+            if ep.extra("reuse_port") in ("1", "true"):
+                # a shard group (brpc_tpu/transport/tcp.py:324-330): every
+                # shard binds this port and the kernel spreads accepted
+                # connections over their listeners; set before bind, by
+                # every member of the group
+                sock.setsockopt(pysocket.SOL_SOCKET, pysocket.SO_REUSEPORT,
+                                1)
             sock.bind((ep.host or "127.0.0.1", ep.port))
             sock.listen(1024)
             host, port = sock.getsockname()[:2]

@@ -283,9 +283,33 @@ zeroed before each decoding part and read after it, ``flash_decode``'s
 equal to the decode steps and warm-ups; every token list equal to the
 CPU plain path's.
 
+Phase shards (Generate served by forked shards behind one SO_REUSEPORT
+port), after native: the group is ``python3 -m
+brpc_tpu_torch.tools.shard_server --generate`` run from a copy of the
+package whose ``_build/`` is empty, in a process of its own (this one
+has CUDA up, and a process that made a CUDA call cannot give a forked
+child a working one). (a) 2 shards from the cold build (the supervisor
+builds the native core and flash_decode before it forks; no restart),
+phase 3's burst over 4 connections a shard: tokens equal the CPU plain
+path's, each shard's flash_decode launches (its ``/vars?shard=i``)
+equal its decode steps plus its warm-up, the merged ``/serving``
+tokens equal the tokens received, merged ``/vars`` counters the sum of
+the shards'; (b) SIGKILL one shard mid-burst: no call on a survivor's
+connection fails, the victim's succeed on retry or fail with a
+transport error, and a new pid warms up, serves and launches; (c)
+SIGSTOP a shard: replaced after the heartbeat timeout; (d) SIGTERM to
+the supervisor: no process left and the card memory back
+(``torch.cuda.mem_get_info``); (e) ``--client shards_control``: a
+process with CUDA initialised is refused, and whether a forked child
+can use CUDA after ``device_count`` and after ``is_available``; (f)
+tokens/s and client TTFT at 1, 2 and 4 shards, from one client process
+and from four (``--client unary`` started at one instant by
+``CHIP_SMOKE_START_AT``, each after a burst of its own).
+
 ``python3 chip_smoke.py --phase streaming`` (or ``--phase
 observability``, ``--phase device_lane``, ``--phase combo``, ``--phase
-cluster``, ``--phase incident``, ``--phase native``) runs that phase alone (after the card
+cluster``, ``--phase incident``, ``--phase native``, ``--phase
+shards``) runs that phase alone (after the card
 line), so that two trees' serving can be compared in one call: run each
 tree's script in turns.
 
@@ -1196,6 +1220,8 @@ def client_main(kind: str, port: int, traced: bool = False) -> int:
         return _native_server_session()
     if kind == "malloc_turn":
         return _malloc_turn()
+    if kind == "shards_control":
+        return _cuda_control()
     calls = None
     if traced:
         from brpc_tpu_torch.butil.flags import set_flag
@@ -1203,6 +1229,10 @@ def client_main(kind: str, port: int, traced: bool = False) -> int:
         calls = []
     waves = [] if kind.startswith("unary") else None
     kw = {} if waves is None else {"waves": waves}
+    start_at = os.environ.get("CHIP_SMOKE_START_AT")
+    if start_at:
+        return _timed_bursts(kind, port,
+                             [float(x) for x in start_at.split(",")])
     cpu0 = time.process_time()
     res, errs, wall, ttft, gaps = BURSTS[kind](port, _prompts(), MAX_TOKENS,
                                                calls=calls, **kw)
@@ -1214,6 +1244,26 @@ def client_main(kind: str, port: int, traced: bool = False) -> int:
         doc["calls"] = calls
         doc["spans"] = [s.to_dict() for s in global_collector.recent(4096)]
     emit(doc)
+    return 0
+
+
+def _timed_bursts(kind: str, port: int, instants) -> int:
+    """``CHIP_SMOKE_START_AT=t0[,t1...]`` (phase shards): one untimed burst
+    (imports, the native core, first uses), then one burst at each of
+    the wall-clock instants, so that several client processes burst
+    together; one JSON line with each timed burst."""
+    BURSTS[kind](port, _prompts(), MAX_TOKENS)
+    warm_end = time.time()
+    runs = []
+    for t0 in instants:
+        time.sleep(max(0.0, t0 - time.time()))
+        late = time.time() - t0
+        cpu0 = time.process_time()
+        res, errs, wall, ttft, _ = BURSTS[kind](port, _prompts(), MAX_TOKENS)
+        runs.append({"results": res, "errors": errs, "wall_s": wall,
+                     "ttft_ms": ttft, "cpu_s": time.process_time() - cpu0,
+                     "start_late_s": late})
+    emit({"runs": runs, "warm_end": warm_end})
     return 0
 
 
@@ -5045,6 +5095,731 @@ def phase_native(dev):
     return out
 
 
+# ------------------------------------------------------------ phase shards
+
+SHARD_COUNTS = (1, 2, 4)
+SHARD_CLIENT_PROCESSES = (1, 4)
+SHARD_TURN_CALLS = 256          # Generate calls in a timed turn, all clients
+SHARD_ROUNDS = 3                # turns a cell; the order flips each round
+# parts a-c: the hang check's timeout, which part c waits out. It must
+# outlast a shard's way to its first dump (its CUDA context and warm-up;
+# ``ready_s`` in /shards): 0.8-1.5 s at 1, 2 and 4 shards on an NVIDIA
+# H100 80GB HBM3 at 700 W. The timed groups keep the group's default.
+SHARD_HEARTBEAT_S = 5.0
+SHARD_KILL_CALLS = 32           # the burst a shard is killed in
+SHARD_MEM_SLACK = 256 << 20     # card bytes a stopped group may leave
+TRANSPORT_ERRNOS = (1009, 2003, 2005)   # EFAILEDSOCKET, ELOGOFF, ECLOSE
+
+
+class _ShardGroup:
+    """``python3 -m brpc_tpu_torch.tools.shard_server --generate``: a
+    Generate group on cuda:0 behind one port, run from ``pkg_root`` (a
+    directory holding the package). Its supervisor is a process of its
+    own that makes no CUDA call; this one has CUDA up and must not
+    fork. Every process of the group carries its shard directory on its
+    command line, which is how a leftover is found."""
+
+    def __init__(self, shards: int, pkg_root: str, work: str,
+                 timed: bool = False):
+        """``timed``: the group's defaults (dump interval, hang check)
+        and a supervisor even for one shard (``--group``), so that every
+        shard count runs the same code; else dumps every 0.1 s (the
+        checks read them) and ``SHARD_HEARTBEAT_S``."""
+        from brpc_tpu_torch.tools.spawn_util import spawn_announcing_server
+        import tempfile
+        self.shards = shards
+        self.dir = tempfile.mkdtemp(prefix=f"group{shards}-", dir=work)
+        self.err_path = os.path.join(self.dir, "stderr")
+        self.err = open(self.err_path, "w")
+        env = dict(os.environ, PYTHONPATH=pkg_root)
+        t0 = time.monotonic()
+        argv = ["-m", "brpc_tpu_torch.tools.shard_server", "--generate",
+                "--shards", str(shards), "--shard-dir", self.dir]
+        argv += ["--group"] if timed else [
+            "--dump-interval", "0.1", "--heartbeat-timeout",
+            str(SHARD_HEARTBEAT_S)]
+        self.proc, got = spawn_announcing_server(
+            argv, 240, keys=("ADMIN", "PORT") if timed or shards > 1
+            else ("PORT",), env=env, stderr=self.err, cwd=pkg_root)
+        check(got is not None, f"{shards}-shard group never came up: "
+                               f"{self.stderr()}")
+        self.up_s = time.monotonic() - t0
+        self.port, self.admin = got["PORT"], got.get("ADMIN")
+        self.chans = []
+
+    def stderr(self) -> str:
+        with open(self.err_path) as f:
+            return f.read()[-3000:]
+
+    def page(self, path: str):
+        status, body = _http_page(self.admin, path)
+        check(status == 200, f"{path}: {status} {body[:200]!r}")
+        return json.loads(body) if body[:1] in (b"{", b"[") else body
+
+    def var(self, name: str, shard=None) -> float:
+        q = f"/vars?prefix={name}" + ("" if shard is None
+                                      else f"&shard={shard}")
+        for ln in self.page(q).decode().splitlines():
+            n, _, v = ln.partition(" : ")
+            if n == name:
+                return json.loads(v)
+        raise SmokeFailure(f"{name} missing from {q}")
+
+    def running(self) -> list:
+        return [s["pid"] for s in self.page("/shards")["group"]["shards"]
+                if s["state"] == "running"]
+
+    def restarts(self) -> int:
+        return sum(s["restarts"]
+                   for s in self.page("/shards")["group"]["shards"])
+
+    def channel(self):
+        from brpc_tpu_torch.rpc import Channel, ChannelOptions
+        ch = Channel(f"tcp://127.0.0.1:{self.port}",
+                     ChannelOptions(timeout_ms=120000, max_retry=3))
+        self.chans.append(ch)
+        return ch
+
+    def pid_of(self, ch) -> int:
+        c = ch.call_sync("Bench", "Pid", b"")
+        check(not c.failed(), f"Pid: {c.error_text}")
+        return int(c.response)
+
+    def spread(self, per_shard: int, limit: int = 96) -> dict:
+        """{pid: channels}, ``per_shard`` channels on every shard: the
+        kernel hashes each new connection to a shard."""
+        by_pid: dict = {}
+        for _ in range(limit):
+            if len(by_pid) == self.shards and all(
+                    len(v) >= per_shard for v in by_pid.values()):
+                break
+            ch = self.channel()
+            by_pid.setdefault(self.pid_of(ch), []).append(ch)
+        check(len(by_pid) == self.shards and all(
+            len(v) >= per_shard for v in by_pid.values()),
+            f"connections reached {len(by_pid)} of {self.shards} shards")
+        return {p: v[:per_shard] for p, v in by_pid.items()}
+
+    def processes(self) -> list:
+        found = []
+        for d in os.listdir("/proc"):
+            if not d.isdigit():
+                continue
+            try:
+                with open(f"/proc/{d}/cmdline", "rb") as f:
+                    cmd = f.read().decode("utf-8", "replace")
+                with open(f"/proc/{d}/stat") as f:
+                    state = f.read().rsplit(")", 1)[1].split()[0]
+            except OSError:
+                continue
+            if self.dir in cmd and state != "Z":
+                found.append(int(d))
+        return found
+
+    def stop(self) -> dict:
+        """SIGTERM to the supervisor: (its exit code, seconds until no
+        process of the group is left)."""
+        import signal
+        for ch in self.chans:
+            ch.close()
+        self.chans = []
+        t0 = time.monotonic()
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+        try:
+            rc = self.proc.wait(60)
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait(10)
+            self.proc.stdout.close()
+        while self.processes() and time.monotonic() - t0 < 30:
+            time.sleep(0.05)
+        left = self.processes()
+        self.err.close()
+        return {"rc": rc, "gone_s": time.monotonic() - t0, "left": left}
+
+
+def _shard_generate(ch, prompt: str):
+    c = ch.call_sync("GenerateService", "Generate", json.dumps(
+        {"prompt": prompt, "max_tokens": MAX_TOKENS}).encode())
+    if c.failed():
+        return None, c.error_code, c.error_text
+    return json.loads(c.response)["tokens"], 0, ""
+
+
+def _shard_burst(chans, prompts):
+    """One thread a channel, the prompts dealt round-robin: ({prompt:
+    tokens}, [(channel index, errno, text)], wall s); ``served`` gets a
+    1 a call answered."""
+    results, errors = {}, []
+
+    def client(i):
+        for p in prompts[i::len(chans)]:
+            toks, code, text = _shard_generate(chans[i], p)
+            if toks is None:
+                errors.append((i, code, text))
+            elif results.setdefault(p, toks) != toks:
+                errors.append((i, -1, f"{p!r}: tokens differ between "
+                                      f"two answers"))
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(chans))]
+    t0 = time.monotonic()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    check(not any(t.is_alive() for t in threads), "shard burst hung")
+    return results, errors, time.monotonic() - t0
+
+
+def _shard_counts(g: _ShardGroup, i: int) -> dict:
+    s = g.page(f"/serving?shard={i}")
+    st = g.page(f"/status?shard={i}")
+    return {"pid": st["pid"], "decode_steps": s["decode_steps"],
+            "warmup_steps": s["engine"]["warmup_steps"],
+            "tokens_out": s["tokens_out"],
+            "flash_decode": g.var("flash_decode_launches", i)}
+
+
+def _settled(fn, timeout_s: float = 10.0):
+    """``fn()`` once it returns anything but None (dumps refresh every
+    0.1 s), else None."""
+    deadline = time.monotonic() + timeout_s
+    v = fn()
+    while v is None and time.monotonic() < deadline:
+        time.sleep(0.1)
+        v = fn()
+    return v
+
+
+def _shards_correct(g: _ShardGroup, oracle: dict) -> dict:
+    """(a): phase 3's burst over 4 connections a shard; each shard's
+    decode steps and flash_decode launches from its own dump; the merged
+    views against the per-shard sums."""
+    prompts = _prompts()
+    by_pid = g.spread(N_CLIENTS // g.shards)
+    chans = [c for v in by_pid.values() for c in v]
+    res, errs, wall = _shard_burst(chans, prompts)
+    check(not errs, f"shards burst: failed calls {errs[:3]}")
+    wrong = [p for p in oracle if res.get(p) != oracle[p]]
+    check(not wrong, f"shards burst: tokens differ from the CPU plain "
+                     f"path for {wrong}")
+    tokens = sum(len(t) for t in res.values())
+
+    def views():
+        per = [_shard_counts(g, i) for i in range(g.shards)]
+        merged = g.page("/serving")
+        ok = merged["tokens_out"] == tokens and \
+            sum(s["tokens_out"] for s in per) == tokens
+        return (per, merged) if ok else None
+    got = _settled(views)
+    check(got is not None, f"merged /serving tokens_out != {tokens}")
+    per, merged = got
+    for s in per:
+        check(s["decode_steps"] > 0, f"shard {s['pid']} decoded nothing")
+        check(s["flash_decode"] == s["decode_steps"] + s["warmup_steps"],
+              f"shard {s['pid']}: {s['flash_decode']} flash_decode "
+              f"launches != {s['decode_steps']} steps + "
+              f"{s['warmup_steps']} warm-up")
+    check({s["pid"] for s in per} == set(by_pid) == set(g.running()),
+          f"/shards {g.running()} against the pids served {set(by_pid)}")
+    sums = {}
+    for name in ("server_processed", "flash_decode_launches",
+                 "serving_tokens"):
+        whole = g.var(name)
+        parts = [g.var(name, i) for i in range(g.shards)]
+        check(whole == sum(parts), f"merged {name} {whole} != {parts}")
+        sums[name] = whole
+    return {"tokens": tokens, "wall_s": wall,
+            "tokens_per_s": tokens / wall, "shards": per,
+            "merged_tokens_out": merged["tokens_out"], "merged_vars": sums,
+            "restarts": g.restarts()}
+
+
+def _shards_kill(g: _ShardGroup, oracle: dict) -> dict:
+    """(b): SIGKILL one shard mid-burst: no call on a survivor's
+    connection fails, the victim's succeed on retry or fail with a
+    transport error; the shard comes back in a new pid that warms up,
+    serves and launches flash_decode."""
+    import signal
+    prompts = [p for _ in range(SHARD_KILL_CALLS // N_REQUESTS)
+               for p in _prompts()]
+    by_pid = g.spread(N_CLIENTS // g.shards)
+    victim = sorted(by_pid)[0]
+    order = [(p, c) for p, v in sorted(by_pid.items()) for c in v]
+    chans = [c for _, c in order]
+    restarts0 = g.restarts()
+    killer = threading.Timer(0.3, os.kill, (victim, signal.SIGKILL))
+    t_kill = time.monotonic() + 0.3
+    killer.start()
+    res, errs, wall = _shard_burst(chans, prompts)
+    killer.join()
+    victim_idx = {i for i, (p, _) in enumerate(order) if p == victim}
+    survivor_errs = [e for e in errs if e[0] not in victim_idx]
+    check(not survivor_errs, f"calls on survivors failed: {survivor_errs}")
+    bad = [e for e in errs if e[1] not in TRANSPORT_ERRNOS]
+    check(not bad, f"victim's calls failed with {bad[:3]}")
+    wrong = [p for p, t in res.items() if t != oracle[p]]
+    check(not wrong, f"kill burst: tokens differ for {wrong}")
+    progress("shards b: waiting for the restart")
+
+    def back():
+        pids = g.running()
+        return pids if len(pids) == g.shards and victim not in pids \
+            else None
+    pids = _settled(back, 30)
+    check(pids is not None, "the killed shard was not restarted")
+    new = [p for p in pids if p not in by_pid][0]
+    back_s = time.monotonic() - t_kill
+    progress(f"shards b: shard {new} is up; its first call")
+    # the new shard warms up (its first dump), serves and decodes
+    idx = _settled(lambda: next((i for i in range(g.shards)
+                                 if g.page(f"/status?shard={i}")["pid"]
+                                 == new), None), 30)
+    check(idx is not None, f"shard {new} never dumped")
+    ch = None
+    for _ in range(64):
+        c = g.channel()
+        if g.pid_of(c) == new:
+            ch = c
+            break
+    check(ch is not None, f"no connection reached the new shard {new}")
+    toks, code, text = _shard_generate(ch, prompts[0])
+    check(toks == oracle[prompts[0]], f"new shard: {code} {text}")
+    s = _settled(lambda: (lambda c: c if c["tokens_out"] >= MAX_TOKENS
+                          else None)(_shard_counts(g, idx)))
+    check(s is not None and s["flash_decode"] ==
+          s["decode_steps"] + s["warmup_steps"] and s["warmup_steps"] == 1,
+          f"new shard's launches {s}")
+    return {"victim": victim, "new_pid": new, "errors": len(errs),
+            "victim_errnos": sorted({e[1] for e in errs}),
+            "calls": len(prompts), "wall_s": wall,
+            "back_in_s": back_s, "restarts": g.restarts() - restarts0,
+            "new_shard": s}
+
+
+def _shards_hang(g: _ShardGroup) -> dict:
+    """(c): SIGSTOP a shard: killed and replaced after the heartbeat
+    timeout."""
+    import signal
+    hung = g.running()[0]
+    os.kill(hung, signal.SIGSTOP)
+    t0 = time.monotonic()
+    pids = _settled(lambda: (lambda p: p if len(p) == g.shards and hung
+                             not in p else None)(g.running()),
+                    SHARD_HEARTBEAT_S + 30)
+    check(pids is not None, f"hung shard {hung} was not replaced")
+    took = time.monotonic() - t0
+    check(took >= SHARD_HEARTBEAT_S * 0.9,
+          f"hung shard replaced after {took:.2f} s, before the timeout")
+    check(not os.path.exists(f"/proc/{hung}"), f"{hung} not reaped")
+    return {"hung": hung, "replaced_after_s": took,
+            "heartbeat_timeout_s": SHARD_HEARTBEAT_S}
+
+
+def _cuda_control() -> int:
+    """``--client shards_control``: whether a forked child can use CUDA:
+    in a fresh process, after ``device_count`` (NVML), after
+    ``is_available`` (the runtime's count). Then a Generate group from
+    this process, whose runtime was asked: its shards must exit with
+    ``EXIT_CUDA_BAD_FORK`` and the group fail, with no restart and
+    nothing served. Then CUDA initialised: ``start`` must refuse."""
+    import torch
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+
+    def child_cuda():
+        r, w = os.pipe()
+        pid = os.fork()
+        if pid == 0:
+            try:
+                x = torch.ones(4, device="cuda:0")
+                doc = {"ok": float(x.sum()) == 4.0, "error": ""}
+            except BaseException as e:
+                doc = {"ok": False,
+                       "error": f"{type(e).__name__}: {e}"[:300]}
+            os.write(w, json.dumps(doc).encode())
+            os._exit(0)
+        os.close(w)
+        data = os.read(r, 65536)
+        os.close(r)
+        os.waitpid(pid, 0)
+        return json.loads(data)
+    probe = {"fresh": child_cuda()}
+    torch.cuda.device_count()
+    probe["after_device_count"] = child_cuda()
+    torch.cuda.is_available()
+    probe["after_is_available"] = child_cuda()
+    from brpc_tpu_torch.rpc import Server
+    from brpc_tpu_torch.rpc.shard_group import ShardGroupOptions
+    from brpc_tpu_torch.serving import add_generate_service
+    srv = Server()
+    add_generate_service(srv)
+    srv.start("tcp://127.0.0.1:0", num_shards=2,
+              shard_options=ShardGroupOptions(restart_backoff_s=0.1,
+                                              dump_interval_s=0.1))
+    grp = srv._shard_group
+    deadline = time.monotonic() + 60
+    while time.monotonic() < deadline and not grp.failed:
+        time.sleep(0.05)
+    st = grp.group_status()
+    poisoned = {"failed": st["failed"],
+                "restarts": [s["restarts"] for s in st["shards"]],
+                "states": [s["state"] for s in st["shards"]],
+                "dumps": len(grp.aggregator.read_dumps())}
+    srv.stop()
+    srv.join()
+    probe["poisoned_group"] = poisoned
+    torch.cuda.init()
+    srv = Server()
+    add_generate_service(srv)
+    try:
+        srv.start("tcp://127.0.0.1:0", num_shards=2)
+    except RuntimeError as e:
+        emit({"refused": True, "error": str(e), "probe": probe})
+        return 0
+    srv.stop()
+    srv.join()
+    emit({"refused": False, "probe": probe})
+    return 0
+
+
+def _shards_load_client(ports: str) -> int:
+    """``--client shards_load P1,P2,...``: N_CLIENTS channels held open to
+    each group's port, the shard pid each reached, one untimed burst on
+    each group; a JSON line ``ready``. Then, for each line ``PORT CALLS``
+    on stdin, CALLS Generate calls over that group's channels (a thread a
+    channel, the prompts cycled), and a JSON line with the answers, the
+    whole-call latencies (the first token comes with the last) and the
+    wall-clock start and end. An empty line ends it."""
+    from brpc_tpu_torch.rpc import Channel, ChannelOptions
+    chans = {int(p): [Channel(f"tcp://127.0.0.1:{p}",
+                              ChannelOptions(timeout_ms=120000))
+                      for _ in range(N_CLIENTS)] for p in ports.split(",")}
+    prompts = _prompts()
+
+    def turn(port: int, calls: int) -> dict:
+        results, errors, lat, tokens = {}, [], [], []
+
+        def client(i):
+            for k in range(i, calls, N_CLIENTS):
+                p = prompts[k % len(prompts)]
+                t0 = time.perf_counter()
+                toks, code, text = _shard_generate(chans[port][i], p)
+                if toks is None:
+                    errors.append((code, text))
+                    continue
+                lat.append((time.perf_counter() - t0) * 1e3)
+                tokens.append(len(toks))
+                if results.setdefault(p, toks) != toks:
+                    errors.append((-1, f"{p!r}: tokens differ between two "
+                                       f"answers"))
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(N_CLIENTS)]
+        cpu0, start = time.process_time(), time.time()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        check(not any(t.is_alive() for t in threads), "load client hung")
+        return {"results": results, "errors": errors[:5],
+                "n_errors": len(errors), "calls": len(lat),
+                "tokens": sum(tokens), "ttft_ms": lat, "start": start,
+                "end": time.time(), "cpu_s": time.process_time() - cpu0}
+    try:
+        spread = {}
+        for port, cs in chans.items():
+            pids = []
+            for ch in cs:
+                c = ch.call_sync("Bench", "Pid", b"")
+                check(not c.failed(), f"Pid: {c.error_text}")
+                pids.append(int(c.response))
+            spread[port] = pids
+        warm = {port: turn(port, N_REQUESTS)["n_errors"] for port in chans}
+        emit({"ready": True, "spread": spread, "warm_errors": warm})
+        for line in sys.stdin:
+            if not line.strip():
+                break
+            port, calls = (int(x) for x in line.split())
+            emit(turn(port, calls))
+    finally:
+        for cs in chans.values():
+            for ch in cs:
+                ch.close()
+    return 0
+
+
+class _LineReader:
+    """JSON lines from a child's stdout, each under a time limit."""
+
+    def __init__(self, proc):
+        self.proc, self.buf = proc, b""
+
+    def line(self, timeout_s: float) -> dict:
+        import select
+        fd = self.proc.stdout.fileno()
+        deadline = time.monotonic() + timeout_s
+        while True:
+            ln, nl, rest = self.buf.partition(b"\n")
+            if nl:
+                self.buf = rest
+                if ln.startswith(b"{"):
+                    return json.loads(ln)
+                continue
+            left = deadline - time.monotonic()
+            check(left > 0, "a load client gave no answer in time")
+            if select.select([fd], [], [], left)[0]:
+                chunk = os.read(fd, 1 << 20)
+                check(bool(chunk), f"a load client exited "
+                                   f"({self.proc.poll()})")
+                self.buf += chunk
+
+
+def _dump_cost(g: _ShardGroup) -> list:
+    """Each shard's dump-loop counters: (dumps, CPU us, wall us)."""
+    return [[g.var(n, i) for n in ("shard_dumps", "shard_dump_cpu_us",
+                                   "shard_dump_wall_us")]
+            for i in range(g.shards)]
+
+
+def _shards_timing(pkg_root: str, work: str, oracle: dict) -> dict:
+    """(f): Generate tokens/s and client TTFT (the whole unary call) at 1,
+    2 and 4 shards, from one client process and from four. Every group
+    runs the same code (``--group``: a supervisor even for one shard) at
+    the group's default dump interval and hang check, and all three are
+    up together. Four load clients (``--client shards_load``) hold
+    N_CLIENTS connections to each group. A turn is SHARD_TURN_CALLS
+    calls, from client 0 alone or split over all four; each round runs
+    every cell once, the shard counts and client counts in reverse order
+    every other round. Every answer is checked against the CPU plain
+    path, and every group must end with no restart. The shards'
+    dump-loop counters are read before and after the turns."""
+    groups, clients = {}, []
+    out = {"turn_calls": SHARD_TURN_CALLS, "rounds": SHARD_ROUNDS}
+    err = open(os.path.join(work, "load-clients.stderr"), "w+")
+    try:
+        for n in SHARD_COUNTS:
+            progress(f"shards f: a {n}-shard group")
+            groups[n] = _ShardGroup(n, pkg_root, work, timed=True)
+        shards_up = {}
+        for n, g in groups.items():
+            st = g.page("/shards")["group"]["shards"]
+            check(g.restarts() == 0, f"{n}-shard group: restarts while it "
+                                     f"came up: {st}")
+            shards_up[n] = {"up_s": g.up_s,
+                            "ready_s": [s["ready_s"] for s in st]}
+        out["groups"] = shards_up
+        ports = ",".join(str(groups[n].port) for n in SHARD_COUNTS)
+        progress("shards f: load clients")
+        for _ in range(max(SHARD_CLIENT_PROCESSES)):
+            p = subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--client",
+                 "shards_load", ports], stdin=subprocess.PIPE,
+                stdout=subprocess.PIPE, stderr=err)
+            clients.append((p, _LineReader(p)))
+        ready = [rd.line(240) for _, rd in clients]
+        check(all(d["ready"] and not any(d["warm_errors"].values())
+                  for d in ready), f"load clients: {ready}")
+        # {shards: {pid: channels}} over all four clients
+        out["spread"] = {n: {} for n in SHARD_COUNTS}
+        for d in ready:
+            for n in SHARD_COUNTS:
+                for pid in d["spread"][str(groups[n].port)]:
+                    k = str(pid)
+                    out["spread"][n][k] = out["spread"][n].get(k, 0) + 1
+        cost0 = {n: _dump_cost(g) for n, g in groups.items()}
+        t_cost0 = time.monotonic()
+        turns = {(n, c): [] for n in SHARD_COUNTS
+                 for c in SHARD_CLIENT_PROCESSES}
+        for r in range(SHARD_ROUNDS):
+            step = 1 if r % 2 == 0 else -1
+            progress(f"shards f: round {r}")
+            for n in SHARD_COUNTS[::step]:
+                for c in SHARD_CLIENT_PROCESSES[::step]:
+                    line = f"{groups[n].port} {SHARD_TURN_CALLS // c}\n"
+                    for p, _ in clients[:c]:
+                        p.stdin.write(line.encode())
+                        p.stdin.flush()
+                    docs = [rd.line(300) for _, rd in clients[:c]]
+                    errs = [e for d in docs for e in d["errors"]]
+                    check(not errs, f"{n} shards, {c} clients: {errs[:3]}")
+                    wrong = [p for d in docs for p, t in d["results"].items()
+                             if t != oracle[p]]
+                    check(not wrong, f"{n} shards, {c} clients: tokens "
+                                     f"differ from the CPU plain path for "
+                                     f"{wrong[:3]}")
+                    wall = max(d["end"] for d in docs) - \
+                        min(d["start"] for d in docs)
+                    tokens = sum(d["tokens"] for d in docs)
+                    turns[(n, c)].append({
+                        "round": r, "calls": sum(d["calls"] for d in docs),
+                        "tokens": tokens, "wall_s": wall,
+                        "tokens_per_s": tokens / wall,
+                        "ttft_ms": [x for d in docs for x in d["ttft_ms"]],
+                        "client_cpu_s": sum(d["cpu_s"] for d in docs)})
+        span = time.monotonic() - t_cost0
+        cost1 = {n: _dump_cost(g) for n, g in groups.items()}
+        for n, g in groups.items():
+            check(g.restarts() == 0, f"{n}-shard group: restarts during "
+                                     f"the turns: "
+                                     f"{g.page('/shards')['group']}")
+        out["dump_cost"] = {}
+        for n in SHARD_COUNTS:
+            rows = []
+            for a, b in zip(cost0[n], cost1[n]):
+                dumps, cpu, wall = (y - x for x, y in zip(a, b))
+                rows.append({"dumps_per_s": dumps / span,
+                             "cpu_us_per_dump": cpu / dumps if dumps else
+                             None, "wall_us_per_dump": wall / dumps
+                             if dumps else None,
+                             "cpu_share": cpu / 1e6 / span,
+                             "wall_share": wall / 1e6 / span})
+            out["dump_cost"][n] = rows
+        out["window_s"] = span
+        for (n, c), ts in turns.items():
+            base = turns[(1, c)]
+            ttft = [x for t in ts for x in t["ttft_ms"]]
+            rates = [t["tokens_per_s"] for t in ts]
+            out[f"{n}_shards_{c}_clients"] = {
+                "calls": sum(t["calls"] for t in ts),
+                "tokens": sum(t["tokens"] for t in ts),
+                "tokens_per_s_turns": rates,
+                "tokens_per_s_median": _median(rates),
+                "vs_1_shard_same_round": [
+                    t["tokens_per_s"] / b["tokens_per_s"]
+                    for t, b in zip(ts, base)],
+                "ttft_p50_ms": _median(ttft), "ttft_p99_ms": _p99(ttft),
+                "client_cpu_s": sum(t["client_cpu_s"] for t in ts)}
+    finally:
+        for p, _ in clients:
+            try:
+                p.stdin.write(b"\n")
+                p.stdin.close()
+                p.wait(30)
+            except Exception:
+                pass
+            if p.poll() is None:
+                p.kill()
+                p.wait(10)
+            p.stdout.close()
+        err.seek(0)
+        tail = err.read()[-2000:]
+        err.close()
+        stops = {n: g.stop() for n, g in groups.items()}
+    for n, d in stops.items():
+        check(d["rc"] == 0 and not d["left"],
+              f"{n}-shard group stop: {d} {groups[n].stderr()}")
+    check(all(p.returncode == 0 for p, _ in clients),
+          f"load clients: {[p.returncode for p, _ in clients]} {tail}")
+    out["stop"] = stops
+    return out
+
+
+def phase_shards(dev):
+    """Generate served by forked shards behind one SO_REUSEPORT port.
+    The group runs from a copy of the package whose ``_build/`` is
+    empty, so its supervisor builds the native core and flash_decode
+    before it forks; the shards come up with no restart. Parts: (a) the
+    burst, tokens, per-shard launches and the merged views; (b) SIGKILL
+    mid-burst and the restart; (c) SIGSTOP and the hang check; (d)
+    SIGTERM to the supervisor: no process left, the card memory back;
+    (e) the control: a supervisor with CUDA up is refused, one that
+    asked the runtime fails its group; (f) tokens/s and TTFT at 1, 2 and
+    4 shards from one and four client processes (``_shards_timing``)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from brpc_tpu_torch.serving import TinyDecoder, TinyDecoderConfig
+    phase_t0 = time.monotonic()
+    cpu_model = TinyDecoder(TinyDecoderConfig(), device="cpu")
+    oracle = {p: cpu_model.generate(list(p.encode()), MAX_TOKENS)
+              for p in _prompts()}
+    work = tempfile.mkdtemp(prefix="chip-smoke-shards-")
+    pkg_root = os.path.join(work, "pkg")
+    here = Path(__file__).resolve().parent
+    shutil.copytree(here / "brpc_tpu_torch",
+                    os.path.join(pkg_root, "brpc_tpu_torch"),
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    out = {"phase": "shards"}
+    try:
+        progress("shards a: a 2-shard group from a cold _build/")
+        free0 = torch.cuda.mem_get_info(dev)[0]
+        g = _ShardGroup(2, pkg_root, work)
+        try:
+            built = sorted(os.listdir(os.path.join(
+                pkg_root, "brpc_tpu_torch", "_build")))
+            check(any(n.startswith("libflash_decode-") for n in built),
+                  f"the supervisor built no flash_decode: {built}")
+            free1 = torch.cuda.mem_get_info(dev)[0]
+            a = _shards_correct(g, oracle)
+            check(a["restarts"] == 0,
+                  f"a cold _build/ restarted {a['restarts']} shards")
+            a.update(up_s=g.up_s, built_before_fork=built,
+                     card_bytes_in_use=free0 - free1,
+                     ready_s=[st["ready_s"] for st in
+                              g.page("/shards")["group"]["shards"]])
+            emit({"phase": "shards", "part": "a", "a": a})
+            out["a"] = a
+            progress("shards b: SIGKILL mid-burst")
+            out["b"] = _shards_kill(g, oracle)
+            emit({"phase": "shards", "part": "b", "b": out["b"]})
+            progress("shards c: SIGSTOP")
+            out["c"] = _shards_hang(g)
+            emit({"phase": "shards", "part": "c", "c": out["c"]})
+        finally:
+            progress("shards d: SIGTERM")
+            d = g.stop()
+        freed = _settled(lambda: (lambda f: f if free0 - f
+                                  < SHARD_MEM_SLACK else None)(
+            torch.cuda.mem_get_info(dev)[0]), 15)
+        d.update(free_before=free0, free_running=free1,
+                 free_after=torch.cuda.mem_get_info(dev)[0])
+        check(d["rc"] == 0, f"supervisor exited {d['rc']}: {g.stderr()}")
+        check(not d["left"], f"processes left: {d['left']}")
+        # past the drain budget (5 s) the supervisor SIGKILLs: a shard
+        # that had not drained
+        check(d["gone_s"] < 5.0, f"the group took {d['gone_s']:.2f} s to "
+                                 f"stop: {g.stderr()}")
+        check(freed is not None, f"the shards' card memory did not come "
+                                 f"back: {d}")
+        out["d"] = d
+        emit({"phase": "shards", "part": "d", "d": d})
+        progress("shards e: the CUDA control")
+        env = {k: v for k, v in os.environ.items()
+               if k != "PYTORCH_NVML_BASED_CUDA_CHECK"}
+        ctl = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--client",
+             "shards_control", "0"], capture_output=True, text=True,
+            timeout=300, env=env)
+        check(ctl.returncode == 0, f"shards_control: {ctl.stderr[-2000:]}")
+        e = json.loads(ctl.stdout.strip().splitlines()[-1])
+        check(e["refused"] and "CUDA" in e["error"],
+              f"a supervisor with CUDA up was not refused: {e}")
+        check(e["probe"]["fresh"]["ok"], f"a fresh fork: {e['probe']}")
+        pg = e["probe"]["poisoned_group"]
+        check(pg["dumps"] == 0 and pg["restarts"] == [0, 0] and
+              "before the fork" in (pg["failed"] or "") and
+              "made a CUDA call before the fork" in ctl.stderr,
+              f"shards of a supervisor that asked the runtime: {pg}")
+        e["poisoned_shard_error"] = next(
+            (ln for ln in ctl.stderr.splitlines()
+             if "made a CUDA call before the fork" in ln), "")
+        out["e"] = e
+        emit({"phase": "shards", "part": "e", "e": e})
+        out["f"] = _shards_timing(pkg_root, work, oracle)
+        emit({"phase": "shards", "part": "f", "f": out["f"]})
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["phase_s"] = time.monotonic() - phase_t0
+    out["launches"] = {"flash_decode":
+                       out["a"]["merged_vars"]["flash_decode_launches"]}
+    emit({"phase": "shards", "launches": out["launches"],
+          "phase_s": out["phase_s"]})
+    return out
+
+
 def phase_paths(dev, split_inputs):
     """The port's two other paths, each driven through its public entry
     point with every count zeroed just before and read just after:
@@ -5321,6 +6096,10 @@ def main(only: str = "") -> int:
             # the first server's warm-up
             phase_native(dev)
             return 0
+        if only == "shards":
+            # the group builds what it needs from a copy of the package
+            phase_shards(dev)
+            return 0
         if only:
             {"streaming": phase_streaming,
              "observability": phase_observability}[only]()
@@ -5345,6 +6124,8 @@ def main(only: str = "") -> int:
         incident = phase_incident(dev)
         progress("phase native")
         native = phase_native(dev)
+        progress("phase shards")
+        shards = phase_shards(dev)
         progress("phase paths")
         paths = phase_paths(dev, split_inputs)
         progress("phase times")
@@ -5373,6 +6154,7 @@ def main(only: str = "") -> int:
                               for v in incident["launches"].values())
     by_path["native"] = sum(v["flash_decode"]
                             for v in native["launches"].values())
+    by_path["shards"] = shards["launches"]["flash_decode"]
     by_path["long_cache_decode"] = paths["long_cache_decode"]["flash_decode"]
     fwd_by_path = {
         "long_context": paths["long_context"]["flash_attn_fwd"],
@@ -5384,7 +6166,8 @@ def main(only: str = "") -> int:
         _row("flash_decode", "serving: unary, stream and HTTP; device "
              "lanes: Attend; combo: nested Attend; cluster: three "
              "replicas, backup Attend; incident: rings, profiles, a shed "
-             "storm, costs; native: the turbo, pluck and scan lanes; the "
+             "storm, costs; native: the turbo, pluck and scan lanes; "
+             "shards: two forked Generate shards behind one port; the "
              "long-cache decode",
              sum(by_path.values()), sl["flash_decode"],
              sl["flash_decode"] / steps, errs["serving_decode"],
@@ -5420,6 +6203,8 @@ if __name__ == "__main__":
     if sys.argv[1:3] == ["--client", "device_lane"]:
         sys.exit(device_lane_client(int(sys.argv[3]),
                                     (sys.argv[4:5] or ["0"])[0]))
+    if sys.argv[1:3] == ["--client", "shards_load"]:
+        sys.exit(_shards_load_client(sys.argv[3]))
     if sys.argv[1:3] == ["--client", "ici"]:
         sys.exit(ici_client(int(sys.argv[3]), sys.argv[4],
                             int(sys.argv[5])))
@@ -5429,7 +6214,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--phase"]:
         if sys.argv[2:3] not in (["streaming"], ["observability"],
                                  ["device_lane"], ["combo"], ["cluster"],
-                                 ["incident"], ["native"]):
+                                 ["incident"], ["native"], ["shards"]):
             sys.exit(f"chip_smoke: unknown phase {sys.argv[2:]}")
         sys.exit(main(only=sys.argv[2]))
     sys.exit(main())

@@ -274,7 +274,7 @@ def case_page_twins_agree():
             set(page["recv_pool"])
         assert "pinned_bytes_estimate" in page["leaks"]
         # brpc_tpu's page has the same keys, less the probe pane that
-        # waits for shard groups
+        # waits for a probe of the card that writes its artifact
         ref = ref_ds.device_page_payload()
         assert set(ref) - {"recv_pool", "leaks", "probe"} <= set(page)
         lane_cells = [v for k, v in page["cells"].items()

@@ -10,9 +10,9 @@ The port keeps the entries whose source it has: ``/timeline``,
 and on ``/status`` the incident line and the IOBuf pool's gauges. Left
 out, until their modules are ported (ROADMAP section 1): on ``/status``
 the trend-ring links (``saturation_timeline``) and the input-batching
-and write-coalescing gauges; on ``/connections`` the client channels'
-rows, the chaos counters, and the read-side bytes and idle class of
-each row.
+and write-coalescing gauges; on ``/connections`` the chaos counters.
+``/connections`` and ``/sockets`` read the rows of
+``transport.socket.socket_census_rows``, as ``/census`` does.
 """
 
 from __future__ import annotations
@@ -32,26 +32,95 @@ ROBUSTNESS_VARS = ("server_deadline_shed", "server_limit_shed",
                    "hedge_suppressed_budget", "naming_empty")
 
 
+def _idle_class(idle_s: float, idle_after: float) -> str:
+    return "idle" if idle_s >= idle_after else "active"
+
+
 def connections_page(server) -> dict:
-    """The server's open connections (Sockets): peer, state and the
-    bytes queued for the kernel; the circuit breakers of every cluster
-    channel of the process, by endpoint; and the robustness pane, the
-    shed and retry counters."""
+    """The server's open connections (Sockets): peer, state, the bytes
+    queued for the kernel, the bytes read and not yet parsed, the
+    resident bytes, the seconds since the last read or write and the
+    idle class (``census_idle_s``); the client channels' connections of
+    the process, by channel and backend, listed apart (/census's
+    ``server_bytes`` sums the server rows only); the circuit breakers of
+    every cluster channel, by endpoint; and the robustness pane, the
+    shed and retry counters (brpc_tpu/builtin/services.py:15-77)."""
+    import time
+
+    from brpc_tpu_torch.butil.flags import flag
     from brpc_tpu_torch.rpc.circuit_breaker import all_breaker_snapshots
+    from brpc_tpu_torch.transport.socket import socket_census_rows
+    idle_after = flag("census_idle_s")
+    now = time.monotonic_ns()
     rows = []
     for c in server.connections():
         ep = c.remote_endpoint
+        idle_s = (now - c.last_active_ns) / 1e9
         rows.append({
             "role": "server",
             "remote": f"{ep.host}:{ep.port}",
             "failed": c.failed,
             "wqueue_bytes": c.write_backlog(),
+            "read_bytes": c.input_portal.size,
+            "resident_bytes": c.input_portal.size + c.write_backlog(),
+            "last_active_s": round(idle_s, 3),
+            "idle_class": _idle_class(idle_s, idle_after),
+        })
+    crows = []
+    for s, resident, idle_s in socket_census_rows():
+        ch = s.user_data.get("channel")
+        if ch is None:
+            continue
+        ep = s.remote_endpoint
+        crows.append({
+            "role": "client",
+            "channel": ch,
+            "backend": s.user_data.get("backend"),
+            "remote": str(ep) if ep is not None else None,
+            "resident_bytes": resident,
+            "last_active_s": round(idle_s, 3),
+            "idle_class": _idle_class(idle_s, idle_after),
         })
     robustness = {}
     for name in ROBUSTNESS_VARS:
         robustness.update(dump_exposed(name))
-    return {"connections": rows, "breakers": all_breaker_snapshots(),
-            "robustness": robustness}
+    return {"connections": rows, "client_connections": crows,
+            "breakers": all_breaker_snapshots(), "robustness": robustness}
+
+
+def sockets_page(server) -> list:
+    """The server's sockets in detail (brpc_tpu/protocol/http.py:721):
+    id, endpoints, failure, the write queue's frames and bytes, the
+    protocol the input messenger settled on, and an ``ici://`` conn's
+    lane and batches in flight."""
+    rows = []
+    for s in server.connections():
+        wq = getattr(s._wq, "depth", None)
+        rows.append({
+            "id": s.id,
+            "remote": str(s.remote_endpoint) if s.remote_endpoint else None,
+            "local": str(s.local_endpoint) if s.local_endpoint else None,
+            "failed": s.failed,
+            "fail_reason": str(s.fail_reason or ""),
+            "write_queue": wq() if wq is not None else 0,
+            "write_queue_bytes": s.wq_bytes,
+            "preferred_protocol": s.preferred_protocol,
+        })
+        conn = s.conn
+        if hasattr(conn, "outstanding_batches"):
+            rows[-1]["lane_kind"] = conn.lane_kind
+            rows[-1]["outstanding_batches"] = conn.outstanding_batches
+    return rows
+
+
+def ids_page() -> dict:
+    """The client calls of the process waiting in the id pool
+    (brpc_tpu/protocol/http.py:558-562); a process that never made a
+    call has no pool, and this page does not make one."""
+    from brpc_tpu_torch.rpc import client_dispatch
+    n = 0 if client_dispatch._call_pool is None \
+        else client_dispatch.inflight_attempts()
+    return {"inflight_client_calls": max(0, n)}
 
 
 def census_page_payload(server=None) -> dict:
@@ -66,7 +135,6 @@ def census_page_payload(server=None) -> dict:
     out["connections"] = {
         "count": count,
         "resident_bytes": total,
-        # the port's sockets keep no activity stamp (ROADMAP section 1)
         "idle": sub.get("idle"),
         "avg_bytes": round(total / count, 1) if count else 0.0,
     }

@@ -17,6 +17,8 @@ TABS = [
     ("serving", "/serving"),
     ("device", "/device"),
     ("connections", "/connections"),
+    ("sockets", "/sockets"),
+    ("ids", "/ids"),
     ("metrics", "/brpc_metrics"),
     ("version", "/version"),
 ]

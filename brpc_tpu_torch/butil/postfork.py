@@ -3,8 +3,9 @@ a forked child must rebuild of the process-global state.
 
 Shard groups (``rpc/shard_group.py``) fork worker processes from a
 supervisor that may already hold live machinery: fiber workers, the
-event dispatcher's thread and selector, the timer thread, the bvar
-sampler, the socket pool, cached native latches. None of it survives
+event dispatcher's thread and selector (or the ring lane's native
+ring), the timer thread, the bvar sampler, the socket pool and the
+shared-connection map, cached native latches. None of it survives
 ``os.fork()``: threads exist only in the parent, a lock inherited from
 a thread that no longer exists may be held for ever, and an inherited
 epoll fd is the parent's kernel object.

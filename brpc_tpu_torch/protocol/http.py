@@ -26,9 +26,10 @@ channel's load-balancing decisions), ``/contentions``, ``/version``;
 (on-demand, ``?mode=continuous``, ``diff=1``, ``?type=heap|growth``),
 ``/fibers`` and ``/bthreads`` (``?stacks=1``), ``/threads``, ``/census``,
 ``/capture`` (``?action=start|stop|download``), ``/incidents``
-(``?action=download&path=``) and ``/vlog``. ``/health`` asks
-``ServerOptions.health_reporter`` when there is one. ``/sockets``,
-``/ids`` and ``/protobufs`` wait for their modules (ROADMAP section 1).
+(``?action=download&path=``), ``/vlog``, ``/sockets`` (the server's
+sockets in detail) and ``/ids`` (the client calls in flight). ``/health``
+asks ``ServerOptions.health_reporter`` when there is one.
+``/protobufs`` waits for its module (ROADMAP section 1).
 
 A shard group supervisor's admin server (a Server with a
 ``shard_aggregator``, ``rpc/shard_group.py``) answers ``/status``,
@@ -526,6 +527,12 @@ def builtin_page(server, req: HttpRequest):
     if path == "/connections":
         from brpc_tpu_torch.builtin.services import connections_page
         return _json(connections_page(server))
+    if path == "/sockets":
+        from brpc_tpu_torch.builtin.services import sockets_page
+        return _json(sockets_page(server))
+    if path == "/ids":
+        from brpc_tpu_torch.builtin.services import ids_page
+        return _json(ids_page())
     if path == "/serving":
         from brpc_tpu_torch.serving.service import serving_page_payload
         return _json(serving_page_payload(server))

@@ -16,6 +16,19 @@ carries ``timeout_ms`` so the server can shed work the client no longer
 waits for; inside a handler that is at most the parent request's
 remaining budget (brpc_tpu/rpc/channel.py:411-448).
 
+Connection types (brpc_tpu/rpc/channel.py:133, :298-331, :599-655;
+socket.h's GetPooledSocket and GetShortSocket). ``single``, the default:
+one multiplexed connection. With ``share_connections`` (the default)
+it is the process's: every channel to one endpoint with the same
+credential takes a refcounted lease on one socket of the global
+``SocketMap`` (``transport/socket_map.py``), ``close`` returns the lease,
+and a failed socket is dialled anew at the next call; with
+``share_connections=False`` the channel dials a connection of its own.
+``pooled``: a connection a call in flight, taken from the channel's
+freelist or dialled, and put back when the call completes; a call that
+completes after ``close`` closes its connection instead. ``short``: a
+fresh connection a call, closed when the call completes.
+
 Attempts (brpc_tpu/rpc/channel.py:599-1311). Each attempt registers
 under a correlation id of its own. A failed attempt, a transport failure
 (the connect, the write, the socket's end) or an error the server
@@ -103,6 +116,7 @@ from brpc_tpu_torch.fiber.timer import global_timer
 from brpc_tpu_torch.protocol import tpu_std
 from brpc_tpu_torch.transport.input_messenger import InputMessenger
 from brpc_tpu_torch.transport.socket import Socket, create_client_socket
+from brpc_tpu_torch.transport.socket_map import SocketMap, global_socket_map
 
 from . import admission
 from . import backend_stats as _bs
@@ -139,6 +153,7 @@ ADM_PROBE_INTERVAL_S = 0.25
 _NO_DRAIN_CODES = frozenset(_bs.REJECT_CODES) | {berr.ENAMINGEMPTY}
 
 _chan_seq = itertools.count(1)
+_CONNECTION_TYPES = ("", "single", "pooled", "short")
 
 
 def expose_channel_vars() -> None:
@@ -179,8 +194,9 @@ class ChannelOptions:
     the timeout, the retries (``max_retry``, ``retry_policy``,
     ``retry_budget``, ``budget_group``), ``backup_request_ms``, the
     credential (``auth_token``, or an ``Authenticator`` in ``auth``,
-    which wins), the channel's ``name`` on the pages, and a
-    ClusterChannel's ``app_health_check`` and ``naming_wait_s``."""
+    which wins), the channel's ``name`` on the pages, a ClusterChannel's
+    ``app_health_check`` and ``naming_wait_s``, ``connection_type`` and
+    ``share_connections``."""
     timeout_ms: Optional[float] = 1000.0
     # retries after the first attempt (Controller.max_retry overrides)
     max_retry: int = 3
@@ -204,6 +220,12 @@ class ChannelOptions:
     # the constructor waits for the first server list
     app_health_check: Optional[Any] = None
     naming_wait_s: float = 5.0
+    # single | pooled | short (a ClusterChannel keeps one connection an
+    # endpoint whatever this says, as brpc_tpu's does)
+    connection_type: str = "single"
+    # single: channels to one endpoint and credential share one socket
+    # of the process (socket_map.h:147); False: a connection of its own
+    share_connections: bool = True
 
 
 class Channel:
@@ -214,6 +236,9 @@ class Channel:
         self.address = address
         self.endpoint = str2endpoint(address) if address else None
         self.options = options or ChannelOptions()
+        if self.options.connection_type not in _CONNECTION_TYPES:
+            raise ValueError(f"unknown connection_type "
+                             f"{self.options.connection_type!r}")
         self._stats_name = self.options.name or self._default_stats_name()
         _bs.global_stats().register_channel(self._stats_name, self)
         if self.options.budget_group:
@@ -231,6 +256,10 @@ class Channel:
         self._bs_cells: dict = {}
         self._lock = threading.Lock()
         self._socket: Optional[Socket] = None
+        # the SocketMap key of the lease this channel holds, if shared
+        self._map_key = None
+        # the pooled type's idle connections
+        self._conn_pool: List[Socket] = []
         self._closed = False
         # the native core loads here, not on the first call: eight
         # threads' first calls would queue behind its load
@@ -249,6 +278,10 @@ class Channel:
         s = create_client_socket(
             ep, on_input=_client_messenger().on_new_messages)
         s.fast_drain = _client_fast_drain()
+        # the owner of the connection on /connections' client rows: the
+        # channel that dialled it, also when others share it
+        s.user_data["channel"] = self._stats_name
+        s.user_data["backend"] = _bs.ep_key(ep)
         # an ici:// dial completes with the peer's hello (the QP
         # bring-up): the first batch then goes, and is counted, on the
         # lane it really takes
@@ -259,6 +292,23 @@ class Channel:
                 f"no hello from {ep} within {_HELLO_TIMEOUT_S} s")
         return s
 
+    def _own_socket(self) -> Socket:
+        """A fresh connection to the channel's endpoint; the attempts on
+        it fail with it, whichever channel issued them."""
+        s = self._dial(self.endpoint)
+        s.on_failed(self._on_socket_failed)
+        return s
+
+    def _map_key_of(self):
+        """The connection's key in the SocketMap: the endpoint and the
+        credential, so that channels with different credentials never
+        share a connection the server verified for one of them
+        (brpc_tpu/rpc/channel.py:316-323)."""
+        o = self.options
+        cred = o.auth_token or (f"auth#{id(o.auth)}" if o.auth is not None
+                                else "")
+        return SocketMap.key(self.endpoint, f"tpu_std|{cred}")
+
     def _get_socket(self) -> Socket:
         with self._lock:
             if self._closed:
@@ -266,11 +316,33 @@ class Channel:
             if self.endpoint is None:
                 raise ConnectionError("channel has no address")
             s = self._socket
-            if s is None or s.failed:
-                s = self._dial(self.endpoint)
-                s.on_failed(self._on_socket_failed)
-                self._socket = s
+            if s is not None and not s.failed:
+                return s
+            if not self.options.share_connections:
+                s = self._socket = self._own_socket()
+                return s
+        # the process's connection, dialled outside this lock (two first
+        # calls that race both dial, and the map keeps one)
+        key = self._map_key_of()
+        smap = global_socket_map()
+
+        def dial() -> Socket:
+            s = self._own_socket()
+            s.on_failed(lambda sock: smap.evict_failed(key, sock))
             return s
+        s = smap.acquire(key, dial)
+        with self._lock:
+            old, self._socket = self._socket, s
+            self._map_key = key
+            closed = self._closed
+        if old is not None:
+            # one lease a channel: the failed socket's, or the second
+            # lease a racing first call of this channel just took
+            smap.release(key, old)
+        if closed:
+            self.close()
+            raise ConnectionError("channel closed")
+        return s
 
     @staticmethod
     def _on_socket_failed(socket: Socket) -> None:
@@ -430,8 +502,45 @@ class Channel:
 
     # ------------------------------------------------------------- attempts
     def _pick_socket(self, cntl: Controller) -> Socket:
-        """The socket of one attempt; ClusterChannel picks a backend."""
-        return self._get_socket()
+        """The socket of one attempt, by ``connection_type``; a
+        ClusterChannel picks a backend instead."""
+        ctype = self.options.connection_type
+        if ctype in ("", "single"):
+            return self._get_socket()
+        if ctype == "short":
+            sock = self._idle_or_new_socket()
+            cntl._add_complete_hook(
+                lambda c, s=sock: s.failed or s.set_failed(
+                    ConnectionError("short connection done")))
+            return sock
+        sock = self._idle_or_new_socket(self._conn_pool)
+
+        def put_back(c, s=sock):
+            if s.failed:
+                return
+            with self._lock:
+                if not self._closed:
+                    self._conn_pool.append(s)
+                    return
+            # a call that completes after close() must not refill the
+            # emptied pool: nothing would close that socket again
+            s.set_failed(ConnectionError("channel closed"))
+
+        cntl._add_complete_hook(put_back)
+        return sock
+
+    def _idle_or_new_socket(self, pool=()) -> Socket:
+        """An idle live socket of ``pool``, else a new connection."""
+        with self._lock:
+            if self._closed:
+                raise ConnectionError("channel closed")
+            if self.endpoint is None:
+                raise ConnectionError("channel has no address")
+            while pool:
+                s = pool.pop()
+                if not s.failed:
+                    return s
+        return self._own_socket()
 
     def _issue_rpc(self, cntl: Controller) -> None:
         """One attempt (Controller::IssueRPC, controller.cpp:1010): pick a
@@ -816,11 +925,21 @@ class Channel:
                                  _bs.ep_key(ep) if ep is not None else None)
 
     def close(self) -> None:
+        """Close the channel: its lease on a shared socket goes back (the
+        socket closes with the last lease), its own and its pooled
+        connections close."""
         with self._lock:
             self._closed = True
             s, self._socket = self._socket, None
+            key, self._map_key = self._map_key, None
+            pool, self._conn_pool = self._conn_pool, []
         if s is not None:
-            s.set_failed(ConnectionError("channel closed"))
+            if key is not None:
+                global_socket_map().release(key, s)
+            else:
+                s.set_failed(ConnectionError("channel closed"))
+        for sock in pool:
+            sock.set_failed(ConnectionError("channel closed"))
 
 
 class _PolicyView:

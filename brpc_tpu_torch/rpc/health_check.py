@@ -48,7 +48,8 @@ def rpc_health_check(service: str = "health", method: str = "Check",
     def check(ep: EndPoint) -> bool:
         ch = Channel(str(ep), ChannelOptions(timeout_ms=timeout_ms,
                                              max_retry=0,
-                                             name="health_probe"))
+                                             name="health_probe",
+                                             share_connections=False))
         try:
             return not ch.call_sync(service, method, request).failed()
         except Exception:

@@ -118,8 +118,10 @@ def _client(tree: str, port: int, mode: str, timeout_ms: int) -> int:
     results, errors, calls = {}, [], []
 
     def thread(idx):
+        # a connection a thread, as phase 3's burst
         ch = Channel(f"tcp://127.0.0.1:{port}",
-                     ChannelOptions(timeout_ms=timeout_ms or None))
+                     ChannelOptions(timeout_ms=timeout_ms or None,
+                                    share_connections=False))
         try:
             for seq, p in enumerate(prompts[idx::N_THREADS]):
                 t0 = time.time_ns()

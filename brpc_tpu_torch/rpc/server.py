@@ -65,7 +65,11 @@ The native core (brpc_tpu/rpc/server.py:474-495): a server with a
 of ``server_dispatch.make_fast_drain`` (fastcore's ``serve_drain``), and
 ``account_native_batch`` counts what the C echo loops served.
 ``start`` exposes the syscall counters (``transport/syscall_stats.py``).
-The ring-lane branch waits for the ring lane (ROADMAP section 1).
+A ring-attached connection (``transport/ring_lane.py``) gets no
+``serve_drain`` hook: the ring's tick is its fd's only reader, and a
+loop reading the fd would serve bytes that came after the chunks the
+ring queued (brpc_tpu/rpc/server.py:483-494); the portal-based echo
+loop still serves it.
 """
 
 from __future__ import annotations
@@ -321,7 +325,7 @@ class Server:
             if hook is None:            # resolved once; False: none
                 hook = self._fast_drain_hook = \
                     server_dispatch.make_fast_drain(self) or False
-            if hook is not False:
+            if hook is not False and not s._ring_attached:
                 s.fast_drain = hook
         with self._sockets_lock:
             self._sockets.add(s)
@@ -367,9 +371,13 @@ class Server:
             lambda s: s._admission.wire_threshold()
             if s._admission is not None else 0)).expose(
             "server_admission_threshold")
+        from brpc_tpu_torch.transport.ring_lane import expose_ring_vars
+        from brpc_tpu_torch.transport.socket import expose_conn_census_vars
         from brpc_tpu_torch.transport.syscall_stats import (
             expose_syscall_vars)
         expose_syscall_vars()
+        expose_ring_vars()
+        expose_conn_census_vars()
         server_dispatch.nshed.expose("server_deadline_shed")
         server_dispatch.nlimit_shed.expose("server_limit_shed")
         server_dispatch.npriority_shed.expose("server_priority_shed")

@@ -8,8 +8,8 @@ listens (``listen``) for one scheme. The port registers ``tcp``,
 ``mem`` (in-process loopback), ``cuda`` (the in-process device lane,
 brpc_tpu's ``tpu://``), ``cudad`` (the staged lane between processes,
 brpc_tpu's ``tpud://``) and ``ici`` (the device lane between processes:
-CUDA IPC, or staged; ``transport/ici.py``); the reference's ssl
-transport is still to port (ROADMAP section 1).
+CUDA IPC, or staged; ``transport/ici.py``) and ``ssl`` (TLS over the TCP
+lane, ``transport/ssl.py``).
 
 Device lane: a conn with ``supports_device_lane`` carries tensors beside
 its bytes. ``write_device_payload(arrays)`` sends one batch and
@@ -112,6 +112,7 @@ _BUILTINS = {
     "cuda": ("brpc_tpu_torch.transport.cuda", "CudaTransport"),
     "cudad": ("brpc_tpu_torch.transport.cudad", "CudadTransport"),
     "ici": ("brpc_tpu_torch.transport.ici", "IciTransport"),
+    "ssl": ("brpc_tpu_torch.transport.ssl", "SslTransport"),
 }
 
 

@@ -16,6 +16,13 @@ a peer's input is processed where a TCP socket's would be, never in the
 writer's own context (where a handler run in place could re-enter the
 writer's locks).
 
+The lane is chosen when the process's dispatcher is built
+(``_new_dispatcher``): the ring lane (``transport/ring_lane.py``, one
+native call a tick) when the ``event_ring_lane`` flag is on and the
+native core has a ``Ring``, else this selector dispatcher; a ring that
+fails to come up also leaves the selector, with the error logged
+(brpc_tpu/transport/event_dispatcher.py:293-301).
+
 A consumer is keyed by its fd number only here, inside the selector: the
 owners hold ``socket.socket`` objects, unregister (``remove_consumer``)
 before they close, and close once.
@@ -303,12 +310,26 @@ def peek_dispatcher() -> Optional[EventDispatcher]:
     return _global
 
 
+def _new_dispatcher():
+    """The ring lane when the ``event_ring_lane`` flag is on and the
+    native core has a ``Ring``; the selector lane otherwise, and on any
+    failure to bring the ring up, so that a missing compiler never takes
+    eventing down with it."""
+    try:
+        from brpc_tpu_torch.transport import ring_lane
+        if flag("event_ring_lane") and ring_lane.ring_available():
+            return ring_lane.RingDispatcher()
+    except Exception:
+        log.exception("ring lane unavailable; the selector lane serves")
+    return EventDispatcher()
+
+
 def global_dispatcher() -> EventDispatcher:
     global _global
     if _global is None:
         with _glock:
             if _global is None:
-                _global = EventDispatcher()
+                _global = _new_dispatcher()
     return _global
 
 
@@ -319,7 +340,9 @@ def _postfork_reset() -> None:
     The instance is abandoned (only the child's copies of its fds are
     closed; ``close`` never changes the shared interest list), so the
     first consumer after the fork builds a dispatcher of its own
-    (brpc_tpu/transport/event_dispatcher.py:324-356). The stall window
+    (brpc_tpu/transport/event_dispatcher.py:324-356). A ring dispatcher
+    closes its own copies (``_postfork_abandon``: a uring's queues are
+    shared mappings, and only the child's are unmapped). The stall window
     rode the parent's sampler series, and the stall counters count this
     process's ticks only."""
     global _global, _glock, _stall_win, _stall_win_lock
@@ -331,6 +354,10 @@ def _postfork_reset() -> None:
     nstalls.postfork_clear()
     if d is not None:
         d._stop = True
+        abandon = getattr(d, "_postfork_abandon", None)
+        if abandon is not None:
+            abandon()
+            return
         try:
             d._selector.close()
         except Exception:

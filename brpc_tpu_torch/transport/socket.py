@@ -68,10 +68,31 @@ its classic Python path; bRPC's socket.h, SURVEY.md §2.4).
   release re-arms read interest: brpc_tpu's sticky pause (reads left off
   between sync calls) is not ported (ROADMAP section 1).
 
-Census: ``_socket_census`` (the ``sockets`` provider of ``/census``)
-walks the live sockets of the id pool. The ring lane and the per-row
-census (an activity stamp a socket) are still to port (ROADMAP
-section 1).
+- **Ring lane** (``transport/ring_lane.py``, brpc_tpu/transport/
+  socket.py:455-466, :634, :872-930, :1139-1160, :1343-1380,
+  :1463-1490): a ring-native conn's bytes come from the dispatcher's
+  tick through ``ring_input``, which queues them on ``_ring_chunks``
+  under the event lock and runs the input cycle as a readable event
+  would; the pass that owns the input moves them into the portal
+  (``_drain_readable``), so one context at a time touches the portal.
+  A bytes frame written on the ring thread is deferred to the tick's
+  flush (``try_defer_write``): ``ring_collect_writes`` hands the queued
+  frames to one native gather write and ``ring_settle_write`` fires
+  their callbacks, parks a short write's rest on the writable event or
+  fails the socket. A sync claim (``pluck_preclaim``) on a ring-attached
+  socket pauses its reads and then waits out the tick in flight
+  (``ring_read_barrier``), and moves the chunks the ring took before the
+  fence into the portal; every claim pays it, since the port has no
+  sticky pause. On the uring backend sync joins take the event path.
+
+Census: ``socket_census_rows`` is the one walk of every live socket of
+the process (client channels' too): each row's resident bytes (unparsed
+input and queued output) and idle seconds since the socket's activity
+stamp (``last_active_ns``: a readable event, a ring delivery, a write),
+memoized for 0.2 s. The ``sockets`` provider of ``/census``, its
+``idle`` count (``census_idle_s``), the ``idle_conn_count`` and
+``conn_resident_bytes_avg`` bvars and ``/connections``' rows all read
+it (brpc_tpu/transport/socket.py:205-300).
 """
 
 from __future__ import annotations
@@ -88,14 +109,19 @@ from brpc_tpu_torch.butil.flags import define_flag, flag
 from brpc_tpu_torch.butil.iobuf import (BIG_BLOCK_SIZE, DEFAULT_BLOCK_SIZE,
                                         IOBuf, IOPortal)
 from brpc_tpu_torch.butil.resource_pool import ResourcePool, VersionedId
-from brpc_tpu_torch.bvar.reducer import Adder
+from brpc_tpu_torch.bvar.reducer import Adder, PassiveStatus
 from brpc_tpu_torch.fiber import TaskControl, global_control
 from brpc_tpu_torch.transport import device_stats as _device_stats
 from brpc_tpu_torch.transport import syscall_stats as _syscall_stats
 from brpc_tpu_torch.transport.base import Conn, get_transport
+from brpc_tpu_torch.transport.ring_lane import (
+    try_defer_write as _try_defer_write)
 
 log = logging.getLogger("brpc_tpu_torch.transport")
 
+define_flag("census_idle_s", 10.0,
+            "a connection with no read or write for this long counts as "
+            "idle on /census, /connections and the idle_conn_count bvar")
 define_flag("socket_inline_process", True,
             "process socket input in place on the event thread until the "
             "handler first suspends (input_messenger.cpp:183); off: every "
@@ -126,9 +152,11 @@ def _postfork_reset() -> None:
     """Fork hygiene: the versioned-id pool addresses the parent's sockets
     (the child holds mere copies of their fds, registered with the
     parent's dispatcher), and the traffic counters count this process's
-    sockets only (brpc_tpu/transport/socket.py:319-341)."""
-    global _pool
+    sockets only (brpc_tpu/transport/socket.py:319-341); the census memo
+    lists the parent's sockets."""
+    global _pool, _rows_memo
     _pool = ResourcePool()
+    _rows_memo = (0.0, [])
     for c in (nwrites, nreads, nwqueue_bytes, ncoalesced, npluck_fast,
               npluck_defer, npluck_scans):
         c.postfork_clear()
@@ -176,6 +204,9 @@ class _PyMpsc:
                 return False
             self._writing = False
             return True
+
+    def depth(self) -> int:
+        return len(self._q)
 
 
 # the extension resolves at the first socket, not at import: get() may
@@ -288,7 +319,20 @@ class Socket:
         self.lane_lock = threading.Lock()
         self._inline_process = flag("socket_inline_process")
         self._level_triggered = getattr(conn, "level_triggered", False)
+        # the last readable event, ring delivery or write (monotonic
+        # ns): the idle class of /census and /connections
+        self.last_active_ns = time.monotonic_ns()
+        # the ring lane: bytes the tick read, queued under the event lock
+        # for the pass that owns the input; _ring_fed marks a pass they
+        # started (set before start_events: a completion can come before
+        # _ring_attached is)
+        self._ring_chunks: list = []
+        self._ring_fed = False
+        self._ring_attached = False
+        self._ring_pluck_ok = True
         self.id: SocketId = _pool.insert(self)
+        if getattr(conn, "supports_ring_sink", False):
+            conn.ring_sink = self.ring_input
         try:
             conn.start_events(self._on_readable_event,
                               self._on_writable_event)
@@ -298,6 +342,8 @@ class Socket:
             self.failed = True
             conn.close()
             raise
+        self._ring_attached = getattr(conn, "ring_attached", False)
+        self._ring_pluck_ok = getattr(conn, "ring_pluck_ok", True)
 
     # ----------------------------------------------------------- identity
     @property
@@ -364,12 +410,78 @@ class Socket:
             return False
         sz = data.size if isinstance(data, IOBuf) else len(data)
         nwrites.add(1)
+        self.last_active_ns = time.monotonic_ns()
         self.wq_bytes += sz
         nwqueue_bytes.add(sz)
         if not self._wq.push((data, on_done)):
             return True                 # the writer of the moment sends it
+        if self._ring_attached and type(data) is bytes and \
+                _try_defer_write(self):
+            # on the ring thread in a tick: the writership goes to the
+            # tick's flush, one gather write a connection
+            return True
         self._drain_writes(None)
         return True
+
+    def ring_collect_writes(self):
+        """The ring flush's collect half (on the ring thread, with the
+        writership the deferring push claimed): queued frames as a list
+        of buffers and their end marks, for one native gather write,
+        capped as a merged batch is. ``(views, marks, total)``."""
+        views, marks, total = [], [], 0
+        while total < _COALESCE_MAX_BYTES and \
+                len(marks) < _COALESCE_MAX_FRAMES:
+            item = self._pop()
+            if item is None:
+                break
+            data, cb = item
+            if isinstance(data, IOBuf):
+                # a racing producer's IOBuf behind a deferred frame: fd
+                # conns carry no device blocks, so it flattens
+                data = data.to_bytes()
+            if len(data):
+                views.append(data)
+                total += len(data)
+            marks.append((total, cb))
+        if len(marks) > 1:
+            ncoalesced.add(len(marks) - 1)
+        return views, marks, total
+
+    def ring_settle_write(self, res: int, errcode: int, views, marks,
+                          total: int) -> bool:
+        """The settle half: callbacks of the frames sent fire, a short
+        write's rest parks on the writable event with the writership, an
+        error fails the socket (``_drain_writes``' contract, split so
+        that the syscall runs in the tick's native batch). False when
+        the socket failed."""
+        if errcode:
+            e = ConnectionError(f"ring writev: {os.strerror(errcode)}")
+            self.set_failed(e)
+            for _, cb in marks:
+                _fire(cb, e)
+            # the writership is still ours: fail what queued behind
+            self._drain_writes(None)
+            return False
+        unfired = []
+        for end, cb in marks:
+            if end <= res:
+                _fire(cb, None)
+            elif cb is not None:
+                unfired.append(cb)
+        if res >= total:
+            self._drain_writes(None)    # what queued meanwhile, retire
+            return True
+        rest, off = IOBuf(), 0
+        for v in views:
+            lv = len(v)
+            if off + lv > res:
+                start = res - off if res > off else 0
+                rest.append_user_data(v[start:] if start else v)
+            off += lv
+        if self._park_handoff(rest, _composite(unfired)):
+            return True
+        self._drain_writes(None)        # failed, writership kept: fail on
+        return False
 
     def _pop(self):
         item = self._wq.drain_one()
@@ -577,6 +689,7 @@ class Socket:
     # -------------------------------------------------------------- input
     def _on_readable_event(self) -> None:
         """On the dispatcher thread; only the 0 -> 1 step starts a pass."""
+        self.last_active_ns = time.monotonic_ns()
         with self._nevent_lock:
             self._nevent += 1
             # a plucking joiner owns the input: events defer to it as
@@ -600,6 +713,46 @@ class Socket:
                 if self._nevent > 0 and not self._busy_paused:
                     self._busy_paused = True
                     self.conn.pause_read_events()
+
+    def ring_input(self, data, eof: bool = False, err: int = 0) -> None:
+        """The ring's sink (on the ring thread): the tick already read
+        ``data``; queue it and run the input cycle as a readable event
+        does, the fd drain left out. A busy pass gets the bytes at its
+        next turn, and its reads pause for the rest of it."""
+        self.last_active_ns = time.monotonic_ns()
+        if data:
+            nreads.add(len(data))
+        with self._nevent_lock:
+            if data:
+                self._ring_chunks.append(data)
+            self._nevent += 1
+            busy = self._nevent > 1 or self._plucking
+            if not busy:
+                self._ring_fed = True
+            elif data and self._level_triggered and \
+                    not self._busy_paused:
+                self._busy_paused = True
+                try:
+                    self.conn.pause_read_events()
+                except Exception:       # closed under us
+                    self._busy_paused = False
+        if eof or err:
+            e = (ConnectionResetError("peer closed") if eof
+                 else ConnectionError(f"ring recv: {os.strerror(err)}"))
+            if busy:
+                # the owning pass may sit in a suspended handler: the
+                # failure must not wait for it, nor run its callbacks
+                # on the ring thread
+                self._control.spawn(self.set_failed, e,
+                                    name="socket_failed")
+                return
+            self.set_failed(e)
+        if busy:
+            return
+        if self._inline_process:
+            self._process_input_entry()
+        else:
+            self._control.spawn(self._process_input, name="socket_input")
 
     def _input_error(self, e: BaseException) -> None:
         # an escaping parse or process error must not wedge the socket
@@ -686,6 +839,20 @@ class Socket:
         """Read until EAGAIN or EOF into the portal; the bytes read.
         Blocks grow to BIG_BLOCK_SIZE while reads fill them and shrink
         back on short reads (iobuf.h:469's effect without the iovec)."""
+        ring_total = 0
+        if self._ring_fed or self._ring_attached or self._ring_chunks:
+            # the tick is this fd's only reader: take what it queued, in
+            # order
+            self._ring_fed = False
+            with self._nevent_lock:
+                chunks, self._ring_chunks = self._ring_chunks, []
+            for c in chunks:
+                self.input_portal.append_user_data(c)
+                ring_total += len(c)
+            if not (self._plucking and self._busy_paused):
+                return ring_total
+            # a pluck claim paused the ring's reads and fenced its tick:
+            # the plucker reads the fd now, behind the queued chunks
         total = 0
         while not self.failed:
             hint = self._read_hint
@@ -711,7 +878,7 @@ class Socket:
                 break
         if total:
             nreads.add(total)
-        return total
+        return total + ring_total
 
     # ---------------------------------------------------- sync pluck lane
     def pluck_preclaim(self) -> bool:
@@ -723,16 +890,29 @@ class Socket:
         if getattr(self.conn, "pluck_fd", None) is None \
                 or self._on_input is None or self.failed:
             return False
+        if self._ring_attached and not self._ring_pluck_ok:
+            # uring: a recv in the kernel cannot be fenced
+            return False
         with self._nevent_lock:
             if self._nevent > 0 or self._plucking:
                 return False
             self._plucking = True
+            reads_were_live = not self._busy_paused
             if self._level_triggered and not self._busy_paused:
                 self._busy_paused = True
                 try:
                     self.conn.pause_read_events()
                 except Exception:       # the conn closed under us
                     self._busy_paused = False
+        if self._ring_attached and reads_were_live:
+            # fence the tick in flight (outside the event lock: it may be
+            # delivering to this socket now), then take over what it read
+            self.conn.ring_read_barrier()
+            if self._ring_chunks:
+                with self._nevent_lock:
+                    chunks, self._ring_chunks = self._ring_chunks, []
+                for c in chunks:
+                    self.input_portal.append_user_data(c)
         return True
 
     def pluck_release(self) -> None:
@@ -809,7 +989,7 @@ class Socket:
         scan = None
         dup_fd = -1
         if fast is not None and not self.input_portal \
-                and not self.input_need:
+                and not self.input_need and not self._ring_chunks:
             fc = _fastcore()
             scan = getattr(fc, "pluck_scan", None) if fc is not None \
                 else None
@@ -825,6 +1005,15 @@ class Socket:
                 remaining = deadline_s - time.monotonic()
                 if remaining <= 0:
                     break
+                if self._ring_chunks and not carry:
+                    # a ring delivery slipped past the fence: those bytes
+                    # come before anything in the kernel, so the classic
+                    # pass judges them and the scan stands down
+                    scan = None
+                    escalated = self._pluck_process()
+                    if escalated:
+                        break
+                    continue
                 # short slices: pred() can turn without traffic (the
                 # deadline timer, another thread completing the call)
                 slice_s = min(remaining, 0.2)
@@ -938,16 +1127,65 @@ def create_client_socket(ep: EndPoint, on_input: Optional[Callable] = None,
     return Socket(conn, on_input=on_input, control=control)
 
 
-def _socket_census() -> dict:
-    """Census: every live socket of the process, client channels' too,
-    with the server-side subset (the sockets /connections lists); a
-    socket's bytes are its unparsed input and its queued output."""
+_rows_memo = (0.0, [])      # (expires, rows); swapped whole
+
+
+def socket_census_rows(max_age_s: float = 0.2):
+    """``[(socket, resident bytes, idle seconds)]`` of every live socket,
+    client channels' too: the one accounting that ``/census``,
+    ``/connections`` and the census bvars share, so that they cannot
+    disagree. Resident bytes are the unparsed input and the queued
+    output. Memoized for ``max_age_s`` (0: fresh): a ``/vars`` read
+    evaluates both census bvars."""
+    global _rows_memo
+    now_mono = time.monotonic()
+    expires, rows = _rows_memo
+    if max_age_s > 0 and now_mono < expires:
+        return rows
     with _pool._lock:
         socks = [s for s in _pool._objs if s is not None and not s.failed]
-    rows = [(s, s.input_portal.size + s.wq_bytes) for s in socks]
-    srv = [b for s, b in rows if s.user_data.get("server") is not None]
-    return {"bytes": sum(b for _, b in rows), "count": len(rows),
+    now = time.monotonic_ns()
+    rows = [(s, s.input_portal.size + s.wq_bytes,
+             (now - s.last_active_ns) / 1e9) for s in socks]
+    _rows_memo = (now_mono + 0.2, rows)
+    return rows
+
+
+def _socket_census() -> dict:
+    """Census: every live socket of the process, with the idle ones and
+    the server-side subset (the sockets /connections lists)."""
+    rows = socket_census_rows()
+    idle_after = flag("census_idle_s")
+    srv = [b for s, b, _ in rows if s.user_data.get("server") is not None]
+    return {"bytes": sum(b for _, b, _ in rows), "count": len(rows),
+            "idle": sum(1 for _, _, i in rows if i >= idle_after),
             "server_bytes": sum(srv), "server_count": len(srv)}
+
+
+def idle_conn_count() -> int:
+    idle_after = flag("census_idle_s")
+    return sum(1 for _, _, i in socket_census_rows() if i >= idle_after)
+
+
+def conn_resident_bytes_avg() -> float:
+    rows = socket_census_rows()
+    if not rows:
+        return 0.0
+    return round(sum(b for _, b, _ in rows) / len(rows), 1)
+
+
+_idle_var = PassiveStatus(idle_conn_count)
+_avg_var = PassiveStatus(conn_resident_bytes_avg)
+
+
+def expose_conn_census_vars() -> None:
+    """(Re-)expose the census bvars: at import and from
+    ``Server.start``, so that they outlive an ``unexpose_all``."""
+    _idle_var.expose("idle_conn_count")
+    _avg_var.expose("conn_resident_bytes_avg")
+
+
+expose_conn_census_vars()
 
 
 from brpc_tpu_torch.butil import resource_census as _census  # noqa: E402

@@ -3,10 +3,14 @@ brpc_tpu/transport/syscall_stats.py): recv, send and accept counted at
 the native boundary and at the Python conns', merged into the
 ``syscalls_per_rpc`` key of /vars.
 
-- The native fd loops (fastcore's ``pluck_scan`` and ``serve_drain``)
-  bump process-wide C atomics at their recv/send/poll call sites;
+- The native loops (the ring lane's ticks, ``transport/ring_lane.py``,
+  and fastcore's ``pluck_scan`` and ``serve_drain`` fd loops) bump
+  process-wide C atomics at their recv/send/accept/poll call sites;
   ``_brpc_fastcore.syscall_counts()`` reads them (``ring.cc`` defines
-  them; the ring lane itself is not ported yet).
+  them). The ring's own counters (``ring_ticks``, ``ring_completions``,
+  ``ring_flush_batches``, ``ring_flushed_frames`` and the pluck fence's
+  ``ring_read_barriers``, ``ring_barrier_waits``,
+  ``ring_barrier_wait_us``) are ring_lane's bvars.
 - The Python conns (``transport/tcp.py``) bump the Adders below, one a
   conn method call.
 

@@ -16,11 +16,22 @@ A listener with the endpoint extra ``reuse_port=1`` sets
 fd lifetime: a ``TcpConn`` owns its ``socket.socket``; ``close``
 unregisters the fd from the dispatcher first and then closes the socket,
 once. Nothing here closes an fd number it does not own.
+
+On the ring lane (``transport/ring_lane.py``, brpc_tpu/transport/
+tcp.py:51-60, :169-250) a TcpConn is ring-native: its Socket offers a
+sink (``ring_sink``) before ``start_events``, the ring's tick recvs the
+fd and hands the bytes to it, and ``ring_attached`` says so. A sync
+plucker fences the tick first (``ring_read_barrier``); on the uring
+backend a recv in the kernel cannot be fenced, so ``ring_pluck_ok`` is
+False there and sync joins take the event path. A listener's accepts
+run in the tick too: its fds come made, non-blocking and close-on-exec
+(``_on_ring_accept``).
 """
 
 from __future__ import annotations
 
 import errno
+import os
 import socket as pysocket
 from typing import Callable, Optional
 
@@ -55,6 +66,12 @@ class TcpConn(Conn):
     # readiness is level-triggered: a short read means the kernel buffer
     # is (almost surely) empty, and if not, the event fires again
     level_triggered = True
+    # the ring lane: the Socket sets ring_sink before start_events, which
+    # decides whether the tick owns this fd's recv (ring_attached)
+    supports_ring_sink = True
+    ring_sink = None
+    ring_attached = False
+    ring_pluck_ok = True
 
     def __init__(self, sock: pysocket.socket, local: EndPoint,
                  remote: EndPoint):
@@ -136,7 +153,23 @@ class TcpConn(Conn):
 
     def start_events(self, on_readable, on_writable) -> None:
         self._on_writable = on_writable
-        global_dispatcher().add_consumer(self._fd, on_readable)
+        d = global_dispatcher()
+        sink = self.ring_sink
+        if sink is not None and getattr(d, "ring_native", False):
+            # the tick recvs this fd in its native pass and hands the
+            # bytes to the sink (Socket.ring_input)
+            d.add_consumer(self._fd, on_readable, ring_recv=sink)
+            self.ring_attached = True
+            self.ring_pluck_ok = d.backend == "batch"
+            return
+        d.add_consumer(self._fd, on_readable)
+
+    def ring_read_barrier(self) -> None:
+        """Fence the tick in flight (``Socket.pluck_preclaim``): past the
+        return, the native pass can no longer consume this fd."""
+        rb = getattr(global_dispatcher(), "read_barrier", None)
+        if rb is not None:
+            rb()
 
     def pause_read_events(self) -> None:
         if not self._closed:
@@ -169,7 +202,37 @@ class _TcpListener(Listener):
         self._on_new_conn = on_new_conn
         self._stopped = False
         sock.setblocking(False)
-        global_dispatcher().add_consumer(self._fd, self._on_acceptable)
+        d = global_dispatcher()
+        if getattr(d, "ring_native", False):
+            # the tick's accept burst runs in its native pass
+            d.add_consumer(self._fd, self._on_acceptable,
+                           ring_accept=self._on_ring_accept)
+        else:
+            d.add_consumer(self._fd, self._on_acceptable)
+
+    def _on_ring_accept(self, res: int) -> None:
+        """The ring's accept sink: one accepted fd (made non-blocking and
+        close-on-exec) or -errno a call."""
+        if res < 0:
+            if -res in (errno.EMFILE, errno.ENFILE, errno.ENOMEM):
+                # the backlog would fire every tick: back off, as the
+                # selector's loop does
+                self._pause_accept()
+            return
+        if self._stopped:
+            os.close(res)               # a stop raced the tick
+            return
+        try:
+            s = pysocket.socket(fileno=res)
+        except OSError:
+            os.close(res)
+            return
+        try:
+            addr = s.getpeername()
+        except OSError:                 # the peer left (an RST queued)
+            s.close()
+            return
+        self._on_new_conn(TcpConn(s, self._ep, _ep(addr)))
 
     def _on_acceptable(self) -> None:
         """Accept until EAGAIN (acceptor.cpp:253)."""

@@ -278,7 +278,7 @@ calls), p99, tokens/s, server CPU ms and syscalls a call; (e) a ``native="echo"`
 4 KiB, 2,000 pipelined calls each, against the same handler without the
 native kind, in turns: p50, calls/s and the calls ``serve_drain``
 served; (f) phase device_lane's 4 MiB ``cudad://`` echo in child
-processes with and without ``mallopt`` (T U U T twice). Launch counts
+processes with and without ``mallopt`` (T U U T). Launch counts
 zeroed before each decoding part and read after it, ``flash_decode``'s
 equal to the decode steps and warm-ups; every token list equal to the
 CPU plain path's.
@@ -306,10 +306,46 @@ tokens/s and client TTFT at 1, 2 and 4 shards, from one client process
 and from four (``--client unary`` started at one instant by
 ``CHIP_SMOKE_START_AT``, each after a burst of its own).
 
+Phase ring (the ring lane, connection types, ssl:// and the socket
+pages), after shards. The lane flag (``BRPC_TPU_FLAG_EVENT_RING_LANE``)
+is read when a process builds its dispatcher, so each lane's Generate
+server on cuda:0 is a process of its own (``--client ring_server``):
+ring and selector, on tcp and on ssl, started together. (a) The kernel
+release, ``Ring()``'s backend, ``Ring(2)``'s verdict (ok or the
+errno), ``Ring(1)``, and ``openssl version`` (missing: the smoke
+fails). (b) On the ring server: phase 3's unary burst from a client
+process on the ring with the batch backend (every sync call plucked
+behind the fence, the fence's waits reported), the stream burst from a
+client process on the ring, the HTTP burst; every token list, ``d``
+frame and footer equal to the CPU plain path's; each burst's
+flash_decode launches equal to its decode steps, and the server's total
+(its ``/vars``) equal to its decode steps plus the warm-up; its
+``ring_ticks`` and ``ring_completions`` > 0, its dispatcher a
+``RingDispatcher`` (one started as another fails the smoke), no
+``event_dispatcher`` or per-connection thread; ``ring_flushed_frames /
+ring_flush_batches``. (g) During the stream burst ``/sockets``, ``/ids``
+and ``/connections`` (with its read-side bytes and idle class) answer.
+(c) Phase 3's burst from this process against the ring and the selector
+servers in turns, RING_ROUNDS rounds, the order reversed every other
+round: tokens/s, TTFT p50/p99, the server's syscalls a message and CPU
+a call; then tools/ring_smoke.py's echo shape (8 connections, 32 calls
+in flight on each, 4 bytes, 3 windows of 4,000 calls) in a child
+process a lane: batch, selector, and uring where ``Ring(2)`` works.
+(d) Connection types, Generate over tcp on a server of this process, 8
+threads of 2 calls: 8 shared Channels make 1 connection, 8 with
+``share_connections=False`` make 8, one ``pooled`` Channel at most 8,
+one ``short`` Channel 16; accepted and open connections, tokens/s, p50,
+answers and launches checked. (e) Phase 3's burst over ssl:// to the
+ring and the selector servers, and a plaintext client refused. (f) A
+2-shard ``--generate`` group with the flag in its environment: 32 calls
+answered as the plain path, each shard's ``ring_ticks`` > 0, a
+SIGKILLed shard back with a ring of its own, no process left after
+SIGTERM.
+
 ``python3 chip_smoke.py --phase streaming`` (or ``--phase
 observability``, ``--phase device_lane``, ``--phase combo``, ``--phase
 cluster``, ``--phase incident``, ``--phase native``, ``--phase
-shards``) runs that phase alone (after the card
+shards``, ``--phase ring``) runs that phase alone (after the card
 line), so that two trees' serving can be compared in one call: run each
 tree's script in turns.
 
@@ -800,7 +836,7 @@ def _real_us() -> int:
 
 
 def _burst(port: int, prompts, max_tokens: int, calls=None,
-           timeout_ms=120000, waves=None):
+           timeout_ms=120000, waves=None, scheme: str = "tcp"):
     """N_CLIENTS threads, one Channel each, the prompts dealt round-robin;
     returns ({prompt: tokens}, [(prompt, errno, text)], wall seconds,
     [client ms per call: the first token comes with the last], []).
@@ -808,14 +844,16 @@ def _burst(port: int, prompts, max_tokens: int, calls=None,
     issue and response times. ``timeout_ms`` None: no deadline in the
     request meta, which the turbo lane's scanner would defer. ``waves``:
     a list that gets each latency's call number on its channel (0: the
-    call that opened the connection)."""
+    call that opened the connection). ``scheme`` ``ssl``: over TLS."""
     from brpc_tpu_torch.rpc import Channel, ChannelOptions
 
     results, errors, latency = {}, [], []
 
     def client(idx):
-        ch = Channel(f"tcp://127.0.0.1:{port}",
-                     ChannelOptions(timeout_ms=timeout_ms))
+        # a connection a thread, as since phase 3 began
+        ch = Channel(f"{scheme}://127.0.0.1:{port}",
+                     ChannelOptions(timeout_ms=timeout_ms,
+                                    share_connections=False))
         try:
             for seq, p in enumerate(prompts[idx::N_CLIENTS]):
                 t0, issue = time.perf_counter(), _real_us()
@@ -860,7 +898,9 @@ def _p99(xs):
 
 
 # threads that exist once per process however many connections are open
-FIXED_THREADS = {"event_dispatcher", "fiber_timer", "bvar_sampler"}
+# (the dispatcher is ring_dispatcher in a process on the ring lane)
+FIXED_THREADS = {"event_dispatcher", "ring_dispatcher", "fiber_timer",
+                 "bvar_sampler"}
 
 
 def _per_connection_threads(names) -> list:
@@ -1104,7 +1144,8 @@ def _stream_burst(port: int, prompts, max_tokens: int, calls=None):
 
     def client(idx):
         ch = Channel(f"tcp://127.0.0.1:{port}",
-                     ChannelOptions(timeout_ms=120000))
+                     ChannelOptions(timeout_ms=120000,
+                                    share_connections=False))
         try:
             for seq, p in enumerate(prompts[idx::N_CLIENTS]):
                 one(ch, p, seq)
@@ -1222,6 +1263,9 @@ def client_main(kind: str, port: int, traced: bool = False) -> int:
         return _malloc_turn()
     if kind == "shards_control":
         return _cuda_control()
+    backend = os.environ.get("CHIP_SMOKE_RING_BACKEND")
+    if backend:
+        _install_ring(int(backend))
     calls = None
     if traced:
         from brpc_tpu_torch.butil.flags import set_flag
@@ -1238,7 +1282,8 @@ def client_main(kind: str, port: int, traced: bool = False) -> int:
                                                calls=calls, **kw)
     doc = {"results": res, "errors": errs, "wall_s": wall, "ttft_ms": ttft,
            "gaps_ms": gaps, "cpu_s": time.process_time() - cpu0,
-           "native": _native_counters(), "waves": waves}
+           "native": _native_counters(), "waves": waves,
+           "lane": _lane(), "ring": _ring_counters()}
     if traced:
         from brpc_tpu_torch.rpc.span import global_collector
         doc["calls"] = calls
@@ -1273,7 +1318,8 @@ def _hold_connections(port: int) -> int:
     connections stay open until a line comes on stdin."""
     from brpc_tpu_torch.rpc import Channel, ChannelOptions
     channels = [Channel(f"tcp://127.0.0.1:{port}",
-                        ChannelOptions(timeout_ms=30000))
+                        ChannelOptions(timeout_ms=30000,
+                                       share_connections=False))
                 for _ in range(N_CLIENTS)]
     try:
         for ch in channels:
@@ -2152,7 +2198,8 @@ def _attend(addr: str, dev, calls: int, rng) -> dict:
     _sync(dev)
     out = [None] * calls
     errs = []
-    chans = [Channel(addr, ChannelOptions(timeout_ms=60000))
+    chans = [Channel(addr, ChannelOptions(timeout_ms=60000,
+                                          share_connections=False))
              for _ in range(calls)]
 
     def one(i):
@@ -4245,7 +4292,8 @@ def _incident_way_in(port: int, prompts, oracle) -> dict:
         p = prompts[i % len(prompts)]
         t0 = time.perf_counter()
         ch = Channel(f"tcp://127.0.0.1:{port}",
-                     ChannelOptions(timeout_ms=120000))
+                     ChannelOptions(timeout_ms=120000,
+                                    share_connections=False))
         ctor_ms.append((time.perf_counter() - t0) * 1e3)
         try:
             c = ch.call_sync("GenerateService", "Generate",
@@ -5009,10 +5057,11 @@ def _malloc_turn() -> int:
 
 def _malloc_turns() -> dict:
     """The malloc A/B: the 4 MiB cudad:// echo with mallopt (T) and with
-    glibc's defaults (U), T U U T twice."""
+    glibc's defaults (U), T U U T (a turn is a process of its own,
+    about 13 s, most of it the process's start)."""
     envs = {"tuned": None, "untuned": {"BRPC_TPU_TORCH_NO_MALLOPT": "1"}}
     runs = {k: [] for k in envs}
-    for k in ("tuned", "untuned", "untuned", "tuned") * 2:
+    for k in ("tuned", "untuned", "untuned", "tuned"):
         doc = _client_process(["malloc_turn", "0"], env=envs[k])
         check(doc["mallopt"] == (k == "tuned"),
               f"{k} turn ran with mallopt={doc['mallopt']}")
@@ -5120,18 +5169,19 @@ class _ShardGroup:
     command line, which is how a leftover is found."""
 
     def __init__(self, shards: int, pkg_root: str, work: str,
-                 timed: bool = False):
+                 timed: bool = False, env=None):
         """``timed``: the group's defaults (dump interval, hang check)
         and a supervisor even for one shard (``--group``), so that every
         shard count runs the same code; else dumps every 0.1 s (the
-        checks read them) and ``SHARD_HEARTBEAT_S``."""
+        checks read them) and ``SHARD_HEARTBEAT_S``. ``env``: more
+        environment for the group (phase ring's lane flag)."""
         from brpc_tpu_torch.tools.spawn_util import spawn_announcing_server
         import tempfile
         self.shards = shards
         self.dir = tempfile.mkdtemp(prefix=f"group{shards}-", dir=work)
         self.err_path = os.path.join(self.dir, "stderr")
         self.err = open(self.err_path, "w")
-        env = dict(os.environ, PYTHONPATH=pkg_root)
+        env = dict(os.environ, PYTHONPATH=pkg_root, **(env or {}))
         t0 = time.monotonic()
         argv = ["-m", "brpc_tpu_torch.tools.shard_server", "--generate",
                 "--shards", str(shards), "--shard-dir", self.dir]
@@ -5175,8 +5225,10 @@ class _ShardGroup:
 
     def channel(self):
         from brpc_tpu_torch.rpc import Channel, ChannelOptions
+        # a connection of its own: the kernel deals each to a shard
         ch = Channel(f"tcp://127.0.0.1:{self.port}",
-                     ChannelOptions(timeout_ms=120000, max_retry=3))
+                     ChannelOptions(timeout_ms=120000, max_retry=3,
+                                    share_connections=False))
         self.chans.append(ch)
         return ch
 
@@ -5494,7 +5546,8 @@ def _shards_load_client(ports: str) -> int:
     wall-clock start and end. An empty line ends it."""
     from brpc_tpu_torch.rpc import Channel, ChannelOptions
     chans = {int(p): [Channel(f"tcp://127.0.0.1:{p}",
-                              ChannelOptions(timeout_ms=120000))
+                              ChannelOptions(timeout_ms=120000,
+                                             share_connections=False))
                       for _ in range(N_CLIENTS)] for p in ports.split(",")}
     prompts = _prompts()
 
@@ -5820,6 +5873,747 @@ def phase_shards(dev):
     return out
 
 
+# -------------------------------------------------------------- phase ring
+
+RING_ENV = {"BRPC_TPU_FLAG_EVENT_RING_LANE": "1"}
+SELECTOR_ENV = {"BRPC_TPU_FLAG_EVENT_RING_LANE": "0"}
+RING_TURN_CALLS = 256           # (c)-(e): Generate calls in a timed turn
+RING_ROUNDS = 3                 # (c)-(e): timed turns a case; the order flips
+RING_SSL_CPU_RATIO = 10         # (e): most server CPU a TLS call may take,
+                                # against a tcp call on its lane's server
+RING_ECHO_CONNS = 8             # (c): tools/ring_smoke.py's echo shape
+RING_ECHO_INFLIGHT = 32
+RING_ECHO_CALLS = 4000
+RING_ECHO_WINDOWS = 3
+RING_ECHO_PAYLOAD = b"ring"
+RING_BACKENDS = {"batch": 1, "uring": 2}
+RING_PAGE_POLLS = 3             # (g): each page read at least this often
+
+
+def _install_ring(backend: int) -> None:
+    """Make this process's dispatcher a ring of the given backend (1
+    batch, 2 uring) before any consumer builds one: the flag picks the
+    auto backend only."""
+    from brpc_tpu_torch.transport import event_dispatcher as ed, ring_lane
+    check(ed.peek_dispatcher() is None, "a dispatcher already exists")
+    ed._global = ring_lane.RingDispatcher(backend=backend)
+
+
+def _lane() -> list:
+    """[the dispatcher's class, its backend] of this process."""
+    from brpc_tpu_torch.transport.event_dispatcher import global_dispatcher
+    d = global_dispatcher()
+    return [type(d).__name__, getattr(d, "backend", "selector")]
+
+
+def _ring_counters() -> dict:
+    from brpc_tpu_torch.transport import ring_lane
+    return ring_lane.counters()
+
+
+def _thread_cpu() -> dict:
+    """CPU seconds of this process's threads, by name (the Python name
+    where the thread is Python's, else the kernel's); {} where /proc has
+    no task list."""
+    names = {t.native_id: t.name for t in threading.enumerate()}
+    tick = os.sysconf("SC_CLK_TCK")
+    out = {}
+    try:
+        tids = os.listdir("/proc/self/task")
+    except OSError:
+        return out
+    for tid in tids:
+        try:
+            with open(f"/proc/self/task/{tid}/stat") as f:
+                st = f.read()
+        except OSError:
+            continue
+        comm = st[st.index("(") + 1:st.rindex(")")]
+        fields = st[st.rindex(")") + 2:].split()
+        name = names.get(int(tid), comm)
+        out[name] = out.get(name, 0.0) + \
+            (int(fields[11]) + int(fields[12])) / tick
+    return out
+
+
+def _ring_server_session(scheme: str, cert: str = "", key: str = "") -> int:
+    """``--client ring_server tcp|ssl [CERT KEY]``: a default Generate
+    server on cuda:0 whose lane follows this process's environment;
+    prints its port and lane, then a snapshot (CPU seconds, syscalls,
+    decode steps, launches, the ring's counters, the threads) on every
+    line read from stdin, and stops at the end of stdin."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import torch
+
+    from brpc_tpu_torch.rpc import Server
+    from brpc_tpu_torch.serving import add_generate_service
+    from brpc_tpu_torch.transport import syscall_stats
+    fa = _fa_module()
+    fa.reset_launches()
+    server = Server()
+    gs = add_generate_service(server)
+    addr = "tcp://127.0.0.1:0" if scheme == "tcp" else \
+        f"ssl://127.0.0.1:0#cert={cert}&key={key}"
+    ep = server.start(addr)
+    emit({"port": ep.port, "lane": _lane(), "device": str(gs.device)})
+    try:
+        while sys.stdin.readline():
+            torch.cuda.synchronize()
+            emit({"cpu_s": time.process_time(),
+                  "sys": syscall_stats.snapshot(),
+                  "steps": gs.batcher.decode_steps + gs.engine.warmup_steps,
+                  "launches": dict(fa.launches),
+                  "processed": server.nprocessed,
+                  "ring": _ring_counters(),
+                  "threads": sorted(t.name for t in threading.enumerate()),
+                  "thread_cpu": _thread_cpu()})
+    finally:
+        server.stop()
+        server.join(10)
+    return 0
+
+
+def _ring_echo(lane: str) -> int:
+    """``--client ring_echo selector|batch|uring``: tools/ring_smoke.py's
+    echo shape in one process on that lane: RING_ECHO_CONNS connections
+    of their own, RING_ECHO_INFLIGHT calls in flight on each, re-issued
+    from the completions, a 4-byte payload; a warm window, then
+    RING_ECHO_WINDOWS windows of RING_ECHO_CALLS calls: calls/s, p50 and
+    p99, and syscalls a message. The handler is a coroutine that does
+    not suspend, so it answers in place on the dispatcher, where the
+    ring defers the response to its tick's flush."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    if lane != "selector":
+        _install_ring(RING_BACKENDS[lane])
+    from brpc_tpu_torch.rpc import Channel, ChannelOptions, Server, Service
+    from brpc_tpu_torch.transport import syscall_stats
+    svc = Service("Bench")
+
+    @svc.method()
+    async def PyEcho(cntl, request):
+        return bytes(request)
+    server = Server()
+    server.add_service(svc)
+    addr = f"tcp://127.0.0.1:{server.start('tcp://127.0.0.1:0').port}"
+    chans = [Channel(addr, ChannelOptions(timeout_ms=10000,
+                                          share_connections=False))
+             for _ in range(RING_ECHO_CONNS)]
+    for ch in chans:
+        c = ch.call_sync("Bench", "PyEcho", b"warm")
+        check(not c.failed(), f"echo warm-up: {c.error_text}")
+
+    def window() -> dict:
+        lat, done, lock = [], threading.Event(), threading.Lock()
+        state = {"left": RING_ECHO_CALLS, "issued": 0, "errors": 0}
+
+        def issue(ch):
+            t0 = time.perf_counter_ns()
+
+            def on_done(c):
+                go = False
+                with lock:
+                    if c.failed() or c.response != RING_ECHO_PAYLOAD:
+                        state["errors"] += 1
+                    else:
+                        lat.append((time.perf_counter_ns() - t0) / 1e3)
+                    state["left"] -= 1
+                    if not state["left"]:
+                        done.set()
+                    elif state["issued"] < RING_ECHO_CALLS:
+                        state["issued"] += 1
+                        go = True
+                if go:
+                    issue(ch)
+            ch.call("Bench", "PyEcho", RING_ECHO_PAYLOAD, done=on_done)
+
+        seed = min(RING_ECHO_CONNS * RING_ECHO_INFLIGHT, RING_ECHO_CALLS)
+        state["issued"] = seed
+        s0, t0 = syscall_stats.snapshot(), time.perf_counter()
+        for i in range(seed):
+            issue(chans[i % RING_ECHO_CONNS])
+        check(done.wait(120), f"{lane} echo window hung")
+        wall = time.perf_counter() - t0
+        s1 = syscall_stats.snapshot()
+        check(state["errors"] == 0, f"{lane} echo: {state['errors']} "
+                                    f"failed or wrong")
+        return {"qps": RING_ECHO_CALLS / wall, "p50_us": _median(lat),
+                "p99_us": _p99(lat),
+                "syscalls_per_rpc": syscall_stats.per_rpc(s0, s1)}
+
+    try:
+        window()
+        r0 = _ring_counters()
+        windows = [window() for _ in range(RING_ECHO_WINDOWS)]
+        ring = _delta(r0, _ring_counters())
+    finally:
+        for ch in chans:
+            ch.close()
+        server.stop()
+        server.join(10)
+    emit({"lane": _lane(), "windows": windows, "ring": ring,
+          "best_qps": max(w["qps"] for w in windows)})
+    return 0
+
+
+def _ring_probe() -> dict:
+    """(a): the kernel, the auto backend, the forced-uring verdict, the
+    forced batch backend, and ``openssl`` (part e makes its certificate
+    with it)."""
+    from brpc_tpu_torch.native import fastcore
+    fc = fastcore.get()
+    check(fc is not None and hasattr(fc, "Ring"),
+          f"the native core has no Ring: {fastcore.load_error}")
+    out = {"kernel": os.uname().release}
+    r = fc.Ring()
+    out["auto"] = r.backend_name()
+    r.close()
+    try:
+        r = fc.Ring(RING_BACKENDS["uring"])
+        out["forced_uring"] = "ok"
+        r.close()
+    except OSError as e:
+        out["forced_uring"] = f"errno {e.errno} ({e.strerror})"
+    r = fc.Ring(RING_BACKENDS["batch"])
+    out["forced_batch"] = r.backend_name()
+    r.close()
+    check(out["forced_batch"] == "batch", f"Ring(1): {out}")
+    try:
+        ver = subprocess.run(["openssl", "version"], capture_output=True,
+                             text=True, timeout=30)
+    except FileNotFoundError:
+        raise SmokeFailure("ring a: openssl is missing; part e needs it "
+                           "to make its certificate") from None
+    check(ver.returncode == 0, f"ring a: openssl version: {ver.stderr}")
+    out["openssl"] = ver.stdout.strip()
+    return out
+
+
+def _session_lane(sess, want: str, what: str) -> dict:
+    hello = sess.read()
+    check(hello["device"] == "cuda:0", f"{what}: service device "
+                                       f"{hello['device']}")
+    check(hello["lane"][0] == want, f"{what}: the flag asked for the "
+                                    f"{want} and the process runs "
+                                    f"{hello['lane']}")
+    return hello
+
+
+def _snap_delta(a: dict, b: dict) -> dict:
+    """What a server session did between two snapshots."""
+    from brpc_tpu_torch.transport import syscall_stats
+    calls = b["processed"] - a["processed"]
+    return {"calls": calls, "steps": b["steps"] - a["steps"],
+            "flash_decode": (b["launches"]["flash_decode"]
+                             - a["launches"]["flash_decode"]),
+            "launched": {k: v - a["launches"].get(k, 0)
+                         for k, v in b["launches"].items()},
+            "cpu_ms_per_call": (b["cpu_s"] - a["cpu_s"]) * 1e3
+            / max(calls, 1),
+            "syscalls_per_rpc": syscall_stats.per_rpc(a["sys"], b["sys"]),
+            "ring": _delta(a["ring"], b["ring"]),
+            # where the server's CPU went: the five busiest threads
+            "thread_cpu_s": dict(sorted(
+                ((k, round(v - a["thread_cpu"].get(k, 0.0), 3))
+                 for k, v in b["thread_cpu"].items()),
+                key=lambda kv: -kv[1])[:5])}
+
+
+def _counted_turn(what: str, sess, fn, *args):
+    """``fn(*args)`` between two snapshots of a server session: its
+    flash_decode launches must equal its decode steps, and no other
+    kernel may run."""
+    a = sess.step()
+    r = fn(*args)
+    d = _snap_delta(a, sess.step())
+    check(d["flash_decode"] == d["steps"] > 0 and
+          sum(d["launched"].values()) == d["flash_decode"],
+          f"{what}: launched {d['launched']}, {d['steps']} decode steps")
+    return r, d
+
+
+def _turn(chans, calls: int, oracle: dict, what: str) -> dict:
+    """``calls`` Generate calls from N_CLIENTS threads, thread i on
+    ``chans[i]``, the oracle's prompts in turn; every answer must equal
+    the CPU plain path's. Tokens/s and the whole call's p50/p99."""
+    prompts = list(oracle)
+    lat, errors, tokens = [], [], []
+
+    def client(i):
+        for n in range(i, calls, N_CLIENTS):
+            p = prompts[n % len(prompts)]
+            t0 = time.perf_counter()
+            c = chans[i].call_sync("GenerateService", "Generate",
+                                   _generate_body(p))
+            if c.failed():
+                errors.append((p, c.error_code, c.error_text))
+                continue
+            lat.append((time.perf_counter() - t0) * 1e3)
+            got = json.loads(c.response)["tokens"]
+            if got != oracle[p]:
+                errors.append((p, -1, "tokens differ from the CPU plain "
+                                      "path"))
+            tokens.append(len(got))
+    wall = _run_clients(client)
+    check(not errors, f"{what}: {len(errors)} of {calls} calls failed or "
+                      f"wrong: {errors[:3]}")
+    return {"calls": calls, "wall_s": wall,
+            "tokens_per_s": sum(tokens) / wall, "p50_ms": _median(lat),
+            "p99_ms": _p99(lat)}
+
+
+def _poll_pages(port: int, stop: threading.Event, seen: dict) -> None:
+    """(g): /sockets, /ids and /connections of the server at ``port``,
+    read again and again until ``stop``; each answer's shape checked."""
+    while not stop.is_set():
+        for path in ("/sockets", "/ids", "/connections"):
+            status, body = _http_page(port, path)
+            if status != 200:
+                seen.setdefault("errors", []).append((path, status))
+                continue
+            doc = json.loads(body)
+            if path == "/connections":
+                rows = doc["connections"]
+                ok = rows and all({"read_bytes", "resident_bytes",
+                                   "last_active_s", "idle_class"} <= set(r)
+                                  for r in rows)
+                seen["max_connections"] = max(seen.get("max_connections",
+                                                       0), len(rows))
+            elif path == "/sockets":
+                ok = bool(doc) and all("write_queue" in r for r in doc)
+                seen["max_sockets"] = max(seen.get("max_sockets", 0),
+                                          len(doc))
+            else:
+                ok = "inflight_client_calls" in doc
+            seen[path] = seen.get(path, 0) + (1 if ok else 0)
+        stop.wait(0.05)
+
+
+def _ring_generate(sess, port: int, oracle: dict) -> dict:
+    """(b) and (g): the unary burst from a client process on the ring
+    with the batch backend (its sync calls plucked behind the fence),
+    the stream burst from a client process on the ring (auto backend)
+    while the pages are read, the HTTP burst from this process; tokens,
+    frames and footers equal the CPU plain path's, and the server's
+    flash_decode launches equal its decode steps."""
+    out = {}
+    doc, d = _counted_turn("ring b unary", sess, _client_process,
+                           ["unary", str(port)], 300,
+                           dict(RING_ENV, CHIP_SMOKE_RING_BACKEND="1"))
+    _check_burst("ring b unary", doc["results"], doc["errors"], oracle)
+    check(doc["lane"] == ["RingDispatcher", "batch"],
+          f"ring b: the unary client ran on {doc['lane']}")
+    check(doc["native"]["pluck_fast"] == N_REQUESTS,
+          f"ring b: {doc['native']['pluck_fast']} of {N_REQUESTS} sync "
+          f"calls plucked behind the fence")
+    check(doc["ring"]["ring_read_barriers"] >= N_REQUESTS,
+          f"ring b: the fence ran {doc['ring']['ring_read_barriers']} "
+          f"times")
+    out["unary"] = dict(_burst_line(doc["results"], doc["wall_s"],
+                                    doc["ttft_ms"], []),
+                        server=d, client_ring=doc["ring"],
+                        client_lane=doc["lane"])
+    stop, seen = threading.Event(), {}
+    poller = threading.Thread(target=_poll_pages, args=(port, stop, seen),
+                              name="ring_pages")
+    poller.start()
+    try:
+        doc, d = _counted_turn("ring b stream", sess, _client_process,
+                               ["stream", str(port)], 300, RING_ENV)
+    finally:
+        stop.set()
+        poller.join(30)
+    _check_burst("ring b stream", doc["results"], doc["errors"], oracle)
+    check(doc["lane"][0] == "RingDispatcher",
+          f"ring b: the stream client ran on {doc['lane']}")
+    out["stream"] = dict(_burst_line(doc["results"], doc["wall_s"],
+                                     doc["ttft_ms"], doc["gaps_ms"]),
+                         server=d, client_ring=doc["ring"],
+                         client_lane=doc["lane"])
+    check(not seen.get("errors") and all(
+        seen.get(p, 0) >= RING_PAGE_POLLS
+        for p in ("/sockets", "/ids", "/connections")),
+        f"ring g: the pages during the stream burst: {seen}")
+    out["pages"] = seen
+    (res, errs, wall, ttft, gaps), d = _counted_turn(
+        "ring b http", sess, _http_burst, port, _prompts(), MAX_TOKENS)
+    _check_burst("ring b http", res, errs, oracle)
+    out["http"] = dict(_burst_line(res, wall, ttft, gaps), server=d)
+    return out
+
+
+def _lane_turns(sessions: dict, oracle: dict) -> dict:
+    """(c) and (e): the four servers (ring and selector, on tcp and on
+    ssl) in turns, N_CLIENTS connections of its own to each from this
+    process, held from the first call to the last. A server's first turn
+    is its warm-up, N_REQUESTS calls on the new connections (a TLS
+    connection's first call carries its handshake); then RING_ROUNDS
+    rounds of RING_TURN_CALLS calls a server, the order reversed every
+    other round. Each turn: tokens/s, the whole call's p50/p99, the
+    server's syscalls a message and CPU a call, and its flash_decode
+    launches equal to its decode steps. A TLS turn whose server CPU a
+    call is RING_SSL_CPU_RATIO times the tcp turn's on the same lane in
+    the same round fails, with both servers' busiest threads."""
+    from brpc_tpu_torch.rpc import Channel, ChannelOptions
+    chans = {k: [Channel(f"{'ssl' if k.startswith('ssl') else 'tcp'}"
+                         f"://127.0.0.1:{port}",
+                         ChannelOptions(timeout_ms=120000,
+                                        share_connections=False))
+                 for _ in range(N_CLIENTS)]
+             for k, (_, port) in sessions.items()}
+    order = list(sessions)
+    plan = [("warm-up", order, N_REQUESTS)] + [
+        (rnd, order if rnd % 2 == 0 else order[::-1], RING_TURN_CALLS)
+        for rnd in range(RING_ROUNDS)]
+    keys = ("tokens_per_s", "p50_ms", "p99_ms", "server_syscalls_per_rpc",
+            "server_cpu_ms_per_call")
+    runs = {k: [] for k in sessions}
+    first = {}
+    try:
+        for rnd, turn_order, calls in plan:
+            got = {}
+            for k in turn_order:
+                what = f"ring c {k} turn {rnd}"
+                r, d = _counted_turn(what, sessions[k][0], _turn, chans[k],
+                                     calls, oracle, what)
+                got[k] = dict(r, server_syscalls_per_rpc=d[
+                    "syscalls_per_rpc"], server_cpu_ms_per_call=d[
+                    "cpu_ms_per_call"], server_ring=d["ring"],
+                    server_threads_cpu_s=d["thread_cpu_s"])
+            for lane in ("ring", "selector"):
+                tls, tcp = got[f"ssl_{lane}"], got[lane]
+                check(tls["server_cpu_ms_per_call"] <= RING_SSL_CPU_RATIO *
+                      tcp["server_cpu_ms_per_call"],
+                      f"ring e: turn {rnd}: the TLS server on the {lane} "
+                      f"took {tls['server_cpu_ms_per_call']:.2f} ms CPU a "
+                      f"call against tcp's "
+                      f"{tcp['server_cpu_ms_per_call']:.2f}; TLS threads "
+                      f"{tls['server_threads_cpu_s']}, tcp threads "
+                      f"{tcp['server_threads_cpu_s']}")
+            if rnd == "warm-up":
+                first = got
+                continue
+            for k, r in got.items():
+                runs[k].append(dict(r, round=rnd))
+    finally:
+        for v in chans.values():
+            for ch in v:
+                ch.close()
+
+    def ratio(a, b):
+        return [x["tokens_per_s"] / y["tokens_per_s"]
+                for x, y in zip(runs[a], runs[b])]
+    return {"turn_calls": RING_TURN_CALLS, "rounds": RING_ROUNDS,
+            "order": order, "warm_up": first, "runs": runs,
+            "medians": {k: {m: _median([r[m] for r in v]) for m in keys}
+                        for k, v in runs.items()},
+            "ring_over_selector": ratio("ring", "selector"),
+            "ssl_over_tcp": {lane: ratio(f"ssl_{lane}", lane)
+                             for lane in ("ring", "selector")}}
+
+
+def _echo_turns(lanes) -> dict:
+    """(c): the echo shape in a child process a lane."""
+    out = {}
+    for lane in lanes:
+        doc = _client_process(["ring_echo", lane], 300)
+        want = "EventDispatcher" if lane == "selector" else "RingDispatcher"
+        check(doc["lane"][0] == want and (lane == "selector" or
+                                          doc["lane"][1] == lane),
+              f"ring c echo {lane}: ran on {doc['lane']}")
+        if lane != "selector":
+            check(doc["ring"]["ring_ticks"] > 0,
+                  f"ring c echo {lane}: {doc['ring']}")
+        out[lane] = doc
+    return out
+
+
+def _conn_types(dev, oracle: dict) -> dict:
+    """(d): Generate over tcp on a default server of this process, four
+    ways to connect N_CLIENTS client threads: N_CLIENTS shared Channels,
+    N_CLIENTS with ``share_connections=False``, one ``pooled`` Channel
+    and one ``short`` Channel. After an untimed warm-up, RING_ROUNDS
+    rounds of RING_TURN_CALLS calls a case, the order reversed every
+    other round, each turn on new Channels. Each turn: the connections
+    the server accepted, the open rows of /connections
+    (``connections_page``) at its end, tokens/s and p50 (the whole
+    call), every answer equal to the plain path's, flash_decode launches
+    equal to the decode steps."""
+    from brpc_tpu_torch.builtin.services import connections_page
+    from brpc_tpu_torch.rpc import Channel, ChannelOptions, Server
+    from brpc_tpu_torch.serving import add_generate_service
+    fa = _fa_module()
+    server = Server()
+    gs = add_generate_service(server)
+    check(str(gs.device) == "cuda:0", f"service device {gs.device}")
+    accepted = [0]
+    on_new_conn = server._on_new_conn
+
+    def counting(conn):
+        accepted[0] += 1
+        on_new_conn(conn)
+    server._on_new_conn = counting      # the listener takes this one
+    addr = f"tcp://127.0.0.1:{server.start('tcp://127.0.0.1:0').port}"
+    cases = {
+        "shared": lambda: [Channel(addr, ChannelOptions(timeout_ms=120000))
+                           for _ in range(N_CLIENTS)],
+        "own": lambda: [Channel(addr, ChannelOptions(
+            timeout_ms=120000, share_connections=False))
+            for _ in range(N_CLIENTS)],
+        "pooled": lambda: [Channel(addr, ChannelOptions(
+            timeout_ms=120000, connection_type="pooled"))] * N_CLIENTS,
+        "short": lambda: [Channel(addr, ChannelOptions(
+            timeout_ms=120000, connection_type="short"))] * N_CLIENTS,
+    }
+    # the connections a turn may make: (fewest, most)
+    want = {"shared": (1, 1), "own": (N_CLIENTS, N_CLIENTS),
+            "pooled": (1, N_CLIENTS),
+            "short": (RING_TURN_CALLS, RING_TURN_CALLS)}
+    names = list(cases)
+    plan = [("warm-up", "own", N_REQUESTS)] + [
+        (rnd, name, RING_TURN_CALLS) for rnd in range(RING_ROUNDS)
+        for name in (names if rnd % 2 == 0 else names[::-1])]
+    runs = {k: [] for k in cases}
+    launched = 0
+    try:
+        for rnd, name, calls in plan:
+            what = f"ring d {name} turn {rnd}"
+            n0 = accepted[0]
+            chans = cases[name]()
+            for ch in set(chans):
+                if ch.options.connection_type == "single":
+                    # dial before the threads start: shared channels
+                    # that dial at once each connect, and the map keeps
+                    # one (brpc_tpu's socket map does the same)
+                    ch.device_lane_kind()
+            fa.reset_launches()
+            steps0 = gs.batcher.decode_steps
+            r = _turn(chans, calls, oracle, what)
+            open_rows = sum(1 for row in connections_page(server)
+                            ["connections"] if not row["failed"])
+            for ch in set(chans):
+                ch.close()
+            _sync(dev)
+            steps = gs.batcher.decode_steps - steps0
+            check(fa.launches["flash_decode"] == steps > 0,
+                  f"{what}: flash_decode {dict(fa.launches)}, {steps} "
+                  f"steps")
+            launched += steps
+            if rnd == "warm-up":
+                continue
+            r.update(accepted=accepted[0] - n0, open_at_end=open_rows,
+                     flash_decode=steps, round=rnd)
+            lo, hi = want[name]
+            check(lo <= r["accepted"] <= hi,
+                  f"{what}: {r['accepted']} connections accepted")
+            check(name == "short" or r["open_at_end"] == r["accepted"],
+                  f"{what}: {open_rows} connections open at the end, "
+                  f"{r['accepted']} accepted")
+            runs[name].append(r)
+    finally:
+        server.stop()
+        server.join(10)
+
+    def over_own(name, key, op):
+        return [op(x[key], y[key]) for x, y in zip(runs[name], runs["own"])]
+    return {"turn_calls": RING_TURN_CALLS, "rounds": RING_ROUNDS,
+            "order": names, "runs": runs,
+            "accepted": {k: [r["accepted"] for r in v]
+                         for k, v in runs.items()},
+            "medians": {k: {m: _median([r[m] for r in v]) for m in
+                            ("tokens_per_s", "p50_ms", "p99_ms")}
+                        for k, v in runs.items()},
+            "tokens_per_s_over_own": {
+                k: over_own(k, "tokens_per_s", lambda a, b: a / b)
+                for k in ("shared", "pooled", "short")},
+            "p50_minus_own_ms": {
+                k: over_own(k, "p50_ms", lambda a, b: a - b)
+                for k in ("shared", "pooled", "short")},
+            "flash_decode": launched}
+
+
+def _plaintext_refused(sessions: dict) -> dict:
+    """(e): a plaintext tpu_std call to each TLS server's port fails;
+    its errno."""
+    from brpc_tpu_torch.rpc import Channel, ChannelOptions
+    out = {}
+    for k, (_, port) in sessions.items():
+        plain = Channel(f"tcp://127.0.0.1:{port}",
+                        ChannelOptions(timeout_ms=2000, max_retry=0))
+        try:
+            c = plain.call_sync("GenerateService", "Generate",
+                                _generate_body(_prompts()[0]))
+        finally:
+            plain.close()
+        check(c.failed(), f"ring e {k}: a plaintext call was answered")
+        out[k] = c.error_code
+    return out
+
+
+def _ring_shards(oracle: dict) -> dict:
+    """(f): a 2-shard ``--generate`` group with the lane flag in its
+    environment (its supervisor's dispatcher is a ring before it forks):
+    32 calls over 4 connections a shard answered as the plain path,
+    each shard's ring_ticks > 0, a SIGKILLed shard back on a ring of its
+    own, and no process left after SIGTERM."""
+    import shutil
+    import tempfile
+    work = tempfile.mkdtemp(prefix="chip-smoke-ring-shards-")
+    here = str(Path(__file__).resolve().parent)
+    g = _ShardGroup(2, here, work, env=RING_ENV)
+    out = {"up_s": g.up_s}
+    try:
+        by_pid = g.spread(N_CLIENTS // g.shards)
+        chans = [c for v in by_pid.values() for c in v]
+        prompts = _prompts() * 2
+        res, errs, wall = _shard_burst(chans, prompts)
+        check(not errs, f"ring f: failed calls {errs[:3]}")
+        wrong = [p for p in oracle if res.get(p) != oracle[p]]
+        check(not wrong, f"ring f: tokens differ for {wrong}")
+        out["calls"] = len(prompts)
+        out["tokens_per_s"] = sum(len(t) for t in res.values()) * 2 / wall
+
+        def ticks(i):
+            return _settled(lambda: (lambda v: v if v > 0 else None)(
+                g.var("ring_ticks", i)))
+        out["ring_ticks"] = [ticks(i) for i in range(g.shards)]
+        check(all(out["ring_ticks"]), f"ring f: {out['ring_ticks']}")
+        def counts(i):
+            # the pages come from a shard's dumps, written every 0.1 s:
+            # read until its launches and steps come from one dump
+            got = _settled(lambda: (lambda c: c if c["flash_decode"] ==
+                                    c["decode_steps"] + c["warmup_steps"]
+                                    else None)(_shard_counts(g, i)))
+            check(got is not None, f"ring f: shard {i}'s launches "
+                                   f"{_shard_counts(g, i)}")
+            return got
+        before = {s["pid"]: s for s in map(counts, range(g.shards))}
+        kill = _shards_kill(g, oracle)
+        idx = next(i for i in range(g.shards)
+                   if g.page(f"/status?shard={i}")["pid"] == kill["new_pid"])
+        out["kill"] = kill
+        out["new_shard_ring_ticks"] = ticks(idx)
+        check(out["new_shard_ring_ticks"],
+              f"ring f: the new shard {kill['new_pid']} has no ring ticks")
+        # the launches: the shards running now, and the victim's as read
+        # before the kill (its last burst's are lost with it)
+        after = [counts(i) for i in range(g.shards)]
+        out["launches"] = {"before_kill": list(before.values()),
+                           "after": after}
+        out["flash_decode"] = sum(s["flash_decode"] for s in after) + \
+            before[kill["victim"]]["flash_decode"]
+    finally:
+        d = g.stop()
+        err = g.stderr()
+        shutil.rmtree(work, ignore_errors=True)
+    check(d["rc"] == 0 and not d["left"], f"ring f: stop {d}: {err}")
+    out["stop"] = d
+    return out
+
+
+def phase_ring(dev):
+    """The ring lane, connection types, ssl:// and the socket pages on the
+    card's Generate path. The lane flag is read when a process builds its
+    dispatcher, so each lane's server is a process of its own
+    (``--client ring_server``); the four (ring and selector, tcp and
+    ssl) start together at the phase's start. (a) the probe; (b) Generate
+    on the ring lane (unary, stream, HTTP) with (g) the pages read during
+    the stream burst; (c) and (e) the four servers in turns of
+    RING_TURN_CALLS calls, and the echo shape a lane; (d) connection
+    types on this process's server, in turns; (e) also a plaintext call
+    to each TLS port, refused; (f) shards on the ring. Each part's
+    flash_decode launches equal its decode steps, read from the server
+    that decoded them."""
+    import shutil
+    import tempfile
+
+    from brpc_tpu_torch.serving import TinyDecoder, TinyDecoderConfig
+    phase_t0 = time.monotonic()
+    cpu_model = TinyDecoder(TinyDecoderConfig(), device="cpu")
+    oracle = {p: cpu_model.generate(list(p.encode()), MAX_TOKENS)
+              for p in _prompts()}
+    out = {"phase": "ring"}
+    progress("ring a: probe")
+    out["a"] = _ring_probe()
+    emit({"phase": "ring", "part": "a", "a": out["a"]})
+    certs = tempfile.mkdtemp(prefix="chip-smoke-ring-certs-")
+    cert, key = os.path.join(certs, "cert.pem"), os.path.join(certs, "key.pem")
+    made = subprocess.run(
+        ["openssl", "req", "-x509", "-newkey", "rsa:2048", "-nodes",
+         "-keyout", key, "-out", cert, "-days", "2", "-subj",
+         "/CN=localhost"], capture_output=True, text=True, timeout=60)
+    check(made.returncode == 0, f"openssl req: {made.stderr[-1000:]}")
+    specs = {"ring": (["tcp"], RING_ENV),
+             "selector": (["tcp"], SELECTOR_ENV),
+             "ssl_ring": (["ssl", cert, key], RING_ENV),
+             "ssl_selector": (["ssl", cert, key], SELECTOR_ENV)}
+    sessions = {k: _Session(["ring_server", *a], env=e)
+                for k, (a, e) in specs.items()}
+    launches = 0
+    try:
+        progress("ring d: connection types")
+        out["d"] = _conn_types(dev, oracle)
+        launches += out["d"]["flash_decode"]
+        emit({"phase": "ring", "part": "d", "d": out["d"]})
+        hello = {k: _session_lane(
+            s, "RingDispatcher" if "ring" in k else "EventDispatcher", k)
+            for k, s in sessions.items()}
+        served = {k: (s, hello[k]["port"]) for k, s in sessions.items()}
+        first = {k: s.step() for k, s in sessions.items()}
+        progress("ring b: Generate on the ring lane")
+        out["b"] = _ring_generate(sessions["ring"], hello["ring"]["port"],
+                                  oracle)
+        out["b"]["lane"] = hello["ring"]["lane"]
+        emit({"phase": "ring", "part": "b", "b": out["b"]})
+        progress("ring c, e: the lanes and ssl:// in turns")
+        turns = _lane_turns(served, oracle)
+        out["c"] = {"generate": {k: v for k, v in turns.items()
+                                 if k != "ssl_over_tcp"}}
+        lanes = ["batch", "selector"] + (
+            ["uring"] if out["a"]["forced_uring"] == "ok" else [])
+        out["c"]["echo"] = _echo_turns(lanes)
+        emit({"phase": "ring", "part": "c", "c": out["c"]})
+        out["e"] = {"ssl_over_tcp": turns["ssl_over_tcp"],
+                    "plaintext_errno": _plaintext_refused(
+                        {k: served[k] for k in ("ssl_ring",
+                                                "ssl_selector")})}
+        emit({"phase": "ring", "part": "e", "e": out["e"]})
+        last = {k: s.step() for k, s in sessions.items()}
+        for k in sessions:
+            # every launch of a server, its warm-up's included: steps + 1
+            check(last[k]["launches"]["flash_decode"] == last[k]["steps"]
+                  and first[k]["steps"] == 1,
+                  f"ring {k}: {last[k]['launches']} for {last[k]['steps']} "
+                  f"steps (warm-up {first[k]['steps']})")
+            launches += last[k]["launches"]["flash_decode"]
+        status, body = _http_page(hello["ring"]["port"],
+                                  "/vars?prefix=flash_decode_launches")
+        # "name : value" and the value's sparkline
+        check(status == 200 and body.decode().partition(" : ")[2].split()
+              [:1] == [str(last["ring"]["launches"]["flash_decode"])],
+              f"ring b: /vars flash_decode_launches {body[:80]!r}")
+        check(last["ring"]["ring"]["ring_ticks"] > 0 and
+              last["ring"]["ring"]["ring_completions"] > 0,
+              f"ring b: the server's ring {last['ring']['ring']}")
+        names = last["ring"]["threads"]
+        check("ring_dispatcher" in names and "event_dispatcher" not in
+              names and not _per_connection_threads(names),
+              f"ring b: the server's threads {names}")
+        out["b"]["server_ring"] = last["ring"]["ring"]
+    finally:
+        for s in sessions.values():
+            s.close()
+        shutil.rmtree(certs, ignore_errors=True)
+    progress("ring f: shards on the ring")
+    out["f"] = _ring_shards(oracle)
+    launches += out["f"]["flash_decode"]
+    emit({"phase": "ring", "part": "f", "f": out["f"]})
+    out["phase_s"] = time.monotonic() - phase_t0
+    out["launches"] = {"flash_decode": launches}
+    emit({"phase": "ring", "launches": out["launches"],
+          "phase_s": out["phase_s"]})
+    return out
+
+
 def phase_paths(dev, split_inputs):
     """The port's two other paths, each driven through its public entry
     point with every count zeroed just before and read just after:
@@ -6100,6 +6894,10 @@ def main(only: str = "") -> int:
             # the group builds what it needs from a copy of the package
             phase_shards(dev)
             return 0
+        if only == "ring":
+            # alone, flash_decode builds at the first server's warm-up
+            phase_ring(dev)
+            return 0
         if only:
             {"streaming": phase_streaming,
              "observability": phase_observability}[only]()
@@ -6126,6 +6924,8 @@ def main(only: str = "") -> int:
         native = phase_native(dev)
         progress("phase shards")
         shards = phase_shards(dev)
+        progress("phase ring")
+        ring = phase_ring(dev)
         progress("phase paths")
         paths = phase_paths(dev, split_inputs)
         progress("phase times")
@@ -6155,6 +6955,7 @@ def main(only: str = "") -> int:
     by_path["native"] = sum(v["flash_decode"]
                             for v in native["launches"].values())
     by_path["shards"] = shards["launches"]["flash_decode"]
+    by_path["ring"] = ring["launches"]["flash_decode"]
     by_path["long_cache_decode"] = paths["long_cache_decode"]["flash_decode"]
     fwd_by_path = {
         "long_context": paths["long_context"]["flash_attn_fwd"],
@@ -6167,8 +6968,9 @@ def main(only: str = "") -> int:
              "lanes: Attend; combo: nested Attend; cluster: three "
              "replicas, backup Attend; incident: rings, profiles, a shed "
              "storm, costs; native: the turbo, pluck and scan lanes; "
-             "shards: two forked Generate shards behind one port; the "
-             "long-cache decode",
+             "shards: two forked Generate shards behind one port; ring: "
+             "Generate on the ring lane, connection types, ssl://, shards "
+             "on the ring; the long-cache decode",
              sum(by_path.values()), sl["flash_decode"],
              sl["flash_decode"] / steps, errs["serving_decode"],
              times["decode"], launches_by_path=by_path,
@@ -6205,6 +7007,10 @@ if __name__ == "__main__":
                                     (sys.argv[4:5] or ["0"])[0]))
     if sys.argv[1:3] == ["--client", "shards_load"]:
         sys.exit(_shards_load_client(sys.argv[3]))
+    if sys.argv[1:3] == ["--client", "ring_server"]:
+        sys.exit(_ring_server_session(*sys.argv[3:]))
+    if sys.argv[1:3] == ["--client", "ring_echo"]:
+        sys.exit(_ring_echo(sys.argv[3]))
     if sys.argv[1:3] == ["--client", "ici"]:
         sys.exit(ici_client(int(sys.argv[3]), sys.argv[4],
                             int(sys.argv[5])))
@@ -6214,7 +7020,8 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--phase"]:
         if sys.argv[2:3] not in (["streaming"], ["observability"],
                                  ["device_lane"], ["combo"], ["cluster"],
-                                 ["incident"], ["native"], ["shards"]):
+                                 ["incident"], ["native"], ["shards"],
+                                 ["ring"]):
             sys.exit(f"chip_smoke: unknown phase {sys.argv[2:]}")
         sys.exit(main(only=sys.argv[2]))
     sys.exit(main())

@@ -481,8 +481,11 @@ def _usercode_off_workers():
     svc.register_method("Ping", Ping)
     srv.add_service(svc)
     ep = srv.start("tcp://127.0.0.1:0")
+    # a connection a call: one connection's requests wait for its last
+    # in-place handler
     chans = [port_rpc.Channel(f"tcp://127.0.0.1:{ep.port}",
-                              port_rpc.ChannelOptions(timeout_ms=8000))
+                              port_rpc.ChannelOptions(
+                                  timeout_ms=8000, share_connections=False))
              for _ in range(4)]
     try:
         cntls = [ch.call("Svc", "Block", b"") for ch in chans[:3]]

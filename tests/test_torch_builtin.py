@@ -25,7 +25,7 @@ STATUS_LEFT_OUT = {"saturation_timeline"}
 SATURATION_LEFT_OUT = {
     "dispatch_batch_size_avg_10s", "dispatch_batch_size_peak_10s",
     "socket_write_coalesced_frames"}                 # input/write batching
-CONNECTIONS_LEFT_OUT = {"client_connections"}
+CONNECTIONS_LEFT_OUT = set()
 BUILTIN_METHODS_LEFT_OUT = set()
 # /serving: batcher fields that differ between the two lanes since the
 # port's first slices (the port names its device, keeps steps by fiber
@@ -94,7 +94,7 @@ PAGES = ["/", "/health", "/status", "/vars", "/vars/fiber",
          "/rpcz?history=1", "/contentions", "/contentions?n=5", "/version",
          "/timeline", "/timeline?prefix=server_", "/census", "/capture",
          "/incidents", "/fibers", "/fibers?stacks=1", "/bthreads",
-         "/threads", "/vlog", "/hotspots?mode=continuous",
+         "/threads", "/vlog", "/hotspots?mode=continuous", "/sockets", "/ids",
          "/hotspots?seconds=0.1&interval_ms=1", "/pprof/profile?seconds=0.1"]
 
 

@@ -23,9 +23,11 @@
 The cases run inside one collected test (``_run_cases``), each under a
 time limit of its own, so every other test file keeps its place in
 pytest-xdist's ``--dist loadfile`` queue (see test_torch_iobuf.py). No
-case may leave a socket registered with the port's dispatcher, nor a
-naming thread, a health-check probe, a PeriodicTask or one of the
-port's sampler, capture-writer and bundler threads running.
+case may leave a socket registered with the port's dispatcher, a lease
+on a shared connection (``transport/socket_map.py``), nor a naming
+thread, a health-check probe, a PeriodicTask, a ring dispatcher's thread
+or one of the port's sampler, capture-writer and bundler threads
+running.
 """
 
 import json
@@ -60,6 +62,7 @@ from brpc_tpu_torch.rpc import load_balancer as port_lb
 from brpc_tpu_torch.rpc import naming as port_naming
 from brpc_tpu_torch.rpc import periodic_task as port_periodic
 from brpc_tpu_torch.rpc import retry_policy as port_retry
+from brpc_tpu_torch.transport.socket_map import global_socket_map
 from brpc_tpu_torch.transport.event_dispatcher import global_dispatcher
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -82,20 +85,28 @@ _PORT_LOOP_THREADS = ("flight_recorder", "capture_writer",
 
 def _port_loop_threads():
     """Live threads of those names whose target is the port's (brpc_tpu
-    names its own the same)."""
-    return sorted(t.name for t in threading.enumerate()
-                  if t.name in _PORT_LOOP_THREADS and getattr(
-                      getattr(t, "_target", None), "__module__",
-                      "").startswith("brpc_tpu_torch."))
+    names its own the same), and every ring dispatcher's thread of the
+    port, whatever its name."""
+    out = []
+    for t in threading.enumerate():
+        mod = getattr(getattr(t, "_target", None), "__module__", "") or ""
+        if (t.name in _PORT_LOOP_THREADS and
+                mod.startswith("brpc_tpu_torch.")) or \
+                mod == "brpc_tpu_torch.transport.ring_lane":
+            out.append(t.name)
+    return sorted(out)
 
 
 def _running_loops():
-    """The port's fibers, timers and threads that run until stopped:
-    naming services, health-check probes, PeriodicTasks, the flight
-    recorder's sampler, capture writers and the incident bundler."""
+    """The port's fibers, timers, threads and leases that live until
+    stopped or returned: naming services, health-check probes,
+    PeriodicTasks, leases on shared connections, ring dispatchers, the
+    flight recorder's sampler, capture writers and the incident
+    bundler."""
     return {"naming threads": port_naming.live_naming_threads(),
             "health checks": port_hc.live_checks(),
             "PeriodicTasks": port_periodic.live_tasks(),
+            "socket map leases": global_socket_map().leases(),
             "threads": _port_loop_threads()}
 
 

@@ -152,13 +152,14 @@ class _Server:
 
 class _Client:
     """A port or brpc_tpu Channel: ``call`` gives (error_code, bytes).
-    Each has a connection of its own, as a port Channel has (a brpc_tpu
-    Channel shares one per endpoint unless told not to)."""
+    Each has a connection of its own (both share one per endpoint unless
+    told not to)."""
 
     def __init__(self, kind: str, address: str, timeout_ms=5000):
         self.kind, self.timeout_ms = kind, timeout_ms
         if kind == "port":
-            self.ch = Channel(address, ChannelOptions(timeout_ms=timeout_ms))
+            self.ch = Channel(address, ChannelOptions(
+                timeout_ms=timeout_ms, share_connections=False))
         else:
             self.ch = RefChannel(address, RefChannelOptions(
                 timeout_ms=timeout_ms, share_connections=False))
@@ -412,7 +413,8 @@ def case_no_thread_per_connection():
     counted."""
     with _Made() as m:
         srv = m.server("port")
-        warm = Channel(srv.address)
+        own = ChannelOptions(share_connections=False)
+        warm = Channel(srv.address, own)
         channels = []
         ref_timer = RefTimerThread("ref_timer_in_window")
         try:
@@ -420,7 +422,7 @@ def case_no_thread_per_connection():
             before = _port_thread_names()
             ref_timer.schedule_after(60.0, lambda: None)  # starts a thread
             for i in range(16):
-                ch = Channel(srv.address)
+                ch = Channel(srv.address, own)
                 channels.append(ch)
                 assert ch.call_sync("Echo", "Echo", b"%d" % i).response \
                     == b"%d" % i

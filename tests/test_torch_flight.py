@@ -57,8 +57,7 @@ from brpc_tpu_torch.transport import event_dispatcher as port_ed
 from test_torch_cluster import _run_cases, _wait_for
 
 # per subsystem, the census keys whose source the port does not have
-CENSUS_LEFT_OUT = {"iobuf_pool": {"outstanding"},     # no debug tracking
-                   "sockets": {"idle"}}               # no activity stamp
+CENSUS_LEFT_OUT = {"iobuf_pool": {"outstanding"}}    # no debug tracking
 
 
 def _get(port, path, timeout=30):

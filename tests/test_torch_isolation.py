@@ -68,6 +68,11 @@ def test_import_leaves_jax_and_brpc_tpu_out():
         "import brpc_tpu_torch.butil.malloc_tune\n"
         "import brpc_tpu_torch.transport.syscall_stats\n"
         "import brpc_tpu_torch.rpc.lane_ab\n"
+        "import brpc_tpu_torch.transport.ring_lane\n"
+        "import brpc_tpu_torch.transport.socket_map\n"
+        "import brpc_tpu_torch.transport.ssl\n"
+        "import brpc_tpu_torch.butil.containers\n"
+        "import brpc_tpu_torch.butil.timekeeping\n"
         f"forbidden = {FORBIDDEN_MODULES!r}\n"
         "bad = sorted(m for m in sys.modules if any(\n"
         "    m == f or m.startswith(f + '.') for f in forbidden))\n"

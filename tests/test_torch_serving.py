@@ -475,7 +475,8 @@ class TestUnaryE2E:
         outcomes = []
 
         def hog():
-            ch = Channel(str(ep), ChannelOptions(timeout_ms=3000))
+            ch = Channel(str(ep), ChannelOptions(timeout_ms=3000,
+                                                 share_connections=False))
             try:
                 outcomes.append(ch.call_sync(
                     "GenerateService", "Generate",
@@ -512,7 +513,8 @@ class TestUnaryE2E:
             assert gs.batcher.running_count() == 1
             hogs[1].start()
             wait_for(lambda: gs.batcher.waiting_count() == 1)
-            ch = Channel(str(ep), ChannelOptions(timeout_ms=5000))
+            ch = Channel(str(ep), ChannelOptions(timeout_ms=5000,
+                                                 share_connections=False))
             try:
                 c = ch.call_sync("GenerateService", "Generate",
                                  _gen_body(b"extra", 4))

@@ -155,9 +155,11 @@ class _Group:
         return json.loads(body)
 
     def channel(self):
+        # a connection of its own: the kernel deals each new one to a shard
         ch = port_rpc.Channel(f"tcp://127.0.0.1:{self.port}",
-                              port_rpc.ChannelOptions(timeout_ms=4000,
-                                                      max_retry=3))
+                              port_rpc.ChannelOptions(
+                                  timeout_ms=4000, max_retry=3,
+                                  share_connections=False))
         self.chans.append(ch)
         return ch
 

@@ -7,10 +7,12 @@ One function per page, shared by the ``builtin`` tpu_std service that
 
 The port keeps the entries whose source it has: ``/timeline``,
 ``/census``, ``/capture`` and ``/incidents`` (with their tpu_std twins),
-and on ``/status`` the incident line and the IOBuf pool's gauges. Left
-out, until their modules are ported (ROADMAP section 1): on ``/status``
-the trend-ring links (``saturation_timeline``) and the input-batching
-and write-coalescing gauges; on ``/connections`` the chaos counters.
+on ``/status`` the incident line and the IOBuf pool's gauges, and on
+``/connections``' robustness pane the chaos counters
+(``chaos_injected_*``, ``chaos/inject.py``). Left out, until their
+modules are ported (ROADMAP section 1): on ``/status`` the trend-ring
+links (``saturation_timeline``) and the input-batching and
+write-coalescing gauges.
 ``/connections`` and ``/sockets`` read the rows of
 ``transport.socket.socket_census_rows``, as ``/census`` does.
 """
@@ -44,7 +46,8 @@ def connections_page(server) -> dict:
     the process, by channel and backend, listed apart (/census's
     ``server_bytes`` sums the server rows only); the circuit breakers of
     every cluster channel, by endpoint; and the robustness pane, the
-    shed and retry counters (brpc_tpu/builtin/services.py:15-77)."""
+    chaos, shed and retry counters (brpc_tpu/builtin/services.py:15-77;
+    the chaos counters are there once ``chaos`` is imported)."""
     import time
 
     from brpc_tpu_torch.butil.flags import flag
@@ -81,7 +84,7 @@ def connections_page(server) -> dict:
             "last_active_s": round(idle_s, 3),
             "idle_class": _idle_class(idle_s, idle_after),
         })
-    robustness = {}
+    robustness = dict(dump_exposed("chaos_injected_"))
     for name in ROBUSTNESS_VARS:
         robustness.update(dump_exposed(name))
     return {"connections": rows, "client_connections": crows,

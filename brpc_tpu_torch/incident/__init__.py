@@ -7,9 +7,11 @@ incident puts the recorder in corpus-recording mode for a bounded
 window, then bundles the window's requests and the snapshots that
 explain it (/status, the trigger keys' /timeline, /hotspots, /device,
 /backends, /serving, the annotated rpcz spans) into one size-capped
-``.brpcinc`` artifact under a disk budget. Replaying an artifact
-(``replay.py``) waits for the chaos and replay tools (ROADMAP
-section 1).
+``.brpcinc`` artifact under a disk budget. ``replay.py`` replays an
+artifact against a fresh server, under the pressure its error classes
+imply (a chaos ``FaultPlan``, or an open-loop press) or without it, and
+says whether the watchdog fired again on the incident's key
+(``brpc_tpu_torch.tools.incident_replay`` is its command line).
 """
 
 from brpc_tpu_torch.incident.artifact import (SUFFIX, ArtifactWriter,

@@ -23,7 +23,7 @@ The snapshot builders are bound on the caller's thread by
 ``Server.start``), never imported on the sampler or bundler thread.
 ``_lock`` is a leaf: it guards the window and the ledger; the recorder,
 the disk and the snapshots are touched outside it. ``incident/
-replay.py`` waits for the chaos and replay tools (ROADMAP section 1).
+replay.py`` replays an artifact against a fresh server.
 """
 
 from __future__ import annotations

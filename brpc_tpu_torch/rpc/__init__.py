@@ -12,6 +12,7 @@ frame carry tensors (``request_device_arrays``,
 ``response_device_arrays``)."""
 
 from . import errno_codes
+from . import rpc_dump as _rpc_dump  # noqa: F401  (the rpc_dump_* flags)
 from .auth import (AuthContext, AuthError, Authenticator, InterceptorError,
                    TokenAuthenticator)
 from .channel import Channel, ChannelOptions

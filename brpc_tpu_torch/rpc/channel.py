@@ -104,6 +104,7 @@ from __future__ import annotations
 import itertools
 import threading
 import time
+import weakref
 from dataclasses import dataclass
 from typing import Any, Callable, List, Optional
 
@@ -255,12 +256,11 @@ class Channel:
         self._adm_sweep = 0.0
         self._bs_cells: dict = {}
         self._lock = threading.Lock()
-        self._socket: Optional[Socket] = None
-        # the SocketMap key of the lease this channel holds, if shared
-        self._map_key = None
-        # the pooled type's idle connections
-        self._conn_pool: List[Socket] = []
-        self._closed = False
+        self._held = _Held(self._lock)
+        # a channel collected without close() gives its connections back
+        # too; the finalizer holds the _Held, never the channel
+        self._finalizer = weakref.finalize(self, self._held.give_back_later)
+        self._finalizer.atexit = False
         # the native core loads here, not on the first call: eight
         # threads' first calls would queue behind its load
         client_dispatch.warm()
@@ -272,6 +272,16 @@ class Channel:
     def stats_name(self) -> str:
         """This channel's row key on /backends and /lb_trace."""
         return self._stats_name
+
+    @property
+    def _socket(self) -> Optional[Socket]:
+        """The ``single`` type's socket (the tests' view)."""
+        return self._held.socket
+
+    @property
+    def _conn_pool(self) -> List[Socket]:
+        """The ``pooled`` type's idle connections (the tests' view)."""
+        return self._held.pool
 
     # ---------------------------------------------------------- connection
     def _dial(self, ep) -> Socket:
@@ -292,49 +302,69 @@ class Channel:
                 f"no hello from {ep} within {_HELLO_TIMEOUT_S} s")
         return s
 
-    def _own_socket(self) -> Socket:
+    def _own_socket(self, sticky_ok: bool = True) -> Socket:
         """A fresh connection to the channel's endpoint; the attempts on
-        it fail with it, whichever channel issued them."""
+        it fail with it, whichever channel issued them. ``sticky_ok``:
+        its sync plucks may leave reads off between calls, since this
+        channel probes it before each reuse (``_live``)."""
         s = self._dial(self.endpoint)
+        s.sticky_ok = sticky_ok
         s.on_failed(self._on_socket_failed)
         return s
 
+    @staticmethod
+    def _live(s: Optional[Socket]) -> bool:
+        """``s`` may take the next call: not failed, and no peer close
+        hidden by a sticky pause (``Socket.probe_unobserved``; called
+        outside the channel's lock, since a dead peer's failure
+        callbacks run inline)."""
+        return s is not None and not s.failed and not s.probe_unobserved()
+
     def _map_key_of(self):
-        """The connection's key in the SocketMap: the endpoint and the
-        credential, so that channels with different credentials never
-        share a connection the server verified for one of them
-        (brpc_tpu/rpc/channel.py:316-323)."""
+        """The connection's key in the SocketMap, and the object the
+        key names: the endpoint and the credential, so that channels with
+        different credentials never share a connection the server
+        verified for one of them (brpc_tpu/rpc/channel.py:316-323). An
+        ``Authenticator`` is keyed on its ``id``, and the map's entry
+        keeps it alive so that the ``id`` is not reused meanwhile."""
         o = self.options
         cred = o.auth_token or (f"auth#{id(o.auth)}" if o.auth is not None
                                 else "")
-        return SocketMap.key(self.endpoint, f"tpu_std|{cred}")
+        owner = o.auth if not o.auth_token else None
+        return SocketMap.key(self.endpoint, f"tpu_std|{cred}"), owner
 
     def _get_socket(self) -> Socket:
+        held = self._held
         with self._lock:
-            if self._closed:
+            if held.closed:
                 raise ConnectionError("channel closed")
             if self.endpoint is None:
                 raise ConnectionError("channel has no address")
-            s = self._socket
-            if s is not None and not s.failed:
-                return s
-            if not self.options.share_connections:
-                s = self._socket = self._own_socket()
+            s = held.socket
+        if self._live(s):
+            return s
+        if not self.options.share_connections:
+            with self._lock:
+                if held.closed:
+                    raise ConnectionError("channel closed")
+                s = held.socket
+                if s is None or s.failed:
+                    s = held.socket = self._own_socket()
                 return s
         # the process's connection, dialled outside this lock (two first
         # calls that race both dial, and the map keeps one)
-        key = self._map_key_of()
+        key, owner = self._map_key_of()
         smap = global_socket_map()
 
         def dial() -> Socket:
             s = self._own_socket()
             s.on_failed(lambda sock: smap.evict_failed(key, sock))
             return s
-        s = smap.acquire(key, dial)
+        s = smap.acquire(key, dial, owner)
         with self._lock:
-            old, self._socket = self._socket, s
-            self._map_key = key
-            closed = self._closed
+            old, held.socket = held.socket, s
+            held.map_key = key
+            closed = held.closed
         if old is not None:
             # one lease a channel: the failed socket's, or the second
             # lease a racing first call of this channel just took
@@ -508,19 +538,20 @@ class Channel:
         if ctype in ("", "single"):
             return self._get_socket()
         if ctype == "short":
-            sock = self._idle_or_new_socket()
+            sock = self._idle_or_new_socket(pooled=False)
             cntl._add_complete_hook(
                 lambda c, s=sock: s.failed or s.set_failed(
                     ConnectionError("short connection done")))
             return sock
-        sock = self._idle_or_new_socket(self._conn_pool)
+        held = self._held
+        sock = self._idle_or_new_socket(pooled=True)
 
         def put_back(c, s=sock):
             if s.failed:
                 return
             with self._lock:
-                if not self._closed:
-                    self._conn_pool.append(s)
+                if not held.closed:
+                    held.pool.append(s)
                     return
             # a call that completes after close() must not refill the
             # emptied pool: nothing would close that socket again
@@ -529,18 +560,23 @@ class Channel:
         cntl._add_complete_hook(put_back)
         return sock
 
-    def _idle_or_new_socket(self, pool=()) -> Socket:
-        """An idle live socket of ``pool``, else a new connection."""
-        with self._lock:
-            if self._closed:
-                raise ConnectionError("channel closed")
-            if self.endpoint is None:
-                raise ConnectionError("channel has no address")
-            while pool:
-                s = pool.pop()
-                if not s.failed:
-                    return s
-        return self._own_socket()
+    def _idle_or_new_socket(self, pooled: bool) -> Socket:
+        """``pooled``: an idle live socket of the pool (each probed
+        outside the lock before it is reused, brpc_tpu/rpc/channel.py:
+        611-623), else a new connection, which may stick; ``short``: a
+        new connection, which never sticks (nothing reuses it)."""
+        held = self._held
+        while True:
+            with self._lock:
+                if held.closed:
+                    raise ConnectionError("channel closed")
+                if self.endpoint is None:
+                    raise ConnectionError("channel has no address")
+                s = held.pool.pop() if pooled and held.pool else None
+            if s is None:
+                return self._own_socket(sticky_ok=pooled)
+            if self._live(s):
+                return s
 
     def _issue_rpc(self, cntl: Controller) -> None:
         """One attempt (Controller::IssueRPC, controller.cpp:1010): pick a
@@ -928,11 +964,40 @@ class Channel:
         """Close the channel: its lease on a shared socket goes back (the
         socket closes with the last lease), its own and its pooled
         connections close."""
-        with self._lock:
-            self._closed = True
-            s, self._socket = self._socket, None
-            key, self._map_key = self._map_key, None
-            pool, self._conn_pool = self._conn_pool, []
+        self._finalizer.detach()
+        self._held.give_back()
+
+
+class _Held:
+    """The connections a channel holds: its ``single`` socket (a lease
+    on a shared one when ``map_key`` is set), the ``pooled`` type's idle
+    ones, and the closed mark, under the channel's lock. It holds no
+    reference to the channel, so that a collected channel's finalizer
+    can give them back."""
+
+    __slots__ = ("lock", "socket", "map_key", "pool", "closed")
+
+    def __init__(self, lock):
+        self.lock = lock
+        self.socket: Optional[Socket] = None
+        self.map_key = None
+        self.pool: List[Socket] = []
+        self.closed = False
+
+    def _take(self, blocking: bool = True):
+        if not self.lock.acquire(blocking):
+            return None, None, []
+        try:
+            self.closed = True
+            s, self.socket = self.socket, None
+            key, self.map_key = self.map_key, None
+            pool, self.pool = self.pool, []
+        finally:
+            self.lock.release()
+        return s, key, pool
+
+    def give_back(self) -> None:
+        s, key, pool = self._take()
         if s is not None:
             if key is not None:
                 global_socket_map().release(key, s)
@@ -940,6 +1005,18 @@ class Channel:
                 s.set_failed(ConnectionError("channel closed"))
         for sock in pool:
             sock.set_failed(ConnectionError("channel closed"))
+
+    def give_back_later(self) -> None:
+        """The finalizer's half: a collection may run inside any lock of
+        any thread, so this takes no lock that is not free at once (the
+        channel's is: nothing holds a collected channel) and hands the
+        rest to the map's next use (``SocketMap.orphan``)."""
+        s, key, pool = self._take(blocking=False)
+        smap = global_socket_map()
+        if s is not None:
+            smap.orphan(key, s)
+        for sock in pool:
+            smap.orphan(None, sock)
 
 
 class _PolicyView:

@@ -3,6 +3,8 @@ turns: where a sync call's time goes on each.
 
     python3 -m brpc_tpu_torch.rpc.lane_ab [--parent TREE] [--rounds N]
         [--device cuda:0] [--out DIR]
+    python3 -m brpc_tpu_torch.rpc.lane_ab --held [--rounds N]
+        [--device cuda:0]
 
 Each variant is a Generate server process (``add_generate_service``,
 TinyDecoder, phase 3's width) and, for each turn, a fresh client
@@ -31,6 +33,22 @@ handler, the way out and the wake. Calls are split by wave: a thread's
 first call (it pays the connection) and its second. Every turn's tokens
 must equal the first turn's. Prints one JSON line a turn and, last, the
 medians a variant; ``--out`` keeps each turn's calls.
+
+``--held`` runs the held-connection turns instead: phase 3's unary
+client on held connections, its process on the selector
+(``held_selector``) or on the ring's batch backend (``held_batch``),
+against one server of this tree (and with ``--parent`` the same turns of
+the parent tree against a server of its own, ``parent_held_*``). The
+client's code is this file's, run on the tree's package. Each thread
+opens its connection with a first call, then makes ``HELD_LATER`` later
+calls on it (the steady state). A turn reports the first-call and
+later-call p50, and for the steady state the dispatcher's
+``pause_read``/``resume_read`` calls a sync call (the client process
+counts them by wrapping the two methods: an instrument of this harness,
+not a bvar) and the ring's ``ring_read_barriers``,
+``ring_barrier_waits`` and ``ring_barrier_wait_us``. With the sticky
+pause a steady sync call pauses and resumes no reads and fences no tick.
+
 """
 
 from __future__ import annotations
@@ -50,6 +68,9 @@ N_CALLS = 16
 MAX_TOKENS = 32
 DEADLINE_MS = 120000
 NO_NATIVE = {"BRPC_TPU_TORCH_NO_NATIVE": "1"}
+# --held: later calls a thread makes on its held connection
+HELD_LATER = 8
+HELD_LANES = {"held_selector": 0, "held_batch": 1}
 
 
 def _prompts():
@@ -153,6 +174,82 @@ def _client(tree: str, port: int, mode: str, timeout_ms: int) -> int:
     return 0
 
 
+def _held_client(tree: str, port: int, backend: int) -> int:
+    """The held-connection turn (``--held``) from ``tree``'s Channel, its
+    process on the selector (``backend`` 0) or the ring's batch backend
+    (1); prints the latencies, the tokens and the steady state's
+    counts."""
+    sys.path.insert(0, tree)
+    from brpc_tpu_torch.transport import event_dispatcher as ed, ring_lane
+    if backend:
+        ed._global = ring_lane.RingDispatcher(backend=backend)
+    from brpc_tpu_torch.rpc import Channel, ChannelOptions
+    from brpc_tpu_torch.transport import socket as sk
+    d = ed.global_dispatcher()
+    flips = {"pause_read": 0, "resume_read": 0}
+    for name in flips:
+        real = getattr(d, name)
+
+        def counted(fd, _real=real, _name=name):
+            flips[_name] += 1
+            return _real(fd)
+        setattr(d, name, counted)
+    prompts = _prompts()
+    chans = [Channel(f"tcp://127.0.0.1:{port}",
+                     ChannelOptions(timeout_ms=DEADLINE_MS,
+                                    share_connections=False))
+             for _ in range(N_THREADS)]
+    results, errors = {}, []
+    lat = {"first": [], "later": []}
+
+    def run(idx, wave, n):
+        for k in range(n):
+            p = prompts[(idx + k * N_THREADS) % len(prompts)]
+            t0 = time.perf_counter()
+            c = chans[idx].call_sync("GenerateService", "Generate",
+                                     json.dumps({"prompt": p,
+                                                 "max_tokens": MAX_TOKENS}
+                                                ).encode())
+            if c.failed():
+                errors.append((p, c.error_code, c.error_text))
+                continue
+            lat[wave].append((time.perf_counter() - t0) * 1e3)
+            results[p] = json.loads(c.response)["tokens"]
+
+    def wave(name, n):
+        threads = [threading.Thread(target=run, args=(i, name, n))
+                   for i in range(N_THREADS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+
+    def snap():
+        return dict(flips, **ring_lane.counters(),
+                    plucked=sk.npluck_fast.get_value())
+    try:
+        wave("first", 1)
+        a = snap()
+        wave("later", HELD_LATER)
+        b = snap()
+    finally:
+        for ch in chans:
+            ch.close()
+    calls = len(lat["later"])
+    steady = {k: b[k] - a[k] for k in b}
+    print(json.dumps({
+        "lane": [type(d).__name__, getattr(d, "backend", "selector")],
+        "results": results, "errors": errors,
+        "first_p50_ms": _median(lat["first"]),
+        "later_p50_ms": _median(lat["later"]), "later_calls": calls,
+        "pause_read_per_call": steady["pause_read"] / max(1, calls),
+        "resume_read_per_call": steady["resume_read"] / max(1, calls),
+        "steady": {k: steady[k] for k in (
+            "pause_read", "resume_read", "plucked", "ring_read_barriers",
+            "ring_barrier_waits", "ring_barrier_wait_us")}}), flush=True)
+    return 0
+
+
 def _median(xs):
     return statistics.median(xs) if xs else None
 
@@ -195,6 +292,9 @@ def main(argv=None) -> int:
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--device", default="cuda:0")
     ap.add_argument("--out", help="a directory for each turn's calls")
+    ap.add_argument("--held", action="store_true",
+                    help="the held-connection turns on the selector and "
+                         "the ring's batch backend instead")
     args = ap.parse_args(argv)
     here = str(Path(__file__).resolve().parents[2])
     me = str(Path(__file__).resolve())
@@ -207,7 +307,15 @@ def main(argv=None) -> int:
                 "pure": ("pure", "native", DEADLINE_MS),
                 "native_nodl": ("this", "native", 0),
                 "pure_nodl": ("pure", "native", 0)}
-    if args.parent:
+    if args.held:
+        servers = {"this": (here, None)}
+        variants = {"native": ("this", "native", DEADLINE_MS),
+                    **{v: ("this", v, DEADLINE_MS) for v in HELD_LANES}}
+        if args.parent:
+            servers["parent"] = (str(Path(args.parent).resolve()), None)
+            variants.update({f"parent_{v}": ("parent", v, DEADLINE_MS)
+                             for v in HELD_LANES})
+    elif args.parent:
         servers["parent"] = (str(Path(args.parent).resolve()), None)
         variants = {"parent": ("parent", "native", DEADLINE_MS),
                     **variants}
@@ -230,10 +338,13 @@ def main(argv=None) -> int:
         s, mode, tmo = variants[v]
         tree, env = servers[s]
         # -P: the script's own directory must not shadow the tree's
-        out = subprocess.run(
-            [sys.executable, "-P", me, "--client", tree, str(ports[s]),
-             mode, str(tmo)],
-            capture_output=True, text=True, timeout=300, env=env_of(env))
+        argv = [sys.executable, "-P", me, "--client", tree, str(ports[s]),
+                mode, str(tmo)]
+        if mode in HELD_LANES:
+            argv = [sys.executable, "-P", me, "--held-client", tree,
+                    str(ports[s]), str(HELD_LANES[mode])]
+        out = subprocess.run(argv, capture_output=True, text=True,
+                             timeout=300, env=env_of(env))
         if out.returncode != 0:
             raise RuntimeError(f"{v} client failed: {out.stderr[-3000:]}")
         doc = json.loads(out.stdout.strip().splitlines()[-1])
@@ -258,7 +369,8 @@ def main(argv=None) -> int:
             oracle = oracle or doc["results"]
             if doc["results"] != oracle:
                 raise RuntimeError(f"{v} warm-up: tokens differ")
-        order = list(variants)
+        order = [v for v in variants
+                 if not args.held or variants[v][1] in HELD_LANES]
         plan = []
         for r in range(args.rounds):
             plan += order if r % 2 == 0 else order[::-1]
@@ -270,6 +382,16 @@ def main(argv=None) -> int:
             b = step(s)
             if doc["results"] != oracle:
                 raise RuntimeError(f"{v} turn {i}: tokens differ")
+            if variants[v][1] in HELD_LANES:
+                row = {k: doc[k] for k in (
+                    "lane", "first_p50_ms", "later_p50_ms", "later_calls",
+                    "pause_read_per_call", "resume_read_per_call",
+                    "steady")}
+                row["decode_steps"] = b["steps"] - a["steps"]
+                rows[v].append(row)
+                print(json.dumps({"turn": i, "variant": v, **row}),
+                      flush=True)
+                continue
             row = _turn_row(doc, a, b)
             rows[v].append(row)
             print(json.dumps({"turn": i, "variant": v, **row}), flush=True)
@@ -277,7 +399,9 @@ def main(argv=None) -> int:
                 (out_dir / f"turn{i:02d}_{v}.json").write_text(json.dumps(
                     {"calls": doc["calls"], "stamps": b["stamps"]}))
         medians = {v: {m: _median([r[m] for r in rs if r[m] is not None])
-                       for m in rs[0]} for v, rs in rows.items()}
+                       for m in rs[0]
+                       if isinstance(rs[0][m], (int, float))}
+                   for v, rs in rows.items() if rs}
         print(json.dumps({"rounds": args.rounds, "order": order,
                           "medians": medians}), flush=True)
     finally:
@@ -293,6 +417,9 @@ def main(argv=None) -> int:
 if __name__ == "__main__":
     if len(sys.argv) > 1 and sys.argv[1] == "--serve":
         sys.exit(_serve(sys.argv[2], sys.argv[3]))
+    if len(sys.argv) > 1 and sys.argv[1] == "--held-client":
+        sys.exit(_held_client(sys.argv[2], int(sys.argv[3]),
+                              int(sys.argv[4])))
     if len(sys.argv) > 1 and sys.argv[1] == "--client":
         sys.exit(_client(sys.argv[2], int(sys.argv[3]), sys.argv[4],
                          int(sys.argv[5])))

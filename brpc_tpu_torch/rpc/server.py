@@ -378,9 +378,7 @@ class Server:
         expose_syscall_vars()
         expose_ring_vars()
         expose_conn_census_vars()
-        server_dispatch.nshed.expose("server_deadline_shed")
-        server_dispatch.nlimit_shed.expose("server_limit_shed")
-        server_dispatch.npriority_shed.expose("server_priority_shed")
+        server_dispatch.expose_shed_vars()
         from .backend_stats import expose_backend_vars
         from .channel import expose_channel_vars
         from .cluster_channel import nnaming_empty

@@ -130,6 +130,16 @@ nshed = Adder()
 nlimit_shed = Adder()
 # requests shed with EPRIORITYSHED by the admission threshold
 npriority_shed = Adder()
+
+
+def expose_shed_vars() -> None:
+    """The three shed counters in /vars and the trend rings: from
+    ``Server.start`` (with builtin services), and from an incident
+    replay's server, whose watchdog watches them."""
+    nshed.expose("server_deadline_shed")
+    nlimit_shed.expose("server_limit_shed")
+    npriority_shed.expose("server_priority_shed")
+
 # turbo-lane requests served by the slim body, and those sent back to the
 # classic body; echo calls the C loops served, by loop
 nturbo_requests = Adder().expose("turbo_requests")

@@ -265,13 +265,21 @@ class Stream:
         """Attach the established stream to the Socket ``conn`` and watch
         its end: a peer dying mid-stream closes the stream. Called once
         the stream is established on ``conn``; a previous subscription is
-        dropped."""
+        dropped. The socket counts its bound streams
+        (``user_data["bound_streams"]``, brpc_tpu/rpc/stream.py:37-42,
+        :240-252), so that no sticky pause deafens it to their frames."""
         self.conn = conn
         prev, self._subscribed = self._subscribed, conn
         if prev is conn:
             return
         if prev is not None:
             prev.off_failed(self._on_conn_failed)
+            _release_stream_slot(prev)
+        conn.user_data["bound_streams"] = \
+            conn.user_data.get("bound_streams", 0) + 1
+        unstick = getattr(conn, "unstick_reads", None)
+        if unstick is not None:
+            unstick()
         conn.on_failed(self._on_conn_failed)
 
     def _on_conn_failed(self, conn) -> None:
@@ -307,12 +315,20 @@ class Stream:
         sub, self._subscribed = self._subscribed, None
         if sub is not None:
             sub.off_failed(self._on_conn_failed)
+            _release_stream_slot(sub)
         _registry.remove(self.id)
         self._wake_writers()
 
     def on_close(self, cb: Callable[["Stream"], None]) -> None:
         """``cb(stream)`` when the peer closes or the connection ends."""
         self._close_cbs.append(cb)
+
+
+def _release_stream_slot(sock) -> None:
+    """Undo one bound stream's count on ``sock`` (closed or rebound)."""
+    n = sock.user_data.get("bound_streams", 0)
+    if n > 0:
+        sock.user_data["bound_streams"] = n - 1
 
 
 def address_stream(stream_id: int) -> Optional[Stream]:

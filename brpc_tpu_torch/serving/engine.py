@@ -44,6 +44,7 @@ class ServingEngine(WorkerModule):
         # (worker_module.active_label reads this while process runs)
         self.attribution_label = label
         self._decode_lock = threading.Lock()
+        self._decoding = 0              # the thread in a slice, else 0
         self.steps = 0
         self.warmup_steps = 0
         self.contended = 0
@@ -60,6 +61,7 @@ class ServingEngine(WorkerModule):
         if not self._decode_lock.acquire(False):
             self.contended += 1
             return False
+        self._decoding = threading.get_ident()
         # names the decode slice for a sampler when no module label is
         # live (brpc_tpu/serving/engine.py:64-77)
         stats_on = _sstats.enabled()
@@ -68,6 +70,7 @@ class ServingEngine(WorkerModule):
         try:
             did = self.batcher.step(group_index)
         finally:
+            self._decoding = 0
             self._decode_lock.release()
             if stats_on:
                 _sstats.unstamp_serving_thread()
@@ -75,6 +78,20 @@ class ServingEngine(WorkerModule):
             self.steps += 1
             self.threads_seen[threading.get_ident()] += 1
         return did
+
+    def quiesce(self) -> bool:
+        """Wait out the decode slice in flight (``Server.stop``, after
+        the engine is unregistered and the batcher stopped). A fiber
+        worker is a daemon thread: one still in torch, or freeing a
+        step's tensors, when the interpreter exits aborts the process
+        ("terminate called without an active exception"). False after
+        30 s (a wedged step), or when called from the slice itself."""
+        if self._decoding == threading.get_ident():
+            return False
+        if not self._decode_lock.acquire(timeout=30.0):
+            return False
+        self._decode_lock.release()
+        return True
 
     # ------------------------------------------------------ observability
     def snapshot(self) -> dict:

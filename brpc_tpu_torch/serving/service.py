@@ -36,7 +36,8 @@ budget. Prompt bytes are the tokens (byte-level vocab).
 engine lifecycle: ``Server.start`` builds a fresh model, batcher and
 engine on the chosen device, warms the engine and registers it as a
 WorkerModule, so the server's fiber workers run its decode steps;
-``Server.stop`` unregisters it and retires what is in flight.
+``Server.stop`` unregisters it, retires what is in flight and waits
+out the decode slice in flight (``ServingEngine.quiesce``).
 
 Observability: every submitted request opens a flight-deck tracker
 (``serving_stats.open_generation``; a ``side="serving"`` child span of
@@ -251,6 +252,8 @@ class GenerateService:
             unregister_module(self.engine)
         if self.batcher is not None:
             self.batcher.stop()
+        if self.engine is not None:
+            self.engine.quiesce()
 
     # ------------------------------------------------------------- service
     def build_service(self) -> Service:

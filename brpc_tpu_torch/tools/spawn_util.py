@@ -15,6 +15,13 @@ import time
 from typing import Optional
 
 
+def package_root() -> str:
+    """The directory that holds ``brpc_tpu_torch``: the working directory
+    of a tool's ``python3 -m brpc_tpu_torch.tools.<tool>`` workers."""
+    return os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+
+
 def spawn_announcing_server(argv, wall_s: float, keys=("PORT",),
                             env: Optional[dict] = None,
                             stderr=subprocess.DEVNULL,

@@ -23,9 +23,10 @@ one file (``capture_rotate_mb``), the disk budget the whole directory
 incident manager (``incident/manager.py``) borrows the recorder for an
 incident's window and gives back the session it found.
 
-The reference's legacy ``rpc_dump_dir`` flags, which start the recorder
-there, come with ``rpc/rpc_dump.py`` (ROADMAP section 1); until then the
-snapshot's ``legacy`` is always false.
+The legacy aliases of ``rpc/rpc_dump.py``: a non-empty ``rpc_dump_dir``
+starts the recorder, checked only while it is off, with
+``rpc_dump_max_requests_per_second`` as its budget (the snapshot's
+``legacy``), and clearing the flag stops that session.
 """
 
 from __future__ import annotations
@@ -166,9 +167,10 @@ class Recorder:
         # every record's wall stamp from it instead of the hot path
         # paying a time.time_ns() per sample
         self._clock_anchor = (time.time_ns(), time.monotonic_ns())
+        self._legacy = False        # started by the rpc_dump_dir alias
         # incident-window state (incident/manager.py): while True the
         # recorder runs a corpus-recording session the anomaly watchdog
-        # opened, and _pre_incident holds (cfg, active) from
+        # opened, and _pre_incident holds (cfg, active, legacy) from
         # before the window so end_incident_capture restores the
         # operator's session — not flag defaults
         self._incident_mode = False
@@ -187,7 +189,8 @@ class Recorder:
         self.deleted_files = 0
 
     # ----------------------------------------------------------- control
-    def start(self, cfg: CaptureConfig, _incident: bool = False) -> None:
+    def start(self, cfg: CaptureConfig, legacy: bool = False,
+              _incident: bool = False) -> None:
         """Begin a capture SESSION: counters restart at zero (the
         /capture page reports this session, the corpus files report
         history), the clock anchor re-pins, sampling state resets."""
@@ -214,6 +217,7 @@ class Recorder:
                 self._incident_mode = False
                 self._pre_incident = None
             self._cfg = cfg
+            self._legacy = legacy
             if cfg.seed is not None:
                 self._rng.seed(cfg.seed)
             self._clock_anchor = (time.time_ns(), time.monotonic_ns())
@@ -266,7 +270,7 @@ class Recorder:
         with self._lock:
             if self._incident_mode:
                 return False
-            self._pre_incident = (self._cfg, self._active)
+            self._pre_incident = (self._cfg, self._active, self._legacy)
             self._incident_mode = True
         try:
             self.start(cfg, _incident=True)
@@ -289,10 +293,10 @@ class Recorder:
             prior, self._pre_incident = self._pre_incident, None
             self._incident_mode = False
         self.stop(flush_s=flush_s)
-        prior_cfg, was_active = prior or (None, False)
+        prior_cfg, was_active, was_legacy = prior or (None, False, False)
         if was_active and prior_cfg is not None:
             try:
-                self.start(prior_cfg)
+                self.start(prior_cfg, legacy=was_legacy)
             except OSError:
                 pass
         else:
@@ -301,17 +305,36 @@ class Recorder:
                 # config surfaces (corpus_paths, /capture page) back at
                 # the pre-window session instead of the deleted spool
                 self._cfg = prior_cfg
+                self._legacy = was_legacy
         return True
 
     def incident_capturing(self) -> bool:
         return self._incident_mode
 
     def capture_enabled(self) -> bool:
-        """The dispatch path's gate: one attribute read."""
-        return self._active
+        """The dispatch path's gate: one attribute read while capturing;
+        while off, the legacy ``rpc_dump_dir`` flag starts it."""
+        if self._active:
+            return True
+        d = _legacy_dir()
+        if d:
+            self._start_legacy(d)
+            return self._active
+        return False
 
     def capturing(self) -> bool:
         return self._active
+
+    def _start_legacy(self, d: str) -> None:
+        cfg = CaptureConfig.from_flags(dir=d)
+        budget = _legacy_budget()
+        if budget and not cfg.max_per_second:
+            cfg.max_per_second = budget
+        try:
+            self.start(cfg, legacy=True)
+        except OSError:
+            with self._lock:
+                self._active = False    # a bad legacy dir: stay off
 
     # ---------------------------------------------------------- sampling
     def sample_request(self, method_key: str, service: str, method: str,
@@ -320,6 +343,10 @@ class Recorder:
                    priority: int = 0) -> Optional[tuple]:
         cfg = self._cfg
         if cfg is None or not self._active:
+            return None
+        if self._legacy and not _legacy_dir() and not flag("capture_dir"):
+            # the legacy flag was cleared at run time: its off switch
+            self.stop(flush_s=0.0)
             return None
         rate = cfg.method_rates.get(method_key, cfg.default_rate)
         if rate <= 0.0:
@@ -530,7 +557,7 @@ class Recorder:
             pending = len(self._q)
         cfg = self._cfg
         out = {
-            "active": self._active, "legacy": False,
+            "active": self._active, "legacy": self._legacy,
             "incident_mode": self._incident_mode,
             "config": cfg.to_dict() if cfg is not None else None,
             "pending": pending,
@@ -552,6 +579,20 @@ def _fsize(p: str) -> int:
     try:
         return os.stat(p).st_size
     except OSError:
+        return 0
+
+
+def _legacy_dir() -> str:
+    try:
+        return flag("rpc_dump_dir")
+    except KeyError:
+        return ""       # rpc/rpc_dump.py not imported (a bare tool)
+
+
+def _legacy_budget() -> int:
+    try:
+        return int(flag("rpc_dump_max_requests_per_second"))
+    except KeyError:
         return 0
 
 
@@ -595,9 +636,11 @@ def _postfork_reset() -> None:
     if r._incident_mode:
         # the incident window belongs to the PARENT (its watchdog, its
         # spool): the child resumes the pre-window session state
-        cfg, was_active = r._pre_incident or (None, False)
+        cfg, was_active, was_legacy = r._pre_incident or (None, False,
+                                                          False)
         r._cfg = cfg
         r._active = bool(was_active and cfg is not None)
+        r._legacy = was_legacy
     r._incident_mode = False
     r._pre_incident = None
     r._lock = threading.Lock()

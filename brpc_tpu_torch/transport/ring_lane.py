@@ -30,10 +30,10 @@ machinery as the selector lane's events (``Socket.ring_input``).
 
 A sync plucker fences the ring (``read_barrier``): it pauses the fd's
 reads and waits until the tick in flight has ended, so the native pass
-cannot consume the response it is about to read itself. The port has
-no sticky pause (reads left off between sync calls), so every claim on
-a ring-attached socket pays the barrier; ``ring_barrier_waits`` and
-``ring_barrier_wait_us`` count it. On the uring backend a recv in the
+cannot consume the response it is about to read itself. A claim that
+finds reads already off (the socket's sticky pause, left by the last
+sync call) pays no barrier; every other claim on a ring-attached socket
+does, and ``ring_barrier_waits`` and ``ring_barrier_wait_us`` count it. On the uring backend a recv in the
 kernel cannot be fenced, so sync joins take the event path there.
 
 Mem and cuda conns post their readiness (``post``); the ring runs posted

@@ -64,9 +64,23 @@ its classic Python path; bRPC's socket.h, SURVEY.md §2.4).
   fastcore's ``pluck_scan`` runs poll, recv and the frame scan in one C
   call a slice; a frame only the classic path can judge is put back
   into the portal and processed there (``_pluck_process``), and a pass
-  whose handler suspends escalates to the normal machinery. Every
-  release re-arms read interest: brpc_tpu's sticky pause (reads left off
-  between sync calls) is not ported (ROADMAP section 1).
+  whose handler suspends escalates to the normal machinery.
+- **Sticky pause** (brpc_tpu/transport/socket.py:435-443, :964-1005,
+  :1343-1410): a release that leaves nothing in flight (no attempt
+  registered, no bound stream) leaves reads off (``_pluck_sticky``), so
+  the next sync call's claim pays no ``epoll_ctl`` pair and, on the
+  ring, no fence. The decision is made under the event lock and checks
+  the socket's attempts again after it is set, while a registration
+  adds its attempt before its write checks the mark (``write``
+  unsticks): one of the two sides always sees the other. Every consumer
+  that is not a pluck unsticks first (``unstick_reads``): a write, and
+  a stream binding. With reads off nothing watches the fd, so a
+  channel probes a socket that has been sticky for 5 ms or more before
+  it reuses it (``probe_unobserved``, one ``MSG_PEEK``). Only a socket
+  whose owner probes may stick (``sticky_ok``: a plain Channel's
+  ``single`` and ``pooled`` sockets); a ClusterChannel's or a health
+  check's never does, since they wait for a stopped replica's FIN with
+  no call in flight.
 
 - **Ring lane** (``transport/ring_lane.py``, brpc_tpu/transport/
   socket.py:455-466, :634, :872-930, :1139-1160, :1343-1380,
@@ -82,8 +96,9 @@ its classic Python path; bRPC's socket.h, SURVEY.md §2.4).
   fails the socket. A sync claim (``pluck_preclaim``) on a ring-attached
   socket pauses its reads and then waits out the tick in flight
   (``ring_read_barrier``), and moves the chunks the ring took before the
-  fence into the portal; every claim pays it, since the port has no
-  sticky pause. On the uring backend sync joins take the event path.
+  fence into the portal; a claim that finds reads already off (the
+  sticky pause) pays none. On the uring backend sync joins take the
+  event path.
 
 Census: ``socket_census_rows`` is the one walk of every live socket of
 the process (client channels' too): each row's resident bytes (unparsed
@@ -291,6 +306,12 @@ class Socket:
         self._busy_paused = False       # read interest paused (busy pass)
         # a sync joiner owns input processing (the pluck lane)
         self._plucking = False
+        # the sticky pause: reads left off by a settled pluck, and since
+        # when (the probe's gate); only a socket whose owner probes
+        # before reuse may stick
+        self._pluck_sticky = False
+        self._sticky_since = 0.0
+        self.sticky_ok = False
         # the native fd loops' refcounted dup of the conn's fd
         self._pin_lock = threading.Lock()
         self._pin_fd = -1
@@ -408,6 +429,10 @@ class Socket:
         if self.failed:
             _fire(on_done, self.fail_reason)
             return False
+        if self._pluck_sticky and not self._plucking:
+            # a writer that is not a pluck: its answer, or the peer's
+            # data, needs read events again
+            self.unstick_reads()
         sz = data.size if isinstance(data, IOBuf) else len(data)
         nwrites.add(1)
         self.last_active_ns = time.monotonic_ns()
@@ -831,6 +856,7 @@ class Socket:
                 # read interest never disagree. A plucker keeps the pause
                 # (its release restores read interest)
                 self._busy_paused = False
+                self._pluck_sticky = False
                 if not self.failed:
                     self.conn.resume_read_events()
         return False
@@ -897,6 +923,9 @@ class Socket:
             if self._nevent > 0 or self._plucking:
                 return False
             self._plucking = True
+            # a sticky pause is consumed here: reads are off already, so
+            # the claim pays no epoll_ctl and no fence
+            self._pluck_sticky = False
             reads_were_live = not self._busy_paused
             if self._level_triggered and not self._busy_paused:
                 self._busy_paused = True
@@ -916,22 +945,66 @@ class Socket:
         return True
 
     def pluck_release(self) -> None:
-        """Settle a claim: read interest comes back, and events owed
-        meanwhile get one normal pass."""
+        """Settle a claim: events owed meanwhile get one normal pass, and
+        read interest comes back, unless nothing is in flight on a socket
+        that may stick (the sticky pause)."""
+        stuck = False
         with self._nevent_lock:
             if not self._plucking:
                 return
             self._plucking = False
             leftover = self._nevent > 0
             if self._busy_paused and not leftover:
-                self._busy_paused = False
-                if not self.failed:
-                    try:
-                        self.conn.resume_read_events()
-                    except Exception:   # closed under us
-                        pass
+                if self.sticky_ok and not self.failed and \
+                        not self.client_cids and \
+                        not self.user_data.get("bound_streams"):
+                    self._pluck_sticky = stuck = True
+                    self._sticky_since = time.monotonic()
+                else:
+                    self._resume_reads_locked()
+        if stuck and (self.client_cids or
+                      self.user_data.get("bound_streams")):
+            # an attempt registered between the check and the mark: its
+            # write may have missed the mark, so unstick for it
+            self.unstick_reads()
         if leftover and not self.failed:
             self._process_input_entry()
+
+    def _resume_reads_locked(self) -> None:
+        """Read interest back on (under the event lock)."""
+        self._busy_paused = False
+        if not self.failed:
+            try:
+                self.conn.resume_read_events()
+            except Exception:           # closed under us
+                pass
+
+    def unstick_reads(self) -> None:
+        """Read interest back on after a sticky pause; idempotent, and a
+        pause that a live plucker owns stays."""
+        with self._nevent_lock:
+            if not self._pluck_sticky:
+                return
+            self._pluck_sticky = False
+            if self._busy_paused and not self._plucking:
+                self._resume_reads_locked()
+
+    def probe_unobserved(self) -> bool:
+        """True when this socket is (now) failed. A sticky pause leaves
+        nothing watching the fd, so a peer's FIN would go unseen: an
+        owner about to reuse the socket probes it here, with one
+        ``MSG_PEEK``, when it has been sticky for 5 ms or more (a close
+        within back-to-back sync calls shows in the pluck's own read)."""
+        if self.failed:
+            return True
+        if not self._pluck_sticky or \
+                time.monotonic() - self._sticky_since < 0.005:
+            return False
+        peek = getattr(self.conn, "peek_closed", None)
+        if peek is not None and peek():
+            self.set_failed(ConnectionResetError("peer closed"))
+            return True
+        return False
 
     def _pluck_process(self) -> bool:
         """One drain and parse pass on the plucking thread. True when it
@@ -1000,15 +1073,20 @@ class Socket:
         poller = None
         escalated = False
         carry = b""
+        # bytes already in the portal (a claim takes over what the fenced
+        # tick read) may hold the whole response, and then the fd stays
+        # quiet: judge them before waiting on it
+        judge = bool(self.input_portal)
         try:
             while not pred() and not self.failed:
                 remaining = deadline_s - time.monotonic()
                 if remaining <= 0:
                     break
-                if self._ring_chunks and not carry:
+                if judge or (self._ring_chunks and not carry):
                     # a ring delivery slipped past the fence: those bytes
                     # come before anything in the kernel, so the classic
                     # pass judges them and the scan stands down
+                    judge = False
                     scan = None
                     escalated = self._pluck_process()
                     if escalated:

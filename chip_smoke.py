@@ -4501,7 +4501,7 @@ def _incident_storm(prompts, oracle, window_oracle, gss: list) -> dict:
             if shed_at else None,
             "close_to_artifact_s": art_at - closed_at,
             "open_to_artifact_s": art_at - opened_at,
-            "artifact_bytes": len(on_disk),
+            "artifact_bytes": len(on_disk), "artifact_path": path,
             "snapshots": sorted(art["snapshots"]),
             "captured": len(captured), "in_window": len(in_window),
             "spans_marked": len(spans), "profile_labels": marked,
@@ -6190,7 +6190,8 @@ def _poll_pages(port: int, stop: threading.Event, seen: dict) -> None:
 
 def _ring_generate(sess, port: int, oracle: dict) -> dict:
     """(b) and (g): the unary burst from a client process on the ring
-    with the batch backend (its sync calls plucked behind the fence),
+    with the batch backend (its sync calls plucked, a connection's first
+    behind the fence),
     the stream burst from a client process on the ring (auto backend)
     while the pages are read, the HTTP burst from this process; tokens,
     frames and footers equal the CPU plain path's, and the server's
@@ -6205,7 +6206,10 @@ def _ring_generate(sess, port: int, oracle: dict) -> dict:
     check(doc["native"]["pluck_fast"] == N_REQUESTS,
           f"ring b: {doc['native']['pluck_fast']} of {N_REQUESTS} sync "
           f"calls plucked behind the fence")
-    check(doc["ring"]["ring_read_barriers"] >= N_REQUESTS,
+    # a claim fences only when it finds reads live: a thread's first call
+    # on its connection does; after a plucked call the socket sticks
+    # (reads left off), and the next claim takes no fence
+    check(N_CLIENTS <= doc["ring"]["ring_read_barriers"] < N_REQUESTS,
           f"ring b: the fence ran {doc['ring']['ring_read_barriers']} "
           f"times")
     out["unary"] = dict(_burst_line(doc["results"], doc["wall_s"],
@@ -6614,6 +6618,436 @@ def phase_ring(dev):
     return out
 
 
+# ---------------------------------------------------------- phase replay
+
+REPLAY_LOW_SHARE = 0.25         # (b): the low turn's share of phase 3's rps
+REPLAY_LOW_S = 5.0              # (b): the low turn's length
+REPLAY_HIGH_S = 3.0             # (b): the high turn (2x the rate)'s length
+REPLAY_CHECKED = 16             # (b): records re-issued and checked
+REPLAY_SEED = 20260803
+PRESS_QPS = 400                 # (c): rpc_press's fixed rate, two workers
+PRESS_CALLS = 400
+PRESS_SIZES = "64:0.5,4096:0.3,30000:0.2"
+CHAOS_DELAY_MS = 50             # (d): the delay on the burst's conn 1
+CHAOS_DROP_AT = 40              # (d): the byte conn 3 is dropped at
+CHAOS_DEADLINE_MS = 30000       # (d): the burst's deadline
+STICKY_DEVICE = "cuda:0"        # (f): lane_ab's server's device
+
+
+def _tiled(records, n: int):
+    """``records`` repeated to ``n`` (a corpus of phase 3's 16 calls,
+    replayed for seconds)."""
+    return [records[i % len(records)] for i in range(n)]
+
+
+def _write_corpus(path: str, records) -> None:
+    from brpc_tpu_torch.traffic.corpus import CorpusWriter
+    w = CorpusWriter(path)
+    for r in records:
+        w.write(r)
+    w.close()
+
+
+def _tool(argv, timeout_s: float = 120) -> dict:
+    """``python3 -m brpc_tpu_torch.tools.<tool> ... --json`` from the
+    directory holding the package; its last line."""
+    out = subprocess.run([sys.executable, "-m", *argv], capture_output=True,
+                         text=True, timeout=timeout_s,
+                         cwd=str(Path(__file__).resolve().parent))
+    check(out.returncode == 0, f"{argv[0]} exited {out.returncode}: "
+                               f"{(out.stdout + out.stderr)[-2000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def _replay_capture(port: int, oracle: dict, work: str) -> dict:
+    """(a) Phase 3's unary burst captured at rate 1.0, and the corpus
+    viewed with ``rpc_view``: a record a call, all
+    ``GenerateService.Generate``; the burst's requests a second. A burst
+    before it, uncaptured, pays the server's and this process's first
+    uses (alone, the phase builds the native core in it), so that the
+    rate is a warm burst's, as phase 3's second burst."""
+    from brpc_tpu_torch.traffic import capture
+    from brpc_tpu_torch.traffic.corpus import read_corpus
+    cold = _burst(port, _prompts(), MAX_TOKENS)
+    _check_burst("replay a (cold)", cold[0], cold[1], oracle)
+    cdir = os.path.join(work, "capture")
+    capture.start_capture(dir=cdir, default_rate=1.0, max_per_second=0)
+    try:
+        results, errors, wall = _burst(port, _prompts(), MAX_TOKENS)[:3]
+    finally:
+        capture.stop_capture()
+    _check_burst("replay a", results, errors, oracle)
+    records = read_corpus(cdir)
+    view = _tool(["brpc_tpu_torch.tools.rpc_view", cdir, "--json"])
+    check(len(records) == N_REQUESTS and view["records"] == N_REQUESTS and
+          view["methods"] == {"GenerateService.Generate": N_REQUESTS},
+          f"replay a: {len(records)} records, rpc_view {view}")
+    prompts = sorted(json.loads(r.payload)["prompt"] for r in records)
+    check(prompts == sorted(_prompts()), "replay a: the corpus's prompts")
+    return {"records": records, "rps": N_REQUESTS / wall, "wall_s": wall,
+            "cold_wall_s": cold[2], "view": view}
+
+
+def _replay_turns(port: int, records, rps: float, oracle: dict,
+                  work: str) -> dict:
+    """(b) ``rpc_replay`` replays the corpus, open-loop at a constant
+    qps, in two turns: low (REPLAY_LOW_SHARE of phase 3's rps, for
+    REPLAY_LOW_S), then high (twice that, REPLAY_HIGH_S); then
+    REPLAY_CHECKED records, chosen with a seed, re-issued through a sync
+    Channel, their tokens held against the CPU plain path's."""
+    import random
+
+    from brpc_tpu_torch.rpc import Channel, ChannelOptions
+    out = {"phase3_rps": rps}
+    addr = f"tcp://127.0.0.1:{port}"
+    for name, qps, secs in (("low", REPLAY_LOW_SHARE * rps, REPLAY_LOW_S),
+                            ("high", 2 * REPLAY_LOW_SHARE * rps,
+                             REPLAY_HIGH_S)):
+        n = max(N_REQUESTS, int(round(qps * secs)))
+        path = os.path.join(work, f"replay-{name}.brpccap")
+        _write_corpus(path, _tiled(records, n))
+        rep = _tool(["brpc_tpu_torch.tools.rpc_replay", path, addr,
+                     "--mode", "qps", "--qps", repr(qps), "--conns", "4",
+                     "--json"], timeout_s=secs + 120)
+        check(rep["records"] == rep["issued"] == n and
+              rep["ok"] + rep["fail"] == n and not rep["undrained"],
+              f"replay b {name}: {n} records, report {rep}")
+        if name == "low":
+            check(rep["ok"] == n, f"replay b low: {rep['fail']} failed: "
+                                  f"{rep['classes']}")
+        cls = rep["classes"]["GenerateService.Generate|p0"]
+        out[name] = {"qps": qps, "records": n, "issued": rep["issued"],
+                     "ok": rep["ok"], "fail": rep["fail"],
+                     "error_codes": cls["error_codes"],
+                     "p50_ms": cls["p50_ms"], "p99_ms": cls["p99_ms"],
+                     "behind_ms_max": rep["behind_ms_max"],
+                     "fidelity_pct": rep["fidelity_pct"],
+                     "elapsed_s": rep["elapsed_s"]}
+    lo, hi = out["low"], out["high"]
+    # reported, not checked: the high turn runs at half the closed-loop
+    # rate, below where the server must shed or queue
+    out["latency_or_sheds_rose"] = bool(
+        hi["fail"] > lo["fail"] or (hi["p50_ms"] or 0) > (lo["p50_ms"] or 0))
+    rng = random.Random(REPLAY_SEED)
+    picked = rng.sample(range(len(records)), REPLAY_CHECKED)
+    ch = Channel(addr, ChannelOptions(timeout_ms=120000,
+                                      share_connections=False))
+    try:
+        for i in picked:
+            p = json.loads(records[i].payload)["prompt"]
+            c = ch.call_sync("GenerateService", "Generate",
+                             records[i].payload)
+            check(not c.failed() and
+                  json.loads(c.response)["tokens"] == oracle[p],
+                  f"replay b: record {i} ({p!r}): {c.error_text}")
+    finally:
+        ch.close()
+    out["checked"] = len(picked)
+    return out
+
+
+def _press_echo(work: str) -> dict:
+    """(c) ``rpc_press`` at PRESS_QPS with a size mix, two worker
+    processes, at the port's echo method (``native="echo"``, served by
+    the C echo loop): the merged counts equal the calls, and the server
+    handled what the workers counted as answered."""
+    from brpc_tpu_torch.rpc import Server, Service
+    svc = Service("Bench")
+    svc.register_method("Echo", lambda cntl, req: req, native="echo")
+    server = Server()
+    server.add_service(svc)
+    port = server.start("tcp://127.0.0.1:0").port
+    try:
+        rep = _tool(["brpc_tpu_torch.tools.rpc_press",
+                     f"tcp://127.0.0.1:{port}", "Bench", "Echo",
+                     "--qps", str(PRESS_QPS), "--count", str(PRESS_CALLS),
+                     "--size-mix", PRESS_SIZES, "--procs", "2", "--json"])
+        served = server.method_status["Bench.Echo"].count()
+    finally:
+        server.stop()
+        server.join(10)
+    check(rep["workers"] == 2 and rep["dead_workers"] == 0 and
+          rep["records"] == rep["issued"] == PRESS_CALLS and
+          rep["ok"] + rep["fail"] == PRESS_CALLS and rep["ok"] == served,
+          f"replay c: press {rep}, the server served {served}")
+    return {k: rep[k] for k in ("workers", "records", "issued", "ok", "fail",
+                                "behind_ms_max", "fidelity_pct",
+                                "elapsed_s", "per_method")} | {
+        "served": served, "classes": {
+            k: {m: v[m] for m in ("ok", "fail", "p50_ms", "p99_ms")}
+            for k, v in rep["classes"].items()}}
+
+
+def _live_client_sockets() -> int:
+    from brpc_tpu_torch.transport.socket import socket_census_rows
+    return sum(1 for s, _, _ in socket_census_rows(0)
+               if s.user_data.get("channel") is not None)
+
+
+def _chaos_burst(port: int, oracle: dict) -> dict:
+    """(d) A FaultPlan with a ``delay`` (conn 1) and a ``drop`` (conn 3)
+    on tcp installed while phase 3's burst runs through plain Channels:
+    the ``chaos_injected_*`` counters on /connections move as the plan
+    says, every call ends (OK or an error code) inside its deadline, and
+    after ``uninstall`` no socket, fiber, attempt or lease is left."""
+    from brpc_tpu_torch import chaos
+    from brpc_tpu_torch.chaos import Fault, FaultPlan
+    from brpc_tpu_torch.fiber import global_control
+    from brpc_tpu_torch.rpc import client_dispatch
+    from brpc_tpu_torch.transport.socket_map import global_socket_map
+    addr = f"tcp://127.0.0.1:{port}"
+
+    def pane():
+        status, body = _http_page(port, "/connections")
+        check(status == 200, f"replay d: /connections {status}")
+        return json.loads(body)["robustness"]
+    before = pane()
+    leases = global_socket_map().leases()
+    socks = _live_client_sockets()
+    fibers = global_control().nfibers.get_value()
+    plan = (FaultPlan(seed=REPLAY_SEED)
+            .at(addr, 1, Fault("delay", at_byte=5,
+                               delay_ms=CHAOS_DELAY_MS))
+            .at(addr, 3, Fault("drop", at_byte=CHAOS_DROP_AT)))
+    chaos.install(plan)
+    try:
+        t0 = time.monotonic()
+        results, errors, wall, lat = _burst(
+            port, _prompts(), MAX_TOKENS, timeout_ms=CHAOS_DEADLINE_MS)[:4]
+    finally:
+        chaos.uninstall()
+    check(chaos.installed_plan() is None, "replay d: the plan stayed")
+    check(len(results) + len(errors) == N_REQUESTS and
+          time.monotonic() - t0 < CHAOS_DEADLINE_MS / 1e3 + 5,
+          f"replay d: {len(results)} answered, {len(errors)} failed, in "
+          f"{time.monotonic() - t0:.1f} s")
+    wrong = [p for p in results if results[p] != oracle[p]]
+    check(not wrong, f"replay d: tokens differ for {wrong}")
+    after = pane()
+    moved = {k: after[k] - before.get(k, 0) for k in after
+             if k.startswith("chaos_injected_")
+             and after[k] != before.get(k, 0)}
+    check(moved == {"chaos_injected_delay": 1, "chaos_injected_drop": 1},
+          f"replay d: chaos counters moved {moved}, fired {plan.fired()}")
+    check(_wait_for_value(lambda: (global_socket_map().leases(),
+                                   _live_client_sockets(),
+                                   client_dispatch.inflight_attempts()),
+                          (leases, socks, 0), 10.0),
+          f"replay d: left over: leases {global_socket_map().leases()} "
+          f"(was {leases}), client sockets {_live_client_sockets()} (was "
+          f"{socks}), attempts {client_dispatch.inflight_attempts()}")
+    check(_wait_for_value(lambda: global_control().nfibers.get_value()
+                          <= fibers, True, 10.0),
+          f"replay d: fibers {global_control().nfibers.get_value()}, were "
+          f"{fibers}")
+    return {"answered": len(results), "failed": len(errors),
+            "error_codes": sorted({e[1] for e in errors}),
+            "wall_s": wall, "p50_ms": _median(lat), "p99_ms": _p99(lat),
+            "fired": [list(f) for f in plan.fired()], "counters": moved}
+
+
+def _storm_artifact(prompts, oracle, window_oracle, gss,
+                    work: str) -> str:
+    """An incident artifact from phase ``incident``'s shed storm (its
+    part (c)), for ``--phase replay`` alone, written under ``work``;
+    the artifact's path."""
+    import brpc_tpu_torch.incident.manager  # noqa: F401  (its flags)
+    tmp = os.path.join(work, "incident")
+    os.makedirs(tmp)
+    old = _flags_set(dict(INCIDENT_FLAGS, incident_dir=tmp))
+    try:
+        return _incident_storm(prompts, oracle, window_oracle, gss)[
+            "artifact_path"]
+    finally:
+        _flags_set(old)
+
+
+def _incident_replays(path: str, gss) -> dict:
+    """(e) The artifact replayed by ``incident/replay.py`` against fresh
+    Generate servers on the card, shaped as the incident's (its
+    concurrency limit): under its pressure the watchdog fires again on
+    the same key; without it, at 0.5x the load, it stays quiet. A shed
+    storm's pressure is an open-loop press; no byte fault can make a
+    server shed (``build_fault_plan`` gives none)."""
+    from brpc_tpu_torch.incident.artifact import read_artifact
+    from brpc_tpu_torch.incident.replay import (build_fault_plan,
+                                                derive_repro,
+                                                replay_incident)
+    from brpc_tpu_torch.rpc import Server, ServerOptions
+    from brpc_tpu_torch.serving import add_generate_service
+    art = read_artifact(path)
+    sat = (art["snapshots"].get("status") or {}).get("saturation") or {}
+    limit = int(sat.get("concurrency_limit") or 2)
+    shape = derive_repro(art["meta"])
+    check(shape["press"] and build_fault_plan(
+        shape, "tcp://127.0.0.1:1") is None,
+          f"replay e: a shed storm's shape {shape}")
+    servers = []
+
+    def factory():
+        server = Server(ServerOptions(max_concurrency=limit))
+        gs = add_generate_service(server)
+        check(str(gs.device) == "cuda:0", f"service device {gs.device}")
+        gss.append(gs)
+        servers.append(server)
+        port = server.start("tcp://127.0.0.1:0").port
+        return server, f"tcp://127.0.0.1:{port}"
+    out = {"concurrency_limit": limit, "keys": art["meta"].get("keys"),
+           "corpus_records": len(art["corpus"])}
+    try:
+        for name, use_plan in (("refire", True), ("quiet", False)):
+            rep = replay_incident(path, use_plan=use_plan, seed=11,
+                                  server_factory=factory)
+            servers[-1].stop()
+            servers[-1].join(10)
+            want = use_plan
+            check(rep["ok"] and rep["refired"] == want,
+                  f"replay e {name}: refired {rep.get('refired')}, report "
+                  f"{rep}")
+            if want:
+                check("server_limit_shed" in str(rep.get("matched_key")),
+                      f"replay e: matched {rep.get('matched_key')}")
+            else:
+                check(rep["replay"]["fail"] == 0,
+                      f"replay e quiet: {rep['replay']}")
+            out[name] = {k: rep.get(k) for k in (
+                "refired", "matched_key", "incidents_opened", "work_ms")}
+            out[name]["replay"] = rep["replay"]
+    finally:
+        for server in servers:
+            server.stop()
+            server.join(10)
+    return out
+
+
+def _sticky_turns() -> dict:
+    """(f) ``rpc/lane_ab.py --held``: phase 3's unary client on held
+    connections, its process on the selector and on the ring's batch
+    backend, two rounds: a steady sync call pauses and resumes no reads
+    and fences no tick; first-call and later-call p50."""
+    out = subprocess.run(
+        [sys.executable, "-m", "brpc_tpu_torch.rpc.lane_ab", "--held",
+         "--rounds", "2", "--device", STICKY_DEVICE], capture_output=True,
+        text=True, timeout=400,
+        cwd=str(Path(__file__).resolve().parent))
+    check(out.returncode == 0, f"replay f: lane_ab --held: "
+                               f"{(out.stdout + out.stderr)[-2000:]}")
+    rows = [json.loads(ln) for ln in out.stdout.strip().splitlines()]
+    turns = [r for r in rows if "turn" in r]
+    check(len(turns) == 4, f"replay f: {len(turns)} turns")
+    for t in turns:
+        st = t["steady"]
+        check(st["pause_read"] == st["resume_read"] == 0 and
+              st["ring_barrier_waits"] == st["ring_read_barriers"] == 0 and
+              st["plucked"] == t["later_calls"] > 0,
+              f"replay f: {t['variant']} steady state {st}")
+        if t["variant"] == "held_batch":
+            check(t["lane"] == ["RingDispatcher", "batch"],
+                  f"replay f: the batch client ran on {t['lane']}")
+    return {"turns": turns, "medians": rows[-1]["medians"]}
+
+
+def phase_replay(dev, artifact=None):
+    """Capture, replay and press on the card's Generate path: (a) phase
+    3's unary burst captured and viewed; (b) ``rpc_replay`` open-loop at
+    a constant qps against a fresh Generate server, low then high, and
+    records re-issued and held against the CPU plain path; (c)
+    ``rpc_press`` with two workers; (d) chaos during phase 3's burst;
+    (e) an incident artifact (phase ``incident``'s, else one made here
+    by the same storm) replayed with and without its pressure; (f) the
+    sticky pause in ``lane_ab --held`` turns. Launch counts zeroed
+    before each Generate part and read after it: ``flash_decode``'s
+    equal to the part's decode steps and warm-ups."""
+    import shutil
+    import tempfile
+
+    from brpc_tpu_torch.rpc import Server
+    from brpc_tpu_torch.serving import (TinyDecoder, TinyDecoderConfig,
+                                        add_generate_service)
+    fa = _fa_module()
+    phase_t0 = time.monotonic()
+    prompts = _prompts()
+    cpu_model = TinyDecoder(TinyDecoderConfig(), device="cpu")
+    oracle = {p: cpu_model.generate(list(p.encode()), MAX_TOKENS)
+              for p in prompts}
+    launches, out, gss = {}, {}, []
+
+    def counted(part, fn, *args):
+        progress(f"replay {part}")
+        fa.reset_launches()
+        before = sum(g.batcher.decode_steps + g.engine.warmup_steps
+                     for g in gss)
+        r = fn(*args)
+        _sync(dev)
+        got = dict(fa.launches)
+        steps = sum(g.batcher.decode_steps + g.engine.warmup_steps
+                    for g in gss) - before
+        launches[part] = dict(got, steps=steps)
+        check(got["flash_decode"] == steps > 0 and
+              sum(got.values()) == got["flash_decode"],
+              f"replay {part}: launched {got}, {steps} decode steps and "
+              f"warm-ups")
+        return r
+
+    def start():
+        server = Server()
+        gss.append(add_generate_service(server))
+        check(str(gss[-1].device) == "cuda:0",
+              f"service device {gss[-1].device}")
+        return server, server.start("tcp://127.0.0.1:0").port
+    work = tempfile.mkdtemp(prefix="replay-smoke-")
+    servers = []
+    try:
+        def part_a():
+            server, port = start()
+            servers.append(server)
+            return _replay_capture(port, oracle, work)
+        cap = counted("a_capture", part_a)
+        servers[0].stop()
+        servers[0].join(10)
+        out["a"] = {k: cap[k] for k in ("rps", "wall_s", "cold_wall_s",
+                                        "view")}
+        emit({"phase": "replay", "part": "a", "a": out["a"]})
+
+        def part_b():
+            server, port = start()
+            servers.append(server)
+            return port, _replay_turns(port, cap["records"], cap["rps"],
+                                       oracle, work)
+        port_b, out["b"] = counted("b_replay", part_b)
+        emit({"phase": "replay", "part": "b", "b": out["b"]})
+        progress("replay c")
+        out["c"] = _press_echo(work)
+        emit({"phase": "replay", "part": "c", "c": out["c"]})
+        out["d"] = counted("d_chaos", _chaos_burst, port_b, oracle)
+        emit({"phase": "replay", "part": "d", "d": out["d"]})
+        servers[1].stop()
+        servers[1].join(10)
+        if artifact is None:
+            window_oracle = {
+                p: cpu_model.generate(list(p.encode()), MAX_TOKENS)
+                for p in (f"in-window {j}: {prompts[j]}"
+                          for j in range(INCIDENT_IN_WINDOW))}
+            artifact = counted("e_storm", _storm_artifact, prompts, oracle,
+                               window_oracle, gss, work)
+        out["e"] = counted("e_incident_replay", _incident_replays,
+                           artifact, gss)
+        emit({"phase": "replay", "part": "e", "e": out["e"]})
+        progress("replay f")
+        out["f"] = _sticky_turns()
+        emit({"phase": "replay", "part": "f", "f": out["f"]})
+    finally:
+        for server in servers:
+            server.stop()
+            server.join(10)
+        shutil.rmtree(work, ignore_errors=True)
+    out["phase_s"] = time.monotonic() - phase_t0
+    out["launches"] = launches
+    emit({"phase": "replay", "launches": launches,
+          "phase_s": out["phase_s"]})
+    return out
+
+
 def phase_paths(dev, split_inputs):
     """The port's two other paths, each driven through its public entry
     point with every count zeroed just before and read just after:
@@ -6898,6 +7332,11 @@ def main(only: str = "") -> int:
             # alone, flash_decode builds at the first server's warm-up
             phase_ring(dev)
             return 0
+        if only == "replay":
+            # alone, flash_decode builds at the first server's warm-up,
+            # and part (e) makes its artifact with phase incident's storm
+            phase_replay(dev)
+            return 0
         if only:
             {"streaming": phase_streaming,
              "observability": phase_observability}[only]()
@@ -6926,6 +7365,8 @@ def main(only: str = "") -> int:
         shards = phase_shards(dev)
         progress("phase ring")
         ring = phase_ring(dev)
+        progress("phase replay")
+        replay = phase_replay(dev, incident["c"]["artifact_path"])
         progress("phase paths")
         paths = phase_paths(dev, split_inputs)
         progress("phase times")
@@ -6956,6 +7397,8 @@ def main(only: str = "") -> int:
                             for v in native["launches"].values())
     by_path["shards"] = shards["launches"]["flash_decode"]
     by_path["ring"] = ring["launches"]["flash_decode"]
+    by_path["replay"] = sum(v["flash_decode"]
+                            for v in replay["launches"].values())
     by_path["long_cache_decode"] = paths["long_cache_decode"]["flash_decode"]
     fwd_by_path = {
         "long_context": paths["long_context"]["flash_attn_fwd"],
@@ -6970,7 +7413,8 @@ def main(only: str = "") -> int:
              "storm, costs; native: the turbo, pluck and scan lanes; "
              "shards: two forked Generate shards behind one port; ring: "
              "Generate on the ring lane, connection types, ssl://, shards "
-             "on the ring; the long-cache decode",
+             "on the ring; replay: a captured burst, open-loop replays, "
+             "chaos, incident replays; the long-cache decode",
              sum(by_path.values()), sl["flash_decode"],
              sl["flash_decode"] / steps, errs["serving_decode"],
              times["decode"], launches_by_path=by_path,
@@ -7021,7 +7465,7 @@ if __name__ == "__main__":
         if sys.argv[2:3] not in (["streaming"], ["observability"],
                                  ["device_lane"], ["combo"], ["cluster"],
                                  ["incident"], ["native"], ["shards"],
-                                 ["ring"]):
+                                 ["ring"], ["replay"]):
             sys.exit(f"chip_smoke: unknown phase {sys.argv[2:]}")
         sys.exit(main(only=sys.argv[2]))
     sys.exit(main())

@@ -27,7 +27,7 @@ case may leave a socket registered with the port's dispatcher, a lease
 on a shared connection (``transport/socket_map.py``), nor a naming
 thread, a health-check probe, a PeriodicTask, a ring dispatcher's thread
 or one of the port's sampler, capture-writer and bundler threads
-running.
+running, a chaos plan installed, or a replay's channels open.
 """
 
 import json
@@ -62,6 +62,8 @@ from brpc_tpu_torch.rpc import load_balancer as port_lb
 from brpc_tpu_torch.rpc import naming as port_naming
 from brpc_tpu_torch.rpc import periodic_task as port_periodic
 from brpc_tpu_torch.rpc import retry_policy as port_retry
+from brpc_tpu_torch.chaos import inject as port_chaos
+from brpc_tpu_torch.traffic import replay as port_replay
 from brpc_tpu_torch.transport.socket_map import global_socket_map
 from brpc_tpu_torch.transport.event_dispatcher import global_dispatcher
 
@@ -102,12 +104,15 @@ def _running_loops():
     stopped or returned: naming services, health-check probes,
     PeriodicTasks, leases on shared connections, ring dispatchers, the
     flight recorder's sampler, capture writers and the incident
-    bundler."""
+    bundler; an installed chaos plan and the channels of a replay in
+    flight."""
     return {"naming threads": port_naming.live_naming_threads(),
             "health checks": port_hc.live_checks(),
             "PeriodicTasks": port_periodic.live_tasks(),
             "socket map leases": global_socket_map().leases(),
-            "threads": _port_loop_threads()}
+            "threads": _port_loop_threads(),
+            "chaos installed": port_chaos.installed_schemes(),
+            "replay channels": port_replay.live_channels()}
 
 
 def _run_cases(cases, limit_s=CASE_LIMIT_S):
@@ -662,6 +667,33 @@ def _dynamic_partitions():
     assert got["port"][1] == (3, [b"p0:q", b"p1:q", b"p2:q"])
 
 
+def _stopped_replica_seen_idle():
+    """A ClusterChannel sees a stopped replica with no call in flight,
+    while the sticky pause is on in the process: a plain Channel's
+    socket sticks after its sync calls, the ClusterChannel's never do,
+    so the replica's FIN reaches the dispatcher (the socket fails
+    unprobed)."""
+    with _Side("port") as side:
+        a, b = side.server("a"), side.server("b")
+        url = f"list://tcp://127.0.0.1:{a.ep.port},tcp://127.0.0.1:{b.ep.port}"
+        ch = side.cluster(url, "rr")
+        plain = side.channel(f"tcp://127.0.0.1:{a.ep.port}")
+        for i in range(6):
+            assert side.body(ch.call_sync("Svc", "Who", b"%d" % i))
+        assert side.body(plain.call_sync("Svc", "Who", b"p"))
+        assert plain._socket.sticky_ok and plain._socket._pluck_sticky
+        socks = dict(ch._sockets)
+        assert len(socks) == 2 and not any(
+            s.sticky_ok or s._pluck_sticky for s in socks.values())
+        dead = socks[port_ep(f"tcp://127.0.0.1:{a.ep.port}")]
+        assert not dead.client_cids
+        a.kill()
+        assert _wait_for(lambda: dead.failed), "the stop went unseen"
+        for i in range(4):
+            assert side.body(ch.call_sync("Svc", "Who", b"%d" % i)) \
+                == b"b:%d" % i
+
+
 CASES = [
     ("load balancers", _load_balancers, ()),
     ("c_murmurhash without the native library", _murmur_without_native,
@@ -675,6 +707,8 @@ CASES = [
     ("an empty naming list", _naming_empty, ()),
     ("DynamicPartitionChannel", _dynamic_partitions, ()),
     ("the wire both ways, a server killed", _wire_both_ways, ()),
+    ("a stopped replica seen with no call in flight",
+     _stopped_replica_seen_idle, ()),
 ]
 
 

@@ -18,12 +18,24 @@ channels hold one socket, and the pooled channel's freelist.
   them, sequential calls reuse one; a call that completes after
   ``close`` closes its connection instead of refilling the pool.
 - ``short``: a connection a call, closed when the call completes.
+- The sticky pause: a sync socket left with reads off sees the server's
+  close before it is reused, so a ``max_retry=0`` call after it still
+  succeeds on a new connection.
+
+The port alone (brpc_tpu keeps the fault, ROADMAP section 3):
+
+- A credential's connection is not handed to another credential that
+  got a freed one's ``id``, and a channel collected without ``close``
+  gives its lease back: in 50 loops, a channel with the right token
+  makes a call and is dropped and collected, then a channel with a
+  wrong token makes one, which must fail with ERPCAUTH every time.
 
 One collected test over the cases (``_run_cases`` of
 test_torch_cluster.py, which also fails a case that leaves a lease on a
 shared connection).
 """
 
+import gc
 import time
 
 import brpc_tpu.fiber as ref_fiber
@@ -31,6 +43,9 @@ import brpc_tpu.rpc as ref_rpc
 
 import brpc_tpu_torch.fiber as port_fiber
 import brpc_tpu_torch.rpc as port_rpc
+
+from brpc_tpu_torch.rpc import errno_codes as berr
+from brpc_tpu_torch.transport.socket_map import global_socket_map
 
 from test_torch_cluster import _run_cases, _wait_for
 
@@ -200,6 +215,70 @@ def _against_reference(scenario):
     return run
 
 
+def _peer_close_before_reuse(cli, srv) -> dict:
+    """The sticky pause leaves nothing watching an idle sync socket, so
+    the server's close of it must be seen before the next call is
+    issued into it: with ``max_retry=0`` that call still succeeds, on a
+    new connection (the probe before reuse;
+    tests/test_hotpath_batching.py's sticky case, both packages)."""
+    ch = cli.channel(srv.addr, max_retry=0)
+    first = cli.call(ch, b"a")
+    s0 = ch._get_socket()
+    for s in list(srv.srv.connections()):
+        s.set_failed(ConnectionError("server idle close"))
+    seen = _wait_for(lambda: s0.conn.peek_closed(), 3.0)
+    time.sleep(0.02)                    # past the probe's 5 ms gate
+    second = cli.call(ch, b"b")
+    return {"answers": (first, second), "fin_seen": seen,
+            "old_failed": s0.failed, "accepted": len(srv.seen)}
+
+
+def _credential_not_reused():
+    """The re-anchor's reproduction of the shared-credential fault: the
+    server accepts only ``alice-secret``; a collected channel's
+    Authenticator may hand its ``id`` to the next one."""
+    leases0 = global_socket_map().leases()
+
+    async def Who(cntl, request):
+        return cntl.auth_context.user.encode()
+    svc = port_rpc.Service("Svc")
+    svc.method()(Who)
+    srv = port_rpc.Server(port_rpc.ServerOptions(
+        auth=port_rpc.TokenAuthenticator("alice-secret", user="alice")))
+    srv.add_service(svc)
+    ep = srv.start("tcp://127.0.0.1:0")
+    addr = f"tcp://127.0.0.1:{ep.port}"
+    wrong = []
+    # the collections below walk only what this case allocates: a long
+    # test process's older heap would make each one take a large share
+    # of a second
+    gc.freeze()
+    try:
+        for i in range(50):
+            ch = port_rpc.Channel(addr, port_rpc.ChannelOptions(
+                timeout_ms=5000, max_retry=0,
+                auth=port_rpc.TokenAuthenticator("alice-secret")))
+            c = ch.call_sync("Svc", "Who", b"")
+            assert not c.failed() and c.response == b"alice", c.error_text
+            del ch, c
+            gc.collect()
+            ch = port_rpc.Channel(addr, port_rpc.ChannelOptions(
+                timeout_ms=5000, max_retry=0,
+                auth=port_rpc.TokenAuthenticator("mallory-wrong")))
+            c = ch.call_sync("Svc", "Who", b"")
+            if c.error_code != berr.ERPCAUTH:
+                wrong.append((i, c.error_code, c.response))
+            del ch, c
+            gc.collect()
+        assert not wrong, wrong
+        assert _wait_for(lambda: global_socket_map().leases() == leases0), \
+            (global_socket_map().leases(), leases0)
+    finally:
+        gc.unfreeze()
+        srv.stop()
+        srv.join(5)
+
+
 CASES = [
     ("single, shared", _against_reference(_shared), ()),
     ("share_connections=False", _against_reference(_opt_out), ()),
@@ -207,6 +286,10 @@ CASES = [
     ("the credential in the key", _against_reference(_credential), ()),
     ("pooled: reuse and close", _against_reference(_pooled), ()),
     ("short", _against_reference(_short), ()),
+    ("a sticky socket sees a peer's close before reuse",
+     _against_reference(_peer_close_before_reuse), ()),
+    ("a collected credential's connection is not reused",
+     _credential_not_reused, ()),
 ]
 
 

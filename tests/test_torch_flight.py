@@ -327,9 +327,15 @@ def _census():
     """/census: every registered provider, none failing, brpc_tpu's keys
     (less the ones whose source the port lacks), the builtin twin."""
     with _Server({"Spin": _spin}) as s:
-        status, body = _get(s.port, "/census")
-        assert status == 200
-        mine = json.loads(body)
+        def census():
+            status, body = _get(s.port, "/census")
+            assert status == 200
+            return json.loads(body)
+        # the sockets row reads a walk memoized for 0.2 s, which one
+        # made before this server accepted may still serve
+        assert _wait_for(lambda: census()["subsystems"]["sockets"][
+            "server_count"] >= 1)
+        mine = census()
         ref = ref_services.census_page_payload()
         names = port_census.registered_names()
         assert set(names) == set(mine["subsystems"]) == {

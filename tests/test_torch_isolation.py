@@ -73,6 +73,12 @@ def test_import_leaves_jax_and_brpc_tpu_out():
         "import brpc_tpu_torch.transport.ssl\n"
         "import brpc_tpu_torch.butil.containers\n"
         "import brpc_tpu_torch.butil.timekeeping\n"
+        "import brpc_tpu_torch.rpc.rpc_dump, brpc_tpu_torch.traffic.replay\n"
+        "import brpc_tpu_torch.chaos, brpc_tpu_torch.chaos.plan\n"
+        "import brpc_tpu_torch.chaos.inject, brpc_tpu_torch.incident.replay\n"
+        "import brpc_tpu_torch.tools.rpc_press, brpc_tpu_torch.tools.rpc_replay\n"
+        "import brpc_tpu_torch.tools.rpc_view\n"
+        "import brpc_tpu_torch.tools.incident_replay\n"
         f"forbidden = {FORBIDDEN_MODULES!r}\n"
         "bad = sorted(m for m in sys.modules if any(\n"
         "    m == f or m.startswith(f + '.') for f in forbidden))\n"

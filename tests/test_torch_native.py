@@ -565,9 +565,23 @@ def case_pluck_lane():
             # the lazy deadline: calls answered in time armed no timer
             assert armed == [] and "_pending_deadline" not in c.__dict__
             sock = ch._socket
-            # every release re-arms reads
-            assert not sock._plucking and not sock._busy_paused
+            # a release with nothing in flight leaves reads off (the
+            # sticky pause), on a plain Channel's socket
+            assert sock.sticky_ok and not sock._plucking
+            assert sock._busy_paused and sock._pluck_sticky
             assert not sock.client_cids and sock.lazy_plucker is None
+            # the next sync call consumes the pause: no read interest
+            # paused or resumed, and the socket sticks again
+            conn, flips = sock.conn, []
+            pause, resume = conn.pause_read_events, conn.resume_read_events
+            conn.pause_read_events = lambda: (flips.append("p"), pause())
+            conn.resume_read_events = lambda: (flips.append("r"), resume())
+            try:
+                c = ch.call_sync("Slow", "Sleep", b"0.001")
+                assert not c.failed() and c.response == b"0.001"
+                assert flips == [] and sock._pluck_sticky, flips
+            finally:
+                del conn.pause_read_events, conn.resume_read_events
             # an async call completes on the dispatcher, with its timer
             c = ch.call("Slow", "Sleep", b"0.002")
             assert c.join(10) and c.response == b"0.002"

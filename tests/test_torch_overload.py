@@ -479,7 +479,9 @@ def _page_keys():
             trace_dir = _get_json(port, "/lb_trace")
             trace = _get_json(port, f"/lb_trace?channel={name}&n=50")
             entry = backends["channels"][name]
-            row = next(iter(entry["backends"].values()))
+            # this server's row: a channel of another case may have
+            # used the name, and its rows stay until it is collected
+            row = entry["backends"][f"tcp://127.0.0.1:{port}"]
             pages[kind] = {
                 "saturation": set(status["saturation"]) - SATURATION_LEFT_OUT,
                 "backends": set(backends),

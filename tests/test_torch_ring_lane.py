@@ -436,13 +436,20 @@ def case_echo_digests():
             assert side[1] == "batch", (k, r)
     ring = got["port ring batch"]
     assert ring["ring_ticks"] > 0 and ring["ring_completions"] > 0, ring
-    # every sync call of a small frame was plucked behind the fence (the
-    # two largest sizes take the classic framing), and no fence waited
-    # out a tick's timeout
+    # every sync call of a small frame was plucked (the two largest
+    # sizes take the classic framing). A claim fences the tick only when
+    # it finds reads live: after a plucked call the socket sticks, and
+    # the next small call's claim takes no fence. The first call fences.
+    # A classic frame's write unsticks, so its join's claim fences; when
+    # the fenced tick delivers the response's event meanwhile, that
+    # claim settles with reads live and the next claim fences too. So at
+    # most the first call and two a classic call fence, fewer than the
+    # small calls. No fence waited out a tick's timeout
     small = sum(1 for i in range(60)
                 if PARITY_SIZES[i % len(PARITY_SIZES)] <= SMALL_FRAME_MAX)
     assert ring["plucked"] == small > 0, ring
-    assert ring["ring_read_barriers"] >= small, ring
+    assert 1 <= ring["ring_read_barriers"] <= 1 + 2 * (60 - small), ring
+    assert ring["ring_read_barriers"] < small, ring
     assert ring["ring_barrier_wait_us"] < 100000 * ring["ring_barrier_waits"]
 
     # the async Echo ran in place on the ring thread: its responses left
@@ -507,6 +514,116 @@ def case_generate_on_the_ring():
                                               "status": "completed"}
     assert r["http"] == oracle.generate(list(b"ring http"), 16)
     assert r["http_footer"] == "completed n=16"
+
+
+_STICKY = r"""
+import json, os, sys
+sys.path.insert(0, os.getcwd())
+from brpc_tpu_torch.transport import event_dispatcher as ped, ring_lane
+ped._global = ring_lane.RingDispatcher(backend=int(sys.argv[1]))
+from brpc_tpu_torch.rpc import Channel, ChannelOptions, Server, Service
+from brpc_tpu_torch.transport import socket as sk
+
+svc = Service("S")
+
+
+@svc.method()
+def Echo(cntl, request):
+    return bytes(request)
+
+
+server = Server()
+server.add_service(svc)
+ep = server.start("tcp://127.0.0.1:0")
+ch = Channel(f"tcp://127.0.0.1:{ep.port}", ChannelOptions(timeout_ms=20000))
+for i in range(2):
+    assert ch.call_sync("S", "Echo", b"warm").response == b"warm"
+sock = ch._socket
+v0, p0 = ring_lane.counters(), sk.npluck_fast.get_value()
+for i in range(20):
+    assert ch.call_sync("S", "Echo", b"%d" % i).response == b"%d" % i
+    assert sock._pluck_sticky
+v1 = ring_lane.counters()
+out = {k: v1[k] - v0[k] for k in ("ring_read_barriers",
+                                  "ring_barrier_waits",
+                                  "ring_barrier_wait_us")}
+out["plucked"] = sk.npluck_fast.get_value() - p0
+out["attached"] = sock._ring_attached
+ch.close()
+server.stop()
+print(json.dumps(out))
+"""
+
+
+def case_sticky_claims_take_no_fence():
+    """On the batch backend, a plain Channel's steady sync calls claim
+    a sticky socket: reads are off already, so no claim fences the
+    tick (brpc_tpu/transport/socket.py:1343-1380)."""
+    r = _result(_child(_STICKY, [BATCH], "0"))
+    assert r == {"ring_read_barriers": 0, "ring_barrier_waits": 0,
+                 "ring_barrier_wait_us": 0, "plucked": 20,
+                 "attached": True}, r
+
+
+_TAKEN_OVER = r"""
+import json, os, sys, time
+sys.path.insert(0, os.getcwd())
+from brpc_tpu_torch.transport import event_dispatcher as ped, ring_lane
+ped._global = ring_lane.RingDispatcher(backend=int(sys.argv[1]))
+from brpc_tpu_torch.rpc import Channel, ChannelOptions, Server, Service
+from brpc_tpu_torch.transport import socket as sk
+
+svc = Service("S")
+
+
+@svc.method()
+def Echo(cntl, request):
+    return bytes(request)
+
+
+server = Server()
+server.add_service(svc)
+ep = server.start("tcp://127.0.0.1:0")
+ch = Channel(f"tcp://127.0.0.1:{ep.port}", ChannelOptions(timeout_ms=4000))
+assert ch.call_sync("S", "Echo", b"warm").response == b"warm"
+real, taken = sk.Socket.pluck_until, []
+
+
+def late_claim(self, pred, deadline_s, fast=None, preclaimed=False):
+    # what a fenced tick hands the claim: the whole response already in
+    # the portal, and nothing more to come on the fd
+    if not preclaimed and not self.pluck_preclaim():
+        return pred()
+    end = time.monotonic() + 1.0
+    while not self.input_portal and time.monotonic() < end:
+        time.sleep(0.02)
+        self._drain_readable()
+    taken.append(bool(self.input_portal))
+    return real(self, pred, deadline_s, fast=fast, preclaimed=True)
+
+
+sk.Socket.pluck_until = late_claim
+out = []
+for body in (b"first", b"second"):    # small frames: claimed before the write
+    t0 = time.monotonic()
+    c = ch.call_sync("S", "Echo", body)
+    out.append({"ok": not c.failed() and c.response == body,
+                "error": c.error_text, "s": time.monotonic() - t0})
+sk.Socket.pluck_until = real
+ch.close()
+server.stop()
+print(json.dumps({"calls": out, "taken": taken}))
+"""
+
+
+def case_taken_over_bytes_are_judged():
+    """A claim that takes over what the fenced tick read may hold the
+    whole response in the portal while the fd stays quiet: the plucker
+    judges the portal first, and does not wait for the deadline."""
+    r = _result(_child(_TAKEN_OVER, [BATCH], "1"))
+    assert r["taken"] == [True, True], r
+    for call in r["calls"]:
+        assert call["ok"] and call["s"] < 2.0, r
 
 
 _FORK = r"""
@@ -598,6 +715,10 @@ CASES = [
     ("pause, barrier, resume", case_pause_barrier_resume, ()),
     ("echo digests across lanes", case_echo_digests, ()),
     ("Generate on the ring", case_generate_on_the_ring, ()),
+    ("steady sync claims take no fence", case_sticky_claims_take_no_fence,
+     ()),
+    ("bytes a claim took over are judged first",
+     case_taken_over_bytes_are_judged, ()),
     ("a forked child abandons the ring",
      case_forked_child_abandons_the_ring, ()),
 ]

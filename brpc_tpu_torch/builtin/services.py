@@ -39,9 +39,9 @@ def _idle_class(idle_s: float, idle_after: float) -> str:
 
 
 def connections_page(server) -> dict:
-    """The server's open connections (Sockets): peer, state, the bytes
-    queued for the kernel, the bytes read and not yet parsed, the
-    resident bytes, the seconds since the last read or write and the
+    """The server's open connections (Sockets): peer, protocol, state,
+    the bytes queued for the kernel, the bytes read and not yet parsed,
+    the resident bytes, the seconds since the last read or write and the
     idle class (``census_idle_s``); the client channels' connections of
     the process, by channel and backend, listed apart (/census's
     ``server_bytes`` sums the server rows only); the circuit breakers of
@@ -51,17 +51,24 @@ def connections_page(server) -> dict:
     import time
 
     from brpc_tpu_torch.butil.flags import flag
+    from brpc_tpu_torch.protocol.registry import get_protocols
     from brpc_tpu_torch.rpc.circuit_breaker import all_breaker_snapshots
     from brpc_tpu_torch.transport.socket import socket_census_rows
     idle_after = flag("census_idle_s")
     now = time.monotonic_ns()
+    protocols = get_protocols()
     rows = []
     for c in server.connections():
         ep = c.remote_endpoint
         idle_s = (now - c.last_active_ns) / 1e9
+        idx = c.preferred_protocol
         rows.append({
             "role": "server",
             "remote": f"{ep.host}:{ep.port}",
+            # the protocol the connection's input settled on ("": none
+            # parsed yet)
+            "protocol": protocols[idx].name if 0 <= idx < len(protocols)
+            else "",
             "failed": c.failed,
             "wqueue_bytes": c.write_backlog(),
             "read_bytes": c.input_portal.size,

@@ -14,7 +14,9 @@ A Protocol provides:
   process_inline(msg, socket)  True when the message was handled here, in
                                parse order (stream frames, HTTP's queue)
 
-The port registers ``tpu_std`` and ``http``, in that order of preference.
+The port registers ``tpu_std``, ``http`` and ``h2``, in that order of
+preference (brpc_tpu/protocol/registry.py:95-98): ``h2`` claims a
+connection by its client preface, which neither of the others takes.
 """
 
 from __future__ import annotations
@@ -69,6 +71,7 @@ def get_protocols() -> List[Protocol]:
 
 
 def _register_builtins() -> None:
-    from brpc_tpu_torch.protocol import http, tpu_std
+    from brpc_tpu_torch.protocol import h2, http, tpu_std
     tpu_std.ensure_registered()
     http.ensure_registered()
+    h2.ensure_registered()

@@ -100,6 +100,9 @@ class Controller:
         self._accepted_stream = None
         # server side (HTTP): the chunked body fed after the handler
         self._progressive = None
+        # server side: the call answers in one response (gRPC, plain
+        # HTTP over h2): no progressive body, no stream
+        self.unary = False
         # rpcz: the trace this call belongs to and its own span id
         # (brpc_tpu/rpc/controller.py:112-113). A server sets them from
         # the request meta and start_server_span; a client call under

@@ -1,5 +1,5 @@
-"""Server: tpu_std and HTTP/1.1 on one TCP port (the port of
-brpc_tpu/rpc/server.py).
+"""Server: tpu_std, HTTP/1.1 and HTTP/2 with gRPC on one TCP port (the
+port of brpc_tpu/rpc/server.py).
 
 The listener is a consumer of the process's event dispatcher, and so is
 every accepted connection: ``_on_new_conn`` wraps it in a ``Socket`` whose
@@ -32,6 +32,13 @@ handler returned. Requests on one connection are answered in order, one
 at a time, by the connection's own drain fiber
 (``input_messenger.process_in_parse_order``): a chunked response holds
 the drain (parked, not blocking a worker) until its terminator is out.
+
+HTTP/2 and gRPC (``protocol/h2.py``): a connection that opens with the
+h2 preface gets a session; its gRPC calls find their method with the
+package-qualified fallback of ``find_method``, pass the same auth gate
+as HTTP (``_auth_refused``), the limiters and ``on_request_end`` (their
+method's row on ``/status``), and count as calls in flight for
+``join``; its plain requests go through ``_call_http`` with ``unary``.
 
 ``start`` and ``stop`` call ``server._serving.on_server_start/stop``
 (brpc_tpu/rpc/server.py:430,518): that is how the serving lane builds
@@ -240,8 +247,16 @@ class Server:
     def services(self) -> Dict[str, Service]:
         return dict(self._services)
 
-    def find_method(self, service: str, method: str) -> Optional[Method]:
-        return self._methods.get((service, method))
+    def find_method(self, service: str, method: str,
+                    package_qualified: bool = False) -> Optional[Method]:
+        """The method registered as ``service.method``; with
+        ``package_qualified`` (gRPC's paths name ``package.Service``),
+        ``service``'s last dotted part when the whole name is not
+        registered (brpc_tpu/protocol/h2.py:602-605)."""
+        m = self._methods.get((service, method))
+        if m is None and package_qualified and "." in service:
+            m = self._methods.get((service.rsplit(".", 1)[1], method))
+        return m
 
     @property
     def is_running(self) -> bool:
@@ -486,14 +501,23 @@ class Server:
                            req: http.HttpRequest) -> Optional[bytes]:
         """The auth gate of the HTTP path (brpc_tpu/protocol/http.py:
         259-280): every page and method but ``/health`` wants the
-        credential (``Authorization: Bearer ...`` or ``?token=``), once
-        a connection. The reason of a refusal, or None."""
-        if self._auth is None or socket.user_data.get("auth_context") \
-                is not None or (req.path.rstrip("/") or "/") == "/health":
+        credential, ``Authorization: Bearer ...`` or ``?token=``."""
+        if (req.path.rstrip("/") or "/") == "/health":
             return None
-        header = req.headers.get("authorization", "")
-        cred = header[7:] if header.startswith("Bearer ") \
-            else req.query.get("token", "")
+        return self._auth_refused(socket, req.headers.get("authorization",
+                                                          ""),
+                                  req.query.get("token", ""))
+
+    def _auth_refused(self, socket: Socket, authorization: str,
+                      token: str = "") -> Optional[bytes]:
+        """The gate of the HTTP and gRPC paths: the credential of an
+        ``authorization: Bearer ...`` header (else ``token``), verified
+        once a connection. The reason of a refusal, or None."""
+        if self._auth is None or socket.user_data.get("auth_context") \
+                is not None:
+            return None
+        cred = authorization[7:] if authorization.startswith("Bearer ") \
+            else token
         try:
             ctx = self._auth.verify_credential(cred, socket.remote_endpoint)
         except AuthError as e:
@@ -503,9 +527,12 @@ class Server:
         socket.user_data["auth_context"] = ctx
         return None
 
-    async def _call_http(self, socket: Socket, req: http.HttpRequest
+    async def _call_http(self, socket: Socket, req: http.HttpRequest,
+                         unary: bool = False
                          ) -> Tuple[int, str,
                                     Union[bytes, ProgressiveAttachment]]:
+        """``unary``: the answer must be one body (plain HTTP over h2),
+        so the handler's Controller is marked ``unary``."""
         refused = self._http_auth_refused(socket, req)
         if refused is not None:
             return 403, "text/plain", refused
@@ -527,6 +554,7 @@ class Server:
         if not cost:
             return 500, "text/plain", b"max_concurrency reached"
         cntl = Controller()             # _server_socket None: HTTP
+        cntl.unary = unary
         cntl.remote_side = socket.remote_endpoint
         cntl.auth_context = socket.user_data.get("auth_context")
         interceptor = self.options.interceptor

@@ -13,14 +13,17 @@ behind them all:
   as chunked transfer, then a ``\\n#<state> n=<k>[ err=<code>]`` footer
   (a chunked body cannot carry a late status code). A dead peer turns
   ``pa.write()`` False, which cancels the sequence and frees its slot;
-- **unary**: a plain tpu_std call parks its handler fiber on a
-  FiberEvent until the sequence retires (its worker thread goes on
-  serving) and returns every token in one JSON response,
-  ``{"status": "completed", "n": ..., "tokens": [...], "text": ...}``.
+- **unary**: a plain tpu_std call, and a call whose Controller is
+  marked ``unary`` (gRPC, and plain HTTP over h2: ``protocol/h2.py``),
+  parks its handler fiber on a FiberEvent until the sequence retires
+  (its worker thread goes on serving) and returns every token in one
+  JSON response, ``{"status": "completed", "n": ..., "tokens": [...],
+  "text": ...}``. The reference sends a gRPC call down the HTTP path,
+  whose body nobody reads, and answers an empty OK (ROADMAP section 3).
 
-Deadline eviction fails a unary call with ``ERPCTIMEDOUT``, a full queue
-any call with ``ELIMIT``, a prompt that cannot fit a slot with
-``EREQUEST``.
+Deadline eviction fails a unary call with ``ERPCTIMEDOUT`` (gRPC's
+DEADLINE_EXCEEDED), a full queue any call with ``ELIMIT`` (UNAVAILABLE),
+a prompt that cannot fit a slot with ``EREQUEST``.
 
 Token callbacks run inside a decode step, on a fiber worker, which must
 never wait on a client: both senders only queue writes (``write_nowait``
@@ -326,7 +329,7 @@ class GenerateService:
         if cntl._peer_stream_id:
             return self._generate_stream(cntl, batcher, prompt, max_tokens,
                                          stop_token)
-        if cntl._server_socket is None:
+        if cntl._server_socket is None and not cntl.unary:
             return self._generate_http(cntl, batcher, prompt, max_tokens,
                                        stop_token)
         return await self._generate_unary(cntl, batcher, prompt,

@@ -13,11 +13,17 @@ first — the same format capture records and rpc_replay/rpc_view read,
 so a press scenario is a shareable artifact, not a command line.
 
 Legacy aliases kept from the seed tool: --payload-size (a one-entry
-size mix) and --fibers (connection count). ``--protocol http`` stands on
-the HTTP client (``brpc_tpu_torch/protocol/http_client.py``), which the
-port does not have yet: it refuses with an error naming that module, and
-never falls back to tpu_std. --procs starts each worker as ``python3 -m
-brpc_tpu_torch.tools.rpc_press``.
+size mix) and --fibers (connection count). ``--protocol http`` presses
+``POST /<service>/<method>`` through the HTTP client
+(``protocol/http_client.py``): one keep-alive connection a fiber
+(``--conns``), each taking its share of the same synthetic schedule at
+its stamps, or as soon as its last call ended when the server is behind
+(HTTP/1.1 answers a connection's requests in order, so a connection
+carries one call at a time). Its report has the open-loop engine's
+shape (a class a method and priority tag, which HTTP does not send;
+an answer other than 200 is a failure under its status code), so
+--procs merges it the same way. --procs starts each worker as
+``python3 -m brpc_tpu_torch.tools.rpc_press``.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 from brpc_tpu_torch.tools.spawn_util import package_root
@@ -44,6 +51,8 @@ def build_records(args, worker: int = 0, nprocs: int = 1):
 
 
 def run_worker(args) -> dict:
+    if args.protocol == "http":
+        return run_http_press(args)
     from brpc_tpu_torch.traffic.replay import PaceSpec, run_open_loop
     records = build_records(args, args.worker, args.nprocs)
     pace = PaceSpec("recorded", warp=1.0)   # stamps carry the pacing
@@ -52,13 +61,76 @@ def run_worker(args) -> dict:
                          bucket_width_s=args.bucket_width)
 
 
-def run_http_press(args) -> int:
-    """The seed tool's HTTP mode: a closed fiber loop of keep-alive POSTs
-    through the HTTP client, which the port does not have yet."""
-    raise RuntimeError(
-        "rpc_press --protocol http needs the HTTP client "
-        "(brpc_tpu_torch/protocol/http_client.py), which is not ported "
-        "yet; use --protocol tpu_std")
+def run_http_press(args) -> dict:
+    """This worker's share of the schedule as ``POST
+    /<service>/<method>`` over ``--conns`` keep-alive HTTP connections,
+    one fiber each (tools/rpc_press.py:52-70)."""
+    from brpc_tpu_torch.fiber import CountdownEvent, global_control, sleep
+    from brpc_tpu_torch.protocol.http_client import (HttpClient,
+                                                     HttpClientError)
+    records = build_records(args, args.worker, args.nprocs)
+    address = args.address
+    if address.startswith("http://"):
+        address = "tcp://" + address[len("http://"):]
+    path = f"/{args.service}/{args.method}"
+    timeout_s = (args.timeout_ms or 2000.0) / 1e3
+    conns = max(1, min(args.conns, len(records)))
+    classes: dict = {}
+    totals = {"issued": 0, "ok": 0, "fail": 0, "behind_ms_max": 0.0}
+    lock = threading.Lock()             # the fibers run on many workers
+    done = CountdownEvent(conns)
+    t0 = time.monotonic()
+
+    def note(rec, code, lat_ms, behind_ms):
+        with lock:
+            _note(rec, code, lat_ms, behind_ms)
+
+    def _note(rec, code, lat_ms, behind_ms):
+        totals["issued"] += 1
+        totals["behind_ms_max"] = max(totals["behind_ms_max"], behind_ms)
+        c = classes.setdefault(f"{rec.method_key}|p{rec.priority}", {
+            "ok": 0, "fail": 0, "error_codes": {}, "lat_ms_samples": []})
+        if code == 200:
+            c["ok"] += 1
+            totals["ok"] += 1
+            c["lat_ms_samples"].append(round(lat_ms, 3))
+        else:
+            c["fail"] += 1
+            totals["fail"] += 1
+            c["error_codes"][str(code)] = c["error_codes"].get(
+                str(code), 0) + 1
+
+    async def worker(share):
+        cl = HttpClient(address, timeout_s=timeout_s)
+        try:
+            for rec in share:
+                wait = t0 + rec.arrival_mono_ns / 1e9 - time.monotonic()
+                if wait > 0:
+                    await sleep(wait)
+                s0 = time.perf_counter()
+                try:
+                    status, _, _ = await cl.request_async(
+                        "POST", path, body=rec.payload)
+                except HttpClientError:
+                    status = "transport"
+                note(rec, status, (time.perf_counter() - s0) * 1e3,
+                     max(0.0, -wait * 1e3))
+        finally:
+            cl.close()
+            done.signal()
+
+    control = global_control()
+    for i in range(conns):
+        control.spawn(worker, records[i::conns], name="http_press")
+    drained = done.wait_pthread(
+        (records[-1].arrival_mono_ns / 1e9 if records else 0.0)
+        + len(records) * timeout_s + 10)
+    return {"records": len(records), "issued": totals["issued"],
+            "ok": totals["ok"], "fail": totals["fail"],
+            "undrained": 0 if drained else conns, "protocol": "http",
+            "elapsed_s": round(time.monotonic() - t0, 3),
+            "behind_ms_max": round(totals["behind_ms_max"], 2),
+            "classes": classes}
 
 
 def run_multiproc(args) -> dict:
@@ -75,6 +147,7 @@ def run_multiproc(args) -> dict:
                 "--timeout-ms", str(args.timeout_ms),
                 "--seed", str(args.seed), "--conns", str(args.conns),
                 "--bucket-width", str(width),
+                "--protocol", args.protocol,
                 "--worker", str(i), "--nprocs", str(args.procs)]
         procs.append(subprocess.Popen(argv, stdout=subprocess.PIPE,
                                       stderr=subprocess.DEVNULL,
@@ -126,9 +199,9 @@ def main(argv=None) -> int:
     # legacy seed-tool aliases
     ap.add_argument("--protocol", choices=["tpu_std", "http"],
                     default="tpu_std",
-                    help="legacy: http presses POST /<service>/<method>"
-                         " through the HTTP client (not ported yet: "
-                         "refused)")
+                    help="http presses POST /<service>/<method> "
+                         "through the HTTP client, a keep-alive "
+                         "connection a fiber")
     ap.add_argument("--payload-size", type=int, default=0,
                     help="legacy: single payload size (= --size-mix N:1)")
     ap.add_argument("--fibers", type=int, default=0,
@@ -144,8 +217,6 @@ def main(argv=None) -> int:
         args.size_mix = f"{args.payload_size}:1.0"
     if args.fibers:
         args.conns = args.fibers
-    if args.protocol == "http":
-        return run_http_press(args)
 
     if args.save:
         from brpc_tpu_torch.traffic.corpus import CorpusWriter
@@ -160,6 +231,9 @@ def main(argv=None) -> int:
         rep = run_multiproc(args)
     else:
         rep = run_worker(args)
+        if args.protocol == "http" and args.nprocs == 1:
+            from brpc_tpu_torch.traffic.replay import merge_reports
+            rep = merge_reports([rep])  # the percentiles, as --procs's
     if args.json or args.nprocs > 1:
         print(json.dumps(rep), flush=True)
     else:

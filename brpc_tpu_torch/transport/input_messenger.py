@@ -89,6 +89,13 @@ class InputMessenger:
                  control: Optional[TaskControl] = None):
         self._protocols = protocols     # None: the global registry
         self._control = control or global_control()
+        if protocols is None:
+            # the registry's first use imports its protocol modules (h2
+            # and HPACK take 10-20 ms to compile): here, on the thread
+            # that makes the messenger, not on the dispatcher at a
+            # connection's first read, where it held back the reads of a
+            # whole burst's sockets
+            get_protocols()
 
     def protocols(self) -> List:
         return self._protocols if self._protocols is not None \

@@ -6,7 +6,12 @@ Python's ``ssl`` module is the engine. ``SSLWantReadError`` and
 request for a write that wants to write), so the Socket, its KeepWrite
 hand-off and the dispatcher work as on TCP. The handshake runs lazily on
 the non-blocking socket: a read or a write before it is done drives
-``do_handshake`` instead. Every OpenSSL call runs under one lock a
+``do_handshake`` instead. A writer that TLS asks to read first (the
+handshake's round trip, or records the SSL object must take in before
+it sends, such as a TLS 1.3 key update) parks until the read path has
+run once (``_wake_parked_writer``): a writable event fires at once on an
+open socket, and the writer would spin on it without bound until a read
+pumped the SSL object. Every OpenSSL call runs under one lock a
 connection: the reference saw a segfault when a reading fiber and a
 writing one met inside the shared SSL state (brpc_tpu/transport/
 ssl.py:37-60).
@@ -57,12 +62,13 @@ class SslConn(Conn):
         self._handshaken = False
         self._on_writable: Optional[Callable[[], None]] = None
         self._ssl_lock = threading.Lock()
-        # a writer stalled on a handshake that wants a read parks here:
-        # a writable event would fire at once on an established socket
-        # and spin for the handshake's round trip, so the read path
-        # wakes it when the handshake completes
+        # a writer that TLS asks to read first parks here: a writable
+        # event would fire at once on an open socket and spin until a
+        # read pumped the SSL object, so the read path wakes it. What the
+        # handshake waits for, and whether the last write wanted a read
         self._hs_want: Optional[str] = None
-        self._writer_waiting_on_hs = False
+        self._write_wants_read = False
+        self._writer_parked = False
 
     # ----------------------------------------------------------- handshake
     def _drive_handshake(self) -> None:
@@ -83,11 +89,21 @@ class SslConn(Conn):
         self._handshaken = True
         self._hs_want = None
 
+    def _wants_read(self) -> bool:
+        # under _ssl_lock
+        return self._write_wants_read if self._handshaken \
+            else self._hs_want == "read"
+
     def _wake_parked_writer(self) -> None:
+        """After a read: the SSL object took in what arrived, so a write
+        that wanted a read may go on (a handshake still waiting keeps its
+        writer parked)."""
         fire = False
         with self._ssl_lock:
-            if self._handshaken and self._writer_waiting_on_hs:
-                self._writer_waiting_on_hs = False
+            if self._handshaken:
+                self._write_wants_read = False
+            if self._writer_parked and not self._wants_read():
+                self._writer_parked = False
                 fire = True
         if fire and self._on_writable is not None:
             self._on_writable()
@@ -98,8 +114,11 @@ class SslConn(Conn):
             self._drive_handshake()
             try:
                 return self._sock.send(mv)
-            except (pyssl.SSLWantWriteError, pyssl.SSLWantReadError):
-                # a renegotiation that wants a read: the input path pumps
+            except pyssl.SSLWantWriteError:
+                raise BlockingIOError from None
+            except pyssl.SSLWantReadError:
+                # records to take in first: the writer parks until a read
+                self._write_wants_read = True
                 raise BlockingIOError from None
             except pyssl.SSLError as e:
                 raise ConnectionError(f"tls write failed: {e}") from e
@@ -177,8 +196,8 @@ class SslConn(Conn):
         if self._closed:
             raise ConnectionError("connection closed")
         with self._ssl_lock:
-            if not self._handshaken and self._hs_want == "read":
-                self._writer_waiting_on_hs = True
+            if self._wants_read():
+                self._writer_parked = True
                 return
         self._ask_writable()
 

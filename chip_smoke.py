@@ -342,10 +342,31 @@ answered as the plain path, each shard's ``ring_ticks`` > 0, a
 SIGKILLed shard back with a ring of its own, no process left after
 SIGTERM.
 
+Phase h2 (HPACK, HTTP/2 and gRPC, and the HTTP/1.1 client), after
+replay. A default Generate server on cuda:0 in this process: (a) phase
+3's burst as unary gRPC Generate calls on 4 ``GrpcChannel``s, cold
+then warm (the server answers them on the unary path, through
+``flash_decode``), the calls counted under their method on ``/status``; (b) the burst through
+the port's ``HttpClient`` (the chunked body read with ``on_chunk``) and
+over plain h2 (``Http2Client``); (c) 1 MiB and 4 MiB gRPC echoes on an
+echo server, with the WINDOW_UPDATE frames each moved, and a 50 ms
+timeout against a handler that sleeps 200 ms (DEADLINE_EXCEEDED); (d) a
+server with a token Authenticator: no credential answers
+UNAUTHENTICATED with no handler run, the token OK; (f) ``rpc_press
+--protocol http``, 400 calls at 400 qps over two workers, every call OK
+and the count the server's; then (e) one turn of 256 gRPC Generate
+calls over tcp:// and one over ssl:// to servers in child processes
+(``--client ring_server``), held connections, the server's CPU a call
+(TLS's at RING_SSL_CPU_RATIO times tcp's or more fails, with the
+busiest threads). Every token list equal to the CPU plain path's; every
+server's flash_decode launches equal to its decode steps plus its
+warm-up.
+
 ``python3 chip_smoke.py --phase streaming`` (or ``--phase
 observability``, ``--phase device_lane``, ``--phase combo``, ``--phase
 cluster``, ``--phase incident``, ``--phase native``, ``--phase
-shards``, ``--phase ring``) runs that phase alone (after the card
+shards``, ``--phase ring``, ``--phase replay``, ``--phase h2``) runs
+that phase alone (after the card
 line), so that two trees' serving can be compared in one call: run each
 tree's script in turns.
 
@@ -7048,6 +7069,413 @@ def phase_replay(dev, artifact=None):
     return out
 
 
+# ------------------------------------------------------------- phase h2
+
+H2_CHANNELS = 4                 # (a): gRPC channels the burst shares
+H2_ECHO_SIZES = (1 << 20, 4 << 20)      # (c): gRPC echo payloads
+H2_TIMEOUT_S = 0.05             # (c): the call's timeout,
+H2_SLEEP_S = 0.2                # (c): against a handler that sleeps this
+H2_TOKEN = "h2-secret"          # (d): the auth server's token
+H2_TURN_CALLS = 256             # (e): gRPC Generate calls in a turn
+H2_PRESS_QPS = 400              # (f): rpc_press --protocol http's rate,
+H2_PRESS_CALLS = 400            # its calls, over two workers of
+H2_PRESS_CONNS = 4              # this many connections each
+
+
+def _grpc_burst(port: int, prompts, chans: int = H2_CHANNELS):
+    """Phase 3's burst as unary gRPC Generate calls: N_CLIENTS threads
+    on ``chans`` GrpcChannels (thread i on channel i % chans), the
+    prompts dealt round-robin; as ``_burst``'s (results, errors, wall,
+    client ms a call)."""
+    from brpc_tpu_torch.protocol.h2 import GrpcChannel
+    channels = [GrpcChannel(f"tcp://127.0.0.1:{port}")
+                for _ in range(chans)]
+    results, errors, latency = {}, [], []
+
+    def client(idx):
+        ch = channels[idx % chans]
+        for p in prompts[idx::N_CLIENTS]:
+            t0 = time.perf_counter()
+            c = ch.call("/GenerateService/Generate", _generate_body(p),
+                        timeout=120)
+            if not c.ok():
+                errors.append((p, c.status, c.message))
+                continue
+            latency.append((time.perf_counter() - t0) * 1e3)
+            results[p] = json.loads(c.response)["tokens"]
+    try:
+        wall = _run_clients(client)
+        # the server names the protocol each connection settled on
+        rows = json.loads(_http_page(port, "/connections")[1])[
+            "connections"]
+    finally:
+        for ch in channels:
+            ch.close()
+    return results, errors, wall, latency, sorted(r["protocol"]
+                                                  for r in rows)
+
+
+def _h2_client_bursts(port: int, prompts) -> dict:
+    """(b): the burst over HTTP/1.1 through the port's HttpClient, the
+    chunked body read with ``on_chunk``, and over plain h2
+    (``Http2Client``, one answer a call); a connection a client thread
+    for both."""
+    from brpc_tpu_torch.protocol.h2 import Http2Client
+    from brpc_tpu_torch.protocol.http_client import HttpClient
+    out = {}
+    want_footer = b"completed n=%d" % MAX_TOKENS
+    for kind in ("http1_progressive", "h2_plain"):
+        results, errors, latency, parts = {}, [], [], []
+
+        def client(idx, kind=kind):
+            addr = f"tcp://127.0.0.1:{port}"
+            cl = HttpClient(addr, timeout_s=120) \
+                if kind == "http1_progressive" else Http2Client(addr)
+            try:
+                for p in prompts[idx::N_CLIENTS]:
+                    t0 = time.perf_counter()
+                    if kind == "h2_plain":
+                        r = cl.request("POST", "/GenerateService/Generate",
+                                       body=_generate_body(p), timeout=120)
+                        if r.status != 200:
+                            errors.append((p, r.status, r.body[:200]))
+                            continue
+                        results[p] = json.loads(r.body)["tokens"]
+                    else:
+                        chunks = []
+                        status, _, _ = cl.post(
+                            "/GenerateService/Generate", _generate_body(p),
+                            on_chunk=chunks.append)
+                        toks, _, footer = b"".join(chunks).rpartition(b"\n#")
+                        if status != 200 or footer != want_footer:
+                            errors.append((p, status, footer))
+                            continue
+                        results[p] = list(toks)
+                        parts.append(len(chunks))
+                    latency.append((time.perf_counter() - t0) * 1e3)
+            finally:
+                cl.close()
+        wall = _run_clients(client)
+        out[kind] = (results, errors, wall, latency, parts)
+    return out
+
+
+def _h2_echo_server(auth: bool = False):
+    """A server of this process with ``Bench.Echo`` and ``Bench.Sleep``
+    (sleeps H2_SLEEP_S in its fiber, then echoes); ``auth``: behind a
+    token Authenticator. (server, port, handler calls)."""
+    from brpc_tpu_torch import fiber
+    from brpc_tpu_torch.rpc import (Server, ServerOptions, Service,
+                                    TokenAuthenticator)
+    calls = []
+    svc = Service("Bench")
+
+    def Echo(cntl, request):
+        calls.append(len(request))
+        return bytes(request)
+
+    async def Sleep(cntl, request):
+        await fiber.sleep(H2_SLEEP_S)
+        return bytes(request)
+    svc.register_method("Echo", Echo)
+    svc.register_method("Sleep", Sleep)
+    server = Server(ServerOptions(
+        auth=TokenAuthenticator(H2_TOKEN) if auth else None))
+    server.add_service(svc)
+    return server, server.start("tcp://127.0.0.1:0").port, calls
+
+
+def _h2_flow_and_deadline() -> dict:
+    """(c): 1 MiB and 4 MiB gRPC echoes through the flow-control windows
+    on one channel, the WINDOW_UPDATE frames each sent and received, and
+    a call with a H2_TIMEOUT_S timeout against a handler that sleeps
+    H2_SLEEP_S: DEADLINE_EXCEEDED, answered at the deadline."""
+    from brpc_tpu_torch.protocol import h2
+    server, port, _ = _h2_echo_server()
+    out = {}
+    try:
+        with h2.GrpcChannel(f"tcp://127.0.0.1:{port}") as ch:
+            for size in H2_ECHO_SIZES:
+                body = os.urandom(size)
+                ch.call("/Bench/Echo", b"warm")
+                s = ch._session
+                sent0, recv0 = s.window_updates_sent, \
+                    s.window_updates_received
+                t0 = time.perf_counter()
+                c = ch.call("/Bench/Echo", body, timeout=60)
+                ms = (time.perf_counter() - t0) * 1e3
+                check(c.ok() and c.response == body,
+                      f"h2 c: {size} B echo: {c.status} {c.message}")
+                out[f"echo_{size}"] = {
+                    "ms": ms, "mb_per_s": 2 * size / ms / 1e3,
+                    "window_updates_sent": s.window_updates_sent - sent0,
+                    "window_updates_received": (s.window_updates_received
+                                                - recv0)}
+                check(out[f"echo_{size}"]["window_updates_sent"] > 0 and
+                      out[f"echo_{size}"]["window_updates_received"] > 0,
+                      f"h2 c: {size} B echo moved no window: "
+                      f"{out[f'echo_{size}']}")
+            t0 = time.perf_counter()
+            c = ch.call("/Bench/Sleep", b"late", timeout=H2_TIMEOUT_S)
+            ms = (time.perf_counter() - t0) * 1e3
+            check(c.status == h2.GRPC_DEADLINE_EXCEEDED,
+                  f"h2 c: a {H2_TIMEOUT_S} s timeout against a "
+                  f"{H2_SLEEP_S} s handler answered {c.status} {c.message}")
+            out["deadline"] = {"status": c.status, "message": c.message,
+                               "ms": ms}
+    finally:
+        server.stop()
+        server.join(10)
+    return out
+
+
+def _h2_auth() -> dict:
+    """(d): a server with a token Authenticator: a gRPC call without the
+    credential answers UNAUTHENTICATED and its handler does not run;
+    with ``authorization: Bearer <token>`` it answers OK."""
+    from brpc_tpu_torch.protocol import h2
+    server, port, calls = _h2_echo_server(auth=True)
+    try:
+        with h2.GrpcChannel(f"tcp://127.0.0.1:{port}") as ch:
+            refused = ch.call("/Bench/Echo", b"no credential")
+            ran = len(calls)
+        with h2.GrpcChannel(f"tcp://127.0.0.1:{port}") as ch:
+            ok = ch.call("/Bench/Echo", b"token",
+                         metadata=[("authorization", f"Bearer {H2_TOKEN}")])
+    finally:
+        server.stop()
+        server.join(10)
+    check(refused.status == h2.GRPC_UNAUTHENTICATED and ran == 0,
+          f"h2 d: without the credential: status {refused.status}, "
+          f"{ran} handler calls")
+    check(ok.ok() and ok.response == b"token" and len(calls) == 1,
+          f"h2 d: with the token: {ok.status} {ok.message}")
+    return {"refused_status": refused.status,
+            "refused_message": refused.message,
+            "handler_calls_refused": ran, "token_status": ok.status}
+
+
+def _grpc_turn(chans, calls: int, oracle: dict, what: str) -> dict:
+    """``calls`` gRPC Generate calls from N_CLIENTS threads, thread i on
+    ``chans[i]``, the oracle's prompts in turn; every answer equal to
+    the CPU plain path's. Tokens/s, the call's p50/p99/max."""
+    prompts = list(oracle)
+    lat, errors, tokens = [], [], []
+
+    def client(i):
+        for n in range(i, calls, N_CLIENTS):
+            p = prompts[n % len(prompts)]
+            t0 = time.perf_counter()
+            c = chans[i].call("/GenerateService/Generate", _generate_body(p),
+                              timeout=120)
+            if not c.ok():
+                errors.append((p, c.status, c.message))
+                continue
+            lat.append((time.perf_counter() - t0) * 1e3)
+            got = json.loads(c.response)["tokens"]
+            if got != oracle[p]:
+                errors.append((p, -1, "tokens differ from the CPU plain "
+                                      "path"))
+            tokens.append(len(got))
+    wall = _run_clients(client)
+    check(not errors, f"{what}: {len(errors)} of {calls} calls failed or "
+                      f"wrong: {errors[:3]}")
+    return {"calls": calls, "wall_s": wall,
+            "tokens_per_s": sum(tokens) / wall, "p50_ms": _median(lat),
+            "p99_ms": _p99(lat), "max_ms": max(lat)}
+
+
+def _h2_tls_turns(oracle: dict) -> dict:
+    """(e): a Generate server on cuda:0 a process (``--client ring_server
+    tcp|ssl``, the selector lane), N_CLIENTS held GrpcChannels to each
+    from this process; a warm-up of N_REQUESTS calls, then one turn of
+    H2_TURN_CALLS gRPC calls a server. Each turn: tokens/s, p50/p99/max,
+    the server's CPU a call and busiest threads, its flash_decode
+    launches equal to its decode steps. TLS's CPU a call at
+    RING_SSL_CPU_RATIO times tcp's or more fails, with both servers'
+    busiest threads."""
+    import shutil
+    import tempfile
+
+    from brpc_tpu_torch.protocol.h2 import GrpcChannel
+    certs = tempfile.mkdtemp(prefix="chip-smoke-h2-certs-")
+    cert, key = os.path.join(certs, "cert.pem"), os.path.join(certs, "key.pem")
+    made = subprocess.run(
+        ["openssl", "req", "-x509", "-newkey", "rsa:2048", "-nodes",
+         "-keyout", key, "-out", cert, "-days", "2", "-subj",
+         "/CN=localhost"], capture_output=True, text=True, timeout=60)
+    check(made.returncode == 0, f"h2 e: openssl req: {made.stderr[-1000:]}")
+    sessions = {"tcp": _Session(["ring_server", "tcp"], env=SELECTOR_ENV),
+                "ssl": _Session(["ring_server", "ssl", cert, key],
+                                env=SELECTOR_ENV)}
+    chans = {}
+    out = {}
+    try:
+        hello = {k: _session_lane(s, "EventDispatcher", f"h2 e {k}")
+                 for k, s in sessions.items()}
+        first = {k: s.step() for k, s in sessions.items()}
+        chans = {k: [GrpcChannel(f"{k}://127.0.0.1:{hello[k]['port']}")
+                     for _ in range(N_CLIENTS)] for k in sessions}
+        for k in sessions:
+            _counted_turn(f"h2 e {k} warm-up", sessions[k], _grpc_turn,
+                          chans[k], N_REQUESTS, oracle, f"h2 e {k} warm-up")
+        for k in sessions:
+            r, d = _counted_turn(f"h2 e {k}", sessions[k], _grpc_turn,
+                                 chans[k], H2_TURN_CALLS, oracle,
+                                 f"h2 e {k}")
+            out[k] = dict(r, server_cpu_ms_per_call=d["cpu_ms_per_call"],
+                          server_syscalls_per_rpc=d["syscalls_per_rpc"],
+                          server_threads_cpu_s=d["thread_cpu_s"],
+                          server_steps=d["steps"],
+                          server_flash_decode=d["flash_decode"])
+        last = {k: s.step() for k, s in sessions.items()}
+    finally:
+        for v in chans.values():
+            for ch in v:
+                ch.close()
+        for s in sessions.values():
+            s.close()
+        shutil.rmtree(certs, ignore_errors=True)
+    tls, tcp = out["ssl"], out["tcp"]
+    check(tls["server_cpu_ms_per_call"] < RING_SSL_CPU_RATIO *
+          tcp["server_cpu_ms_per_call"],
+          f"h2 e: the TLS server took {tls['server_cpu_ms_per_call']:.2f} "
+          f"ms CPU a gRPC call against tcp's "
+          f"{tcp['server_cpu_ms_per_call']:.2f}; TLS threads "
+          f"{tls['server_threads_cpu_s']}, tcp threads "
+          f"{tcp['server_threads_cpu_s']}")
+    launches = 0
+    for k in sessions:
+        # every launch of a server, its warm-up's included: steps + 1
+        check(last[k]["launches"]["flash_decode"] == last[k]["steps"] and
+              first[k]["steps"] == 1,
+              f"h2 e {k}: {last[k]['launches']} for {last[k]['steps']} "
+              f"steps (warm-up {first[k]['steps']})")
+        launches += last[k]["launches"]["flash_decode"]
+    out["ssl_over_tcp_cpu"] = (tls["server_cpu_ms_per_call"]
+                               / tcp["server_cpu_ms_per_call"])
+    out["flash_decode"] = launches
+    return out
+
+
+def _h2_press(port: int, served_before: int, server) -> dict:
+    """(f): ``rpc_press --protocol http`` with two workers, H2_PRESS_CALLS
+    calls at H2_PRESS_QPS against the Generate server's HTTP path: every
+    call OK, and the merged count the server's."""
+    rep = _tool(["brpc_tpu_torch.tools.rpc_press",
+                 f"tcp://127.0.0.1:{port}", "GenerateService", "Generate",
+                 "--protocol", "http", "--qps", str(H2_PRESS_QPS),
+                 "--count", str(H2_PRESS_CALLS), "--conns",
+                 str(H2_PRESS_CONNS), "--procs", "2", "--timeout-ms",
+                 "60000", "--json"], timeout_s=300)
+    served = server.method_status["GenerateService.Generate"].count() \
+        - served_before
+    check(rep["workers"] == 2 and rep["dead_workers"] == 0 and
+          rep["records"] == rep["issued"] == rep["ok"] == H2_PRESS_CALLS
+          and rep["ok"] == served,
+          f"h2 f: press {rep}, the server served {served}")
+    cls = rep["classes"]["GenerateService.Generate|p0"]
+    return {"records": rep["records"], "ok": rep["ok"], "fail": rep["fail"],
+            "served": served, "elapsed_s": rep["elapsed_s"],
+            "achieved_qps": rep["ok"] / rep["elapsed_s"],
+            "behind_ms_max": rep["behind_ms_max"],
+            "p50_ms": cls["p50_ms"], "p99_ms": cls["p99_ms"]}
+
+
+def phase_h2(dev):
+    """Generate over gRPC, HTTP/2 and the port's HTTP/1.1 client on the
+    card: (a) phase 3's burst as unary gRPC calls on H2_CHANNELS
+    GrpcChannels, cold, then warm; (b) the burst over HTTP/1.1 with ``on_chunk`` reads
+    and over plain h2; (c) 1 MiB and 4 MiB gRPC echoes through flow
+    control and a timeout against a slower handler; (d) the gRPC auth
+    gate; (e) gRPC turns over tcp:// and ssl:// against servers in child
+    processes, CPU a call; (f) ``rpc_press --protocol http``. Every
+    Generate answer equal to the CPU plain path's; this process's
+    server's flash_decode launches (zeroed before it starts, read after
+    (f)) equal to its decode steps plus its warm-up, as (e)'s servers'
+    are."""
+    from brpc_tpu_torch.protocol import h2 as h2mod
+    from brpc_tpu_torch.rpc import Server
+    from brpc_tpu_torch.serving import (TinyDecoder, TinyDecoderConfig,
+                                        add_generate_service)
+    fa = _fa_module()
+    phase_t0 = time.monotonic()
+    prompts = _prompts()
+    cpu_model = TinyDecoder(TinyDecoderConfig(), device="cpu")
+    oracle = {p: cpu_model.generate(list(p.encode()), MAX_TOKENS)
+              for p in prompts}
+    out = {"phase": "h2"}
+    fa.reset_launches()
+    server = Server()
+    gs = add_generate_service(server)
+    check(str(gs.device) == "cuda:0", f"service device {gs.device}")
+    port = server.start("tcp://127.0.0.1:0").port
+    try:
+        progress("h2 a: gRPC burst")
+        # a first burst pays this process's first uses (alone, the phase
+        # builds the native core in it), so that the second is warm
+        cold = _grpc_burst(port, prompts)
+        _check_burst("h2 a (cold)", cold[0], cold[1], oracle)
+        results, errors, wall, lat, protos = _grpc_burst(port, prompts)
+        _check_burst("h2 a", results, errors, oracle)
+        check(protos.count("h2") == H2_CHANNELS,
+              f"h2 a: /connections names {protos}")
+        out["a"] = {"cold_wall_s": cold[2], "wall_s": wall,
+                    "p50_ms": _median(lat),
+                    "p99_ms": _p99(lat), "channels": H2_CHANNELS,
+                    "grpc_calls_on_status": server.method_status[
+                        "GenerateService.Generate"].count()}
+        check(out["a"]["grpc_calls_on_status"] == 2 * N_REQUESTS,
+              f"h2 a: /status counts {out['a']['grpc_calls_on_status']} "
+              f"Generate calls")
+        emit({"phase": "h2", "part": "a", "a": out["a"],
+              "connection_protocols": protos})
+        progress("h2 b: HTTP/1.1 progressive and plain h2 bursts")
+        out["b"] = {}
+        for kind, (res, errs, wall, lat, parts) in _h2_client_bursts(
+                port, prompts).items():
+            _check_burst(f"h2 b {kind}", res, errs, oracle)
+            out["b"][kind] = {"wall_s": wall, "p50_ms": _median(lat),
+                              "p99_ms": _p99(lat)}
+            if parts:
+                # a body read progressively: every token its own part
+                check(min(parts) > 1, f"h2 b: {kind} parts {parts[:4]}")
+                out["b"][kind]["parts_min"] = min(parts)
+        emit({"phase": "h2", "part": "b", "b": out["b"]})
+        progress("h2 c: flow control and a deadline")
+        out["c"] = _h2_flow_and_deadline()
+        emit({"phase": "h2", "part": "c", "c": out["c"]})
+        progress("h2 d: the gRPC auth gate")
+        out["d"] = _h2_auth()
+        emit({"phase": "h2", "part": "d", "d": out["d"]})
+        progress("h2 f: rpc_press --protocol http")
+        served = server.method_status["GenerateService.Generate"].count()
+        out["f"] = _h2_press(port, served, server)
+        emit({"phase": "h2", "part": "f", "f": out["f"]})
+        _sync(dev)
+        got = dict(fa.launches)
+        steps = gs.batcher.decode_steps + gs.engine.warmup_steps
+        check(got["flash_decode"] == steps > 0 and
+              sum(got.values()) == got["flash_decode"],
+              f"h2: launched {got}, {steps} decode steps and warm-ups")
+        out["server"] = {"flash_decode": got["flash_decode"],
+                         "steps": steps}
+    finally:
+        server.stop()
+        server.join(10)
+    check(h2mod.live_channels() == 0,
+          f"h2: {h2mod.live_channels()} gRPC channels left open")
+    progress("h2 e: gRPC over tcp:// and ssl:// in turns")
+    out["e"] = _h2_tls_turns(oracle)
+    emit({"phase": "h2", "part": "e", "e": out["e"]})
+    out["phase_s"] = time.monotonic() - phase_t0
+    out["launches"] = {"flash_decode": out["server"]["flash_decode"]
+                       + out["e"]["flash_decode"]}
+    emit({"phase": "h2", "launches": out["launches"],
+          "server": out["server"], "phase_s": out["phase_s"]})
+    return out
+
+
 def phase_paths(dev, split_inputs):
     """The port's two other paths, each driven through its public entry
     point with every count zeroed just before and read just after:
@@ -7337,6 +7765,10 @@ def main(only: str = "") -> int:
             # and part (e) makes its artifact with phase incident's storm
             phase_replay(dev)
             return 0
+        if only == "h2":
+            # alone, flash_decode builds at the first server's warm-up
+            phase_h2(dev)
+            return 0
         if only:
             {"streaming": phase_streaming,
              "observability": phase_observability}[only]()
@@ -7367,6 +7799,8 @@ def main(only: str = "") -> int:
         ring = phase_ring(dev)
         progress("phase replay")
         replay = phase_replay(dev, incident["c"]["artifact_path"])
+        progress("phase h2")
+        h2 = phase_h2(dev)
         progress("phase paths")
         paths = phase_paths(dev, split_inputs)
         progress("phase times")
@@ -7399,6 +7833,7 @@ def main(only: str = "") -> int:
     by_path["ring"] = ring["launches"]["flash_decode"]
     by_path["replay"] = sum(v["flash_decode"]
                             for v in replay["launches"].values())
+    by_path["h2"] = h2["launches"]["flash_decode"]
     by_path["long_cache_decode"] = paths["long_cache_decode"]["flash_decode"]
     fwd_by_path = {
         "long_context": paths["long_context"]["flash_attn_fwd"],
@@ -7414,7 +7849,9 @@ def main(only: str = "") -> int:
              "shards: two forked Generate shards behind one port; ring: "
              "Generate on the ring lane, connection types, ssl://, shards "
              "on the ring; replay: a captured burst, open-loop replays, "
-             "chaos, incident replays; the long-cache decode",
+             "chaos, incident replays; h2: Generate over gRPC, plain h2 "
+             "and HTTP/1.1 through the port's clients, gRPC over tcp and "
+             "ssl, rpc_press over HTTP; the long-cache decode",
              sum(by_path.values()), sl["flash_decode"],
              sl["flash_decode"] / steps, errs["serving_decode"],
              times["decode"], launches_by_path=by_path,
@@ -7465,7 +7902,7 @@ if __name__ == "__main__":
         if sys.argv[2:3] not in (["streaming"], ["observability"],
                                  ["device_lane"], ["combo"], ["cluster"],
                                  ["incident"], ["native"], ["shards"],
-                                 ["ring"], ["replay"]):
+                                 ["ring"], ["replay"], ["h2"]):
             sys.exit(f"chip_smoke: unknown phase {sys.argv[2:]}")
         sys.exit(main(only=sys.argv[2]))
     sys.exit(main())

@@ -27,7 +27,8 @@ case may leave a socket registered with the port's dispatcher, a lease
 on a shared connection (``transport/socket_map.py``), nor a naming
 thread, a health-check probe, a PeriodicTask, a ring dispatcher's thread
 or one of the port's sampler, capture-writer and bundler threads
-running, a chaos plan installed, or a replay's channels open.
+running, a chaos plan installed, a replay's channels open, or an h2
+session, a gRPC channel or an HTTP client connection left open.
 """
 
 import json
@@ -63,6 +64,8 @@ from brpc_tpu_torch.rpc import naming as port_naming
 from brpc_tpu_torch.rpc import periodic_task as port_periodic
 from brpc_tpu_torch.rpc import retry_policy as port_retry
 from brpc_tpu_torch.chaos import inject as port_chaos
+from brpc_tpu_torch.protocol import h2 as port_h2
+from brpc_tpu_torch.protocol import http_client as port_http_client
 from brpc_tpu_torch.traffic import replay as port_replay
 from brpc_tpu_torch.transport.socket_map import global_socket_map
 from brpc_tpu_torch.transport.event_dispatcher import global_dispatcher
@@ -105,14 +108,18 @@ def _running_loops():
     PeriodicTasks, leases on shared connections, ring dispatchers, the
     flight recorder's sampler, capture writers and the incident
     bundler; an installed chaos plan and the channels of a replay in
-    flight."""
+    flight; h2 sessions, gRPC channels and HTTP client connections left
+    open."""
     return {"naming threads": port_naming.live_naming_threads(),
             "health checks": port_hc.live_checks(),
             "PeriodicTasks": port_periodic.live_tasks(),
             "socket map leases": global_socket_map().leases(),
             "threads": _port_loop_threads(),
             "chaos installed": port_chaos.installed_schemes(),
-            "replay channels": port_replay.live_channels()}
+            "replay channels": port_replay.live_channels(),
+            "h2 sessions": port_h2.live_sessions(),
+            "gRPC channels": port_h2.live_channels(),
+            "HTTP client connections": port_http_client.live_clients()}
 
 
 def _run_cases(cases, limit_s=CASE_LIMIT_S):

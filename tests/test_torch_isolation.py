@@ -79,6 +79,12 @@ def test_import_leaves_jax_and_brpc_tpu_out():
         "import brpc_tpu_torch.tools.rpc_press, brpc_tpu_torch.tools.rpc_replay\n"
         "import brpc_tpu_torch.tools.rpc_view\n"
         "import brpc_tpu_torch.tools.incident_replay\n"
+        "import brpc_tpu_torch.protocol.hpack, brpc_tpu_torch.protocol.h2\n"
+        "import brpc_tpu_torch.protocol.http_client\n"
+        "import brpc_tpu_torch.tools.parallel_http\n"
+        "from brpc_tpu_torch.protocol.registry import get_protocols\n"
+        "assert [p.name for p in get_protocols()] == "
+        "['tpu_std', 'http', 'h2']\n"
         f"forbidden = {FORBIDDEN_MODULES!r}\n"
         "bad = sorted(m for m in sys.modules if any(\n"
         "    m == f or m.startswith(f + '.') for f in forbidden))\n"

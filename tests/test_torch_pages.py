@@ -111,8 +111,10 @@ def case_page_keys():
         ref = _page(p.ref, "/connections")
         assert set(mine) == set(ref)
         row, rrow = mine["connections"][0], ref["connections"][0]
-        assert set(row) == set(rrow) | {"wqueue_bytes", "read_bytes"}, \
-            (row, rrow)
+        assert set(row) == set(rrow) | {"wqueue_bytes", "read_bytes",
+                                        "protocol"}, (row, rrow)
+        assert {r["protocol"] for r in mine["connections"]} == {"tpu_std",
+                                                                "http"}
         assert {r["idle_class"] for r in mine["connections"]} == {"active"}
         # the client rows come from the census walk, memoized for 0.2 s
         # (in both packages): a walk made before the channels dialled may

@@ -8,18 +8,31 @@ wait above the fd). The lane is chosen when a process's dispatcher is
 built, so each lane runs in a process of its own. The certificate pair
 is made with ``openssl req``, as the reference's test makes it.
 
+A writer that TLS asks to read first on an established connection
+parks until the read path runs (``SslConn._wake_parked_writer``): with a
+stand-in SSL object whose ``send`` wants a read until one came, the
+write is tried once before the read, where a writable event, firing at
+once on an open socket, would retry it without bound.
+
 One collected test over the cases (``_run_cases`` of
 test_torch_cluster.py).
 """
 
 import json
 import os
+import socket as pysocket
+import ssl as pyssl
 import subprocess
 import sys
 import tempfile
+import threading
+import time
 from pathlib import Path
 
 import brpc_tpu_torch.rpc as port_rpc
+from brpc_tpu_torch.butil.endpoint import EndPoint
+from brpc_tpu_torch.transport.socket import Socket
+from brpc_tpu_torch.transport.ssl import SslConn
 
 from test_torch_cluster import _run_cases
 
@@ -133,9 +146,75 @@ def case_listener_requires_cert():
         raise AssertionError("an ssl:// listener without #cert started")
 
 
+class _WantsReadSsl:
+    """An SSL object's stand-in over one end of a socketpair: ``send``
+    raises SSLWantReadError until ``recv_into`` has read bytes."""
+
+    def __init__(self, raw):
+        self.raw = raw
+        self.sends = 0
+        self.read_seen = False
+        self.sent = bytearray()
+
+    def setblocking(self, flag):
+        self.raw.setblocking(flag)
+
+    def fileno(self):
+        return self.raw.fileno()
+
+    def do_handshake(self):
+        pass
+
+    def send(self, mv):
+        self.sends += 1
+        if not self.read_seen:
+            raise pyssl.SSLWantReadError("records to read first")
+        self.sent += bytes(mv)
+        return len(mv)
+
+    def recv_into(self, mv):
+        n = self.raw.recv_into(mv)      # BlockingIOError when empty
+        if n:
+            self.read_seen = True
+        return n
+
+    def pending(self):
+        return 0
+
+    def close(self):
+        self.raw.close()
+
+
+def case_writer_parks_until_a_read():
+    a, b = pysocket.socketpair()
+    fake = _WantsReadSsl(a)
+    conn = SslConn(fake, EndPoint("ssl", "127.0.0.1", 1),
+                   EndPoint("ssl", "127.0.0.1", 2))
+    conn._handshaken = True             # established
+    read = []
+    sock = Socket(conn, on_input=lambda s: read.append(
+        s.input_portal.cut(s.input_portal.size).to_bytes()))
+    done = threading.Event()
+    try:
+        assert sock.write(b"payload", on_done=lambda err: done.set())
+        time.sleep(0.3)
+        tries = fake.sends
+        assert not done.is_set() and tries <= 2, \
+            f"{tries} sends before any read"
+        b.sendall(b"r")                 # the read the writer waits for
+        assert done.wait(5), f"the write stayed parked ({fake.sends})"
+        assert bytes(fake.sent) == b"payload" and read == [b"r"]
+        assert fake.sends <= tries + 1, (tries, fake.sends)
+    finally:
+        sock.set_failed(ConnectionError("case over"))
+        b.close()
+
+
 CASES = [
     ("TLS both ways on both lanes", case_tls_on_both_lanes, ()),
     ("a listener needs a certificate", case_listener_requires_cert, ()),
+    ("a writer that wants a read parks until one",
+     case_writer_parks_until_a_read, ()),
 ]
 
 

@@ -5,16 +5,18 @@ One function per page, shared by the ``builtin`` tpu_std service that
 ``add_builtin_services`` registers and the HTTP pages of
 ``protocol/http.py``, so the two views cannot diverge.
 
-The port keeps the entries whose source it has: ``/timeline``,
-``/census``, ``/capture`` and ``/incidents`` (with their tpu_std twins),
-on ``/status`` the incident line and the IOBuf pool's gauges, and on
-``/connections``' robustness pane the chaos counters
-(``chaos_injected_*``, ``chaos/inject.py``). Left out, until their
-modules are ported (ROADMAP section 1): on ``/status`` the trend-ring
-links (``saturation_timeline``) and the input-batching and
-write-coalescing gauges.
+The port keeps every entry of the reference's: ``/timeline``,
+``/census``, ``/capture`` and ``/incidents`` (with their tpu_std twins);
+on ``/status`` the incident line, the saturation pane with the input
+loop's batching (``dispatch_batch_size_avg_10s`` and ``_peak_10s``), the
+write path's coalescing (``socket_write_coalesced_frames``) and the IOBuf
+pool's gauges, and the ``saturation_timeline`` links of the pane's
+entries that have a trend ring; on ``/connections``' robustness pane the
+chaos counters (``chaos_injected_*``, ``chaos/inject.py``).
 ``/connections`` and ``/sockets`` read the rows of
-``transport.socket.socket_census_rows``, as ``/census`` does.
+``transport.socket.socket_census_rows``, as ``/census`` does; a server
+row names the protocol its connection settled on (tpu_std, hulu_pbrpc,
+sofa_pbrpc, http, h2, thrift or redis).
 """
 
 from __future__ import annotations
@@ -32,6 +34,19 @@ ROBUSTNESS_VARS = ("server_deadline_shed", "server_limit_shed",
                    "server_priority_shed", "client_priority_shed",
                    "retry_suppressed_budget", "retry_throttled",
                    "hedge_suppressed_budget", "naming_empty")
+
+
+# the saturation pane's entries and the vars whose trend rings they link
+_TIMELINE_LINKS = (
+    ("socket_wqueue_bytes", "socket_wqueue_bytes"),
+    ("limit_shed", "server_limit_shed"),
+    ("deadline_shed", "server_deadline_shed"),
+    ("priority_shed", "server_priority_shed"),
+    ("admission_threshold", "server_admission_threshold"),
+    ("inflight", "server_concurrency_inflight"),
+    ("concurrency_limit", "server_concurrency_limit"),
+    ("iobuf_pool_hit_ratio", "iobuf_pool_hit_ratio"),
+    ("retry_tokens", "retry_tokens_min"))
 
 
 def _idle_class(idle_s: float, idle_after: float) -> str:
@@ -121,6 +136,15 @@ def sockets_page(server) -> list:
             rows[-1]["lane_kind"] = conn.lane_kind
             rows[-1]["outstanding_batches"] = conn.outstanding_batches
     return rows
+
+
+def protobufs_page(server) -> dict:
+    """Every method's request and response types (brpc_tpu/protocol/
+    http.py:703-719): ``bytes`` on both sides, since the port's methods
+    take and return bytes and it has no message classes."""
+    return {f"{sname}.{mname}": {"request": "bytes", "response": "bytes"}
+            for sname, svc in server.services().items()
+            for mname in svc.methods}
 
 
 def ids_page() -> dict:
@@ -246,14 +270,23 @@ def status_page(server) -> dict:
     shed counters, the admission threshold and the process's most
     drained retry budget (brpc_tpu/builtin/services.py:228)."""
     from brpc_tpu_torch.butil.iobuf import pool as iobuf_pool
+    from brpc_tpu_torch.bvar.series import global_series, series_enabled
     from brpc_tpu_torch.incident.manager import incident_status_line
     from brpc_tpu_torch.rpc.retry_policy import min_retry_tokens
     from brpc_tpu_torch.rpc.server_dispatch import (nlimit_shed,
                                                     npriority_shed, nshed)
+    from brpc_tpu_torch.transport.input_messenger import (
+        dispatch_batch_avg_10s, dispatch_batch_peak_10s)
+    from brpc_tpu_torch.transport.socket import ncoalesced
     saturation = server.control.saturation_pane()
     saturation["socket_wqueue_bytes"] = sum(
         c.write_backlog() for c in server.connections())
-    # are blocks recycling (a hit ratio near 1 once warm)
+    # is the input loop batching (an average over 1 under load), is the
+    # write path coalescing, are blocks recycling (a hit ratio near 1
+    # once warm)
+    saturation["dispatch_batch_size_avg_10s"] = dispatch_batch_avg_10s()
+    saturation["dispatch_batch_size_peak_10s"] = dispatch_batch_peak_10s()
+    saturation["socket_write_coalesced_frames"] = ncoalesced.get_value()
     saturation["iobuf_pool_hit_ratio"] = round(iobuf_pool.hit_ratio(), 4)
     saturation["iobuf_pool_bytes"] = iobuf_pool.cached_bytes()
     saturation["concurrency_limit"] = server.concurrency_limit()
@@ -267,6 +300,15 @@ def status_page(server) -> dict:
     tokens = min_retry_tokens()
     if tokens is not None:
         saturation["retry_tokens"] = tokens
+    # a spike on the pane is one click from its history: the entries
+    # whose var has a trend ring now (brpc_tpu/builtin/services.py:
+    # 248-268)
+    timeline_links = {}
+    if series_enabled():
+        col = global_series()
+        for pane_key, var_name in _TIMELINE_LINKS:
+            if pane_key in saturation and col.has_series(var_name):
+                timeline_links[pane_key] = f"/timeline?name={var_name}"
     return {
         "running": server.is_running,
         "endpoint": str(server.endpoint) if server.endpoint else None,
@@ -280,6 +322,7 @@ def status_page(server) -> dict:
         "method_status": {k: lr.get_value()
                           for k, lr in server.method_status.items()},
         "saturation": saturation,
+        "saturation_timeline": timeline_links,
     }
 
 

@@ -19,6 +19,7 @@ TABS = [
     ("connections", "/connections"),
     ("sockets", "/sockets"),
     ("ids", "/ids"),
+    ("protobufs", "/protobufs"),
     ("metrics", "/brpc_metrics"),
     ("version", "/version"),
 ]

@@ -290,6 +290,10 @@ class SeriesCollector:
                 break
             del self._entries[name]
 
+    def has_series(self, name: str) -> bool:
+        with self._lock:
+            return name in self._entries
+
     def tracked_names(self) -> List[str]:
         with self._lock:
             return sorted(self._entries)

@@ -29,7 +29,8 @@ channel's load-balancing decisions), ``/contentions``, ``/version``;
 (``?action=download&path=``), ``/vlog``, ``/sockets`` (the server's
 sockets in detail) and ``/ids`` (the client calls in flight). ``/health``
 asks ``ServerOptions.health_reporter`` when there is one.
-``/protobufs`` waits for its module (ROADMAP section 1).
+``/protobufs`` lists every method's request and response types, which
+in the port are ``bytes`` on every side (it has no message classes).
 
 A shard group supervisor's admin server (a Server with a
 ``shard_aggregator``, ``rpc/shard_group.py``) answers ``/status``,
@@ -533,6 +534,9 @@ def builtin_page(server, req: HttpRequest):
     if path == "/ids":
         from brpc_tpu_torch.builtin.services import ids_page
         return _json(ids_page())
+    if path == "/protobufs":
+        from brpc_tpu_torch.builtin.services import protobufs_page
+        return _json(protobufs_page(server))
     if path == "/serving":
         from brpc_tpu_torch.serving.service import serving_page_payload
         return _json(serving_page_payload(server))

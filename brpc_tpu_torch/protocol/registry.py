@@ -14,15 +14,22 @@ A Protocol provides:
   process_inline(msg, socket)  True when the message was handled here, in
                                parse order (stream frames, HTTP's queue)
 
-The port registers ``tpu_std``, ``http`` and ``h2``, in that order of
-preference (brpc_tpu/protocol/registry.py:95-98): ``h2`` claims a
-connection by its client preface, which neither of the others takes.
+The port registers, in the reference's order of preference
+(brpc_tpu/protocol/registry.py:87-105) restricted to what it has:
+``tpu_std``, ``hulu_pbrpc``, ``sofa_pbrpc``, ``http``, ``h2`` (it claims
+a connection by its client preface, which none of the others takes),
+``thrift``, ``redis`` (its inline commands only on a connection that
+already spoke RESP) and ``memcache`` (client-only: it disclaims every
+server's bytes). ``find_protocol(name)`` looks one up by name. The
+modules do no work at import beyond their ``struct.Struct``s, and the
+InputMessenger resolves the registry when it is made, never at a
+connection's first read.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 PARSE_OK = "ok"
 PARSE_NOT_ENOUGH_DATA = "not_enough_data"
@@ -70,8 +77,20 @@ def get_protocols() -> List[Protocol]:
     return list(_protocols)
 
 
+def find_protocol(name: str) -> Optional[Protocol]:
+    for p in get_protocols():
+        if p.name == name:
+            return p
+    return None
+
+
 def _register_builtins() -> None:
-    from brpc_tpu_torch.protocol import h2, http, tpu_std
+    from brpc_tpu_torch.protocol import (h2, http, memcache, pbrpc_variants,
+                                         redis, thrift, tpu_std)
     tpu_std.ensure_registered()
+    pbrpc_variants.ensure_registered()
     http.ensure_registered()
     h2.ensure_registered()
+    thrift.ensure_registered()
+    redis.ensure_registered()
+    memcache.ensure_registered()

@@ -535,12 +535,14 @@ def pack_stream_frame(peer_id: int, seq: int = 0, credits: int = 0,
 
 def pack_frame(meta: RpcMeta, payload: bytes = b"",
                attachment: bytes = b"", device_arrays=None,
-               device_lane: bool = False) -> Tuple[bytes, Optional[List]]:
+               device_lane: bool = False,
+               magic: bytes = MAGIC) -> Tuple[bytes, Optional[List]]:
     """``(wire, lane)``: the frame's bytes, and the tensors that must ride
     the device lane right before it (None when none do). Without
     ``device_lane`` every tensor is copied to the host and its bytes go
     at the front of the attachment, ahead of ``attachment``
-    (brpc_tpu/protocol/tpu_std.py:179-225)."""
+    (brpc_tpu/protocol/tpu_std.py:179-225). ``magic``: the header's
+    (hulu_pbrpc frames with its own)."""
     lane = None
     if device_arrays:
         # torch only for calls that carry tensors: a process that sends
@@ -559,15 +561,15 @@ def pack_frame(meta: RpcMeta, payload: bytes = b"",
     meta.attachment_size = len(attachment)
     meta_bytes = meta.encode()
     body = len(meta_bytes) + len(payload) + len(attachment)
-    return b"".join((_HDR.pack(MAGIC, body, len(meta_bytes)), meta_bytes,
+    return b"".join((_HDR.pack(magic, body, len(meta_bytes)), meta_bytes,
                      payload, attachment)), lane
 
 
-def parse_header(head: bytes) -> Tuple[int, int]:
-    """(body_size, meta_size) of a 12-byte header; raises on a foreign
-    magic or an impossible size."""
+def parse_header(head: bytes, want: bytes = MAGIC) -> Tuple[int, int]:
+    """(body_size, meta_size) of a 12-byte header; raises on a magic
+    other than ``want`` or an impossible size."""
     magic, body_size, meta_size = _HDR.unpack(head)
-    if magic != MAGIC:
+    if magic != want:
         raise DecodeError(f"bad magic {magic!r}")
     if meta_size > body_size or body_size > MAX_BODY_SIZE:
         raise DecodeError(f"bad sizes body={body_size} meta={meta_size}")
@@ -653,7 +655,7 @@ def merge_device_arrays(msg: RpcMessage) -> List:
 nscan_records = Adder().expose("tpu_std_scan_records")
 
 
-def _probe_head(portal):
+def _probe_head(portal, magic: bytes = MAGIC):
     """``(body_size, meta_size)`` from fastcore's ``parse_head`` on the
     portal's head window, -1 for a definite disclaim, None when the
     probe cannot say (no extension, a window shorter than a header)."""
@@ -664,7 +666,7 @@ def _probe_head(portal):
     if win is None:
         return None
     try:
-        r = fc.parse_head(win, MAGIC)
+        r = fc.parse_head(win, magic)
     finally:
         win.release()
     if r is None or r == -1:
@@ -674,22 +676,35 @@ def _probe_head(portal):
 
 class TpuStdProtocol(Protocol):
     name = "tpu_std"
+    # a variant of the family re-magics it (protocol/pbrpc_variants.py)
+    MAGIC = MAGIC
     min_probe_bytes = len(MAGIC)
     _scan_fn = False        # scan_frames, resolved at the first turbo scan
     _serve_fn = False       # serve_scan, at the first native_serve
 
+    def frame(self, meta: RpcMeta, payload: bytes = b"",
+              attachment: bytes = b"", device_arrays=None,
+              device_lane: bool = False):
+        """This family's framing (brpc_tpu/protocol/tpu_std.py:248-258):
+        the Channel frames its requests and the server its responses
+        with the protocol that parsed the request, so that a reply
+        matches the request's framing."""
+        return pack_frame(meta, payload, attachment, device_arrays,
+                          device_lane, magic=self.MAGIC)
+
     def parse(self, portal, socket):
-        sizes = _probe_head(portal)
+        magic = self.MAGIC
+        sizes = _probe_head(portal, magic)
         if sizes == -1:
             # a mismatch is final even on a short window
             return PARSE_TRY_OTHERS, None
         if sizes is None:
             if portal.size < HEADER_SIZE:
-                head = portal.peek_bytes(len(MAGIC))
-                return (PARSE_NOT_ENOUGH_DATA if MAGIC.startswith(head)
+                head = portal.peek_bytes(len(magic))
+                return (PARSE_NOT_ENOUGH_DATA if magic.startswith(head)
                         else PARSE_TRY_OTHERS), None
             try:
-                sizes = parse_header(portal.peek_bytes(HEADER_SIZE))
+                sizes = parse_header(portal.peek_bytes(HEADER_SIZE), magic)
             except DecodeError:
                 # another magic, or sizes no frame has
                 return PARSE_TRY_OTHERS, None
@@ -725,7 +740,9 @@ class TpuStdProtocol(Protocol):
         time of the run is left in ``socket.turbo_cut_ns``: a request
         that falls back to the classic body takes it as its arrival. A
         subclass keeps the classic path (its parse or process may differ,
-        which the records would skip)."""
+        which the records would skip, and the scanner knows only the
+        ``TRPC`` magic: a variant's frames are left to the classic
+        path, brpc_tpu/protocol/tpu_std.py:360-362, :430)."""
         if type(self) is not TpuStdProtocol:
             return None
         scan = self._scan_fn

@@ -78,17 +78,32 @@ order; on tcp they are copied to the host and go inline in the frame.
 The response's tensors come back in ``cntl.response_device_arrays``.
 ``device_lane_kind()`` names the lane of the channel's connection.
 
-The native lanes (brpc_tpu/rpc/channel.py:117-127, :660-775): a call
-with no stream, tensors or trace and a request of at most
+The protocol (brpc_tpu/rpc/channel.py:131-132, :577-598):
+``ChannelOptions.protocol`` names the framing of the channel's requests,
+``tpu_std`` (the default) or a variant of its family, ``hulu_pbrpc`` or
+``sofa_pbrpc`` (``protocol/pbrpc_variants.py``), resolved once, in the
+constructor; a protocol that cannot frame a Channel's requests raises
+there and names its own client. Shared connections are keyed on the
+protocol too, so that a variant's channel and a tpu_std channel to one
+endpoint never share one. ``cntl.request_attachment`` rides every
+request behind its payload, and the response's lands in
+``cntl.response_attachment``.
+
+The native lanes (brpc_tpu/rpc/channel.py:117-127, :660-775), for
+tpu_std channels only (the scanners know only its magic): a call with
+no stream, tensors or trace whose request and attachment hold at most
 ``SMALL_FRAME_MAX`` bytes is framed in one C allocation from its meta
-prefix (``tpu_std.pack_small_frame``) and arms the sync pluck lane
-(``cntl._pluck_fast``): ``call_sync`` on a thread that is not a fiber
-worker claims the socket's input before the write
-(``Socket.pluck_preclaim``), and ``Controller.join`` reads the response
-itself (``Socket.pluck_until`` over fastcore's ``pluck_scan``). Every
-socket of a channel gets the client's chunk lane
-(``client_dispatch.make_client_fast_drain``), which turns itself off on
-an fd conn.
+prefix (``tpu_std.pack_small_frame``, the same bytes as ``pack_frame``)
+and arms the sync pluck lane (``cntl._pluck_fast``): ``call_sync`` on a
+thread that is not a fiber worker claims the socket's input before the
+write (``Socket.pluck_preclaim``), and ``Controller.join`` reads the
+response itself (``Socket.pluck_until`` over fastcore's
+``pluck_scan``). Every socket of a tpu_std channel gets the client's
+chunk lane (``client_dispatch.make_client_fast_drain``), which turns
+itself off on an fd conn. A variant's call is framed in full; its sync
+join plucks on the classic path, or, on a ring-attached socket, waits
+for the dispatcher (``_event_join``), since a pluck there would pay the
+ring's fence on every call.
 
 Under the ``rpcz_enabled`` flag a call gets a client span
 (brpc_tpu/rpc/channel.py:487, :876; client_dispatch.py:137-150): its
@@ -155,6 +170,30 @@ _NO_DRAIN_CODES = frozenset(_bs.REJECT_CODES) | {berr.ENAMINGEMPTY}
 
 _chan_seq = itertools.count(1)
 _CONNECTION_TYPES = ("", "single", "pooled", "short")
+# the client of each registered protocol that a Channel cannot speak
+_OWN_CLIENTS = {"http": "protocol.http_client.HttpClient",
+                "h2": "protocol.h2.GrpcChannel or Http2Client",
+                "thrift": "protocol.thrift.ThriftClient",
+                "redis": "protocol.redis.RedisClient",
+                "memcache": "protocol.memcache.MemcacheClient"}
+
+
+def resolve_framer(protocol: str):
+    """The framing of a Channel's requests in ``protocol``: None for
+    tpu_std (the channel's own paths), else the variant's ``frame``.
+    Raises ValueError for a protocol a Channel cannot speak, naming the
+    client that speaks it."""
+    if protocol in ("", "tpu_std"):
+        return None
+    from brpc_tpu_torch.protocol.registry import find_protocol
+    proto = find_protocol(protocol)
+    framer = getattr(proto, "frame", None)
+    if framer is None:
+        own = _OWN_CLIENTS.get(protocol)
+        raise ValueError(
+            f"protocol {protocol!r} cannot frame Channel requests"
+            + (f" (use {own} for it)" if own else " (no such protocol)"))
+    return framer
 
 
 def expose_channel_vars() -> None:
@@ -197,7 +236,7 @@ class ChannelOptions:
     credential (``auth_token``, or an ``Authenticator`` in ``auth``,
     which wins), the channel's ``name`` on the pages, a ClusterChannel's
     ``app_health_check`` and ``naming_wait_s``, ``connection_type`` and
-    ``share_connections``."""
+    ``share_connections``, and the ``protocol`` of its requests."""
     timeout_ms: Optional[float] = 1000.0
     # retries after the first attempt (Controller.max_retry overrides)
     max_retry: int = 3
@@ -227,6 +266,8 @@ class ChannelOptions:
     # single: channels to one endpoint and credential share one socket
     # of the process (socket_map.h:147); False: a connection of its own
     share_connections: bool = True
+    # tpu_std, hulu_pbrpc or sofa_pbrpc
+    protocol: str = "tpu_std"
 
 
 class Channel:
@@ -240,6 +281,9 @@ class Channel:
         if self.options.connection_type not in _CONNECTION_TYPES:
             raise ValueError(f"unknown connection_type "
                              f"{self.options.connection_type!r}")
+        # once a channel: the protocol is fixed for its life (None:
+        # tpu_std, whose small calls take the native lanes)
+        self._framer = resolve_framer(self.options.protocol)
         self._stats_name = self.options.name or self._default_stats_name()
         _bs.global_stats().register_channel(self._stats_name, self)
         if self.options.budget_group:
@@ -287,7 +331,9 @@ class Channel:
     def _dial(self, ep) -> Socket:
         s = create_client_socket(
             ep, on_input=_client_messenger().on_new_messages)
-        s.fast_drain = _client_fast_drain()
+        if self._framer is None:
+            # the chunk lane scans tpu_std frames only
+            s.fast_drain = _client_fast_drain()
         # the owner of the connection on /connections' client rows: the
         # channel that dialled it, also when others share it
         s.user_data["channel"] = self._stats_name
@@ -322,16 +368,18 @@ class Channel:
 
     def _map_key_of(self):
         """The connection's key in the SocketMap, and the object the
-        key names: the endpoint and the credential, so that channels with
-        different credentials never share a connection the server
-        verified for one of them (brpc_tpu/rpc/channel.py:316-323). An
+        key names: the endpoint, the protocol and the credential, so that
+        channels of two protocols never share a connection, nor channels
+        with different credentials one the server verified for one of
+        them (brpc_tpu/rpc/channel.py:316-323). An
         ``Authenticator`` is keyed on its ``id``, and the map's entry
         keeps it alive so that the ``id`` is not reused meanwhile."""
         o = self.options
         cred = o.auth_token or (f"auth#{id(o.auth)}" if o.auth is not None
                                 else "")
         owner = o.auth if not o.auth_token else None
-        return SocketMap.key(self.endpoint, f"tpu_std|{cred}"), owner
+        return SocketMap.key(self.endpoint,
+                             f"{o.protocol or 'tpu_std'}|{cred}"), owner
 
     def _get_socket(self) -> Socket:
         held = self._held
@@ -461,6 +509,9 @@ class Channel:
         cntl._service_name = service
         cntl._method_name = method
         cntl._request_bytes = bytes(request)
+        att = cntl.__dict__.get("request_attachment")
+        # once here, not on every attempt
+        cntl._request_att = att.to_bytes() if att else b""
         if cntl.compress_type:
             # once here, not on every attempt; an unknown codec raises
             cntl._request_bytes = compress(cntl._request_bytes,
@@ -587,6 +638,7 @@ class Channel:
         # first attempt of call_sync may claim the pluck lane
         d = cntl.__dict__
         d.pop("_pluck_fast", None)
+        d.pop("_event_join", None)
         sync = d.pop("_sync_fast", False)
         pre = d.pop("_pluck_preclaimed", None)
         if pre is not None:
@@ -636,23 +688,29 @@ class Channel:
             meta.stream_settings = tpu_std.StreamSettings(
                 stream_id=cntl.stream.id)
         arrays = cntl.request_device_arrays
+        att = cntl._request_att
+        framer = self._framer
         try:
-            if not arrays and cntl.stream is None and not cntl.trace_id \
-                    and len(cntl._request_bytes) <= tpu_std.SMALL_FRAME_MAX:
+            if framer is None and not arrays and cntl.stream is None \
+                    and not cntl.trace_id and len(cntl._request_bytes) \
+                    + len(att) <= tpu_std.SMALL_FRAME_MAX:
                 # the small-call path: the same bytes as pack_frame, in
                 # one allocation, and a response the pluck scan can read
                 wire, lane = tpu_std.pack_small_frame(
                     tpu_std.request_meta_prefix(meta.request,
                                                 cntl.compress_type),
-                    cid, cntl._request_bytes), None
+                    cid, cntl._request_bytes, att), None
                 d["_pluck_fast"] = (tpu_std.MAGIC, tpu_std.SMALL_FRAME_MAX)
                 if sync and sock.pluck_preclaim():
                     d["_pluck_preclaimed"] = sock
             else:
-                wire, lane = tpu_std.pack_frame(
-                    meta, cntl._request_bytes, device_arrays=arrays,
-                    device_lane=bool(arrays)
-                    and sock.conn.supports_device_lane)
+                wire, lane = (framer or tpu_std.pack_frame)(
+                    meta, cntl._request_bytes, att, arrays,
+                    bool(arrays) and sock.conn.supports_device_lane)
+                if framer is not None:
+                    # a variant's join on a ring-attached socket waits for
+                    # the dispatcher: its pluck would fence every call
+                    d["_event_join"] = True
             if lane is None:
                 written = sock.write(wire)
             else:

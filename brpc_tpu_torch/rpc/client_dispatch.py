@@ -16,7 +16,8 @@ a retry's hand-over from one attempt to the next.
 response, most often in place on the dispatcher thread. An error the
 server answered goes to the owning channel's retry decision; anything
 else takes the call, fills the controller (``_fill_response``: a
-payload sent compressed is decompressed there) and
+payload sent compressed is decompressed there, and the attachment lands
+in ``cntl.response_attachment``, on every lane) and
 completes it (``Controller._complete``: the joiners wake and ``done``
 runs here).
 
@@ -302,6 +303,8 @@ def process_response_fast(cid: int, err_code: int, err_text,
     if span is not None:
         span.first_byte_us = time.monotonic_ns() // 1000
     cntl.response = PayloadBytes(payload)
+    if att:
+        cntl.response_attachment.append(att)
     if span is not None:
         span.parse_done_us = time.monotonic_ns() // 1000
         span.response_size = len(payload)
@@ -379,6 +382,9 @@ def _fill_response(cntl, msg, socket) -> None:
             # the response's receive leg, a child of the client span
             from brpc_tpu_torch.rpc.span import submit_device_recv_span
             submit_device_recv_span(span, msg.device_recv)
+    if msg.attachment:
+        # what the inline tensors left: the user's attachment
+        cntl.response_attachment.append(msg.attachment)
     ss: Optional[object] = msg.meta.stream_settings
     stream = cntl.stream
     if stream is not None and ss is not None and ss.stream_id:

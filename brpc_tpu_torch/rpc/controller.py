@@ -36,6 +36,14 @@ the request, and the server answers in the kind it was sent.
 Server side, ``is_canceled`` and ``notify_on_cancel`` follow the
 client's connection (``Socket.on_failed``).
 
+Attachments (brpc_tpu/rpc/controller.py:167-168): ``request_attachment``
+and ``response_attachment`` are IOBufs made at their first touch. A
+client sets the request's before the call and reads the response's
+after it; a handler reads the request's and fills the response's. They
+ride the frame behind the payload (``RpcMeta.attachment_size``), over
+tpu_std and its variants; a reused controller starts each call with an
+empty response attachment.
+
 The sync pluck lane (brpc_tpu/rpc/controller.py:569-619): a joiner on a
 thread that is not a fiber worker reads its own response. It takes over
 the input of the socket its attempt went on (``_issue_socket``) with
@@ -60,6 +68,7 @@ import threading
 import time
 from typing import Callable, List, Optional
 
+from brpc_tpu_torch.butil.iobuf import IOBuf
 from brpc_tpu_torch.fiber.scheduler import current_group
 from brpc_tpu_torch.fiber.sync import FiberEvent
 from brpc_tpu_torch.fiber.timer import global_timer
@@ -70,6 +79,10 @@ from .client_dispatch import process_response_fast, take_controller
 from .progressive import ProgressiveAttachment
 
 log = logging.getLogger("brpc_tpu_torch.rpc")
+
+
+# made at their first touch: most calls carry none
+_LAZY_ATTACHMENTS = ("request_attachment", "response_attachment")
 
 
 class Controller:
@@ -165,6 +178,7 @@ class Controller:
         self._service_name = ""
         self._method_name = ""
         self._request_bytes = b""
+        self._request_att = b""
         self._call_seq = 0
         self._issue_seq = 0
         # the socket of the attempt in flight (the pluck lane reads it)
@@ -182,6 +196,13 @@ class Controller:
         self._lb_fed: List = []
         self._hedge_decision = None
         self._adm_local_sheds = 0
+
+    def __getattr__(self, name):
+        # only names missing from the instance get here
+        if name in _LAZY_ATTACHMENTS:
+            return self.__dict__.setdefault(name, IOBuf())
+        raise AttributeError(
+            f"{type(self).__name__!r} object has no attribute {name!r}")
 
     def create_progressive_attachment(
             self, content_type: str = "application/octet-stream"):
@@ -249,6 +270,7 @@ class Controller:
         self._client_span = None
         self.trace_id = self.span_id = 0
         self.response = None
+        self.__dict__.pop("response_attachment", None)
         self.response_device_arrays = []
         self.stream = None
         self._complete_hooks.clear()
@@ -362,7 +384,9 @@ class Controller:
                 pre.pluck_release()
                 pre = None
             if not self._finalized and sock is not None \
-                    and not sock.failed and current_group() is None:
+                    and not sock.failed and current_group() is None \
+                    and not (sock._ring_attached
+                             and self.__dict__.get("_event_join")):
                 now = time.monotonic()
                 end = now + (timeout_s if timeout_s is not None
                              else 86400.0)

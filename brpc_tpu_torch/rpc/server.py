@@ -92,7 +92,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 from brpc_tpu_torch.butil.endpoint import EndPoint, str2endpoint
 from brpc_tpu_torch.butil.flags import define_flag, flag
 from brpc_tpu_torch.bvar.latency_recorder import LatencyRecorder
-from brpc_tpu_torch.bvar.reducer import PassiveStatus
+from brpc_tpu_torch.bvar.reducer import Adder, PassiveStatus
 from brpc_tpu_torch.bvar.series import declare_series_kind
 from brpc_tpu_torch.fiber import TaskControl, global_control
 from brpc_tpu_torch.protocol import http
@@ -112,6 +112,9 @@ from .progressive import ProgressiveAttachment
 from .service import Method, Service
 
 log = logging.getLogger("brpc_tpu_torch.rpc")
+
+# requests the auth gate of the HTTP, gRPC and thrift paths refused
+nauth_refused = Adder()
 
 define_flag("server_queue_shed_ms", 200.0,
             "queue-delay shed budget: a request whose arrival-to-"
@@ -150,7 +153,11 @@ class ServerOptions:
     ``usercode_in_pthread``: handlers that are not coroutine functions
     run on the usercode pool (``rpc/usercode.py``), not on the fiber
     workers. ``enable_builtin_services``: the builtin service and pages
-    (/status, /vars, /rpcz, ...)."""
+    (/status, /vars, /rpcz, ...). ``thrift_service``: a
+    ``protocol.thrift.ThriftService`` answering framed thrift on the
+    server's port (refused on a server with ``auth`` or ``auth_token``:
+    thrift carries no credential); ``redis_service``: a
+    ``protocol.redis.RedisService`` answering RESP there."""
     max_concurrency: Any = None
     method_max_concurrency: Optional[Dict[str, Any]] = None
     queue_delay_shed_ms: Optional[float] = None
@@ -164,6 +171,8 @@ class ServerOptions:
     session_local_data_reset: Optional[Callable[[Any], None]] = None
     usercode_in_pthread: bool = False
     enable_builtin_services: bool = True
+    thrift_service: Optional[Any] = None
+    redis_service: Optional[Any] = None
 
 
 class Server:
@@ -400,6 +409,7 @@ class Server:
         expose_backend_vars()
         expose_channel_vars()
         nnaming_empty.expose("naming_empty")
+        nauth_refused.expose("server_auth_refused")
 
     # ----------------------------------------------------------- accounting
     def _request_begin(self) -> None:
@@ -521,11 +531,24 @@ class Server:
         try:
             ctx = self._auth.verify_credential(cred, socket.remote_endpoint)
         except AuthError as e:
+            nauth_refused.add(1)
             return (str(e) or "authentication failed").encode()
         except Exception:               # boundary: a broken authenticator
+            nauth_refused.add(1)
             return b"authentication failed"
         socket.user_data["auth_context"] = ctx
         return None
+
+    def refuse_uncredentialed(self) -> Optional[str]:
+        """The gate of a protocol that carries no credential (thrift):
+        a server with an Authenticator refuses every such call, as bRPC
+        does (policy/thrift_protocol.cpp, VerifyThriftRequest), and
+        counts it where the HTTP gate counts its refusals. The reason,
+        or None on a server without one."""
+        if self._auth is None:
+            return None
+        nauth_refused.add(1)
+        return "this server requires a credential, which thrift cannot carry"
 
     async def _call_http(self, socket: Socket, req: http.HttpRequest,
                          unary: bool = False

@@ -16,10 +16,15 @@ dispatch and for a worker spends it; a request whose deadline passed
 before its handler would start is shed with ``ERPCTIMEDOUT``
 (``server_deadline_shed``).
 
-Responses are framed as brpc_tpu frames them: a success carries only the
-correlation id in its meta (the small-call fast path); a failure, the
-answer to a call whose stream the handler accepted, or one with tensors,
-carries the full meta.
+Responses are framed as brpc_tpu frames them, in the protocol that
+parsed the request (``proto.frame``, brpc_tpu/rpc/server_dispatch.py:
+905-980): a success of tpu_std's framing carries only the correlation id
+and the attachment's size in its meta (the small-call fast path, in the
+request's magic, so hulu_pbrpc's too); a failure, the answer to a call
+whose stream the handler accepted, one with tensors, and every answer of
+sofa_pbrpc carry the full meta. The request's attachment reaches the
+handler in ``cntl.request_attachment``, and ``cntl.response_attachment``
+rides the response behind its payload.
 
 Tensors: the request's, inline or from the lane, reach the handler in
 ``cntl.request_device_arrays`` (brpc_tpu/rpc/server_dispatch.py:340-345);
@@ -319,6 +324,9 @@ async def _serve(proto, msg: tpu_std.RpcMessage, socket, server, method,
             server.on_request_end(method.full_name, 0.0, True, cost)
             _send_response(proto, socket, cntl, b"")
             return
+    if msg.attachment:
+        # what the inline tensors left: the user's attachment
+        cntl.request_attachment.append(msg.attachment)
     span = None
     if flag("rpcz_enabled"):
         span = _span.start_server_span(cntl, req.service_name,
@@ -448,6 +456,8 @@ def _send_response(proto, socket, cntl: Controller, response: bytes,
                    span=None) -> None:
     accepted = cntl._accepted_stream
     arrays = [] if cntl.failed() else list(cntl.response_device_arrays)
+    att = cntl.__dict__.get("response_attachment")
+    att = att.to_bytes() if att and not cntl.failed() else b""
     lane = None
     # while the server sheds by priority its threshold rides every
     # response (brpc_tpu/rpc/server_dispatch.py:905-948); calm, the wire
@@ -456,7 +466,8 @@ def _send_response(proto, socket, cntl: Controller, response: bytes,
     adm = getattr(server, "_admission", None)
     threshold = adm.wire_threshold() if adm is not None else 0
     if cntl.failed() or accepted is not None or arrays or threshold \
-            or cntl.compress_type:
+            or cntl.compress_type or \
+            type(proto).frame is not tpu_std.TpuStdProtocol.frame:
         meta = tpu_std.RpcMeta(
             response=tpu_std.RpcResponseMeta(cntl.error_code,
                                              cntl.error_text, threshold),
@@ -470,15 +481,14 @@ def _send_response(proto, socket, cntl: Controller, response: bytes,
             meta.stream_settings = tpu_std.StreamSettings(
                 stream_id=accepted.id)
         try:
-            frame, lane = tpu_std.pack_frame(
-                meta, b"" if cntl.failed() else bytes(response),
-                device_arrays=arrays,
-                device_lane=bool(arrays) and socket.conn.supports_device_lane)
+            frame, lane = proto.frame(
+                meta, b"" if cntl.failed() else bytes(response), att,
+                arrays, bool(arrays) and socket.conn.supports_device_lane)
         except (TypeError, ValueError, RuntimeError) as e:
-            frame, lane = _failed_tensors_frame(cntl, meta, e), None
+            frame, lane = _failed_tensors_frame(proto, cntl, meta, e), None
     else:
         frame = tpu_std.pack_small_frame(b"", cntl.correlation_id,
-                                         bytes(response))
+                                         bytes(response), att, proto.MAGIC)
     on_done = None
     if span is not None:
         span.response_size = 0 if cntl.failed() else len(response)
@@ -497,7 +507,7 @@ def _send_response(proto, socket, cntl: Controller, response: bytes,
                 socket.write_device_payload(lane, span=span)
             except (TypeError, ValueError, RuntimeError) as e:
                 # no batch went out: answer without one
-                frame = _failed_tensors_frame(cntl, meta, e)
+                frame = _failed_tensors_frame(proto, cntl, meta, e)
                 if span is not None:
                     span.response_size = 0
             socket.write(frame, on_done=on_done)
@@ -507,7 +517,8 @@ def _send_response(proto, socket, cntl: Controller, response: bytes,
             on_done(e)
 
 
-def _failed_tensors_frame(cntl: Controller, meta, e: Exception) -> bytes:
+def _failed_tensors_frame(proto, cntl: Controller, meta,
+                          e: Exception) -> bytes:
     """A tensor that cannot be sent fails the call, not the server: the
     EINTERNAL frame that answers in place of the response."""
     log.exception("response tensors of call %d", cntl.correlation_id)
@@ -515,7 +526,7 @@ def _failed_tensors_frame(cntl: Controller, meta, e: Exception) -> bytes:
     meta.device_payloads = []
     meta.response = tpu_std.RpcResponseMeta(
         cntl.error_code, cntl.error_text, meta.response.admission_threshold)
-    return tpu_std.pack_frame(meta)[0]
+    return proto.frame(meta)[0]
 
 
 def _send_error(proto, socket, cid: int, code: int, text: str) -> None:
@@ -643,6 +654,8 @@ async def _drive_fast(proto, socket, server, method, cid: int, log_id: int,
     cntl.remote_side = socket.remote_endpoint
     cntl._service_name, _, cntl._method_name = \
         method.full_name.partition(".")
+    if att:
+        cntl.request_attachment.append(att)
     socket.last_method = method.full_name
     _serving_cntl.set(cntl)
     try:

@@ -9,9 +9,9 @@ CORPUS is a .brpccap file, a capture directory (shard files merge in
 arrival order), or a legacy rpc_dump JSONL file. Pacing: recorded
 inter-arrival intervals x 1/--warp (default), constant --qps, or a
 seeded Poisson process. Replayed calls preserve the recorded method,
-payload, priority tag and deadline (--timeout-scale rescales the
-recorded budgets; records without one use --default-timeout-ms); a
-record with an attachment is refused (the port's Channel sends none).
+payload, attachment, priority tag and deadline (--timeout-scale
+rescales the recorded budgets; records without one use
+--default-timeout-ms).
 
 Multi-process: --procs N spawns N workers (own GIL each, each started
 as ``python3 -m brpc_tpu_torch.tools.rpc_replay``), round-robin record

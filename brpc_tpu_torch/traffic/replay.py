@@ -17,12 +17,11 @@ this engine on a round-robin slice of the corpus; reports merge with
 merge_reports — counts sum, latency samples pool, never averaged
 percentiles).
 
-Replayed requests preserve the recorded method, payload, priority tag,
-and deadline: timeout_ms re-derives from the recorded budget (scaled by
-``timeout_scale``; warp does NOT rescale deadlines — compressing arrival
-gaps changes offered load, not caller patience). The port's Channel
-sends no request attachment yet, so a corpus whose records carry one is
-refused up front (``ValueError``) rather than replayed without it.
+Replayed requests preserve the recorded method, payload, attachment
+(``cntl.request_attachment``), priority tag, and deadline: timeout_ms
+re-derives from the recorded budget (scaled by ``timeout_scale``; warp
+does NOT rescale deadlines — compressing arrival gaps changes offered
+load, not caller patience).
 
 The schedule, the latency reservoirs and ``synthesize_records`` draw from
 ``random.Random(seed)`` exactly as the reference does, so one seed gives
@@ -166,10 +165,6 @@ def run_open_loop(records: List[CapturedRequest], address: str,
     from brpc_tpu_torch.rpc import Channel, ChannelOptions
     from brpc_tpu_torch.rpc.controller import Controller
 
-    with_att = sum(1 for r in records if r.attachment)
-    if with_att:
-        raise ValueError(f"{with_att} record(s) carry an attachment, which "
-                         "the port's Channel cannot send yet")
     if not records:
         return {"records": 0, "issued": 0, "ok": 0, "fail": 0,
                 "elapsed_s": 0.0, "fidelity_pct": None, "classes": {}}
@@ -222,6 +217,8 @@ def run_open_loop(records: List[CapturedRequest], address: str,
                 cntl.timeout_ms = default_timeout_ms
             if rec.priority:
                 cntl.request_priority = rec.priority
+            if rec.attachment:
+                cntl.request_attachment.append(rec.attachment)
             cs = _class(rec)
             t_issue = time.perf_counter()
 

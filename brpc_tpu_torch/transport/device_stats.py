@@ -39,8 +39,11 @@ Cost gating: ``BRPC_TPU_DEVICE_STATS=0`` (read at import) or the flag
 
 ``merge_device_payloads`` is a shard group supervisor's merged view
 (``rpc/shard_group.py``); ``_postfork_reset`` is registered with the
-postfork registry. The reference's probe pane waits for a probe of the
-card that writes its artifact (ROADMAP section 1).
+postfork registry. The probe pane (brpc_tpu/transport/device_stats.py:
+446-470): with the ``device_probe_path`` flag naming the artifact of
+``python3 -m brpc_tpu_torch.transport.ipc_probe --out PATH``, ``/device``
+shows its keys (the reference's names, ``lane_kind`` ``cuda_ipc``) and
+its ``age_s``; the flag is empty by default, which leaves the pane out.
 """
 
 from __future__ import annotations
@@ -64,6 +67,9 @@ define_flag("device_stats_enabled",
             "per-(peer, lane) device transfer stat cells + stage "
             "trackers (/device); BRPC_TPU_DEVICE_STATS=0 sets the "
             "default off for overhead A/B runs")
+define_flag("device_probe_path", "",
+            "path of the last ipc_probe --out artifact shown on /device "
+            "(empty: no probe pane)")
 # a runaway caller (a conn per request) degrades to a bounded table:
 # overflow lands on one cell
 MAX_CELLS = 1024
@@ -422,6 +428,38 @@ def device_thread_label(tid: int) -> Optional[str]:
 
 # ---------------------------------------------------------------- page
 
+# the artifact's keys the pane shows (brpc_tpu/transport/
+# device_stats.py:455-458)
+_PROBE_KEYS = ("headline_GBps", "p50_us", "p99_us", "lane_kind",
+               "link_floor_us", "d2h_floor_us", "stage_breakdown",
+               "device_stats_overhead_pct", "ici_stage_attribution_pct",
+               "error", "lane_error", "bringup")
+
+
+def _probe_pane() -> Optional[dict]:
+    """The last probe artifact's operator keys and its age, or None (no
+    flag, no file, not JSON)."""
+    path = _flag("device_probe_path")
+    if not path:
+        return None
+    try:
+        if os.path.getsize(path) > (4 << 20):
+            return {"error": "probe artifact too large to surface"}
+        import json
+        with open(path, encoding="utf-8") as f:
+            doc = json.load(f)
+    except (OSError, ValueError):
+        return None
+    if not isinstance(doc, dict):
+        return None
+    pane = {k: doc[k] for k in _PROBE_KEYS if k in doc}
+    try:
+        pane["age_s"] = round(time.time() - os.path.getmtime(path), 1)
+    except OSError:
+        pass
+    return pane or None
+
+
 def device_page_payload(server=None, samples: int = 128) -> dict:
     """The /device payload, shared by the HTTP route and the builtin
     service (one function, two views). The page is process-wide
@@ -455,6 +493,9 @@ def device_page_payload(server=None, samples: int = 128) -> dict:
         out["leaks"] = ici.leak_snapshot()
     else:
         out["transfer_lane"] = "not loaded"
+    probe = _probe_pane()
+    if probe is not None:
+        out["probe"] = probe
     return out
 
 

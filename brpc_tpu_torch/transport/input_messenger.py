@@ -41,7 +41,7 @@ from collections import deque
 from typing import Callable, List, Optional
 
 from brpc_tpu_torch.butil.flags import define_flag, flag
-from brpc_tpu_torch.bvar.reducer import Adder
+from brpc_tpu_torch.bvar.reducer import Adder, Maxer, PassiveStatus
 from brpc_tpu_torch.fiber import TaskControl, global_control
 from brpc_tpu_torch.protocol.registry import (PARSE_NOT_ENOUGH_DATA,
                                               PARSE_OK, get_protocols)
@@ -55,26 +55,61 @@ define_flag("dispatch_inline_budget", 16,
 # messages dispatched, and dispatch cycles: their ratio is the batch size
 _batch_msgs = Adder().expose("dispatch_batch_msgs")
 _batch_cycles = Adder().expose("dispatch_batches")
+_batch_peak = Maxer()
+_batch_windows = None
+
+
+def _batch_window_views():
+    """(messages a second, cycles a second, the peak's window) over 10 s,
+    made at the first read: a Window registers with the sampler thread
+    (brpc_tpu/transport/input_messenger.py:47-70)."""
+    global _batch_windows
+    if _batch_windows is None:
+        from brpc_tpu_torch.bvar.window import PerSecond, Window
+        _batch_windows = (PerSecond(_batch_msgs, 10),
+                          PerSecond(_batch_cycles, 10),
+                          Window(_batch_peak, 10))
+    return _batch_windows
+
+
+def dispatch_batch_avg_10s() -> float:
+    """Messages a dispatch cycle over the last 10 s (1.0: no batching)."""
+    msgs, cycles, _ = _batch_window_views()
+    c = cycles.get_value() or 0
+    if not c:
+        return 0.0
+    return round((msgs.get_value() or 0) / c, 2)
+
+
+def dispatch_batch_peak_10s() -> int:
+    return _batch_window_views()[2].get_value() or 0
 
 
 def _postfork_reset() -> None:
     """Fork hygiene: the batch counters count this process's dispatch
     cycles only (a shard's merged ``/vars`` is the sum of the shards',
-    and a restarted shard must not carry its supervisor's cycles). The
-    reference resets its batch windows here (brpc_tpu/transport/
-    input_messenger.py:73-83); the port keeps none."""
+    and a restarted shard must not carry its supervisor's cycles), and
+    the windows are made again against the child's sampler
+    (brpc_tpu/transport/input_messenger.py:73-83)."""
+    global _batch_windows
     _batch_msgs.postfork_clear()
     _batch_cycles.postfork_clear()
+    _batch_peak.postfork_clear()
+    _batch_windows = None
 
 
 from brpc_tpu_torch.butil import postfork as _postfork  # noqa: E402
 
 _postfork.register("transport.input_messenger", _postfork_reset)
 
+PassiveStatus(dispatch_batch_avg_10s).expose("dispatch_batch_size_avg_10s")
+PassiveStatus(dispatch_batch_peak_10s).expose("dispatch_batch_size_peak_10s")
+
 
 def record_dispatch_batch(n: int) -> None:
     _batch_msgs.add(n)
     _batch_cycles.add(1)
+    _batch_peak.update(n)
     _syscall_stats.note_rpc_messages(n)
 
 

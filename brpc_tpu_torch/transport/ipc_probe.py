@@ -3,6 +3,7 @@ memory, and what does it cost? A check to run before ``ici://``'s lane
 is trusted on a new machine.
 
     python3 -m brpc_tpu_torch.transport.ipc_probe     # on a card
+    python3 -m brpc_tpu_torch.transport.ipc_probe --out PROBE.json
 
 The parent process shares three tensors through torch's own route
 (``UntypedStorage._share_cuda_``; one filled on a side stream behind a
@@ -12,13 +13,38 @@ them, timing each open, the event's open and the copy, and checks the
 values; the parent then reads what the shares left allocated. One JSON
 line, the child's inside it. ``ici://`` itself does not use torch's
 route (``transport/cuda_ipc.py`` says why).
+
+``--out PATH`` also writes the probe's artifact, the JSON that
+``/device`` shows in its probe pane once the ``device_probe_path`` flag
+names it (``transport/device_stats.py``), under the keys of brpc_tpu's
+device probe: ``lane_kind`` (``cuda_ipc``), ``headline_GBps`` (the
+child's copy of the shared tensors), ``p50_us`` and ``p99_us`` (the
+child's handle opens, first and repeated), ``link_floor_us`` (the
+fastest open), ``stage_breakdown`` and ``bringup``; ``error`` when the
+probe could not run (no card: the artifact says so and the exit code is
+1), ``lane_error`` when the child failed. The write replaces the file
+whole.
 """
+import argparse
 import json
+import os
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import torch
+
+
+# the directory that holds the package: the child runs as a module from
+# there, since a script run by its path puts this directory on sys.path,
+# where socket.py would shadow the standard library's socket
+_PACKAGE_PARENT = str(Path(__file__).resolve().parents[2])
+
+
+def child_command():
+    return [sys.executable, "-m", "brpc_tpu_torch.transport.ipc_probe",
+            "child"]
 
 
 def hx(b):
@@ -54,7 +80,7 @@ def parent():
     evh = ev.ipc_handle()
     out["event_handle_len"] = len(evh)
     msg = {"recs": recs, "event": evh.hex(), "n": [1 << 20, 16, 1 << 20]}
-    p = subprocess.Popen([sys.executable, __file__, "child"],
+    p = subprocess.Popen(child_command(), cwd=_PACKAGE_PARENT,
                          stdin=subprocess.PIPE, stdout=subprocess.PIPE,
                          stderr=subprocess.PIPE, text=True)
     so, se = p.communicate(json.dumps(msg) + "\n", timeout=120)
@@ -78,6 +104,7 @@ def parent():
     torch.cuda.ipc_collect()
     out["alloc_after_unconsumed_shares"] = torch.cuda.memory_allocated(dev) - base0
     print(json.dumps(out), flush=True)
+    return out
 
 
 def child():
@@ -133,8 +160,65 @@ def child():
     print(json.dumps(out), flush=True)
 
 
+def _pct(xs, q: float):
+    s = sorted(xs)
+    return s[min(len(s) - 1, int(q * len(s)))]
+
+
+def artifact(probe: dict) -> dict:
+    """The probe's result under the reference's artifact keys."""
+    art = {"lane_kind": "cuda_ipc", "card": probe.get("card", ""),
+           "bringup": {"share_ms": probe.get("share_ms"),
+                       "child_rc": probe.get("child_rc")}}
+    kid = probe.get("child")
+    if probe.get("child_rc") != 0 or not isinstance(kid, dict):
+        art["lane_error"] = (probe.get("child_err")
+                             or probe.get("child_out") or "no child result")
+        return art
+    opens_us = [ms * 1e3 for ms in kid["open_ms"] + kid["reopen_ms"]]
+    # the three shared tensors: two of 4 MiB and one of 64 bytes
+    copied = (2 * (1 << 20) + 16) * 4
+    art["headline_GBps"] = round(copied / (kid["copy_wall_ms"] / 1e3) / 1e9,
+                                 4)
+    art["p50_us"] = round(_pct(opens_us, 0.5), 1)
+    art["p99_us"] = round(_pct(opens_us, 0.99), 1)
+    art["link_floor_us"] = round(min(opens_us), 1)
+    art["stage_breakdown"] = {
+        "event_open_us": round(kid["event_open_ms"] * 1e3, 1),
+        "enqueue_us": round(kid["enqueue_ms"] * 1e3, 1),
+        "copy_wall_us": round(kid["copy_wall_ms"] * 1e3, 1)}
+    art["bringup"]["event_open_ms"] = kid["event_open_ms"]
+    if not (kid.get("a_ok") and kid.get("b_ok") and kid.get("c_ok")):
+        art["lane_error"] = "the child read other values than were shared"
+    return art
+
+
+def write_artifact(path: str, art: dict) -> None:
+    tmp = f"{path}.tmp.{os.getpid()}"
+    with open(tmp, "w", encoding="utf-8") as f:
+        json.dump(art, f)
+    os.replace(tmp, path)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="CUDA IPC probe")
+    ap.add_argument("--out", default="",
+                    help="also write the artifact /device shows here")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        if args.out:
+            write_artifact(args.out, {"lane_kind": "cuda_ipc",
+                                      "error": "CUDA is not available"})
+        print("ipc_probe: CUDA is not available", file=sys.stderr)
+        return 1
+    probe = parent()
+    if args.out:
+        write_artifact(args.out, artifact(probe))
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["child"]:
         child()
     else:
-        parent()
+        sys.exit(main())

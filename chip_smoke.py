@@ -362,11 +362,37 @@ busiest threads). Every token list equal to the CPU plain path's; every
 server's flash_decode launches equal to its decode steps plus its
 warm-up.
 
+Phase protocols (the request attachment, hulu_pbrpc and sofa_pbrpc,
+thrift, redis and memcache, and the /status and /device leftovers),
+after h2. One Server on cuda:0 with the default Generate service, a
+thrift service, a redis service and ``Bench.Echo`` on one tcp port:
+(a) phase 3's burst as unary Generate over hulu_pbrpc, then sofa_pbrpc,
+each cold and then warm, streamed over hulu_pbrpc, and unary over
+hulu_pbrpc from a client process on the ring's batch backend
+(``--client unary_hulu``); ``/connections`` names each variant's
+connection; (b) ``Bench.Echo`` returns its request attachment at 4 B,
+64 KiB and 4 MiB over tpu_std, hulu and sofa, and one Generate carries a
+request attachment; (c) thrift Echo and Add, 1,000 ``call_async``s from
+fibers on one client (each call's time to finish in that burst), a
+oneway call, an unknown method and 200 calls one at a time (p50 and p99
+a call), while a Generate burst is in flight; (d) redis the same way: a
+1,000-command SET/GET pipeline in FIFO order, INCR, an unknown command,
+8 threads on one shared client; (e) memcache against a mock memcached
+the smoke starts (every operation, SASL good and bad, a pipelined get);
+(f) ``/status``'s batching and coalescing gauges and a
+``saturation_timeline`` link, ``/device``'s probe pane after
+``ipc_probe --out`` with ``device_probe_path`` set, ``/protobufs``; (g)
+a server with ``auth_token`` refuses a thrift call with no handler run,
+answers hulu with the token and refuses it without. Every token list
+equal to the CPU plain path's; the server's flash_decode launches,
+zeroed before it starts and read after (g), equal its decode steps plus
+its warm-up, and no other kernel runs.
+
 ``python3 chip_smoke.py --phase streaming`` (or ``--phase
 observability``, ``--phase device_lane``, ``--phase combo``, ``--phase
 cluster``, ``--phase incident``, ``--phase native``, ``--phase
-shards``, ``--phase ring``, ``--phase replay``, ``--phase h2``) runs
-that phase alone (after the card
+shards``, ``--phase ring``, ``--phase replay``, ``--phase h2``,
+``--phase protocols``) runs that phase alone (after the card
 line), so that two trees' serving can be compared in one call: run each
 tree's script in turns.
 
@@ -857,7 +883,8 @@ def _real_us() -> int:
 
 
 def _burst(port: int, prompts, max_tokens: int, calls=None,
-           timeout_ms=120000, waves=None, scheme: str = "tcp"):
+           timeout_ms=120000, waves=None, scheme: str = "tcp",
+           protocol: str = "tpu_std"):
     """N_CLIENTS threads, one Channel each, the prompts dealt round-robin;
     returns ({prompt: tokens}, [(prompt, errno, text)], wall seconds,
     [client ms per call: the first token comes with the last], []).
@@ -865,7 +892,8 @@ def _burst(port: int, prompts, max_tokens: int, calls=None,
     issue and response times. ``timeout_ms`` None: no deadline in the
     request meta, which the turbo lane's scanner would defer. ``waves``:
     a list that gets each latency's call number on its channel (0: the
-    call that opened the connection). ``scheme`` ``ssl``: over TLS."""
+    call that opened the connection). ``scheme`` ``ssl``: over TLS.
+    ``protocol``: the Channels' (hulu_pbrpc, sofa_pbrpc)."""
     from brpc_tpu_torch.rpc import Channel, ChannelOptions
 
     results, errors, latency = {}, [], []
@@ -874,7 +902,8 @@ def _burst(port: int, prompts, max_tokens: int, calls=None,
         # a connection a thread, as since phase 3 began
         ch = Channel(f"{scheme}://127.0.0.1:{port}",
                      ChannelOptions(timeout_ms=timeout_ms,
-                                    share_connections=False))
+                                    share_connections=False,
+                                    protocol=protocol))
         try:
             for seq, p in enumerate(prompts[idx::N_CLIENTS]):
                 t0, issue = time.perf_counter(), _real_us()
@@ -1116,11 +1145,13 @@ def phase_serving():
 
 # ------------------------------------------------------------- phase 4
 
-def _stream_burst(port: int, prompts, max_tokens: int, calls=None):
+def _stream_burst(port: int, prompts, max_tokens: int, calls=None,
+                  protocol: str = "tpu_std"):
     """The burst of ``_burst`` with every call streaming its tokens back
     (``stream_options``). Returns ({prompt: tokens}, [errors], wall s,
     [client ms to the first token], [ms between tokens]); ``calls`` as
-    in ``_burst``, the first token frame's arrival as the response."""
+    in ``_burst``, the first token frame's arrival as the response;
+    ``protocol`` the Channels'."""
     from brpc_tpu_torch.rpc import Channel, ChannelOptions, StreamOptions
 
     results, errors, ttft, gaps = {}, [], [], []
@@ -1166,7 +1197,8 @@ def _stream_burst(port: int, prompts, max_tokens: int, calls=None):
     def client(idx):
         ch = Channel(f"tcp://127.0.0.1:{port}",
                      ChannelOptions(timeout_ms=120000,
-                                    share_connections=False))
+                                    share_connections=False,
+                                    protocol=protocol))
         try:
             for seq, p in enumerate(prompts[idx::N_CLIENTS]):
                 one(ch, p, seq)
@@ -1260,8 +1292,14 @@ def _burst_nodl(port: int, prompts, max_tokens: int, calls=None,
                   waves=waves)
 
 
+def _burst_hulu(port: int, prompts, max_tokens: int, calls=None,
+                waves=None):
+    return _burst(port, prompts, max_tokens, calls, waves=waves,
+                  protocol="hulu_pbrpc")
+
+
 BURSTS = {"stream": _stream_burst, "http": _http_burst, "unary": _burst,
-          "unary_nodl": _burst_nodl}
+          "unary_nodl": _burst_nodl, "unary_hulu": _burst_hulu}
 
 
 def client_main(kind: str, port: int, traced: bool = False) -> int:
@@ -7476,6 +7514,651 @@ def phase_h2(dev):
     return out
 
 
+# ------------------------------------------------------- phase protocols
+
+PROTO_VARIANTS = ("hulu_pbrpc", "sofa_pbrpc")
+PROTO_ATT_SIZES = (4, 64 << 10, 4 << 20)   # (b): attachment echoes
+PROTO_ATT_CALLS = 5                     # (b): timed echoes a size
+PROTO_THRIFT_CALLS = 1000               # (c): pipelined call_async
+PROTO_THRIFT_SERIAL = 200               # (c): one call at a time
+PROTO_REDIS_CMDS = 1000                 # (d): the SET/GET pipeline
+PROTO_REDIS_THREADS = 8                 # (d): threads on one client
+PROTO_REDIS_THREAD_CMDS = 50            # (d): commands a thread
+PROTO_TOKEN = "protocols-secret"        # (g): the auth server's token
+
+
+def _thrift_service(calls: list):
+    """Echo, Add and Notify (oneway) of phase protocols' thrift server;
+    ``calls`` gets each handler run's method."""
+    from brpc_tpu_torch.protocol import thrift as th
+    svc = th.ThriftService()
+
+    @svc.method("Echo")
+    def echo(sock, args):
+        calls.append("Echo")
+        return {0: th.TVal(th.T_STRING, args[1].value)}
+
+    @svc.method("Add")
+    def add(sock, args):
+        calls.append("Add")
+        return th.TVal(th.T_I64, args[1].value + args[2].value)
+
+    @svc.method("Notify")
+    def notify(sock, args):
+        calls.append("Notify")
+    return svc
+
+
+def _redis_service():
+    from brpc_tpu_torch.protocol import redis as rd
+    svc = rd.RedisService()
+    store = {}
+    lock = threading.Lock()
+
+    @svc.command("SET")
+    def set_(sock, args):
+        with lock:
+            store[args[1]] = args[2]
+        return rd.RedisStatus("OK")
+
+    @svc.command("GET")
+    def get(sock, args):
+        with lock:
+            return store.get(args[1])
+
+    @svc.command("INCR")
+    def incr(sock, args):
+        with lock:
+            v = int(store.get(args[1], b"0")) + 1
+            store[args[1]] = str(v).encode()
+        return v
+    return svc
+
+
+def _bench_service():
+    """``Bench.Echo``: the request's payload and attachment back."""
+    from brpc_tpu_torch.rpc import Service
+    svc = Service("Bench")
+
+    def Echo(cntl, request):
+        cntl.response_attachment.append(cntl.request_attachment.to_bytes())
+        return bytes(request)
+    svc.register_method("Echo", Echo)
+    return svc
+
+
+def _burst_in_flight(port: int, prompts, oracle: dict, what: str):
+    """Phase 3's burst on a thread; the returned join checks it."""
+    box = {}
+
+    def run():
+        box["r"] = _burst(port, prompts, MAX_TOKENS)
+    t = threading.Thread(target=run, name=f"burst {what}")
+    t.start()
+
+    def join() -> dict:
+        t.join(600)
+        check(not t.is_alive() and "r" in box, f"{what}: burst hung")
+        res, errs, wall, lat, _ = box["r"]
+        _check_burst(f"{what} (burst beside)", res, errs, oracle)
+        return {"wall_s": wall, "p50_ms": _median(lat)}
+    return join
+
+
+def _proto_bursts(port: int, prompts, oracle: dict) -> dict:
+    """(a): phase 3's burst as unary Generate over each variant, cold
+    then warm, streamed over hulu_pbrpc, and unary over hulu_pbrpc from
+    a client process on the ring (batch backend); /connections names
+    each variant's connection."""
+    from brpc_tpu_torch.rpc import Channel, ChannelOptions
+    out = {}
+    for proto in PROTO_VARIANTS:
+        for turn in ("cold", "warm"):
+            res, errs, wall, lat, _ = _burst(port, prompts, MAX_TOKENS,
+                                             protocol=proto)
+            _check_burst(f"protocols a {proto} {turn}", res, errs, oracle)
+            out[f"{proto}_{turn}"] = {"wall_s": wall, "p50_ms": _median(lat),
+                                      "p99_ms": _p99(lat)}
+    res, errs, wall, ttft, gaps = _stream_burst(port, prompts, MAX_TOKENS,
+                                                protocol="hulu_pbrpc")
+    _check_burst("protocols a hulu_pbrpc streamed", res, errs, oracle)
+    out["hulu_pbrpc_stream"] = _burst_line(res, wall, ttft, gaps)
+    doc = _client_process(["unary_hulu", str(port)],
+                          env=dict(RING_ENV, CHIP_SMOKE_RING_BACKEND="1"))
+    _check_burst("protocols a hulu_pbrpc on the ring", doc["results"],
+                 doc["errors"], oracle)
+    check(doc["lane"] == ["RingDispatcher", "batch"],
+          f"protocols a: the ring client ran on {doc['lane']}")
+    out["hulu_pbrpc_ring"] = {"wall_s": doc["wall_s"], "lane": doc["lane"],
+                              "ring_read_barriers":
+                                  doc["ring"]["ring_read_barriers"]}
+    chans = [Channel(f"tcp://127.0.0.1:{port}", ChannelOptions(
+        protocol=p, timeout_ms=30000, share_connections=False))
+        for p in PROTO_VARIANTS]
+    try:
+        for ch in chans:
+            check(not ch.call_sync("Bench", "Echo", b"n").failed(),
+                  "protocols a: an echo to name the connection failed")
+        rows = _http_json(port, "/connections")["connections"]
+    finally:
+        for ch in chans:
+            ch.close()
+    protos = sorted(r["protocol"] for r in rows)
+    check(set(PROTO_VARIANTS) <= set(protos),
+          f"protocols a: /connections names {protos}")
+    out["connection_protocols"] = protos
+    return out
+
+
+def _proto_attachments(port: int, oracle: dict) -> dict:
+    """(b): Bench.Echo returns its request attachment in its response
+    attachment over tpu_std, hulu and sofa at 4 B, 64 KiB and 4 MiB;
+    one Generate over hulu carries a request attachment."""
+    from brpc_tpu_torch.rpc import Channel, ChannelOptions, Controller
+    out = {}
+    for proto in ("tpu_std",) + PROTO_VARIANTS:
+        ch = Channel(f"tcp://127.0.0.1:{port}", ChannelOptions(
+            protocol=proto, timeout_ms=60000, share_connections=False))
+        try:
+            for n in PROTO_ATT_SIZES:
+                att = os.urandom(n)
+                ms = []
+                for _ in range(PROTO_ATT_CALLS):
+                    c = Controller()
+                    c.request_attachment.append(att)
+                    t0 = time.perf_counter()
+                    c = ch.call_sync("Bench", "Echo", b"att", cntl=c)
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                    check(not c.failed() and c.response == b"att" and
+                          c.response_attachment.to_bytes() == att,
+                          f"protocols b: {proto} {n} B attachment: "
+                          f"{c.error_code} {c.error_text}")
+                out[f"{proto}_{n}"] = {"p50_ms": _median(ms),
+                                       "max_ms": max(ms)}
+        finally:
+            ch.close()
+    ch = Channel(f"tcp://127.0.0.1:{port}", ChannelOptions(
+        protocol="hulu_pbrpc", timeout_ms=120000, share_connections=False))
+    try:
+        p = next(iter(oracle))
+        c = Controller()
+        c.request_attachment.append(b"\x00" * 4096)
+        c = ch.call_sync("GenerateService", "Generate",
+                         _generate_body(p), cntl=c)
+        check(not c.failed() and json.loads(c.response)["tokens"]
+              == oracle[p], f"protocols b: Generate with an attachment: "
+                            f"{c.error_code} {c.error_text}")
+    finally:
+        ch.close()
+    return out
+
+
+def _proto_thrift(port: int, prompts, oracle: dict, calls: list) -> dict:
+    """(c): thrift on the Generate server's port while a burst is in
+    flight: Echo and Add, PROTO_THRIFT_CALLS ``call_async``s from fibers
+    on one client, each answered with its own argument, a oneway call,
+    an unknown method (UNKNOWN_METHOD). The burst's p50 and p99 are each
+    call's time to finish among PROTO_THRIFT_CALLS issued at once (mostly
+    its wait behind the connection's earlier calls); PROTO_THRIFT_SERIAL
+    calls one after another on the same client give the p50 and p99 of
+    one call."""
+    from brpc_tpu_torch import fiber
+    from brpc_tpu_torch.fiber.sync import CountdownEvent
+    from brpc_tpu_torch.protocol import thrift as th
+    join = _burst_in_flight(port, prompts, oracle, "protocols c")
+    c = th.ThriftClient(f"127.0.0.1:{port}", timeout_s=60)
+    try:
+        out = c.call("Echo", {1: th.TVal(th.T_STRING, b"ping")})
+        check(out[0].value == b"ping", f"protocols c: Echo {out}")
+        out = c.call("Add", {1: th.TVal(th.T_I64, 40),
+                             2: th.TVal(th.T_I64, 2)})
+        check(out[0].value == 42, f"protocols c: Add {out}")
+        n = PROTO_THRIFT_CALLS
+        done = CountdownEvent(n)
+        lat, bad = [], []
+
+        async def one(i):
+            t0 = time.perf_counter()
+            try:
+                r = await c.call_async("Add", {1: th.TVal(th.T_I64, i),
+                                               2: th.TVal(th.T_I64, 7)})
+                lat.append((time.perf_counter() - t0) * 1e3)
+                if r[0].value != i + 7:
+                    bad.append(i)
+            except Exception as e:      # a failure is counted, then checked
+                bad.append((i, repr(e)))
+            finally:
+                done.signal()
+        t0 = time.perf_counter()
+        for i in range(n):
+            fiber.spawn(one, i)
+        check(done.wait_pthread(120), "protocols c: call_async hung")
+        wall = time.perf_counter() - t0
+        check(not bad, f"protocols c: {len(bad)} bad answers: {bad[:3]}")
+        c.call_oneway("Notify")
+        try:
+            c.call("Nope")
+            check(False, "protocols c: an unknown method was answered")
+        except th.ThriftError as e:
+            check(e.type == th.EXC_UNKNOWN_METHOD,
+                  f"protocols c: unknown method answered type {e.type}")
+        check(_wait_for_value(lambda: calls.count("Notify"), 1),
+              "protocols c: the oneway call never ran")
+        serial = []
+        for i in range(PROTO_THRIFT_SERIAL):
+            t1 = time.perf_counter()
+            r = c.call("Add", {1: th.TVal(th.T_I64, i),
+                               2: th.TVal(th.T_I64, 5)})
+            serial.append((time.perf_counter() - t1) * 1e3)
+            check(r[0].value == i + 5, f"protocols c: serial Add {r}")
+    finally:
+        c.close()
+    return {"calls": n, "wall_s": wall, "calls_per_s": n / wall,
+            "finish_p50_ms": _median(lat), "finish_p99_ms": _p99(lat),
+            "serial_calls": len(serial), "serial_p50_ms": _median(serial),
+            "serial_p99_ms": _p99(serial), "burst_beside": join()}
+
+
+def _proto_redis(port: int, prompts, oracle: dict) -> dict:
+    """(d): RESP on the same port while a burst is in flight: a
+    PROTO_REDIS_CMDS SET/GET pipeline answered in FIFO order, INCR, an
+    unknown command (an error reply), PROTO_REDIS_THREADS threads on one
+    shared client; p50 and p99 a command of the threads."""
+    from brpc_tpu_torch.protocol import redis as rd
+    join = _burst_in_flight(port, prompts, oracle, "protocols d")
+    c = rd.RedisClient(f"127.0.0.1:{port}", timeout_s=60)
+    try:
+        n = PROTO_REDIS_CMDS
+        cmds = [["SET", f"k{i}", f"v{i}"] if i % 2 == 0
+                else ["GET", f"k{i - 1}"] for i in range(n)]
+        t0 = time.perf_counter()
+        got = c.pipeline(cmds)
+        pipe_ms = (time.perf_counter() - t0) * 1e3
+        want = [("OK" if i % 2 == 0 else f"v{i - 1}".encode())
+                for i in range(n)]
+        check(got == want, "protocols d: the pipeline's replies are out of "
+                           "order or wrong")
+        check([c.execute("INCR", "ctr") for _ in range(3)] == [1, 2, 3],
+              "protocols d: INCR")
+        try:
+            c.execute("NOPE")
+            check(False, "protocols d: an unknown command was answered")
+        except rd.RedisError as e:
+            check("unknown command" in str(e), f"protocols d: {e}")
+        lat, errs = [], []
+
+        def worker(i):
+            try:
+                for j in range(PROTO_REDIS_THREAD_CMDS):
+                    t1 = time.perf_counter()
+                    v = c.execute("INCR", f"t{i}")
+                    lat.append((time.perf_counter() - t1) * 1e3)
+                    if v != j + 1:
+                        errs.append((i, j, v))
+            except Exception as e:      # a failure is counted, then checked
+                errs.append((i, repr(e)))
+        threads = [threading.Thread(target=worker, args=(i,))
+                   for i in range(PROTO_REDIS_THREADS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+        check(not errs and not any(t.is_alive() for t in threads),
+              f"protocols d: shared client: {errs[:3]}")
+    finally:
+        c.close()
+    return {"pipeline_cmds": n, "pipeline_ms": pipe_ms,
+            "threads": PROTO_REDIS_THREADS, "p50_ms": _median(lat),
+            "p99_ms": _p99(lat), "burst_beside": join()}
+
+
+class _MockMemcached:
+    """A memcached of the binary protocol on a thread of this process
+    (the semantics of tests/test_memcache.py's mock): get, set, add,
+    replace, cas, append, prepend, delete, incr, decr, version, noop,
+    flush and SASL PLAIN against ``sasl_plain``."""
+
+    def __init__(self, sasl_plain=None):
+        import socketserver
+        from brpc_tpu_torch.protocol import memcache as mc
+        mock = self
+
+        class Handler(socketserver.BaseRequestHandler):
+            def handle(self):
+                buf, authed = b"", [False]
+                while True:
+                    try:
+                        chunk = self.request.recv(65536)
+                    except OSError:
+                        return
+                    if not chunk:
+                        return
+                    buf += chunk
+                    while len(buf) >= mc.HEADER_SIZE:
+                        (_m, op, kl, el, _d, _v, total, opaque,
+                         cas) = mc._HDR.unpack_from(buf, 0)
+                        if len(buf) < mc.HEADER_SIZE + total:
+                            break
+                        body = buf[mc.HEADER_SIZE:mc.HEADER_SIZE + total]
+                        buf = buf[mc.HEADER_SIZE + total:]
+                        self.request.sendall(mock.answer(
+                            op, body[:el], body[el:el + kl], body[el + kl:],
+                            opaque, cas, authed))
+
+        self.mc = mc
+        self.sasl_plain = sasl_plain
+        self.data = {}
+        self.cas_seq = 0
+        self.lock = threading.Lock()
+        self.server = socketserver.ThreadingTCPServer(("127.0.0.1", 0),
+                                                      Handler)
+        self.server.daemon_threads = True
+        threading.Thread(target=self.server.serve_forever,
+                         daemon=True).start()
+        self.addr = "tcp://127.0.0.1:%d" % self.server.server_address[1]
+
+    def close(self):
+        self.server.shutdown()
+        self.server.server_close()
+
+    def answer(self, op, extras, key, value, opaque, cas, authed):
+        import struct as st
+        mc = self.mc
+
+        def reply(status=mc.STATUS_OK, extras=b"", value=b"", cas=0):
+            if status != mc.STATUS_OK and not value:
+                value = b"error"
+            return mc._HDR.pack(mc.MAGIC_RESPONSE, op, 0, len(extras), 0,
+                                status, len(extras) + len(value), opaque,
+                                cas) + extras + value
+        with self.lock:
+            if op == mc.OP_SASL_AUTH:
+                if key != b"PLAIN" or (self.sasl_plain is not None
+                                       and value != self.sasl_plain):
+                    return reply(mc.STATUS_AUTH_ERROR, value=b"Auth failure")
+                authed[0] = True
+                return reply(value=b"Authenticated")
+            if self.sasl_plain is not None and not authed[0]:
+                return reply(mc.STATUS_AUTH_ERROR, value=b"Unauthenticated")
+            d = self.data
+            if op == mc.OP_GET:
+                if key not in d:
+                    return reply(mc.STATUS_KEY_NOT_FOUND)
+                v, flags, kcas = d[key]
+                return reply(extras=st.pack(">I", flags), value=v, cas=kcas)
+            if op in (mc.OP_SET, mc.OP_ADD, mc.OP_REPLACE):
+                flags, _ = st.unpack(">II", extras)
+                if op == mc.OP_ADD and key in d:
+                    return reply(mc.STATUS_KEY_EXISTS)
+                if op == mc.OP_REPLACE and key not in d:
+                    return reply(mc.STATUS_KEY_NOT_FOUND)
+                if op == mc.OP_SET and cas and key in d and d[key][2] != cas:
+                    return reply(mc.STATUS_KEY_EXISTS)
+                self.cas_seq += 1
+                d[key] = (value, flags, self.cas_seq)
+                return reply(cas=self.cas_seq)
+            if op in (mc.OP_APPEND, mc.OP_PREPEND):
+                if key not in d:
+                    return reply(mc.STATUS_ITEM_NOT_STORED)
+                v, flags, _ = d[key]
+                v = v + value if op == mc.OP_APPEND else value + v
+                self.cas_seq += 1
+                d[key] = (v, flags, self.cas_seq)
+                return reply(cas=self.cas_seq)
+            if op == mc.OP_DELETE:
+                if key not in d:
+                    return reply(mc.STATUS_KEY_NOT_FOUND)
+                del d[key]
+                return reply()
+            if op in (mc.OP_INCREMENT, mc.OP_DECREMENT):
+                delta, initial, _ = st.unpack(">QQI", extras)
+                n = initial if key not in d else (
+                    int(d[key][0]) + delta if op == mc.OP_INCREMENT
+                    else max(0, int(d[key][0]) - delta))
+                self.cas_seq += 1
+                d[key] = (str(n).encode(), 0, self.cas_seq)
+                return reply(value=st.pack(">Q", n), cas=self.cas_seq)
+            if op == mc.OP_VERSION:
+                return reply(value=b"1.6.0-mock")
+            if op == mc.OP_FLUSH:
+                d.clear()
+                return reply()
+            if op == mc.OP_NOOP:
+                return reply()
+            return reply(0x0081)
+
+
+def _proto_memcache() -> dict:
+    """(e): the memcache client against a mock memcached of this process:
+    every operation, SASL PLAIN with good and bad credentials, a
+    pipelined get; ms an operation."""
+    from brpc_tpu_torch.protocol import memcache as mc
+    out = {}
+    m = _MockMemcached()
+    c = mc.MemcacheClient(m.addr)
+    try:
+        t0 = time.perf_counter()
+        cas = c.set("k", "v", flags=42)
+        got = c.get("k")
+        check(got is not None and got.value == b"v" and got.flags == 42
+              and got.cas == cas, f"protocols e: get {got}")
+        check(c.add("a", "1") > 0 and c.replace("a", "2") > 0,
+              "protocols e: add/replace")
+        try:
+            c.set("k", "w", cas=cas + 1000)
+            check(False, "protocols e: a stale cas was stored")
+        except mc.MemcacheError as e:
+            check(e.status == mc.STATUS_KEY_EXISTS, f"protocols e: cas {e}")
+        check(c.incr("n", 5, initial=10) == 10 and c.incr("n", 5) == 15 and
+              c.decr("n", 3) == 12, "protocols e: incr/decr")
+        c.set("s", "mid")
+        c.append("s", ">")
+        c.prepend("s", "<")
+        check(c.get("s").value == b"<mid>", "protocols e: append/prepend")
+        check(c.version() == "1.6.0-mock", "protocols e: version")
+        c.noop()
+        check(c.delete("s") and c.get("s") is None, "protocols e: delete")
+        for i in range(100):
+            c.set(f"p{i}", f"v{i}")
+        got = c.pipeline_get([f"p{i}" for i in range(100)] + ["nope"])
+        check([g.value for g in got[:100]] == [f"v{i}".encode()
+                                               for i in range(100)]
+              and got[100] is None, "protocols e: pipelined get")
+        c.flush_all()
+        check(c.get("p0") is None, "protocols e: flush")
+        out["sequence_ms"] = (time.perf_counter() - t0) * 1e3
+    finally:
+        c.close()
+        m.close()
+    m = _MockMemcached(sasl_plain=b"\x00bucket\x00sekrit")
+    try:
+        with mc.MemcacheClient(m.addr, username="bucket",
+                               password="sekrit") as c:
+            c.set("k", "v")
+            check(c.get("k").value == b"v", "protocols e: SASL good")
+        c = mc.MemcacheClient(m.addr, username="bucket", password="wrong")
+        try:
+            c.set("k", "v")
+            check(False, "protocols e: bad SASL credentials were served")
+        except mc.MemcacheError as e:
+            check(e.status == mc.STATUS_AUTH_ERROR, f"protocols e: {e}")
+        finally:
+            c.close()
+    finally:
+        m.close()
+    out["sasl"] = "good served, bad refused"
+    return out
+
+
+def _proto_pages(port: int) -> dict:
+    """(f): /status's batching and coalescing gauges and a
+    saturation_timeline link (the trend rings tick once a second); the
+    probe pane of /device after ``ipc_probe --out`` with
+    ``device_probe_path`` set; /protobufs."""
+    import tempfile
+    from brpc_tpu_torch.butil.flags import set_flag
+    out = {}
+    keys = ("dispatch_batch_size_avg_10s", "dispatch_batch_size_peak_10s",
+            "socket_write_coalesced_frames")
+    deadline = time.monotonic() + 10
+    while True:
+        st = _http_json(port, "/status")
+        if st.get("saturation_timeline") or time.monotonic() > deadline:
+            break
+        time.sleep(0.25)
+    check(all(k in st["saturation"] for k in keys),
+          f"protocols f: /status saturation {sorted(st['saturation'])}")
+    check(bool(st.get("saturation_timeline")),
+          "protocols f: no saturation_timeline link")
+    out["status"] = {k: st["saturation"][k] for k in keys}
+    out["saturation_timeline"] = st["saturation_timeline"]
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "probe.json")
+        t0 = time.monotonic()
+        proc = subprocess.run(
+            [sys.executable, "-m", "brpc_tpu_torch.transport.ipc_probe",
+             "--out", path], cwd=str(Path(__file__).resolve().parent),
+            capture_output=True, text=True, timeout=300)
+        check(proc.returncode == 0,
+              f"protocols f: ipc_probe --out: {proc.stderr[-2000:]}")
+        out["ipc_probe_s"] = time.monotonic() - t0
+        set_flag("device_probe_path", path)
+        try:
+            pane = _http_json(port, "/device").get("probe")
+        finally:
+            set_flag("device_probe_path", "")
+    check(pane is not None and pane.get("lane_kind") == "cuda_ipc" and
+          "lane_error" not in pane and "error" not in pane,
+          f"protocols f: /device probe pane {pane}")
+    out["probe"] = pane
+    pb = _http_json(port, "/protobufs")
+    check(pb.get("GenerateService.Generate") ==
+          {"request": "bytes", "response": "bytes"},
+          f"protocols f: /protobufs {sorted(pb)[:5]}")
+    return out
+
+
+def _proto_auth() -> dict:
+    """(g): a server with ``auth_token`` and a thrift service refuses a
+    thrift call (no handler run, ``server_auth_refused`` counted); a
+    hulu call with the token is answered, one without it refused."""
+    from brpc_tpu_torch.protocol import thrift as th
+    from brpc_tpu_torch.rpc import (Channel, ChannelOptions, Server,
+                                    ServerOptions)
+    from brpc_tpu_torch.rpc import errno_codes as berr
+    from brpc_tpu_torch.rpc.server import nauth_refused
+    calls = []
+    server = Server(ServerOptions(thrift_service=_thrift_service(calls),
+                                  auth_token=PROTO_TOKEN))
+    server.add_service(_bench_service())
+    port = server.start("tcp://127.0.0.1:0").port
+    before = nauth_refused.get_value()
+    try:
+        c = th.ThriftClient(f"127.0.0.1:{port}", timeout_s=30)
+        try:
+            c.call("Echo", {1: th.TVal(th.T_STRING, b"no credential")})
+            refused = None
+        except th.ThriftError as e:
+            refused = str(e)
+        finally:
+            c.close()
+        codes = {}
+        for token in (PROTO_TOKEN, ""):
+            ch = Channel(f"tcp://127.0.0.1:{port}", ChannelOptions(
+                protocol="hulu_pbrpc", auth_token=token, timeout_ms=30000,
+                share_connections=False))
+            try:
+                codes[bool(token)] = ch.call_sync("Bench", "Echo",
+                                                  b"a").error_code
+            finally:
+                ch.close()
+    finally:
+        server.stop()
+        server.join(10)
+    check(refused is not None and not calls,
+          f"protocols g: thrift without a credential: {refused}, "
+          f"handler runs {calls}")
+    check(nauth_refused.get_value() - before == 1,
+          "protocols g: server_auth_refused did not count the refusal")
+    check(codes == {True: 0, False: berr.ERPCAUTH},
+          f"protocols g: hulu with and without the token: {codes}")
+    return {"thrift_refused": refused, "hulu_codes": codes}
+
+
+def phase_protocols(dev):
+    """Generate over hulu_pbrpc and sofa_pbrpc, attachments, and thrift,
+    redis and memcache on the card's server: one Server on cuda:0 with
+    GenerateService, a thrift service, a redis service and Bench.Echo on
+    one tcp port. (a) phase 3's burst over each variant, cold and warm,
+    streamed over hulu, and over hulu from a client process on the ring;
+    (b) attachment echoes at 4 B, 64 KiB and 4 MiB over tpu_std, hulu and
+    sofa, and a Generate with a request attachment; (c) thrift and (d)
+    redis beside a burst in flight; (e) memcache against a mock; (f) the
+    pages; (g) the auth gate. flash_decode's launches, zeroed before the
+    server starts and read after (g), equal its decode steps plus its
+    warm-up, and no other kernel runs."""
+    from brpc_tpu_torch.rpc import Server, ServerOptions
+    from brpc_tpu_torch.serving import (TinyDecoder, TinyDecoderConfig,
+                                        add_generate_service)
+    fa = _fa_module()
+    phase_t0 = time.monotonic()
+    prompts = _prompts()
+    cpu_model = TinyDecoder(TinyDecoderConfig(), device="cpu")
+    oracle = {p: cpu_model.generate(list(p.encode()), MAX_TOKENS)
+              for p in prompts}
+    out = {"phase": "protocols"}
+    thrift_calls = []
+    fa.reset_launches()
+    server = Server(ServerOptions(
+        thrift_service=_thrift_service(thrift_calls),
+        redis_service=_redis_service()))
+    gs = add_generate_service(server)
+    check(str(gs.device) == "cuda:0", f"service device {gs.device}")
+    server.add_service(_bench_service())
+    port = server.start("tcp://127.0.0.1:0").port
+    try:
+        progress("protocols a: Generate over hulu_pbrpc and sofa_pbrpc")
+        out["a"] = _proto_bursts(port, prompts, oracle)
+        emit({"phase": "protocols", "part": "a", "a": out["a"]})
+        progress("protocols b: attachments")
+        out["b"] = _proto_attachments(port, oracle)
+        emit({"phase": "protocols", "part": "b", "b": out["b"]})
+        progress("protocols c: thrift beside a burst")
+        out["c"] = _proto_thrift(port, prompts, oracle, thrift_calls)
+        emit({"phase": "protocols", "part": "c", "c": out["c"]})
+        progress("protocols d: redis beside a burst")
+        out["d"] = _proto_redis(port, prompts, oracle)
+        emit({"phase": "protocols", "part": "d", "d": out["d"]})
+        progress("protocols e: memcache against a mock")
+        out["e"] = _proto_memcache()
+        emit({"phase": "protocols", "part": "e", "e": out["e"]})
+        progress("protocols f: /status, /device, /protobufs")
+        out["f"] = _proto_pages(port)
+        emit({"phase": "protocols", "part": "f", "f": out["f"]})
+        progress("protocols g: the auth gate")
+        out["g"] = _proto_auth()
+        emit({"phase": "protocols", "part": "g", "g": out["g"]})
+        _sync(dev)
+        got = dict(fa.launches)
+        steps = gs.batcher.decode_steps + gs.engine.warmup_steps
+        check(got["flash_decode"] == steps > 0 and
+              sum(got.values()) == got["flash_decode"],
+              f"protocols: launched {got}, {steps} decode steps and "
+              f"warm-ups")
+        out["launches"] = {"flash_decode": got["flash_decode"]}
+        out["steps"] = steps
+    finally:
+        server.stop()
+        server.join(10)
+    from brpc_tpu_torch.transport.pipelined import live_sockets
+    check(live_sockets() == 0,
+          f"protocols: {live_sockets()} pipelined client sockets left open")
+    out["phase_s"] = time.monotonic() - phase_t0
+    emit({"phase": "protocols", "launches": out["launches"],
+          "steps": out["steps"], "phase_s": out["phase_s"]})
+    return out
+
+
 def phase_paths(dev, split_inputs):
     """The port's two other paths, each driven through its public entry
     point with every count zeroed just before and read just after:
@@ -7769,6 +8452,10 @@ def main(only: str = "") -> int:
             # alone, flash_decode builds at the first server's warm-up
             phase_h2(dev)
             return 0
+        if only == "protocols":
+            # alone, flash_decode builds at the server's warm-up
+            phase_protocols(dev)
+            return 0
         if only:
             {"streaming": phase_streaming,
              "observability": phase_observability}[only]()
@@ -7801,6 +8488,8 @@ def main(only: str = "") -> int:
         replay = phase_replay(dev, incident["c"]["artifact_path"])
         progress("phase h2")
         h2 = phase_h2(dev)
+        progress("phase protocols")
+        protocols = phase_protocols(dev)
         progress("phase paths")
         paths = phase_paths(dev, split_inputs)
         progress("phase times")
@@ -7834,6 +8523,7 @@ def main(only: str = "") -> int:
     by_path["replay"] = sum(v["flash_decode"]
                             for v in replay["launches"].values())
     by_path["h2"] = h2["launches"]["flash_decode"]
+    by_path["protocols"] = protocols["launches"]["flash_decode"]
     by_path["long_cache_decode"] = paths["long_cache_decode"]["flash_decode"]
     fwd_by_path = {
         "long_context": paths["long_context"]["flash_attn_fwd"],
@@ -7851,7 +8541,10 @@ def main(only: str = "") -> int:
              "on the ring; replay: a captured burst, open-loop replays, "
              "chaos, incident replays; h2: Generate over gRPC, plain h2 "
              "and HTTP/1.1 through the port's clients, gRPC over tcp and "
-             "ssl, rpc_press over HTTP; the long-cache decode",
+             "ssl, rpc_press over HTTP; protocols: Generate over "
+             "hulu_pbrpc and sofa_pbrpc (unary, streamed, on the ring, "
+             "with an attachment) beside thrift and redis on one port; "
+             "the long-cache decode",
              sum(by_path.values()), sl["flash_decode"],
              sl["flash_decode"] / steps, errs["serving_decode"],
              times["decode"], launches_by_path=by_path,
@@ -7902,7 +8595,8 @@ if __name__ == "__main__":
         if sys.argv[2:3] not in (["streaming"], ["observability"],
                                  ["device_lane"], ["combo"], ["cluster"],
                                  ["incident"], ["native"], ["shards"],
-                                 ["ring"], ["replay"], ["h2"]):
+                                 ["ring"], ["replay"], ["h2"],
+                                 ["protocols"]):
             sys.exit(f"chip_smoke: unknown phase {sys.argv[2:]}")
         sys.exit(main(only=sys.argv[2]))
     sys.exit(main())

@@ -28,7 +28,8 @@ on a shared connection (``transport/socket_map.py``), nor a naming
 thread, a health-check probe, a PeriodicTask, a ring dispatcher's thread
 or one of the port's sampler, capture-writer and bundler threads
 running, a chaos plan installed, a replay's channels open, or an h2
-session, a gRPC channel or an HTTP client connection left open.
+session, a gRPC channel, an HTTP client connection or a pipelined
+client's socket (thrift, redis, memcache) left open.
 """
 
 import json
@@ -67,6 +68,7 @@ from brpc_tpu_torch.chaos import inject as port_chaos
 from brpc_tpu_torch.protocol import h2 as port_h2
 from brpc_tpu_torch.protocol import http_client as port_http_client
 from brpc_tpu_torch.traffic import replay as port_replay
+from brpc_tpu_torch.transport import pipelined as port_pipelined
 from brpc_tpu_torch.transport.socket_map import global_socket_map
 from brpc_tpu_torch.transport.event_dispatcher import global_dispatcher
 
@@ -108,8 +110,8 @@ def _running_loops():
     PeriodicTasks, leases on shared connections, ring dispatchers, the
     flight recorder's sampler, capture writers and the incident
     bundler; an installed chaos plan and the channels of a replay in
-    flight; h2 sessions, gRPC channels and HTTP client connections left
-    open."""
+    flight; h2 sessions, gRPC channels, HTTP client connections and the
+    sockets of pipelined clients (thrift, redis, memcache) left open."""
     return {"naming threads": port_naming.live_naming_threads(),
             "health checks": port_hc.live_checks(),
             "PeriodicTasks": port_periodic.live_tasks(),
@@ -119,7 +121,8 @@ def _running_loops():
             "replay channels": port_replay.live_channels(),
             "h2 sessions": port_h2.live_sessions(),
             "gRPC channels": port_h2.live_channels(),
-            "HTTP client connections": port_http_client.live_clients()}
+            "HTTP client connections": port_http_client.live_clients(),
+            "pipelined client sockets": port_pipelined.live_sockets()}
 
 
 def _run_cases(cases, limit_s=CASE_LIMIT_S):

@@ -82,9 +82,15 @@ def test_import_leaves_jax_and_brpc_tpu_out():
         "import brpc_tpu_torch.protocol.hpack, brpc_tpu_torch.protocol.h2\n"
         "import brpc_tpu_torch.protocol.http_client\n"
         "import brpc_tpu_torch.tools.parallel_http\n"
+        "import brpc_tpu_torch.protocol.pbrpc_variants\n"
+        "import brpc_tpu_torch.protocol.thrift, brpc_tpu_torch.protocol.redis\n"
+        "import brpc_tpu_torch.protocol.memcache\n"
+        "import brpc_tpu_torch.transport.pipelined\n"
+        "import brpc_tpu_torch.transport.ipc_probe\n"
         "from brpc_tpu_torch.protocol.registry import get_protocols\n"
         "assert [p.name for p in get_protocols()] == "
-        "['tpu_std', 'http', 'h2']\n"
+        "['tpu_std', 'hulu_pbrpc', 'sofa_pbrpc', 'http', 'h2', 'thrift', "
+        "'redis', 'memcache']\n"
         f"forbidden = {FORBIDDEN_MODULES!r}\n"
         "bad = sorted(m for m in sys.modules if any(\n"
         "    m == f or m.startswith(f + '.') for f in forbidden))\n"

@@ -10,6 +10,14 @@ brpc_tpu's, on the CPU.
 - The idle class: a connection quiet for ``census_idle_s`` is idle on
   ``/connections``, ``/census`` and ``idle_conn_count``, and a call makes
   it active again.
+- ``/status``: the key set of brpc_tpu's, with the input batching
+  (``dispatch_batch_size_avg_10s``, ``_peak_10s``) and
+  ``socket_write_coalesced_frames`` on the saturation pane, and a
+  ``saturation_timeline`` link once an entry's trend ring exists;
+  ``/protobufs`` lists every method with ``bytes`` on both sides.
+- ``/device``'s probe pane with ``device_probe_path`` set: the keys of
+  brpc_tpu's pane over one artifact of ``ipc_probe``, its age, and the
+  artifact the probe writes on a machine without a card.
 - ``butil/containers.py`` and ``butil/timekeeping.py``: the cases of
   tests/test_butil_ext.py run on the port's and brpc_tpu's classes with
   the same results.
@@ -38,7 +46,7 @@ from brpc_tpu_torch.butil import timekeeping as port_time
 from brpc_tpu_torch.butil.flags import flag, set_flag
 from brpc_tpu_torch.rpc import Channel, ChannelOptions, Server, Service
 
-from test_torch_cluster import _run_cases, _wait_for
+from test_torch_cluster import ROOT, _run_cases, _wait_for
 
 
 def _get(port: int, path: str):
@@ -251,8 +259,97 @@ def case_timekeeping():
     assert port_time.monotime_us() - t0 >= 10000
 
 
+def case_status_saturation_keys():
+    """``/status`` has brpc_tpu's keys, the batching and coalescing
+    gauges among them, and links a saturation entry to its trend ring
+    once the ring exists; ``/protobufs`` lists every method as bytes."""
+    with _Pair() as p:
+        mine, ref = _page(p.port, "/status"), _page(p.ref, "/status")
+        assert set(mine) == set(ref), (set(mine) ^ set(ref))
+        new = {"dispatch_batch_size_avg_10s", "dispatch_batch_size_peak_10s",
+               "socket_write_coalesced_frames"}
+        assert new <= set(mine["saturation"]) and \
+            new <= set(ref["saturation"])
+        assert isinstance(mine["saturation"]["dispatch_batch_size_peak_10s"],
+                          int)
+        # the trend rings tick once a second while a server runs
+        assert _wait_for(lambda: "socket_wqueue_bytes" in _page(
+            p.port, "/status")["saturation_timeline"], 5.0)
+        links = _page(p.port, "/status")["saturation_timeline"]
+        assert links["socket_wqueue_bytes"] == \
+            "/timeline?name=socket_wqueue_bytes"
+        assert all(url.startswith("/timeline?name=") for url in
+                   links.values())
+        want = {"dispatch_batch_size_avg_10s", "dispatch_batch_size_peak_10s"}
+        assert want <= _vars(p.port) and want <= _vars(p.ref)
+        pb = _page(p.port, "/protobufs")
+        assert pb["Svc.Echo"] == {"request": "bytes", "response": "bytes"}
+        assert set(_page(p.ref, "/protobufs")["Svc.Echo"]) == \
+            {"request", "response"}
+    assert ("protobufs", "/protobufs") in port_tabbed.TABS
+
+
+def case_probe_pane():
+    """With ``device_probe_path`` set, ``/device`` shows the probe
+    artifact's keys and its age as brpc_tpu's does; the port's probe on
+    a machine without a card writes an artifact that says so."""
+    import os
+    import subprocess
+    import sys
+    import tempfile
+    from brpc_tpu.butil import flags as ref_flags
+    from brpc_tpu.transport import device_stats as ref_ds
+    from brpc_tpu_torch.transport import ipc_probe
+    probe = {"card": "x", "share_ms": 1.5, "child_rc": 0,
+             "child": {"open_ms": [0.4, 0.5, 0.3], "reopen_ms": [0.1] * 5,
+                       "event_open_ms": 0.2, "enqueue_ms": 0.05,
+                       "copy_wall_ms": 2.0, "a_ok": True, "b_ok": True,
+                       "c_ok": True}}
+    # the child runs as a module: by its path, the transport directory
+    # would come first on sys.path and its socket.py shadow the stdlib's
+    assert ipc_probe.child_command()[1:3] == \
+        ["-m", "brpc_tpu_torch.transport.ipc_probe"]
+    assert os.path.isdir(os.path.join(ipc_probe._PACKAGE_PARENT,
+                                      "brpc_tpu_torch"))
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "probe.json")
+        ipc_probe.write_artifact(path, ipc_probe.artifact(probe))
+        saved = ref_flags.flag("device_probe_path")
+        set_flag("device_probe_path", path)
+        ref_flags.set_flag("device_probe_path", path)
+        try:
+            with _Pair() as p:
+                pane = _page(p.port, "/device")["probe"]
+                want = ref_ds._probe_pane()
+                assert set(pane) == set(want), (pane, want)
+                assert pane["lane_kind"] == "cuda_ipc" and \
+                    pane["p50_us"] == 100.0 and pane["p99_us"] == 500.0 \
+                    and pane["age_s"] >= 0
+                assert "lane_error" not in pane
+                # on this machine the probe has no card: it says so
+                env = dict(os.environ)
+                env.pop("PYTHONPATH", None)
+                proc = subprocess.run(
+                    [sys.executable, "-m",
+                     "brpc_tpu_torch.transport.ipc_probe", "--out", path],
+                    cwd=str(ROOT), env=env, capture_output=True, text=True,
+                    timeout=120)
+                assert proc.returncode == 1, proc.stderr[-2000:]
+                pane = _page(p.port, "/device")["probe"]
+                assert pane["error"] == "CUDA is not available"
+            set_flag("device_probe_path", "")
+            with _Pair() as p:
+                assert "probe" not in _page(p.port, "/device")
+        finally:
+            set_flag("device_probe_path", "")
+            ref_flags.set_flag("device_probe_path", saved)
+
+
 CASES = [
     ("/sockets, /ids, /connections, /census keys", case_page_keys, ()),
+    ("/status saturation keys and links, /protobufs",
+     case_status_saturation_keys, ()),
+    ("the probe pane on /device", case_probe_pane, ()),
     ("the idle class", case_idle_class, ()),
     ("containers", case_containers, ()),
     ("timekeeping", case_timekeeping, ()),

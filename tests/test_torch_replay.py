@@ -19,6 +19,8 @@
 - ``rpc_press`` and ``rpc_replay`` as ``python3 -m`` subprocesses with
   ``--procs 2``: the merged counts are exact sums of the workers'; and
   ``rpc_press --protocol http`` POSTs through the port's HTTP client.
+- Records that carry an attachment are replayed with it (the port's
+  engine and brpc_tpu's alike).
 
 Schedules and counts are asserted, never the wall clock (brpc_tpu's
 pacing tests that read it fail on parent trees too); times are bounded
@@ -336,14 +338,6 @@ def case_capture_then_replay_generate():
         finally:
             server.stop()
             server.join(5)
-        # a record with an attachment is refused, not sent without it
-        try:
-            port_replay.run_open_loop(
-                [records[0]._replace(attachment=b"a")], addr,
-                port_replay.PaceSpec("qps", qps=1.0))
-            raise AssertionError("an attachment was replayed")
-        except ValueError:
-            pass
 
 
 def _tool(argv, timeout=120):
@@ -394,6 +388,41 @@ def case_tools_fan_out():
         server.join(5)
 
 
+def case_replay_with_attachments():
+    """Records that carry an attachment are replayed with it, by the
+    port's engine as by brpc_tpu's."""
+    seen = []
+
+    def Att(cntl, req):
+        seen.append((bytes(req), cntl.request_attachment.to_bytes()))
+        return b"ok"
+    svc = Service("Bench")
+    svc.register_method("Att", Att)
+    server = Server()
+    server.add_service(svc)
+    addr = str(server.start("tcp://127.0.0.1:0"))
+    try:
+        rng = np.random.default_rng(23)
+        for mod, engine in ((port_corpus, port_replay),
+                            (ref_corpus, ref_replay)):
+            records = [r._replace(method_key="Bench.Att", service="Bench",
+                                  method="Att", timeout_ms=5000.0,
+                                  attachment=rng.bytes(int(
+                                      rng.integers(1, 5000))))
+                       for r in _records(mod, rng, 24)]
+            seen.clear()
+            rep = engine.run_open_loop(records, addr,
+                                       engine.PaceSpec("qps", qps=400.0),
+                                       conns=2)
+            assert (rep["issued"], rep["ok"], rep["fail"]) == (24, 24, 0), \
+                rep
+            assert sorted(seen) == sorted((r.payload, r.attachment)
+                                          for r in records)
+    finally:
+        server.stop()
+        server.join(5)
+
+
 CASES = [
     ("schedules and synthesis against brpc_tpu's",
      case_schedules_and_synthesis, ()),
@@ -404,6 +433,7 @@ CASES = [
     ("capture, then replay, of Generate",
      case_capture_then_replay_generate, ()),
     ("rpc_press and rpc_replay with --procs 2", case_tools_fan_out, ()),
+    ("records with attachments", case_replay_with_attachments, ()),
 ]
 
 

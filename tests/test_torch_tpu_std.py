@@ -184,3 +184,178 @@ def test_random_metas_roundtrip_against_protobuf():
         mine.correlation_id = cid
         assert mine.encode() == m.SerializeToString()
         assert port_std.RpcMeta.decode(m.SerializeToString()) == mine
+
+
+# ------------------------------------------------------------ attachments
+
+def test_small_call_frame_with_attachment_equals_pack_frame():
+    """The Channel's small-call path with an attachment gives the bytes
+    of the whole-meta frame, which are brpc_tpu's; ``TpuStdProtocol.frame``
+    frames as brpc_tpu's does."""
+    rng = np.random.default_rng(20261018)
+    mine, ref = port_std.TpuStdProtocol(), ref_std.TpuStdProtocol()
+    for _ in range(200):
+        req = port_std.RpcRequestMeta(
+            service_name="S" * int(rng.integers(1, 9)), method_name="m",
+            timeout_ms=int(rng.integers(0, 5000)),
+            auth_token="t" if rng.random() < 0.3 else "",
+            priority=int(rng.integers(0, 4)))
+        ct = int(rng.choice([0, 1, 3]))
+        cid = int(rng.integers(1, 1 << 50))
+        payload = rng.bytes(int(rng.integers(0, 200)))
+        att = rng.bytes(int(rng.integers(0, 200)))
+        small = port_std.pack_small_frame(
+            port_std.request_meta_prefix(req, ct), cid, payload, att)
+        meta = port_std.RpcMeta(request=req, compress_type=ct,
+                                correlation_id=cid)
+        assert small == port_std.pack_frame(meta, payload, att)[0]
+        assert small == mine.frame(meta, payload, att)[0]
+        m = _pb_request(service_name=req.service_name,
+                        method_name=req.method_name,
+                        timeout_ms=req.timeout_ms,
+                        auth_token=req.auth_token, priority=req.priority)
+        m.correlation_id = cid
+        m.compress_type = ct
+        buf = ref_std.IOBuf()
+        buf.append(att)
+        assert small == ref.frame(m, payload, attachment=buf)[0].to_bytes()
+
+
+def _attachment_servers(kind):
+    """A server of ``kind`` whose ``Bench.Echo`` reflects the request's
+    payload and attachment; (server, port)."""
+    if kind == "port":
+        from brpc_tpu_torch.rpc import Server, Service
+        svc = Service("Bench")
+
+        def Echo(cntl, req):
+            cntl.response_attachment.append(
+                cntl.request_attachment.to_bytes())
+            return bytes(req)
+        svc.register_method("Echo", Echo)
+        srv = Server()
+    else:
+        from brpc_tpu.rpc import Server, Service
+        svc = Service("Bench")
+
+        def Echo(cntl, req):
+            cntl.response_attachment.append_buf(cntl.request_attachment)
+            return req.to_bytes() if hasattr(req, "to_bytes") else bytes(req)
+        svc.register_method("Echo", Echo)
+        srv = Server()
+    srv.add_service(svc)
+    return srv, srv.start("tcp://127.0.0.1:0").port
+
+
+@pytest.mark.parametrize("wiring", ["port->port", "port->ref", "ref->port"])
+def test_attachments_across_the_wire(wiring):
+    client, server = wiring.split("->")
+    srv, port = _attachment_servers(server)
+    rng = np.random.default_rng(7)
+    try:
+        if client == "port":
+            from brpc_tpu_torch.rpc import Channel, ChannelOptions, Controller
+            ch = Channel(f"tcp://127.0.0.1:{port}", ChannelOptions(
+                timeout_ms=30000, share_connections=False))
+        else:
+            from brpc_tpu.rpc import Channel, ChannelOptions
+            from brpc_tpu.rpc.controller import Controller
+            ch = Channel(f"tcp://127.0.0.1:{port}",
+                         ChannelOptions(timeout_ms=30000))
+        try:
+            for n in (4, 64 << 10, 4 << 20):
+                att = rng.bytes(n)
+                c = Controller()
+                c.request_attachment.append(att)
+                c = ch.call_sync("Bench", "Echo", b"p", cntl=c)
+                assert not c.failed(), c.error_text
+                body = c.response if client == "port" \
+                    else c.response_payload.to_bytes()
+                assert body == b"p"
+                assert c.response_attachment.to_bytes() == att, n
+                # a reused controller starts with no response attachment
+                if client == "port":
+                    c.request_attachment = port_std_iobuf()
+                    c = ch.call_sync("Bench", "Echo", b"q", cntl=c)
+                    assert c.response == b"q" and not c.response_attachment
+        finally:
+            ch.close()
+    finally:
+        srv.stop()
+        srv.join(5)
+
+
+def port_std_iobuf():
+    from brpc_tpu_torch.butil.iobuf import IOBuf
+    return IOBuf()
+
+
+def _lane_counts():
+    from brpc_tpu_torch.rpc import client_dispatch, server_dispatch
+    from brpc_tpu_torch.transport import socket as port_socket
+    return {"turbo": server_dispatch.nturbo_requests.get_value(),
+            "plucked": port_socket.npluck_fast.get_value(),
+            "drain": server_dispatch.nserve_drain.get_value(),
+            "scan": server_dispatch.nserve_scan.get_value(),
+            "chunk": client_dispatch.nchunk_drained.get_value()}
+
+
+@pytest.mark.parametrize("lane", ["turbo_and_pluck", "classic",
+                                  "chunk_lanes"])
+def test_an_attachment_on_each_native_lane(lane):
+    """The turbo and pluck lanes, the C echo over an fd (``serve_drain``),
+    the classic path a deadline defers a request to, and the chunk lanes
+    of ``mem://`` (the server's hook on the writer's chunks and the
+    client's chunk drain) carry an attachment both ways."""
+    from brpc_tpu_torch.native import fastcore
+    from brpc_tpu_torch.rpc import (Channel, ChannelOptions, Controller,
+                                    Server, Service)
+    if fastcore.get() is None:
+        pytest.fail(f"the native core did not load: {fastcore.load_error}")
+    svc = Service("Echo")
+
+    def echo(cntl, req):
+        cntl.response_attachment.append(cntl.request_attachment.to_bytes())
+        return bytes(req)
+    svc.register_method("Echo", echo, native="echo")
+    svc.register_method("Other", lambda cntl, req: (
+        cntl.response_attachment.append(
+            cntl.request_attachment.to_bytes()[::-1]), b"o:" + req)[1])
+    server = Server()
+    server.add_service(svc)
+    addr = "mem://tpu-std-att-lanes" if lane == "chunk_lanes" \
+        else "tcp://127.0.0.1:0"
+    ep = server.start(addr)
+    ch = Channel(str(ep), ChannelOptions(timeout_ms=None,
+                                         share_connections=False))
+    try:
+        before = _lane_counts()
+        for method, want in (("Echo", lambda a: a), ("Other",
+                                                     lambda a: a[::-1])):
+            c = Controller(timeout_ms=5000 if lane == "classic" else None)
+            c.request_attachment.append(b"attached-" + method.encode())
+            if lane == "chunk_lanes":
+                done = []
+                c = ch.call("Echo", method, b"x", cntl=c, done=done.append)
+                assert c.join(10)
+            else:
+                c = ch.call_sync("Echo", method, b"x", cntl=c)
+            assert not c.failed(), c.error_text
+            assert c.response_attachment.to_bytes() == \
+                want(b"attached-" + method.encode())
+        d = {k: v - before[k] for k, v in _lane_counts().items()}
+        if lane == "turbo_and_pluck":
+            # the echo served in C, the other method by the turbo lane;
+            # both responses plucked
+            assert d["drain"] == 1 and d["turbo"] == 1 and \
+                d["plucked"] == 2, d
+        elif lane == "classic":
+            # the deadline defers the request from the turbo lane, not
+            # from the echo loop
+            assert d["drain"] == 1 and d["turbo"] == 0, d
+        else:
+            assert d["drain"] == 1 and d["chunk"] == 2, d
+    finally:
+        ch.close()
+        server.stop()
+        server.join(5)

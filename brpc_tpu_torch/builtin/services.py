@@ -16,7 +16,8 @@ chaos counters (``chaos_injected_*``, ``chaos/inject.py``).
 ``/connections`` and ``/sockets`` read the rows of
 ``transport.socket.socket_census_rows``, as ``/census`` does; a server
 row names the protocol its connection settled on (tpu_std, hulu_pbrpc,
-sofa_pbrpc, http, h2, thrift or redis).
+sofa_pbrpc, http, h2, thrift, nshead, esp, mongo or redis; nova_pbrpc,
+public_pbrpc, ubrpc and nshead+mcpack connections are nshead's).
 """
 
 from __future__ import annotations

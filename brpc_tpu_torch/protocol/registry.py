@@ -18,9 +18,12 @@ The port registers, in the reference's order of preference
 (brpc_tpu/protocol/registry.py:87-105) restricted to what it has:
 ``tpu_std``, ``hulu_pbrpc``, ``sofa_pbrpc``, ``http``, ``h2`` (it claims
 a connection by its client preface, which none of the others takes),
-``thrift``, ``redis`` (its inline commands only on a connection that
-already spoke RESP) and ``memcache`` (client-only: it disclaims every
-server's bytes). ``find_protocol(name)`` looks one up by name. The
+``thrift``, ``nshead`` (and the RPC flavours that ride it, as adaptors
+of ``nshead_service``), ``esp``, ``mongo``, ``redis`` (its inline
+commands only on a connection that already spoke RESP) and ``memcache``
+(client-only: it disclaims every server's bytes). RTMP's place, after
+mongo, waits for its port. The list is fixed before a connection's
+first parse: a socket's preferred protocol is an index into it. ``find_protocol(name)`` looks one up by name. The
 modules do no work at import beyond their ``struct.Struct``s, and the
 InputMessenger resolves the registry when it is made, never at a
 connection's first read.
@@ -85,12 +88,16 @@ def find_protocol(name: str) -> Optional[Protocol]:
 
 
 def _register_builtins() -> None:
-    from brpc_tpu_torch.protocol import (h2, http, memcache, pbrpc_variants,
-                                         redis, thrift, tpu_std)
+    from brpc_tpu_torch.protocol import (esp, h2, http, memcache, mongo,
+                                         nshead, pbrpc_variants, redis,
+                                         thrift, tpu_std)
     tpu_std.ensure_registered()
     pbrpc_variants.ensure_registered()
     http.ensure_registered()
     h2.ensure_registered()
     thrift.ensure_registered()
+    nshead.ensure_registered()
+    esp.ensure_registered()
+    mongo.ensure_registered()
     redis.ensure_registered()
     memcache.ensure_registered()

@@ -347,7 +347,7 @@ class ThriftProtocol(Protocol):
                 EXC_MISSING_RESULT))
             return
         # thrift carries no credential: an auth server answers no call
-        refused = server.refuse_uncredentialed()
+        refused = server.refuse_uncredentialed("thrift")
         if refused is not None:
             reply(MSG_EXCEPTION, app_exception_fields(refused, EXC_UNKNOWN))
             return

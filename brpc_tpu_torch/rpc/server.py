@@ -157,7 +157,14 @@ class ServerOptions:
     ``protocol.thrift.ThriftService`` answering framed thrift on the
     server's port (refused on a server with ``auth`` or ``auth_token``:
     thrift carries no credential); ``redis_service``: a
-    ``protocol.redis.RedisService`` answering RESP there."""
+    ``protocol.redis.RedisService`` answering RESP there.
+    ``nshead_service``: the nshead handler, raw or an adaptor of
+    ``protocol/nshead_pbrpc.py`` (nova_pbrpc, public_pbrpc, ubrpc) or
+    ``protocol/mcpack.py`` (nshead+mcpack) over a Service;
+    ``esp_service``: the esp handler; both are refused on a server with
+    ``auth`` or ``auth_token``, since neither carries a credential.
+    ``mongo_service_adaptor``: a ``protocol.mongo.MongoServiceAdaptor``,
+    whose commands do their own authentication."""
     max_concurrency: Any = None
     method_max_concurrency: Optional[Dict[str, Any]] = None
     queue_delay_shed_ms: Optional[float] = None
@@ -173,6 +180,9 @@ class ServerOptions:
     enable_builtin_services: bool = True
     thrift_service: Optional[Any] = None
     redis_service: Optional[Any] = None
+    nshead_service: Optional[Callable] = None
+    esp_service: Optional[Callable] = None
+    mongo_service_adaptor: Optional[Any] = None
 
 
 class Server:
@@ -539,16 +549,18 @@ class Server:
         socket.user_data["auth_context"] = ctx
         return None
 
-    def refuse_uncredentialed(self) -> Optional[str]:
-        """The gate of a protocol that carries no credential (thrift):
-        a server with an Authenticator refuses every such call, as bRPC
-        does (policy/thrift_protocol.cpp, VerifyThriftRequest), and
-        counts it where the HTTP gate counts its refusals. The reason,
-        or None on a server without one."""
+    def refuse_uncredentialed(self, protocol: str) -> Optional[str]:
+        """The gate of a protocol that carries no credential (thrift,
+        nshead, esp): a server with an Authenticator refuses every such
+        call, as bRPC does (policy/thrift_protocol.cpp,
+        VerifyThriftRequest; policy/nshead_protocol.cpp,
+        VerifyNsheadRequest), and counts it where the HTTP gate counts
+        its refusals. The reason, or None on a server without one."""
         if self._auth is None:
             return None
         nauth_refused.add(1)
-        return "this server requires a credential, which thrift cannot carry"
+        return (f"this server requires a credential, which {protocol} "
+                f"cannot carry")
 
     async def _call_http(self, socket: Socket, req: http.HttpRequest,
                          unary: bool = False

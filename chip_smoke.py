@@ -388,11 +388,33 @@ equal to the CPU plain path's; the server's flash_decode launches,
 zeroed before it starts and read after (g), equal its decode steps plus
 its warm-up, and no other kernel runs.
 
+Phase legacy (the nshead family, mongo and esp), after protocols.
+``nshead_service`` is one handler a server, so each of nova_pbrpc,
+public_pbrpc and nshead+mcpack gets a Server on cuda:0 of its own, with
+the default Generate service on one tcp port, in turn: (a) phase 3's
+burst over the flavour, a client a thread, cold and then warm, and
+``/connections`` naming the nshead connection; on the nova server also
+one call with the snappy flag, (b) mongo beside a nova burst in flight
+(``hello`` over OP_QUERY answered with OP_REPLY, a registered command
+over OP_MSG, 1,000 commands back to back on one connection answered in
+order, an unknown command's code 59; a command's p50 alone beside the
+burst's time to finish), (c) esp the same way (1,000 ``call_async``s
+from fibers matched by ``msg_id``, 8 threads on one shared client), and
+a plain nshead call, which gets the adaptor's answer. (d) ubrpc on a
+short Echo server: an echo, an unknown method (1002), a malformed body
+(2001). (e) A server with ``auth_token``: a nova call and an esp call
+refused, the connection dropped and no handler run,
+``server_auth_refused`` counting both; a mongo command answered. Every
+token list equal to the CPU plain path's; each Generate server's
+flash_decode launches, zeroed before it starts and read after its part,
+equal its decode steps plus its warm-up, and no other kernel runs; no
+nshead or esp client socket is left open.
+
 ``python3 chip_smoke.py --phase streaming`` (or ``--phase
 observability``, ``--phase device_lane``, ``--phase combo``, ``--phase
 cluster``, ``--phase incident``, ``--phase native``, ``--phase
 shards``, ``--phase ring``, ``--phase replay``, ``--phase h2``,
-``--phase protocols``) runs that phase alone (after the card
+``--phase protocols``, ``--phase legacy``) runs that phase alone (after the card
 line), so that two trees' serving can be compared in one call: run each
 tree's script in turns.
 
@@ -8159,6 +8181,487 @@ def phase_protocols(dev):
     return out
 
 
+LEGACY_FLAVOURS = ("nova_pbrpc", "public_pbrpc", "nshead_mcpack")
+LEGACY_MONGO_CMDS = 1000                # (b): commands back to back
+LEGACY_MONGO_SERIAL = 200               # (b): one command at a time
+LEGACY_ESP_CALLS = 1000                 # (c): call_async from fibers
+LEGACY_ESP_SERIAL = 200                 # (c): one call at a time
+LEGACY_ESP_THREADS = 8                  # (c): threads on one client
+LEGACY_ESP_THREAD_CALLS = 50            # (c): calls a thread
+LEGACY_TOKEN = "legacy-secret"          # (e): the auth server's token
+
+
+def _legacy_adaptor(flavour: str, service):
+    from brpc_tpu_torch.protocol import mcpack
+    from brpc_tpu_torch.protocol import nshead_pbrpc as npb
+    return {"nova_pbrpc": npb.nova_adaptor,
+            "public_pbrpc": npb.public_pbrpc_adaptor,
+            "nshead_mcpack": mcpack.nshead_mcpack_adaptor}[flavour](service)
+
+
+def _legacy_client(flavour: str, port: int):
+    """A client of ``flavour`` and its Generate call: (client, call(body)
+    -> the answer's bytes)."""
+    from brpc_tpu_torch.protocol import mcpack, nshead
+    from brpc_tpu_torch.protocol import nshead_pbrpc as npb
+    addr = f"127.0.0.1:{port}"
+    if flavour == "nova_pbrpc":
+        c = npb.NovaClient(addr, timeout_s=120)
+        return c, lambda body: c.call_method(0, body)
+    if flavour == "public_pbrpc":
+        c = npb.PublicPbrpcClient(addr, timeout_s=120)
+        return c, lambda body: c.call_method("GenerateService", 0, body)
+    c = nshead.NsheadClient(addr, timeout_s=120)
+
+    def call(body):
+        doc = mcpack.decode(c.call(mcpack.encode(
+            {"method": "Generate", "request": body})).body)
+        if doc.get("error_code"):
+            raise RuntimeError(f"nshead+mcpack error {doc}")
+        return doc["response"]
+    return c, call
+
+
+def _legacy_burst(port: int, prompts, flavour: str):
+    """Phase 3's burst over ``flavour``: N_CLIENTS threads, a client
+    each (a connection's requests are answered in parse order, so a
+    shared client would queue them behind each other's decode)."""
+    results, errors, latency = {}, [], []
+
+    def client(idx):
+        c, call = _legacy_client(flavour, port)
+        try:
+            for p in prompts[idx::N_CLIENTS]:
+                t0 = time.perf_counter()
+                try:
+                    doc = json.loads(bytes(call(_generate_body(p))))
+                    latency.append((time.perf_counter() - t0) * 1e3)
+                    results[p] = doc["tokens"]
+                except Exception as e:  # a failure is counted, then checked
+                    errors.append((p, repr(e)))
+        finally:
+            c.close()
+
+    return results, errors, _run_clients(client), latency
+
+
+def _legacy_in_flight(port: int, prompts, oracle: dict, what: str):
+    """A nova burst on a thread; the returned join checks it and gives
+    its time to finish."""
+    box = {}
+
+    def run():
+        box["r"] = _legacy_burst(port, prompts, "nova_pbrpc")
+    t = threading.Thread(target=run, name=f"burst {what}")
+    t.start()
+
+    def join() -> dict:
+        t.join(600)
+        check(not t.is_alive() and "r" in box, f"{what}: burst hung")
+        res, errs, wall, lat = box["r"]
+        _check_burst(f"{what} (nova burst beside)", res, errs, oracle)
+        return {"burst_finish_s": wall, "burst_call_p50_ms": _median(lat)}
+    return join
+
+
+def _legacy_protocols(port: int) -> list:
+    return sorted(r["protocol"] for r in
+                  _http_json(port, "/connections")["connections"])
+
+
+def _legacy_bursts(port: int, prompts, oracle: dict, flavour: str) -> dict:
+    """(a): phase 3's burst over ``flavour``, cold then warm; a client
+    left open names its connection on /connections."""
+    out = {}
+    for turn in ("cold", "warm"):
+        res, errs, wall, lat = _legacy_burst(port, prompts, flavour)
+        _check_burst(f"legacy a {flavour} {turn}", res, errs, oracle)
+        out[turn] = {"wall_s": wall, "p50_ms": _median(lat),
+                     "p99_ms": _p99(lat)}
+    c, call = _legacy_client(flavour, port)
+    try:
+        p = prompts[0]
+        check(json.loads(bytes(call(_generate_body(p))))["tokens"]
+              == oracle[p], f"legacy a: {flavour} one call")
+        protos = _legacy_protocols(port)
+    finally:
+        c.close()
+    check("nshead" in protos,
+          f"legacy a: /connections names {protos} for {flavour}")
+    out["connection_protocols"] = protos
+    return out
+
+
+def _legacy_nova_extras(port: int, oracle: dict) -> dict:
+    """(a) and (d) on the nova server: one call with the snappy flag, and
+    a plain nshead call, which gets the adaptor's answer."""
+    from brpc_tpu_torch.protocol import nshead
+    from brpc_tpu_torch.protocol import nshead_pbrpc as npb
+    p = next(iter(oracle))
+    c = npb.NovaClient(f"127.0.0.1:{port}", timeout_s=120)
+    try:
+        doc = json.loads(c.call_method(0, _generate_body(p), snappy=True))
+    finally:
+        c.close()
+    check(doc["tokens"] == oracle[p], "legacy a: a snappy nova call")
+    c = nshead.NsheadClient(f"127.0.0.1:{port}", timeout_s=120)
+    try:
+        reply = c.call(nshead.NsheadMessage(_generate_body(p), reserved=0))
+    finally:
+        c.close()
+    check(json.loads(reply.body)["tokens"] == oracle[p],
+          "legacy d: a plain nshead call to the nova server")
+    return {"snappy_call": "answered", "plain_nshead": "the adaptor's answer"}
+
+
+def _legacy_mongo_service(calls: list):
+    from brpc_tpu_torch.protocol import mongo
+    svc = mongo.MongoServiceAdaptor()
+
+    @svc.command("echo")
+    def echo(sock, doc):
+        calls.append("echo")
+        return {"n": doc["echo"]}
+    return svc
+
+
+def _mongo_frame(s) -> bytes:
+    import struct
+    head = _recv_exact(s, 16)
+    return head + _recv_exact(s, struct.unpack("<i", head[:4])[0] - 16)
+
+
+def _recv_exact(s, n: int) -> bytes:
+    out = b""
+    while len(out) < n:
+        chunk = s.recv(n - len(out))
+        check(bool(chunk), "legacy: the connection closed mid-reply")
+        out += chunk
+    return out
+
+
+def _legacy_mongo(port: int, prompts, oracle: dict) -> dict:
+    """(b): mongo on the nova server's port while a nova burst is in
+    flight: ``hello`` over OP_QUERY (answered with OP_REPLY), a
+    registered command over OP_MSG, LEGACY_MONGO_CMDS commands written
+    back to back on one connection (answered in order, each with its
+    ``responseTo``), an unknown command (code 59). The pipeline's wall
+    time is the time to answer them all; LEGACY_MONGO_SERIAL commands one
+    at a time give the p50 of one command alone."""
+    import socket as pysocket
+    from brpc_tpu_torch.protocol import mongo
+    join = _legacy_in_flight(port, prompts, oracle, "legacy b")
+    s = pysocket.create_connection(("127.0.0.1", port), timeout=60)
+    try:
+        s.sendall(mongo.pack_query(1, "admin.$cmd", {"hello": 1}))
+        _rid, to, op, doc = mongo.unpack_reply(_mongo_frame(s))
+        check(op == mongo.OP_REPLY and to == 1 and
+              doc.get("isWritablePrimary") is True,
+              f"legacy b: hello over OP_QUERY {op} {doc}")
+        s.sendall(mongo.pack_msg(2, 0, {"echo": 41}))
+        _rid, to, op, doc = mongo.unpack_reply(_mongo_frame(s))
+        check(op == mongo.OP_MSG and to == 2 and doc == {"n": 41, "ok": 1.0},
+              f"legacy b: a registered command {doc}")
+        protos = _legacy_protocols(port)
+        n = LEGACY_MONGO_CMDS
+        t0 = time.perf_counter()
+        s.sendall(b"".join(mongo.pack_msg(100 + i, 0, {"echo": i})
+                           for i in range(n)))
+        for i in range(n):
+            _rid, to, _op, doc = mongo.unpack_reply(_mongo_frame(s))
+            check(to == 100 + i and doc.get("n") == i,
+                  f"legacy b: command {i} answered as {to} {doc}")
+        pipe_s = time.perf_counter() - t0
+        s.sendall(mongo.pack_msg(3, 0, {"nosuchcmd": 1}))
+        _rid, to, _op, doc = mongo.unpack_reply(_mongo_frame(s))
+        check(to == 3 and doc.get("code") == 59,
+              f"legacy b: an unknown command {doc}")
+        serial = []
+        for i in range(LEGACY_MONGO_SERIAL):
+            t1 = time.perf_counter()
+            s.sendall(mongo.pack_msg(5000 + i, 0, {"echo": i}))
+            _rid, to, _op, doc = mongo.unpack_reply(_mongo_frame(s))
+            serial.append((time.perf_counter() - t1) * 1e3)
+            check(to == 5000 + i and doc.get("n") == i,
+                  f"legacy b: serial command {i}")
+    finally:
+        s.close()
+    check("mongo" in protos, f"legacy b: /connections names {protos}")
+    return {"pipelined_commands": n, "pipeline_answer_all_s": pipe_s,
+            "pipeline_commands_per_s": n / pipe_s,
+            "serial_commands": len(serial),
+            "one_command_alone_p50_ms": _median(serial),
+            "one_command_alone_p99_ms": _p99(serial),
+            "connection_protocols": protos, **join()}
+
+
+def _legacy_esp_handler(calls: list):
+    def handler(sock, msg):
+        calls.append(msg.msg_id)
+        return b"re-" + msg.body
+    return handler
+
+
+def _legacy_esp(port: int, prompts, oracle: dict) -> dict:
+    """(c): esp on the same port while a nova burst is in flight:
+    LEGACY_ESP_CALLS ``call_async``s from fibers on one client, each
+    answered with its own body (matched by ``msg_id``); LEGACY_ESP_THREADS
+    threads on one shared client; LEGACY_ESP_SERIAL calls one at a time
+    (the p50 of one call alone)."""
+    from brpc_tpu_torch import fiber
+    from brpc_tpu_torch.fiber.sync import CountdownEvent
+    from brpc_tpu_torch.protocol import esp
+    join = _legacy_in_flight(port, prompts, oracle, "legacy c")
+    c = esp.EspClient(f"127.0.0.1:{port}", stargate_id=7, timeout_s=60)
+    try:
+        n = LEGACY_ESP_CALLS
+        done = CountdownEvent(n)
+        lat, bad = [], []
+
+        async def one(i):
+            t0 = time.perf_counter()
+            try:
+                r = await c.call_async(to=1, body=f"q{i}".encode())
+                lat.append((time.perf_counter() - t0) * 1e3)
+                if r.body != f"re-q{i}".encode() or r.to != 7:
+                    bad.append(i)
+            except Exception as e:      # a failure is counted, then checked
+                bad.append((i, repr(e)))
+            finally:
+                done.signal()
+        t0 = time.perf_counter()
+        for i in range(n):
+            fiber.spawn(one, i)
+        check(done.wait_pthread(120), "legacy c: call_async hung")
+        wall = time.perf_counter() - t0
+        check(not bad, f"legacy c: {len(bad)} bad answers: {bad[:3]}")
+        protos = _legacy_protocols(port)
+        errs = []
+
+        def worker(i):
+            try:
+                for j in range(LEGACY_ESP_THREAD_CALLS):
+                    body = f"t{i}.{j}".encode()
+                    if c.call(to=1, body=body).body != b"re-" + body:
+                        errs.append((i, j))
+            except Exception as e:      # a failure is counted, then checked
+                errs.append((i, repr(e)))
+        threads = [threading.Thread(target=worker, args=(i,))
+                   for i in range(LEGACY_ESP_THREADS)]
+        t1 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+        threads_s = time.perf_counter() - t1
+        check(not errs and not any(t.is_alive() for t in threads),
+              f"legacy c: threads on one client: {errs[:3]}")
+        serial = []
+        for i in range(LEGACY_ESP_SERIAL):
+            t2 = time.perf_counter()
+            r = c.call(to=1, body=b"s")
+            serial.append((time.perf_counter() - t2) * 1e3)
+            check(r.body == b"re-s", "legacy c: a serial call")
+    finally:
+        c.close()
+    check("esp" in protos, f"legacy c: /connections names {protos}")
+    return {"calls": n, "answer_all_s": wall, "calls_per_s": n / wall,
+            "finish_p50_ms": _median(lat), "finish_p99_ms": _p99(lat),
+            "threads": LEGACY_ESP_THREADS,
+            "thread_calls": LEGACY_ESP_THREADS * LEGACY_ESP_THREAD_CALLS,
+            "threads_s": threads_s, "serial_calls": len(serial),
+            "one_call_alone_p50_ms": _median(serial),
+            "connection_protocols": protos, **join()}
+
+
+def _legacy_echo_service(calls: list):
+    """``Echo``: ubrpc's params map back, and the (e) server's nova
+    echo; ``calls`` gets each run."""
+    from brpc_tpu_torch.rpc import Service
+    svc = Service("EchoService")
+
+    def Echo(cntl, request):
+        calls.append("Echo")
+        return request if isinstance(request, dict) else bytes(request)
+    svc.register_method("Echo", Echo)
+    return svc
+
+
+def _legacy_ubrpc() -> dict:
+    """(d): a short server with an Echo service over ubrpc: an echo, an
+    unknown method (1002), a malformed body (2001)."""
+    from brpc_tpu_torch.protocol import mcpack, nshead
+    from brpc_tpu_torch.protocol import nshead_pbrpc as npb
+    from brpc_tpu_torch.rpc import Server, ServerOptions
+    calls = []
+    server = Server(ServerOptions(nshead_service=npb.ubrpc_adaptor(
+        _legacy_echo_service(calls))))
+    port = server.start("tcp://127.0.0.1:0").port
+    c = npb.UbrpcClient(f"127.0.0.1:{port}", timeout_s=30)
+    try:
+        got = c.call_method("EchoService", "Echo", {"message": "hi"})
+        check(got == {"message": "hi"}, f"legacy d: ubrpc echo {got}")
+        try:
+            c.call_method("EchoService", "Nope", {})
+            check(False, "legacy d: an unknown method was answered")
+        except ConnectionError as e:
+            check("1002" in str(e), f"legacy d: unknown method: {e}")
+        reply = c.call(nshead.NsheadMessage(b"garbage", version=1000))
+        item = mcpack.decode(reply.body)["content"][0]
+        check(item["error"]["code"] == 2001,
+              f"legacy d: a malformed body answered {item}")
+    finally:
+        c.close()
+        server.stop()
+        server.join(10)
+    return {"echo": "answered", "unknown_method": 1002,
+            "malformed_body": 2001, "handler_runs": len(calls)}
+
+
+def _legacy_auth() -> dict:
+    """(e): a server with ``auth_token``: a nova call and an esp call are
+    refused (the connection dropped, no handler run,
+    ``server_auth_refused`` counting each); a mongo command is answered,
+    as brpc_tpu's."""
+    import socket as pysocket
+    from brpc_tpu_torch.protocol import esp, mongo
+    from brpc_tpu_torch.protocol import nshead_pbrpc as npb
+    from brpc_tpu_torch.rpc import Server, ServerOptions
+    from brpc_tpu_torch.rpc.server import nauth_refused
+    calls, esp_calls, mongo_calls = [], [], []
+    server = Server(ServerOptions(
+        auth_token=LEGACY_TOKEN,
+        nshead_service=npb.nova_adaptor(_legacy_echo_service(calls)),
+        esp_service=_legacy_esp_handler(esp_calls),
+        mongo_service_adaptor=_legacy_mongo_service(mongo_calls)))
+    port = server.start("tcp://127.0.0.1:0").port
+    before = nauth_refused.get_value()
+    refused = {}
+    try:
+        c = npb.NovaClient(f"127.0.0.1:{port}", timeout_s=30)
+        try:
+            c.call_method(0, b"no credential")
+        except Exception as e:          # the refusal: the connection drops
+            refused["nova"] = repr(e)
+        finally:
+            c.close()
+        c = esp.EspClient(f"127.0.0.1:{port}", timeout_s=30)
+        try:
+            c.call(to=1, body=b"no credential")
+        except Exception as e:          # the refusal: the connection drops
+            refused["esp"] = repr(e)
+        finally:
+            c.close()
+        s = pysocket.create_connection(("127.0.0.1", port), timeout=30)
+        try:
+            s.sendall(mongo.pack_msg(1, 0, {"echo": 5}))
+            _rid, to, _op, doc = mongo.unpack_reply(_mongo_frame(s))
+        finally:
+            s.close()
+    finally:
+        server.stop()
+        server.join(10)
+    check(set(refused) == {"nova", "esp"} and not calls and not esp_calls,
+          f"legacy e: refused {refused}, handler runs {calls} {esp_calls}")
+    check(nauth_refused.get_value() - before == 2,
+          "legacy e: server_auth_refused did not count both refusals")
+    check(to == 1 and doc == {"n": 5, "ok": 1.0} and mongo_calls,
+          f"legacy e: the mongo command answered {doc}")
+    return {"refused": refused, "auth_refused": 2, "mongo": "answered"}
+
+
+def _legacy_server(flavour: str, fa, extra_opts: dict):
+    """A Server on cuda:0 with the default Generate service served over
+    ``flavour``, its launches zeroed before it starts."""
+    from brpc_tpu_torch.rpc import Server, ServerOptions
+    from brpc_tpu_torch.serving import add_generate_service
+    fa.reset_launches()
+    server = Server(ServerOptions(**extra_opts))
+    gs = add_generate_service(server)
+    check(str(gs.device) == "cuda:0", f"service device {gs.device}")
+    server.options.nshead_service = _legacy_adaptor(
+        flavour, server.services()["GenerateService"])
+    return server, gs, server.start("tcp://127.0.0.1:0").port
+
+
+def _legacy_launches(dev, fa, gs, what: str) -> int:
+    _sync(dev)
+    got = dict(fa.launches)
+    steps = gs.batcher.decode_steps + gs.engine.warmup_steps
+    check(got["flash_decode"] == steps > 0 and
+          sum(got.values()) == got["flash_decode"],
+          f"legacy {what}: launched {got}, {steps} decode steps and "
+          f"warm-ups")
+    return got["flash_decode"]
+
+
+def phase_legacy(dev):
+    """Generate over nova_pbrpc, public_pbrpc and nshead+mcpack, beside
+    mongo and esp, and ubrpc and the auth gate. nshead_service is one
+    handler a server, so each flavour gets a Server of its own on cuda:0
+    with the default Generate service, one tcp port, in turn: (a) phase
+    3's burst over the flavour, cold then warm, and /connections naming
+    the connection; on the nova server also a snappy call, (b) mongo and
+    (c) esp beside a nova burst in flight, and a plain nshead call. Then
+    (d) ubrpc on a short Echo server and (e) the auth gate. Each Generate
+    server's flash_decode launches, zeroed before it starts and read
+    after its part, equal its decode steps plus its warm-up, and no other
+    kernel runs; no nshead or esp client socket is left open."""
+    from brpc_tpu_torch.protocol import esp
+    from brpc_tpu_torch.serving import TinyDecoder, TinyDecoderConfig
+    from brpc_tpu_torch.transport.pipelined import live_sockets
+    fa = _fa_module()
+    phase_t0 = time.monotonic()
+    prompts = _prompts()
+    cpu_model = TinyDecoder(TinyDecoderConfig(), device="cpu")
+    oracle = {p: cpu_model.generate(list(p.encode()), MAX_TOKENS)
+              for p in prompts}
+    out = {"phase": "legacy", "a": {}, "launches": {}, "steps": {}}
+    mongo_calls, esp_calls = [], []
+    for flavour in LEGACY_FLAVOURS:
+        extra = {} if flavour != "nova_pbrpc" else {
+            "mongo_service_adaptor": _legacy_mongo_service(mongo_calls),
+            "esp_service": _legacy_esp_handler(esp_calls)}
+        server, gs, port = _legacy_server(flavour, fa, extra)
+        try:
+            progress(f"legacy a: Generate over {flavour}")
+            out["a"][flavour] = _legacy_bursts(port, prompts, oracle,
+                                               flavour)
+            if flavour == "nova_pbrpc":
+                out["a"][flavour].update(_legacy_nova_extras(port, oracle))
+                progress("legacy b: mongo beside a nova burst")
+                out["b"] = _legacy_mongo(port, prompts, oracle)
+                emit({"phase": "legacy", "part": "b", "b": out["b"]})
+                progress("legacy c: esp beside a nova burst")
+                out["c"] = _legacy_esp(port, prompts, oracle)
+                emit({"phase": "legacy", "part": "c", "c": out["c"]})
+            out["launches"][flavour] = _legacy_launches(dev, fa, gs,
+                                                        flavour)
+            out["steps"][flavour] = (gs.batcher.decode_steps
+                                     + gs.engine.warmup_steps)
+        finally:
+            server.stop()
+            server.join(10)
+        emit({"phase": "legacy", "part": "a", "flavour": flavour,
+              "a": out["a"][flavour],
+              "launches": out["launches"][flavour]})
+    progress("legacy d: ubrpc")
+    fa.reset_launches()
+    out["d"] = _legacy_ubrpc()
+    progress("legacy e: the auth gate")
+    out["e"] = _legacy_auth()
+    check(sum(fa.launches.values()) == 0,
+          f"legacy d, e: kernels launched {dict(fa.launches)}")
+    emit({"phase": "legacy", "part": "d", "d": out["d"], "e": out["e"]})
+    check(live_sockets() == 0 and esp.live_sockets() == 0,
+          f"legacy: {live_sockets()} pipelined and {esp.live_sockets()} "
+          f"esp client sockets left open")
+    out["phase_s"] = time.monotonic() - phase_t0
+    emit({"phase": "legacy", "launches": out["launches"],
+          "steps": out["steps"], "phase_s": out["phase_s"]})
+    return out
+
+
 def phase_paths(dev, split_inputs):
     """The port's two other paths, each driven through its public entry
     point with every count zeroed just before and read just after:
@@ -8456,6 +8959,10 @@ def main(only: str = "") -> int:
             # alone, flash_decode builds at the server's warm-up
             phase_protocols(dev)
             return 0
+        if only == "legacy":
+            # alone, flash_decode builds at the first server's warm-up
+            phase_legacy(dev)
+            return 0
         if only:
             {"streaming": phase_streaming,
              "observability": phase_observability}[only]()
@@ -8490,6 +8997,8 @@ def main(only: str = "") -> int:
         h2 = phase_h2(dev)
         progress("phase protocols")
         protocols = phase_protocols(dev)
+        progress("phase legacy")
+        legacy = phase_legacy(dev)
         progress("phase paths")
         paths = phase_paths(dev, split_inputs)
         progress("phase times")
@@ -8524,6 +9033,7 @@ def main(only: str = "") -> int:
                             for v in replay["launches"].values())
     by_path["h2"] = h2["launches"]["flash_decode"]
     by_path["protocols"] = protocols["launches"]["flash_decode"]
+    by_path["legacy"] = sum(legacy["launches"].values())
     by_path["long_cache_decode"] = paths["long_cache_decode"]["flash_decode"]
     fwd_by_path = {
         "long_context": paths["long_context"]["flash_attn_fwd"],
@@ -8544,7 +9054,8 @@ def main(only: str = "") -> int:
              "ssl, rpc_press over HTTP; protocols: Generate over "
              "hulu_pbrpc and sofa_pbrpc (unary, streamed, on the ring, "
              "with an attachment) beside thrift and redis on one port; "
-             "the long-cache decode",
+             "legacy: Generate over nova_pbrpc, public_pbrpc and "
+             "nshead+mcpack beside mongo and esp; the long-cache decode",
              sum(by_path.values()), sl["flash_decode"],
              sl["flash_decode"] / steps, errs["serving_decode"],
              times["decode"], launches_by_path=by_path,
@@ -8596,7 +9107,7 @@ if __name__ == "__main__":
                                  ["device_lane"], ["combo"], ["cluster"],
                                  ["incident"], ["native"], ["shards"],
                                  ["ring"], ["replay"], ["h2"],
-                                 ["protocols"]):
+                                 ["protocols"], ["legacy"]):
             sys.exit(f"chip_smoke: unknown phase {sys.argv[2:]}")
         sys.exit(main(only=sys.argv[2]))
     sys.exit(main())

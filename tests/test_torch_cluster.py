@@ -65,6 +65,7 @@ from brpc_tpu_torch.rpc import naming as port_naming
 from brpc_tpu_torch.rpc import periodic_task as port_periodic
 from brpc_tpu_torch.rpc import retry_policy as port_retry
 from brpc_tpu_torch.chaos import inject as port_chaos
+from brpc_tpu_torch.protocol import esp as port_esp
 from brpc_tpu_torch.protocol import h2 as port_h2
 from brpc_tpu_torch.protocol import http_client as port_http_client
 from brpc_tpu_torch.traffic import replay as port_replay
@@ -111,7 +112,8 @@ def _running_loops():
     flight recorder's sampler, capture writers and the incident
     bundler; an installed chaos plan and the channels of a replay in
     flight; h2 sessions, gRPC channels, HTTP client connections and the
-    sockets of pipelined clients (thrift, redis, memcache) left open."""
+    sockets of pipelined clients (thrift, redis, memcache, nshead) and
+    esp clients left open."""
     return {"naming threads": port_naming.live_naming_threads(),
             "health checks": port_hc.live_checks(),
             "PeriodicTasks": port_periodic.live_tasks(),
@@ -122,7 +124,8 @@ def _running_loops():
             "h2 sessions": port_h2.live_sessions(),
             "gRPC channels": port_h2.live_channels(),
             "HTTP client connections": port_http_client.live_clients(),
-            "pipelined client sockets": port_pipelined.live_sockets()}
+            "pipelined client sockets": port_pipelined.live_sockets(),
+            "esp client sockets": port_esp.live_sockets()}
 
 
 def _run_cases(cases, limit_s=CASE_LIMIT_S):

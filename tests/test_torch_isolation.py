@@ -85,12 +85,17 @@ def test_import_leaves_jax_and_brpc_tpu_out():
         "import brpc_tpu_torch.protocol.pbrpc_variants\n"
         "import brpc_tpu_torch.protocol.thrift, brpc_tpu_torch.protocol.redis\n"
         "import brpc_tpu_torch.protocol.memcache\n"
+        "import brpc_tpu_torch.protocol.nshead, brpc_tpu_torch.protocol.mcpack\n"
+        "import brpc_tpu_torch.protocol.public_pbrpc_meta\n"
+        "import brpc_tpu_torch.protocol.nshead_pbrpc\n"
+        "import brpc_tpu_torch.protocol.bson, brpc_tpu_torch.protocol.mongo\n"
+        "import brpc_tpu_torch.protocol.esp\n"
         "import brpc_tpu_torch.transport.pipelined\n"
         "import brpc_tpu_torch.transport.ipc_probe\n"
         "from brpc_tpu_torch.protocol.registry import get_protocols\n"
         "assert [p.name for p in get_protocols()] == "
         "['tpu_std', 'hulu_pbrpc', 'sofa_pbrpc', 'http', 'h2', 'thrift', "
-        "'redis', 'memcache']\n"
+        "'nshead', 'esp', 'mongo', 'redis', 'memcache']\n"
         f"forbidden = {FORBIDDEN_MODULES!r}\n"
         "bad = sorted(m for m in sys.modules if any(\n"
         "    m == f or m.startswith(f + '.') for f in forbidden))\n"

@@ -32,6 +32,8 @@ import threading
 import time
 
 from brpc_tpu.builtin import tabbed as ref_tabbed
+from brpc_tpu.bvar import PassiveStatus as RefPassiveStatus
+from brpc_tpu.bvar.variable import describe_exposed as ref_describe_exposed
 from brpc_tpu.butil import containers as ref_containers
 from brpc_tpu.butil import timekeeping as ref_time
 from brpc_tpu.rpc import Channel as RefChannel
@@ -39,6 +41,7 @@ from brpc_tpu.rpc import ChannelOptions as RefChannelOptions
 from brpc_tpu.rpc import Server as RefServer
 from brpc_tpu.rpc import ServerOptions as RefServerOptions
 from brpc_tpu.rpc import Service as RefService
+from brpc_tpu.transport import input_messenger as ref_im
 
 from brpc_tpu_torch.builtin import tabbed as port_tabbed
 from brpc_tpu_torch.butil import containers as port_containers
@@ -281,6 +284,17 @@ def case_status_saturation_keys():
         assert all(url.startswith("/timeline?name=") for url in
                    links.values())
         want = {"dispatch_batch_size_avg_10s", "dispatch_batch_size_peak_10s"}
+        # brpc_tpu's tests/test_bvar.py calls its unexpose_all() around
+        # each case, which drops these variables, exposed once at import,
+        # from brpc_tpu's registry for the rest of the worker process
+        # (ROADMAP section 3): expose them again as its input_messenger
+        # does at import
+        for name, fn in (("dispatch_batch_size_avg_10s",
+                          ref_im.dispatch_batch_avg_10s),
+                         ("dispatch_batch_size_peak_10s",
+                          ref_im.dispatch_batch_peak_10s)):
+            if ref_describe_exposed(name) is None:
+                RefPassiveStatus(fn).expose(name)
         assert want <= _vars(p.port) and want <= _vars(p.ref)
         pb = _page(p.port, "/protobufs")
         assert pb["Svc.Echo"] == {"request": "bytes", "response": "bytes"}

@@ -332,11 +332,13 @@ def case_wire_rules():
     srv, ep = _server("port", "tcp://127.0.0.1:0", auth_token="secret")
     try:
         # an inline command once the connection spoke RESP; a first inline
-        # line is no protocol's, and the connection drops
+        # line is no protocol's, and the connection drops once it is past
+        # nshead's 28-byte probe (a shorter one waits, as in brpc_tpu)
         pong2 = b"+PONG\r\n+PONG\r\n"
         assert _raw(ep.port, b"*1\r\n$4\r\nPING\r\nPING\r\n", pong2) == \
             (pong2, False)
-        assert _raw(ep.port, b"PING now please\r\n") == (b"", True)
+        assert _raw(ep.port, b"PING now please, and the rest\r\n") == \
+            (b"", True)
         # AUTH is the service's command; ServerOptions.auth leaves RESP
         with r.RedisClient(f"127.0.0.1:{ep.port}", password="pw") as c:
             assert c.execute("SET", "x", "1") == "OK"

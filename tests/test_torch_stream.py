@@ -512,9 +512,16 @@ def test_failure_subscriptions_fire_once():
 
 @pytest.mark.parametrize("first", [b"XXXX", b"\x00\x01\x02\x03", b"SSH-"])
 def test_unknown_protocol_closes_the_connection(first):
+    """Once 28 bytes are in (nshead's magic sits at offset 24, so a
+    shorter prefix waits, as in brpc_tpu) bytes no protocol claims close
+    the connection."""
     conn, cli = _pair(on_input=InputMessenger().on_new_messages)
     try:
         cli.sendall(first + b" junk\r\n\r\n")
+        cli.settimeout(0.2)
+        with pytest.raises(socket.timeout):
+            cli.recv(16)                    # the short prefix waits
+        cli.sendall(b" more junk, past the probe\r\n")
         cli.settimeout(5)
         assert cli.recv(16) == b""
         assert _wait_for(lambda: conn.failed)

@@ -20,6 +20,11 @@ C++ sources (``src/*.cc``, ``build.py``) with a C ABI:
 ``lib()`` is the loaded library, or None: no compiler, a failed build,
 or ``BRPC_TPU_TORCH_NO_NATIVE`` set (the port's name for the reference's
 ``BRPC_TPU_NO_NATIVE``). Every consumer keeps its pure-Python path.
+Under a sanitize mode (``BRPC_TPU_TORCH_SANITIZE``, ``build.py``) it
+loads the ``.san`` output and never falls back: the mode is latched at
+the first call, and a typo, a change after the latch, ``NO_NATIVE``
+beside it, or a sanitized output that fails to build or load raises, on
+every call.
 The per-call lanes use the CPython extension of ``fastcore.py``, which
 costs ~50 ns a call against ctypes' ~1 us.
 """
@@ -36,12 +41,15 @@ from typing import Optional
 log = logging.getLogger("brpc_tpu_torch.native")
 
 NO_NATIVE_ENV = "BRPC_TPU_TORCH_NO_NATIVE"
+SANITIZE_ENV = "BRPC_TPU_TORCH_SANITIZE"
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
 # the error of the build or load that failed, for the smoke to print
 load_error: Optional[str] = None
+# BRPC_TPU_TORCH_SANITIZE as the loader latched it
+_latched_san: Optional[str] = None
 
 c_u32 = ctypes.c_uint32
 c_u64 = ctypes.c_uint64
@@ -163,22 +171,37 @@ def native_disabled() -> bool:
 
 def lib() -> Optional[ctypes.CDLL]:
     """The library, built at the first call; None when it is switched
-    off or cannot be built or loaded (callers take the Python path)."""
-    global _lib, _tried, load_error
+    off or cannot be built or loaded (callers take the Python path).
+    Raises under a sanitize mode instead (the module's doc)."""
+    global _lib, _tried, load_error, _latched_san
     if _tried:
+        if os.environ.get(SANITIZE_ENV, "") != _latched_san:
+            from .build import sanitize_changed_error
+            raise sanitize_changed_error(_latched_san)
         return _lib
     with _lock:
         if _tried:
             return _lib
-        if not native_disabled():
+        # the mode is checked before the latch, the broad except and
+        # NO_NATIVE: a typo raises on every call
+        from .build import (build, check_no_native_conflict, sanitize_mode,
+                            sanitized_load_failure)
+        san = sanitize_mode()
+        if native_disabled():
+            check_no_native_conflict(san)
+        else:
             try:
-                from .build import build
                 L = ctypes.CDLL(str(build()))
                 _declare(L)
                 _lib = L
             except Exception as e:      # no compiler, a failed build
+                if san:
+                    # not latched: every call raises again
+                    raise sanitized_load_failure(san,
+                                                 "native library") from e
                 load_error = f"{type(e).__name__}: {e}"
                 log.warning("native library unavailable: %s", load_error)
+        _latched_san = os.environ.get(SANITIZE_ENV, "")
         _tried = True
     return _lib
 

@@ -9,18 +9,21 @@ lane. The extension puts the native cores on the per-call path:
 ``scan_frames`` (the turbo lane), ``serve_scan``/``serve_drain`` (the
 echo loops), ``pluck_scan`` (the sync pluck lane), ``http_parse_request``,
 ``Pool`` (versioned ids), ``Mpsc`` (the socket write queue) and
-``syscall_counts``.
+``syscall_counts``. Under a sanitize mode it latches as ``lib()`` does
+(``brpc_tpu_torch/native/__init__.py``): it loads the ``.san`` output or
+raises, on every call, and never falls back.
 """
 
 from __future__ import annotations
 
 import importlib.util
 import logging
+import os
 import sys
 import threading
 from typing import Optional
 
-from . import native_disabled
+from . import SANITIZE_ENV, native_disabled
 
 log = logging.getLogger("brpc_tpu_torch.native")
 
@@ -28,18 +31,27 @@ _lock = threading.Lock()
 _mod = None
 _tried = False
 load_error: Optional[str] = None
+# BRPC_TPU_TORCH_SANITIZE as the loader latched it
+_latched_san: Optional[str] = None
 
 
 def get():
-    global _mod, _tried, load_error
+    global _mod, _tried, load_error, _latched_san
     if _tried:
+        if os.environ.get(SANITIZE_ENV, "") != _latched_san:
+            from .build import sanitize_changed_error
+            raise sanitize_changed_error(_latched_san)
         return _mod
     with _lock:
         if _tried:
             return _mod
-        if not native_disabled():
+        from .build import (build_fastcore, check_no_native_conflict,
+                            sanitize_mode, sanitized_load_failure)
+        san = sanitize_mode()
+        if native_disabled():
+            check_no_native_conflict(san)
+        else:
             try:
-                from .build import build_fastcore
                 path = build_fastcore()
                 spec = importlib.util.spec_from_file_location(
                     "_brpc_fastcore", str(path))
@@ -56,9 +68,13 @@ def get():
                         sys.modules["_brpc_fastcore"] = prev
                 _mod = mod
             except Exception as e:      # no compiler, no Python.h
+                if san:
+                    raise sanitized_load_failure(
+                        san, "fastcore extension") from e
                 load_error = f"{type(e).__name__}: {e}"
                 log.warning("fastcore extension unavailable: %s",
                             load_error)
+        _latched_san = os.environ.get(SANITIZE_ENV, "")
         _tried = True
     return _mod
 

@@ -14,16 +14,17 @@ A Protocol provides:
   process_inline(msg, socket)  True when the message was handled here, in
                                parse order (stream frames, HTTP's queue)
 
-The port registers, in the reference's order of preference
-(brpc_tpu/protocol/registry.py:87-105) restricted to what it has:
-``tpu_std``, ``hulu_pbrpc``, ``sofa_pbrpc``, ``http``, ``h2`` (it claims
-a connection by its client preface, which none of the others takes),
-``thrift``, ``nshead`` (and the RPC flavours that ride it, as adaptors
-of ``nshead_service``), ``esp``, ``mongo``, ``redis`` (its inline
-commands only on a connection that already spoke RESP) and ``memcache``
-(client-only: it disclaims every server's bytes). RTMP's place, after
-mongo, waits for its port. The list is fixed before a connection's
-first parse: a socket's preferred protocol is an index into it. ``find_protocol(name)`` looks one up by name. The
+The port registers all twelve of the reference's protocols, in its order
+of preference (brpc_tpu/protocol/registry.py:87-105): ``tpu_std``,
+``hulu_pbrpc``, ``sofa_pbrpc``, ``http``, ``h2`` (it claims a connection
+by its client preface, which none of the others takes), ``thrift``,
+``nshead`` (and the RPC flavours that ride it, as adaptors of
+``nshead_service``), ``esp``, ``mongo``, ``rtmp`` (a 0x03 first byte, on
+a server with an ``rtmp_service`` only), ``redis`` (its inline commands
+only on a connection that already spoke RESP) and ``memcache``
+(client-only: it disclaims every server's bytes). The list is fixed
+before a connection's first parse: a socket's preferred protocol is an
+index into it. ``find_protocol(name)`` looks one up by name. The
 modules do no work at import beyond their ``struct.Struct``s, and the
 InputMessenger resolves the registry when it is made, never at a
 connection's first read.
@@ -56,6 +57,11 @@ class Protocol:
     def process_inline(self, msg, socket) -> bool:
         return False
 
+
+#: the builtins' order of preference, the reference's
+BUILTIN_ORDER = ("tpu_std", "hulu_pbrpc", "sofa_pbrpc", "http", "h2",
+                 "thrift", "nshead", "esp", "mongo", "rtmp", "redis",
+                 "memcache")
 
 _protocols: List[Protocol] = []
 _lock = threading.Lock()
@@ -90,7 +96,7 @@ def find_protocol(name: str) -> Optional[Protocol]:
 def _register_builtins() -> None:
     from brpc_tpu_torch.protocol import (esp, h2, http, memcache, mongo,
                                          nshead, pbrpc_variants, redis,
-                                         thrift, tpu_std)
+                                         rtmp, thrift, tpu_std)
     tpu_std.ensure_registered()
     pbrpc_variants.ensure_registered()
     http.ensure_registered()
@@ -99,5 +105,12 @@ def _register_builtins() -> None:
     nshead.ensure_registered()
     esp.ensure_registered()
     mongo.ensure_registered()
+    rtmp.ensure_registered()        # claims a 0x03 first byte
     redis.ensure_registered()
     memcache.ensure_registered()
+    # a client's module (esp, rtmp, ...) registers its protocol when the
+    # client is made, which may come before this: the builtins take
+    # their order here all the same, anything else goes after them
+    order = {name: i for i, name in enumerate(BUILTIN_ORDER)}
+    with _lock:
+        _protocols.sort(key=lambda p: order.get(p.name, len(order)))

@@ -164,7 +164,12 @@ class ServerOptions:
     ``esp_service``: the esp handler; both are refused on a server with
     ``auth`` or ``auth_token``, since neither carries a credential.
     ``mongo_service_adaptor``: a ``protocol.mongo.MongoServiceAdaptor``,
-    whose commands do their own authentication."""
+    whose commands do their own authentication. ``rtmp_service``: a
+    ``protocol.rtmp.RtmpService``, the live relay answering RTMP on the
+    server's port (only a server with one claims a 0x03 first byte); its
+    ``on_publish`` and ``on_play`` hooks gate it, not ``auth``, as in
+    the reference. ``stop`` drops the relay's publishers and players of
+    this server's connections."""
     max_concurrency: Any = None
     method_max_concurrency: Optional[Dict[str, Any]] = None
     queue_delay_shed_ms: Optional[float] = None
@@ -183,6 +188,7 @@ class ServerOptions:
     nshead_service: Optional[Callable] = None
     esp_service: Optional[Callable] = None
     mongo_service_adaptor: Optional[Any] = None
+    rtmp_service: Optional[Any] = None
 
 
 class Server:
@@ -648,6 +654,11 @@ class Server:
             self._shard_group.stop()
             return
         self._listener.stop()
+        if self.options.rtmp_service is not None:
+            with self._sockets_lock:
+                socks = list(self._sockets)
+            for s in socks:
+                self.options.rtmp_service.drop_socket(s)
         if self._serving is not None:
             self._serving.on_server_stop(self)
         # the last running server stops the flight recorder's sampler

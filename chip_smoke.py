@@ -410,12 +410,47 @@ flash_decode launches, zeroed before it starts and read after its part,
 equal its decode steps plus its warm-up, and no other kernel runs; no
 nshead or esp client socket is left open.
 
+Phase media (RTMP beside Generate), after legacy. One Server on cuda:0
+serves Generate over tpu_std and an RTMP relay (``rtmp_service``) on one
+tcp port: (a) a publisher (digest handshake) sends onMetaData, the AVC
+and AAC sequence headers, 300 video frames of 4-64 KiB and 300 audio
+frames of 64-512 B (seed 20260803, 33 and 23 ms apart) and one aggregate
+of 8 sub-messages; two players join before the publish, one after frame
+100 with the plain handshake and one after it in the AMF3 envelope;
+every player gets every message from its join in order (the late ones
+the cached metadata and sequence headers first, the aggregate as 8
+messages with rebased timestamps), and its messages mux to FLV and TS
+with the sha256s of the publisher's from that point; ``/connections``
+names the five RTMP connections; (b) phase 3's burst beside (a) and then
+alone, every answer equal to the CPU plain path's, wall and p50 of both;
+(c) a Generate server without ``rtmp_service`` gets a C0C1, answers
+nothing and still serves Generate; on a server with ``auth_token`` RTMP
+is answered, and a refusing ``on_publish`` and a taken name get
+``NetStream.Publish.BadName``; (d) each Generate server's flash_decode
+launches equal its steps plus its warm-up, and no other kernel runs; no
+RTMP client socket and no relay entry of a closed socket is left.
+
+Phase sanitize (the native core under ASan and UBSan), after media. The
+parent builds the core's two ``.san`` outputs
+(``BRPC_TPU_TORCH_SANITIZE=address,undefined``) and flash_decode, so no
+compiler runs under the preload, then runs two children with
+``sanitizer_env()``: ``--client sanitize`` (a Generate server on cuda:0:
+phase 3's burst with no deadline on the turbo and pluck lanes, 64 sync
+calls on a held connection, 500 pipelined calls to the C echo, an
+HTTP/1.1 burst through the native head parse, then the chaos CLI's
+mixed storm over tcp at seed 7) and ``--client ring_echo batch`` (the
+ring lane's batch backend). Each must exit 0 with no sanitizer report
+(the first 40 lines of one are printed), and map only the ``.san``
+outputs; every lane's counter moves; the answers equal the CPU plain
+path's; flash_decode's launches equal the child's steps plus its
+warm-up.
+
 ``python3 chip_smoke.py --phase streaming`` (or ``--phase
 observability``, ``--phase device_lane``, ``--phase combo``, ``--phase
 cluster``, ``--phase incident``, ``--phase native``, ``--phase
 shards``, ``--phase ring``, ``--phase replay``, ``--phase h2``,
-``--phase protocols``, ``--phase legacy``) runs that phase alone (after the card
-line), so that two trees' serving can be compared in one call: run each
+``--phase protocols``, ``--phase legacy``, ``--phase media``, ``--phase
+sanitize``) runs that phase alone (after the card line), so that two trees' serving can be compared in one call: run each
 tree's script in turns.
 
 The last lines are the card line, the kernels line and the result line
@@ -1344,6 +1379,8 @@ def client_main(kind: str, port: int, traced: bool = False) -> int:
         return _malloc_turn()
     if kind == "shards_control":
         return _cuda_control()
+    if kind == "sanitize":
+        return _sanitize_child()
     backend = os.environ.get("CHIP_SMOKE_RING_BACKEND")
     if backend:
         _install_ring(int(backend))
@@ -6132,7 +6169,8 @@ def _ring_echo(lane: str) -> int:
         server.stop()
         server.join(10)
     emit({"lane": _lane(), "windows": windows, "ring": ring,
-          "best_qps": max(w["qps"] for w in windows)})
+          "best_qps": max(w["qps"] for w in windows),
+          "mapped": _loaded_native()})
     return 0
 
 
@@ -8662,6 +8700,568 @@ def phase_legacy(dev):
     return out
 
 
+# ------------------------------------------------------------- phase media
+
+MEDIA_SEED = 20260803
+MEDIA_FRAMES = 300              # (a): video frames, and as many audio ones
+MEDIA_LATE_AT = 100             # (a): the late players join after this frame
+MEDIA_AGG_AT = 200              # (a): the aggregate goes after this frame
+MEDIA_AGG_SUBS = 8              # (a): its sub-messages
+MEDIA_VIDEO_BYTES = (4 << 10, 64 << 10)
+MEDIA_AUDIO_BYTES = (64, 512)
+MEDIA_STREAM = "live/smoke"
+MEDIA_TOKEN = "media-secret"    # (c): the auth server's token
+
+
+def _media_script():
+    """The publisher's messages, from MEDIA_SEED: onMetaData, the AVC and
+    AAC sequence headers, then MEDIA_FRAMES video frames (33 ms apart,
+    a keyframe every 30) and as many audio frames (23 ms apart) in
+    timestamp order, an aggregate of MEDIA_AGG_SUBS sub-messages after
+    frame MEDIA_AGG_AT. Each entry: (kind, msg_type, timestamp, payload,
+    video frames sent before it); an aggregate's entry also carries the
+    messages it splits into."""
+    import numpy as np
+    from brpc_tpu_torch.protocol import amf, rtmp
+    rng = np.random.default_rng(MEDIA_SEED)
+
+    def body(lo, hi):
+        return rng.integers(0, 256, int(rng.integers(lo, hi + 1)),
+                            dtype=np.uint8).tobytes()
+
+    meta = amf.encode_values("onMetaData", amf.AmfEcmaArray({
+        "width": 1280.0, "height": 720.0, "framerate": 30.0,
+        "videocodecid": 7.0, "audiocodecid": 10.0}))
+    script = [("meta", rtmp.MSG_DATA_AMF0, 0, meta, 0),
+              ("seq", rtmp.MSG_VIDEO, 0, b"\x17\x00" + body(32, 64), 0),
+              ("seq", rtmp.MSG_AUDIO, 0, b"\xaf\x00\x12\x10", 0)]
+    frames = []
+    for i in range(MEDIA_FRAMES):
+        key = b"\x17\x01" if i % 30 == 0 else b"\x27\x01"
+        frames.append((33 * i, 0, rtmp.MSG_VIDEO,
+                       key + body(*MEDIA_VIDEO_BYTES)))
+        frames.append((23 * i, 1, rtmp.MSG_AUDIO,
+                       b"\xaf\x01" + body(*MEDIA_AUDIO_BYTES)))
+    frames.sort(key=lambda f: (f[0], f[1]))
+    video = 0
+    for ts, _, kind, payload in frames:
+        if kind == rtmp.MSG_VIDEO:
+            video += 1
+        script.append(("frame", kind, ts, payload, video))
+        if kind == rtmp.MSG_VIDEO and video == MEDIA_AGG_AT:
+            base = ts
+            subs, split = b"", []
+            for j in range(MEDIA_AGG_SUBS):
+                t = rtmp.MSG_AUDIO if j % 2 else rtmp.MSG_VIDEO
+                sub_ts = 1000 + 11 * j
+                b = (b"\xaf\x01" if j % 2 else b"\x27\x01") + body(16, 256)
+                subs += bytes([t]) + len(b).to_bytes(3, "big") + \
+                    (sub_ts & 0xFFFFFF).to_bytes(3, "big") + \
+                    bytes([sub_ts >> 24]) + b"\x00\x00\x00" + b + \
+                    (11 + len(b)).to_bytes(4, "big")
+                split.append((t, base + 11 * j, b))
+            script.append(("aggregate", rtmp.MSG_AGGREGATE, base, subs,
+                           video, split))
+    return script
+
+
+def _media_expected(entries):
+    """[(msg_type, timestamp, payload)] a player gets of ``entries``: an
+    aggregate as its split."""
+    out = []
+    for e in entries:
+        if e[0] == "aggregate":
+            out.extend(e[5])
+        else:
+            out.append((e[1], e[2], e[3]))
+    return out
+
+
+def _media_digests(msgs) -> dict:
+    """sha256 of the messages muxed to FLV (``flv.pack_tag``) and to TS
+    (``TsMuxer``: the video and audio payloads past their 2-byte FLV
+    headers, the PTS at the timestamp)."""
+    import hashlib
+    from brpc_tpu_torch.protocol import flv, rtmp, ts
+    tags = flv.file_header() + b"".join(
+        flv.pack_tag(flv.FlvTag(t, stamp, p)) for t, stamp, p in msgs)
+    mux = ts.TsMuxer()
+    mux.write_tables()
+    for t, stamp, p in msgs:
+        if t == rtmp.MSG_VIDEO:
+            mux.write_video(p[2:], stamp * 90)
+        elif t == rtmp.MSG_AUDIO:
+            mux.write_audio(p[2:], stamp * 90)
+    return {"flv": hashlib.sha256(tags).hexdigest(),
+            "ts": hashlib.sha256(mux.flush()).hexdigest(),
+            "messages": len(msgs)}
+
+
+class _MediaPlayer:
+    """An RtmpClient playing MEDIA_STREAM: every media message it gets,
+    with its arrival time."""
+
+    def __init__(self, port: int, name: str, **kw):
+        from brpc_tpu_torch.protocol import rtmp
+        self.name = name
+        self.client = rtmp.RtmpClient(f"tcp://127.0.0.1:{port}",
+                                      timeout_s=30, **kw)
+        self.got, self.at = [], []
+        self.client.connect()
+        self.sid = self.client.create_stream()
+
+    def play(self) -> None:
+        info = self.client.play(self.sid, MEDIA_STREAM,
+                                on_media=self._on_media)
+        check(info.get("code") == "NetStream.Play.Start",
+              f"media a: {self.name} play answered {info}")
+
+    def _on_media(self, msg) -> None:
+        self.at.append(time.perf_counter())
+        self.got.append(msg)
+
+    def wait_for(self, n: int, timeout_s: float = 60.0) -> None:
+        deadline = time.monotonic() + timeout_s
+        while len(self.got) < n and time.monotonic() < deadline:
+            time.sleep(0.002)
+        check(len(self.got) >= n, f"media a: {self.name} got "
+                                  f"{len(self.got)} of {n} messages")
+
+
+def _media_relay(port: int, service) -> dict:
+    """(a): one publisher (digest handshake) and four players, two early,
+    one late with the plain handshake, one late in the AMF3 envelope."""
+    from brpc_tpu_torch.protocol import rtmp
+    script = _media_script()
+    early = [_MediaPlayer(port, f"early{i}") for i in range(2)]
+    for p in early:
+        p.play()
+    pub = rtmp.RtmpClient(f"tcp://127.0.0.1:{port}", timeout_s=30)
+    late = []
+    sent_at = []
+    try:
+        pub.connect()
+        psid = pub.create_stream()
+        info = pub.publish(psid, MEDIA_STREAM)
+        check(info.get("code") == "NetStream.Publish.Start",
+              f"media a: publish answered {info}")
+        join_at = None
+        t0 = time.perf_counter()
+        for i, e in enumerate(script):
+            pub._send_media(e[1], psid, e[2], e[3])
+            sent_at.append(time.perf_counter())
+            if join_at is None and e[0] == "frame" and \
+                    e[1] == rtmp.MSG_VIDEO and e[4] == MEDIA_LATE_AT:
+                # the relay has written all that came before, so the
+                # late players' first live message is the next one
+                want = len(_media_expected(script[:i + 1]))
+                for p in early:
+                    p.wait_for(want)
+                join_at = i + 1
+                late = [_MediaPlayer(port, "late_plain", handshake="plain"),
+                        _MediaPlayer(port, "late_amf3", object_encoding=3)]
+                for p in late:
+                    p.play()
+                protos = _legacy_protocols(port)
+                check(protos.count("rtmp") == 5,
+                      f"media a: /connections names {protos}")
+        total = len(_media_expected(script))
+        for p in early:
+            p.wait_for(total)
+        for p in late:
+            p.wait_for(3 + len(_media_expected(script[join_at:])))
+        wall = time.perf_counter() - t0
+        check(service.publishers() == 1 and service.players() == 4,
+              f"media a: {service.publishers()} publishers, "
+              f"{service.players()} players")
+        want = {"publisher": _media_digests(_media_expected(script))}
+        cached = [(e[1], 0, e[3]) for e in script[:3]]
+        late_want = cached + _media_expected(script[join_at:])
+        want["publisher_from_join"] = _media_digests(late_want)
+        players = {}
+        for p in early + late:
+            exp = _media_expected(script) if p in early else late_want
+            got = [(m.msg_type, m.timestamp, m.payload) for m in p.got]
+            check(len(got) == len(exp),
+                  f"media a: {p.name} got {len(got)} messages, want "
+                  f"{len(exp)}")
+            bad = next((k for k, (a, b) in enumerate(zip(got, exp))
+                        if a != b), None)
+            if bad is not None:
+                check(False, f"media a: {p.name}'s message {bad} differs: "
+                             f"{got[bad][:2]} against {exp[bad][:2]}")
+            check(all(m.stream_id == p.sid for m in p.got),
+                  f"media a: {p.name} got another stream id")
+            d = _media_digests(got)
+            ref = want["publisher" if p in early else "publisher_from_join"]
+            check(d == ref, f"media a: {p.name}'s digests {d} against {ref}")
+            # the last frame's lag behind its send
+            players[p.name] = dict(d, lag_last_ms=(p.at[-1] - sent_at[-1])
+                                   * 1e3)
+        agg = [(t, ts) for t, ts, _ in
+               next(e for e in script if e[0] == "aggregate")[5]]
+        return {"wall_s": wall, "messages_sent": len(script),
+                "connection_protocols": protos,
+                "bytes_sent": sum(len(e[3]) for e in script),
+                "late_join_at": join_at, "aggregate_split": agg,
+                "want": want, "players": players}
+    finally:
+        for p in early + late:
+            p.client.close()
+        pub.close()
+
+
+def _media_gates(fa, dev, oracle) -> dict:
+    """(c): a Generate server without ``rtmp_service`` gets a C0C1 and
+    does not claim it, and still serves Generate; an ``on_publish`` that
+    refuses and a second publisher on a taken name get the refusal's
+    status; a server with ``auth_token`` answers RTMP."""
+    import socket as pysocket
+    from brpc_tpu_torch.protocol import rtmp
+    from brpc_tpu_torch.rpc import Server, ServerOptions
+    from brpc_tpu_torch.serving import add_generate_service
+    out = {}
+    fa.reset_launches()
+    server = Server()
+    gs = add_generate_service(server)
+    check(str(gs.device) == "cuda:0", f"service device {gs.device}")
+    port = server.start("tcp://127.0.0.1:0").port
+    try:
+        s = pysocket.create_connection(("127.0.0.1", port), timeout=5)
+        try:
+            c1, _ = rtmp._hs_build_block(rtmp._FP_KEY, 0,
+                                         rtmp._CLIENT_VERSION)
+            s.sendall(bytes([rtmp.RTMP_VERSION]) + c1)
+            s.settimeout(0.5)
+            try:
+                got = s.recv(10)
+            except TimeoutError:
+                got = b""
+        finally:
+            s.close()
+        check(got == b"", f"media c: a server without rtmp_service "
+                          f"answered a C0C1 with {got!r}")
+        res, errs, wall, lat, _ = _burst(port, _prompts()[:N_CLIENTS],
+                                         MAX_TOKENS)
+        _check_burst("media c (no rtmp_service)", res, errs,
+                     {p: oracle[p] for p in _prompts()[:N_CLIENTS]})
+        out["no_service"] = {"c0c1_answer": "none", "generate_wall_s": wall}
+        _sync(dev)
+        launched = dict(fa.launches)
+        steps = gs.batcher.decode_steps + gs.engine.warmup_steps
+        check(launched["flash_decode"] == steps > 0 and
+              sum(launched.values()) == steps,
+              f"media c: launched {launched}, {steps} steps and warm-ups")
+        out["launches"] = launched["flash_decode"]
+        out["steps"] = steps
+    finally:
+        server.stop()
+        server.join(10)
+    svc = rtmp.RtmpService(on_publish=lambda name, sock: name != "refused")
+    fa.reset_launches()
+    server = Server(ServerOptions(rtmp_service=svc, auth_token=MEDIA_TOKEN))
+    port = server.start("tcp://127.0.0.1:0").port
+    clients = [rtmp.RtmpClient(f"tcp://127.0.0.1:{port}", timeout_s=30)
+               for _ in range(3)]
+    refusals = {}
+    try:
+        for c in clients:
+            info = c.connect()
+            check(info.get("code") == "NetConnection.Connect.Success",
+                  f"media c: the auth server answered connect {info}")
+        check(clients[0].publish(clients[0].create_stream(), "taken")
+              .get("code") == "NetStream.Publish.Start",
+              "media c: the auth server refused a publish")
+        for what, c, name in (("hook", clients[1], "refused"),
+                              ("taken", clients[2], "taken")):
+            try:
+                c.publish(c.create_stream(), name)
+                check(False, f"media c: the {what} publish was answered")
+            except rtmp.RtmpError as e:
+                check("NetStream.Publish.BadName" in str(e),
+                      f"media c: {what}: {e}")
+                refusals[what] = "NetStream.Publish.BadName"
+    finally:
+        for c in clients:
+            c.close()
+        server.stop()
+        server.join(10)
+    check(sum(fa.launches.values()) == 0,
+          f"media c: the relay launched {dict(fa.launches)}")
+    out["auth_server"] = {"connect": "NetConnection.Connect.Success",
+                          "publish": "NetStream.Publish.Start"}
+    out["refusals"] = refusals
+    return out
+
+
+def phase_media(dev):
+    """RTMP's relay on Generate's server: (a) one publisher and four
+    players on a Server on cuda:0 that also serves Generate over tpu_std
+    on the same port, every player's FLV and TS digests equal the
+    publisher's from its join; (b) phase 3's burst beside the relay and
+    then alone, every answer equal to the CPU plain path's; (c) the
+    gates; (d) the launches: each Generate server's flash_decode
+    launches, zeroed before it starts, equal its steps plus its warm-up,
+    and no other kernel runs."""
+    from brpc_tpu_torch.protocol import rtmp
+    from brpc_tpu_torch.rpc import Server, ServerOptions
+    from brpc_tpu_torch.serving import (TinyDecoder, TinyDecoderConfig,
+                                        add_generate_service)
+    fa = _fa_module()
+    phase_t0 = time.monotonic()
+    prompts = _prompts()
+    cpu_model = TinyDecoder(TinyDecoderConfig(), device="cpu")
+    oracle = {p: cpu_model.generate(list(p.encode()), MAX_TOKENS)
+              for p in prompts}
+    out = {"phase": "media"}
+    svc = rtmp.RtmpService()
+    fa.reset_launches()
+    server = Server(ServerOptions(rtmp_service=svc))
+    gs = add_generate_service(server)
+    check(str(gs.device) == "cuda:0", f"service device {gs.device}")
+    port = server.start("tcp://127.0.0.1:0").port
+    try:
+        progress("media b: warm-up burst")
+        res, errs, wall, lat, _ = _burst(port, prompts, MAX_TOKENS)
+        _check_burst("media b warm-up", res, errs, oracle)
+        progress("media a+b: the relay beside a Generate burst")
+        box = {}
+
+        def burst():
+            box["r"] = _burst(port, prompts, MAX_TOKENS)
+        t = threading.Thread(target=burst, name="media burst")
+        t.start()
+        out["a"] = _media_relay(port, svc)
+        t.join(600)
+        check(not t.is_alive() and "r" in box, "media b: the burst hung")
+        res, errs, wall, lat, _ = box["r"]
+        _check_burst("media b beside the relay", res, errs, oracle)
+        out["b"] = {"with_relay": {"wall_s": wall, "p50_ms": _median(lat),
+                                   "p99_ms": _p99(lat)}}
+        emit({"phase": "media", "part": "a", "a": out["a"]})
+        progress("media b: the burst alone")
+        res, errs, wall, lat, _ = _burst(port, prompts, MAX_TOKENS)
+        _check_burst("media b alone", res, errs, oracle)
+        out["b"]["alone"] = {"wall_s": wall, "p50_ms": _median(lat),
+                             "p99_ms": _p99(lat)}
+        emit({"phase": "media", "part": "b", "b": out["b"]})
+        _sync(dev)
+        launched = dict(fa.launches)
+        steps = gs.batcher.decode_steps + gs.engine.warmup_steps
+        check(launched["flash_decode"] == steps > 0 and
+              sum(launched.values()) == steps,
+              f"media d: launched {launched}, {steps} steps and warm-ups")
+        out["launches"] = {"relay_server": steps}
+    finally:
+        server.stop()
+        server.join(10)
+    check(svc.publishers() == 0 and svc.players() == 0,
+          f"media: the stopped server left {svc.publishers()} publishers "
+          f"and {svc.players()} players")
+    progress("media c: the gates")
+    out["c"] = _media_gates(fa, dev, oracle)
+    out["launches"]["plain_server"] = out["c"]["launches"]
+    check(rtmp.live_sockets() == 0 and rtmp.stale_entries() == 0,
+          f"media: {rtmp.live_sockets()} RTMP client sockets and "
+          f"{rtmp.stale_entries()} relay entries of closed sockets left")
+    out["phase_s"] = time.monotonic() - phase_t0
+    emit({"phase": "media", "part": "c", "c": out["c"],
+          "launches": out["launches"], "phase_s": out["phase_s"]})
+    return out
+
+
+# ---------------------------------------------------------- phase sanitize
+
+SANITIZE = ("address", "undefined")
+SANITIZE_PLUCK_CALLS = 64       # sync calls on one held connection
+SANITIZE_ECHO_CALLS = 500       # the C echo turn's pipelined calls
+SANITIZE_CHILD_S = 240          # each child's time limit
+SANITIZE_REPORTS = ("ERROR: AddressSanitizer", "runtime error:")
+
+
+def _loaded_native() -> list:
+    """The native core's shared objects this process has mapped."""
+    with open("/proc/self/maps") as f:
+        return sorted({line.split()[-1] for line in f
+                       if "_brpc_fastcore-" in line
+                       or "libbrpc_tpu_torch_native-" in line})
+
+
+def _sanitize_child() -> int:
+    """``--client sanitize``: under the sanitizers' preload, a Generate
+    server on cuda:0 and its clients in this process: a Generate burst
+    on the turbo and pluck lanes, SANITIZE_PLUCK_CALLS sync calls on one
+    held connection, a turn of the C echo, an HTTP/1.1 burst through the
+    native head parse, and the chaos CLI's mixed storm over tcp at seed
+    7; one JSON line with the lanes' counters, the launches and steps,
+    and the native core's files this process mapped."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import brpc_tpu_torch.native as native
+    from brpc_tpu_torch.native import build, fastcore
+    from brpc_tpu_torch.rpc import Channel, ChannelOptions, Server, Service
+    from brpc_tpu_torch.serving import (TinyDecoder, TinyDecoderConfig,
+                                        add_generate_service)
+    from brpc_tpu_torch.tools import chaos as chaos_cli
+    check(build.sanitize_mode() == SANITIZE,
+          f"sanitize child: mode {build.sanitize_mode()}")
+    check(native.lib() is not None and fastcore.get() is not None,
+          "sanitize child: the native core did not load")
+    fa = _fa_module()
+    prompts = _prompts()
+    cpu_model = TinyDecoder(TinyDecoderConfig(), device="cpu")
+    oracle = {p: cpu_model.generate(list(p.encode()), MAX_TOKENS)
+              for p in prompts}
+    out = {}
+    fa.reset_launches()
+    server = Server()
+    gs = add_generate_service(server)
+    check(str(gs.device) == "cuda:0", f"service device {gs.device}")
+    svc = Service("Echo")
+    svc.register_method("Echo", lambda cntl, req: req, native="echo")
+    svc.register_method("PyEcho", lambda cntl, req: req)
+    server.add_service(svc)
+    port = server.start("tcp://127.0.0.1:0").port
+    c0 = _native_counters()
+    try:
+        t0 = time.monotonic()
+        res, errs, wall, lat, _ = _burst(port, prompts, MAX_TOKENS,
+                                         timeout_ms=None)
+        _check_burst("sanitize: Generate over tpu_std", res, errs, oracle)
+        out["generate"] = {"wall_s": wall, "p50_ms": _median(lat)}
+        ch = Channel(f"tcp://127.0.0.1:{port}",
+                     ChannelOptions(timeout_ms=30000,
+                                    share_connections=False))
+        try:
+            for i in range(SANITIZE_PLUCK_CALLS):
+                body = b"pluck %d " % i * (i + 1)
+                c = ch.call_sync("Echo", "PyEcho", body)
+                check(not c.failed() and c.response == body,
+                      f"sanitize: held call {i}: {c.error_text}")
+        finally:
+            ch.close()
+        ch = Channel(f"tcp://127.0.0.1:{port}",
+                     ChannelOptions(timeout_ms=None,
+                                    share_connections=False))
+        try:
+            out["c_echo"] = _pipelined_echo(ch, b"e" * 64,
+                                            SANITIZE_ECHO_CALLS)
+        finally:
+            ch.close()
+        res, errs, wall, ttft, _ = _http_burst(port, prompts, MAX_TOKENS)
+        _check_burst("sanitize: Generate over HTTP/1.1", res, errs, oracle)
+        out["http"] = {"wall_s": wall, "ttft_p50_ms": _median(ttft)}
+        out["lanes_s"] = time.monotonic() - t0
+    finally:
+        server.stop()
+        server.join(10)
+    import torch
+    torch.cuda.synchronize()
+    out["lanes"] = _delta(c0, _native_counters())
+    out["launches"] = dict(fa.launches)
+    out["steps"] = gs.batcher.decode_steps + gs.engine.warmup_steps
+    t0 = time.monotonic()
+    out["chaos"] = chaos_cli.mixed_storm(7, "tcp")
+    out["chaos_s"] = time.monotonic() - t0
+    out["mapped"] = _loaded_native()
+    emit(out)
+    return 0
+
+
+def _sanitized_run(args, env: dict) -> dict:
+    """A child under the sanitizers: its JSON line, its stderr's
+    sanitizer reports (their first 40 lines fail the phase)."""
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--client", *args],
+        capture_output=True, text=True, timeout=SANITIZE_CHILD_S,
+        env=dict(os.environ, **env))
+    wall = time.monotonic() - t0
+    report = [i for i, line in enumerate(proc.stderr.splitlines())
+              if any(r in line for r in SANITIZE_REPORTS)]
+    if report:
+        lines = proc.stderr.splitlines()[report[0]:report[0] + 40]
+        print("\n".join(lines), file=sys.stderr)
+        check(False, f"sanitize {args[0]}: a sanitizer report "
+                     f"({len(report)} lines name one)")
+    check(proc.returncode == 0,
+          f"sanitize {args[0]}: exit {proc.returncode}: "
+          f"{proc.stderr[-3000:]}")
+    doc = json.loads(proc.stdout.strip().splitlines()[-1])
+    doc["child_s"] = wall
+    return doc
+
+
+def phase_sanitize(dev):
+    """The native core under ASan and UBSan on the card's serving path:
+    the parent builds the two ``.san`` outputs and flash_decode (no
+    compiler runs under the preload), then runs two children with
+    ``sanitizer_env()``: ``--client sanitize`` (Generate over tpu_std
+    on the turbo and pluck lanes, sync calls on a held connection, the C
+    echo, Generate over HTTP/1.1, the chaos CLI's mixed storm over tcp)
+    and ``--client ring_echo batch`` (the ring lane's batch backend).
+    Each must exit 0 with no sanitizer report, map only ``.san`` outputs
+    of the core, and show each lane ran; the first child's answers equal
+    the CPU plain path's and its flash_decode launches equal its steps
+    plus its warm-up."""
+    from brpc_tpu_torch.native import build
+    from brpc_tpu_torch.ops import _build
+    phase_t0 = time.monotonic()
+    missing = build.sanitizer_toolchain_missing(SANITIZE)
+    check(not missing, f"sanitize: the toolchain lacks {missing}")
+    cxx = build.sanitizer_cxx(SANITIZE)
+    out = {"phase": "sanitize", "cxx": build.CXX, "sanitizer_cxx": cxx,
+           "runtimes": {t: build._runtime_lib(build._SAN_RUNTIMES[t], cxx)
+                        for t in SANITIZE}}
+    t0 = time.monotonic()
+    paths = [str(build.build(SANITIZE)), str(build.build_fastcore(SANITIZE))]
+    out["build_s"] = time.monotonic() - t0
+    out["outputs"] = [Path(p).name for p in paths]
+    check(all(p.endswith(".san.so") for p in paths),
+          f"sanitize: outputs {paths}")
+    _build.build("flash_decode")
+    env = build.sanitizer_env(SANITIZE)
+    out["env"] = {k: v for k, v in env.items() if k != "LD_PRELOAD"}
+    out["preload"] = env.get("LD_PRELOAD", "").split()
+    check(len(out["preload"]) == len(SANITIZE),
+          f"sanitize: preload {out['preload']}")
+    emit({"phase": "sanitize", "part": "build",
+          "build": {k: out[k] for k in ("cxx", "sanitizer_cxx", "runtimes",
+                                        "build_s", "outputs", "env",
+                                        "preload")}})
+    progress("sanitize: the serving child")
+    doc = _sanitized_run(["sanitize", "0"], env)
+    check(doc["mapped"] and all(p.endswith(".san.so") for p in doc["mapped"])
+          and len(doc["mapped"]) == 2,
+          f"sanitize: the child mapped {doc['mapped']}")
+    lanes = doc["lanes"]
+    for k in ("turbo_requests", "pluck_fast", "serve_drain",
+              "http_native_heads", "client_fast_responses"):
+        check(lanes[k] > 0, f"sanitize: lane {k} did not run: {lanes}")
+    check(doc["launches"]["flash_decode"] == doc["steps"] > 0 and
+          sum(doc["launches"].values()) == doc["steps"],
+          f"sanitize: launched {doc['launches']}, {doc['steps']} steps and "
+          f"warm-ups")
+    check(doc["chaos"]["isolated_then_revived"] and not doc["chaos"]["leaks"],
+          f"sanitize: the chaos storm {doc['chaos']}")
+    out["serving"] = doc
+    emit({"phase": "sanitize", "part": "serving", "serving": doc})
+    progress("sanitize: the ring's batch backend")
+    ring = _sanitized_run(["ring_echo", "batch"], env)
+    check(ring["lane"] == ["RingDispatcher", "batch"],
+          f"sanitize: the ring child ran on {ring['lane']}")
+    check(ring["mapped"] and all(p.endswith(".san.so")
+                                 for p in ring["mapped"]),
+          f"sanitize: the ring child mapped {ring['mapped']}")
+    check(sum(ring["ring"].values()) > 0,
+          f"sanitize: the ring counted nothing: {ring['ring']}")
+    out["ring"] = ring
+    out["phase_s"] = time.monotonic() - phase_t0
+    emit({"phase": "sanitize", "part": "ring", "ring": ring,
+          "phase_s": out["phase_s"]})
+    out["launches"] = doc["launches"]
+    return out
+
+
 def phase_paths(dev, split_inputs):
     """The port's two other paths, each driven through its public entry
     point with every count zeroed just before and read just after:
@@ -8963,6 +9563,14 @@ def main(only: str = "") -> int:
             # alone, flash_decode builds at the first server's warm-up
             phase_legacy(dev)
             return 0
+        if only == "media":
+            # alone, flash_decode builds at the first server's warm-up
+            phase_media(dev)
+            return 0
+        if only == "sanitize":
+            # the phase builds what its children load
+            phase_sanitize(dev)
+            return 0
         if only:
             {"streaming": phase_streaming,
              "observability": phase_observability}[only]()
@@ -8999,6 +9607,10 @@ def main(only: str = "") -> int:
         protocols = phase_protocols(dev)
         progress("phase legacy")
         legacy = phase_legacy(dev)
+        progress("phase media")
+        media = phase_media(dev)
+        progress("phase sanitize")
+        sanitize = phase_sanitize(dev)
         progress("phase paths")
         paths = phase_paths(dev, split_inputs)
         progress("phase times")
@@ -9034,6 +9646,8 @@ def main(only: str = "") -> int:
     by_path["h2"] = h2["launches"]["flash_decode"]
     by_path["protocols"] = protocols["launches"]["flash_decode"]
     by_path["legacy"] = sum(legacy["launches"].values())
+    by_path["media"] = sum(media["launches"].values())
+    by_path["sanitize"] = sanitize["launches"]["flash_decode"]
     by_path["long_cache_decode"] = paths["long_cache_decode"]["flash_decode"]
     fwd_by_path = {
         "long_context": paths["long_context"]["flash_attn_fwd"],
@@ -9055,7 +9669,10 @@ def main(only: str = "") -> int:
              "hulu_pbrpc and sofa_pbrpc (unary, streamed, on the ring, "
              "with an attachment) beside thrift and redis on one port; "
              "legacy: Generate over nova_pbrpc, public_pbrpc and "
-             "nshead+mcpack beside mongo and esp; the long-cache decode",
+             "nshead+mcpack beside mongo and esp; media: Generate beside "
+             "an RTMP relay on one port, and on a server that refuses "
+             "RTMP; sanitize: Generate over tpu_std and HTTP/1.1 in a "
+             "child under ASan and UBSan; the long-cache decode",
              sum(by_path.values()), sl["flash_decode"],
              sl["flash_decode"] / steps, errs["serving_decode"],
              times["decode"], launches_by_path=by_path,
@@ -9107,7 +9724,8 @@ if __name__ == "__main__":
                                  ["device_lane"], ["combo"], ["cluster"],
                                  ["incident"], ["native"], ["shards"],
                                  ["ring"], ["replay"], ["h2"],
-                                 ["protocols"], ["legacy"]):
+                                 ["protocols"], ["legacy"], ["media"],
+                                 ["sanitize"]):
             sys.exit(f"chip_smoke: unknown phase {sys.argv[2:]}")
         sys.exit(main(only=sys.argv[2]))
     sys.exit(main())

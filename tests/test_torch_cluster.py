@@ -66,6 +66,7 @@ from brpc_tpu_torch.rpc import periodic_task as port_periodic
 from brpc_tpu_torch.rpc import retry_policy as port_retry
 from brpc_tpu_torch.chaos import inject as port_chaos
 from brpc_tpu_torch.protocol import esp as port_esp
+from brpc_tpu_torch.protocol import rtmp as port_rtmp
 from brpc_tpu_torch.protocol import h2 as port_h2
 from brpc_tpu_torch.protocol import http_client as port_http_client
 from brpc_tpu_torch.traffic import replay as port_replay
@@ -112,8 +113,9 @@ def _running_loops():
     flight recorder's sampler, capture writers and the incident
     bundler; an installed chaos plan and the channels of a replay in
     flight; h2 sessions, gRPC channels, HTTP client connections and the
-    sockets of pipelined clients (thrift, redis, memcache, nshead) and
-    esp clients left open."""
+    sockets of pipelined clients (thrift, redis, memcache, nshead), esp
+    clients and RTMP clients left open, and an RTMP relay's entries
+    whose socket has closed."""
     return {"naming threads": port_naming.live_naming_threads(),
             "health checks": port_hc.live_checks(),
             "PeriodicTasks": port_periodic.live_tasks(),
@@ -125,7 +127,10 @@ def _running_loops():
             "gRPC channels": port_h2.live_channels(),
             "HTTP client connections": port_http_client.live_clients(),
             "pipelined client sockets": port_pipelined.live_sockets(),
-            "esp client sockets": port_esp.live_sockets()}
+            "esp client sockets": port_esp.live_sockets(),
+            "RTMP client sockets": port_rtmp.live_sockets(),
+            "RTMP relay entries of closed sockets":
+                port_rtmp.stale_entries()}
 
 
 def _run_cases(cases, limit_s=CASE_LIMIT_S):

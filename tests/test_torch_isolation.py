@@ -92,10 +92,39 @@ def test_import_leaves_jax_and_brpc_tpu_out():
         "import brpc_tpu_torch.protocol.esp\n"
         "import brpc_tpu_torch.transport.pipelined\n"
         "import brpc_tpu_torch.transport.ipc_probe\n"
+        "import brpc_tpu_torch.protocol.amf, brpc_tpu_torch.protocol.flv\n"
+        "import brpc_tpu_torch.protocol.ts, brpc_tpu_torch.protocol.rtmp\n"
+        "import brpc_tpu_torch.rpc.trackme, brpc_tpu_torch.tools.chaos\n"
         "from brpc_tpu_torch.protocol.registry import get_protocols\n"
         "assert [p.name for p in get_protocols()] == "
         "['tpu_std', 'hulu_pbrpc', 'sofa_pbrpc', 'http', 'h2', 'thrift', "
-        "'nshead', 'esp', 'mongo', 'redis', 'memcache']\n"
+        "'nshead', 'esp', 'mongo', 'rtmp', 'redis', 'memcache']\n"
+        f"forbidden = {FORBIDDEN_MODULES!r}\n"
+        "bad = sorted(m for m in sys.modules if any(\n"
+        "    m == f or m.startswith(f + '.') for f in forbidden))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_chaos_cli_leaves_jax_and_brpc_tpu_out():
+    """``python3 -m brpc_tpu_torch.tools.chaos`` imports none of them:
+    its parser and every module its storms use, loaded as the CLI loads
+    them."""
+    code = (
+        "import runpy, sys\n"
+        "sys.argv = ['chaos', '--help']\n"
+        "try:\n"
+        "    runpy.run_module('brpc_tpu_torch.tools.chaos',\n"
+        "                     run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "import brpc_tpu_torch.tools.chaos as c\n"
+        "assert callable(c.mixed_storm) and callable(c.deadline_storm)\n"
         f"forbidden = {FORBIDDEN_MODULES!r}\n"
         "bad = sorted(m for m in sys.modules if any(\n"
         "    m == f or m.startswith(f + '.') for f in forbidden))\n"

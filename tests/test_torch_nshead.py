@@ -416,8 +416,8 @@ def _probe(kind, data: bytes):
         sock = _ProbeSocket(portal)
         InputMessenger(protocols=protos).on_new_messages(sock)
     else:
-        # brpc_tpu's protocols of the port's names, in its order (RTMP
-        # waits for its port)
+        # brpc_tpu's protocols of the port's names, in its order (all
+        # twelve since the port has RTMP)
         names = [p.name for p in registry.get_protocols()]
         protos = [_Probe(p, seen, ref_registry.PARSE_NOT_ENOUGH_DATA)
                   for p in ref_registry.get_protocols() if p.name in names]

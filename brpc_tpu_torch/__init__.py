@@ -29,3 +29,16 @@ written by hand, wire-identical to the reference's).
 """
 
 __version__ = "0.1.0"
+
+# BRPC_TPU_TORCH_LOCK_DEBUG=1 (or =strict) arms the racelane BEFORE any
+# submodule creates its locks: threading.Lock/RLock are replaced with
+# instrumented twins that inject seeded deterministic yield points and
+# assert the declared lock order (analysis/racelane.py:LOCK_ORDER) at
+# every acquire; BRPC_TPU_TORCH_LOCK_SEED picks the schedule. With the
+# variable unset this imports only the standard library.
+import os as _os
+
+if _os.environ.get("BRPC_TPU_TORCH_LOCK_DEBUG") in ("1", "strict"):
+    from brpc_tpu_torch.analysis import racelane as _racelane
+
+    _racelane.maybe_install_from_env()

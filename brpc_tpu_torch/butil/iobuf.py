@@ -367,6 +367,12 @@ class IOBuf:
             self.append_buf(data)
             return
         if isinstance(data, bytes) and len(data) >= _APPEND_ZEROCOPY_MIN:
+            # graftlint: disable=guarded-by -- IOBuf is single-owner
+            # (bRPC's buffer contract): a buffer is handed off whole, to a
+            # socket's write queue or out of the input portal by its one
+            # processing pass, and the sender touches it no more; concurrent
+            # mutation is a caller bug, which iobuf-aliasing checks at the
+            # hand-off sites.
             self._refs.append(
                 BlockRef(Block.from_user_data(data), 0, len(data)))
             return

@@ -461,6 +461,11 @@ class TaskControl:
     def _note_depth(self, g: TaskGroup) -> None:
         d = g.depth()
         if d > self.runq_peak:
+            # graftlint: disable=guarded-by -- a racy max by design: every
+            # schedule() of every thread may raise it, and a lost update
+            # loses one peak reading of an observability gauge
+            # (saturation_snapshot), never a fiber; a lock here would sit on
+            # the scheduling hot path.
             self.runq_peak = d
         self.runq_peak_var.update(d)
 

@@ -105,6 +105,11 @@ def build(name: str) -> Path:
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
            *[str(s) for s in sources]]
     t0 = time.monotonic()
+    # graftlint: disable=blocking-under-lock -- load()'s lock is the
+    # single-flight build: a second caller of a library not built yet must
+    # wait for the one nvcc run and load its output, not start a second nvcc
+    # on the same .so; build_all() builds outside it, in parallel, and
+    # load() then finds each library built.
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name} ({proc.returncode}):\n"

@@ -123,6 +123,7 @@ import weakref
 from dataclasses import dataclass
 from typing import Any, Callable, List, Optional
 
+from brpc_tpu_torch.butil import postfork as _postfork
 from brpc_tpu_torch.butil.endpoint import str2endpoint
 from brpc_tpu_torch.butil.flags import flag
 from brpc_tpu_torch.bvar.reducer import Adder
@@ -226,6 +227,19 @@ def _client_fast_drain():
     if _client_fdr is None:
         _client_fdr = client_dispatch.make_client_fast_drain() or False
     return _client_fdr or None
+
+
+def _postfork_reset() -> None:
+    """Fork hygiene: the client messenger holds the TaskControl of the
+    process that made it, whose workers do not exist in a forked child;
+    responses it spills would queue where nothing runs them. The child
+    builds both caches again, on its own control."""
+    global _messenger, _client_fdr
+    _messenger = None
+    _client_fdr = None
+
+
+_postfork.register("rpc.channel", _postfork_reset)
 
 
 @dataclass
@@ -353,9 +367,15 @@ class Channel:
         it fail with it, whichever channel issued them. ``sticky_ok``:
         its sync plucks may leave reads off between calls, since this
         channel probes it before each reuse (``_live``)."""
+        s = self._dial_own(sticky_ok)
+        s.on_failed(self._on_socket_failed)
+        return s
+
+    def _dial_own(self, sticky_ok: bool = True) -> Socket:
+        """``_own_socket`` without the failure subscription, for a
+        caller that dials under ``_lock`` and subscribes after it."""
         s = self._dial(self.endpoint)
         s.sticky_ok = sticky_ok
-        s.on_failed(self._on_socket_failed)
         return s
 
     @staticmethod
@@ -396,9 +416,15 @@ class Channel:
                 if held.closed:
                     raise ConnectionError("channel closed")
                 s = held.socket
-                if s is None or s.failed:
-                    s = held.socket = self._own_socket()
-                return s
+                fresh = s is None or s.failed
+                if fresh:
+                    s = held.socket = self._dial_own()
+            if fresh:
+                # subscribed outside the lock: a socket that failed in
+                # the meantime runs the callback at once, and a call
+                # another thread issued on it meanwhile fails with it
+                s.on_failed(self._on_socket_failed)
+            return s
         # the process's connection, dialled outside this lock (two first
         # calls that race both dial, and the map keeps one)
         key, owner = self._map_key_of()
@@ -721,6 +747,13 @@ class Channel:
                     # the batch's device span is a child of the call's
                     sock.write_device_payload(lane,
                                               span=cntl._client_span)
+                    # graftlint: disable=callback-under-lock -- lane_lock
+                    # pairs a tensor batch with its frame. Socket.write
+                    # never parks; a failed send runs the socket's on_failed
+                    # subscribers here: the channel fails this socket's
+                    # calls (a retry dials a fresh socket, another
+                    # lane_lock), the socket map evicts it, its streams
+                    # close. None takes this socket's lane_lock.
                     written = sock.write(wire)
         except OSError as e:
             written = False

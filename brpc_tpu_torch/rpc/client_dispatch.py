@@ -72,12 +72,14 @@ def _pool():
 
 def _make_pool():
     # locked: two first calls must agree on one pool, or a call
-    # registered in a discarded one would never hear its response
+    # registered in a discarded one would never hear its response. The
+    # native core loads (and at its first use builds) before the lock:
+    # every call's registration takes it
     global _call_pool
+    from brpc_tpu_torch.native import fastcore
+    fc = fastcore.get()
     with _lock:
         if _call_pool is None:
-            from brpc_tpu_torch.native import fastcore
-            fc = fastcore.get()
             if fc is not None:
                 _call_pool = fc.Pool(1 << 17)
             else:

@@ -12,7 +12,10 @@ The HTTP path writes ``Transfer-Encoding: chunked`` headers, then
 are held and flushed in order; every state change (held, bound, closed,
 failed) happens under one lock, so a feeder racing ``_bind`` can neither
 reorder chunks nor put the terminator before held data. ``Socket.write``
-only queues, so holding the lock over it never waits on the peer.
+never waits on the peer (it sends what the kernel takes and parks the
+rest on the writable event), but a send that fails runs the socket's
+``on_failed`` subscribers in place, this attachment's among them: the
+lock is reentrant so that its subscriber can latch the failure under it.
 ``await wait_finished()`` is what the HTTP path parks on (a
 FiberEvent: its worker goes on) before it answers the next request on
 the connection.
@@ -30,7 +33,8 @@ from brpc_tpu_torch.protocol import http
 class ProgressiveAttachment:
     def __init__(self, content_type: str = "application/octet-stream"):
         self.content_type = content_type
-        self._lock = threading.Lock()
+        # reentrant: a failed send under it runs _on_conn_failed in place
+        self._lock = threading.RLock()
         self._conn = None
         self._pending: List[bytes] = []
         self._closed = False
@@ -90,6 +94,11 @@ class ProgressiveAttachment:
         self._finished.set()
 
     def _send(self, wire: bytes) -> bool:
+        # graftlint: disable=callback-under-lock -- _lock orders the
+        # chunks and the terminator on the wire. Socket.write never parks
+        # this thread; a send that fails runs the socket's on_failed
+        # subscribers here: ours re-enters _lock (an RLock for that), the
+        # server's and a bound stream's take locks of their own.
         if not self._conn.write(wire):
             self._failed = True
             return False

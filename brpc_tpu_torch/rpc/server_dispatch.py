@@ -510,6 +510,12 @@ def _send_response(proto, socket, cntl: Controller, response: bytes,
                 frame = _failed_tensors_frame(proto, cntl, meta, e)
                 if span is not None:
                     span.response_size = 0
+            # graftlint: disable=callback-under-lock -- lane_lock pairs a
+            # tensor batch with its frame. Socket.write never parks; a
+            # failed send runs the socket's on_failed subscribers here: the
+            # server's takes its _sockets_lock, a bound stream's its
+            # _close_lock, a progressive attachment's its own RLock. None
+            # takes this socket's lane_lock.
             socket.write(frame, on_done=on_done)
     except OSError as e:
         socket.set_failed(e)

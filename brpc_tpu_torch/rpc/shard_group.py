@@ -734,7 +734,8 @@ class ShardGroup:
     @property
     def failed(self) -> Optional[str]:
         """Why the group stopped serving by itself, or None."""
-        return self._failed
+        with self._lock:
+            return self._failed
 
     def group_status(self) -> dict:
         with self._lock:
@@ -772,6 +773,9 @@ class ShardGroup:
                 pass
         deadline = time.monotonic() + self.options.drain_timeout_s + 2.0
         live = set(pids)
+        # parked on an Event, as the monitor's tick is: the flight
+        # recorder counts the supervisor as waiting, not busy
+        park = threading.Event()
         while live and time.monotonic() < deadline:
             for pid in list(live):
                 try:
@@ -781,7 +785,7 @@ class ShardGroup:
                 except OSError:
                     live.discard(pid)
             if live:
-                time.sleep(0.02)
+                park.wait(0.02)
         for pid in live:
             try:
                 os.kill(pid, signal.SIGKILL)

@@ -121,7 +121,10 @@ class Stream:
         self.closed = False
         self.remote_closed = False
         self._frame_seq = 0
-        self._send_lock = threading.Lock()  # seq order == wire order
+        # seq order == wire order; reentrant: a send that fails runs the
+        # socket's on_failed subscribers in place, and one of them may
+        # write to this stream again (a call's done callback closing it)
+        self._send_lock = threading.RLock()
         self._credits = Butex(self.options.initial_credits)
         self._grant_lock = threading.Lock()
         self._pending_grants = 0
@@ -197,10 +200,16 @@ class Stream:
                 # delivered even when empty); grants and closes leave it 0
                 self._frame_seq += 1
                 seq = self._frame_seq
-            # Socket.write only queues: it never parks this thread; on a
-            # failed socket it is False, and the failure subscription
-            # closes the stream
+            # Socket.write never parks this thread; on a failed socket it
+            # is False, and the failure subscription closes the stream
             if not device_arrays:
+                # graftlint: disable=callback-under-lock -- _send_lock keeps
+                # frame_seq order the wire order. Socket.write never parks;
+                # a failed send runs the socket's on_failed subscribers
+                # here: the stream's own takes _close_lock and queues
+                # on_close, the server's and the channel's fail their own
+                # state, and one that writes here again re-enters the
+                # RLock.
                 return conn.write(tpu_std.pack_stream_frame(
                     self.peer_id, seq, credits, close, bytes(payload)))
             meta = tpu_std.RpcMeta(stream_settings=tpu_std.StreamSettings(
@@ -209,12 +218,18 @@ class Stream:
                 meta, bytes(payload), device_arrays=device_arrays,
                 device_lane=conn.conn.supports_device_lane)
             if lane is None:
+                # graftlint: disable=callback-under-lock -- see the raw
+                # frame's: _send_lock orders, and an on_failed subscriber
+                # that writes here again re-enters it.
                 return conn.write(wire)
             with conn.lane_lock:
                 try:
                     conn.write_device_payload(lane)
                 except OSError:
                     return False    # the connection's end closes us
+                # graftlint: disable=callback-under-lock -- as above, under
+                # the socket's lane_lock too, which no on_failed subscriber
+                # takes.
                 return conn.write(wire)
 
     # ------------------------------------------------------------ receive

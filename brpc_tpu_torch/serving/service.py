@@ -139,8 +139,13 @@ class _StreamSender:
             while self._pending:
                 if self._dead():
                     return False
-                # write_nowait never waits (a credit check and a queued
-                # send), so holding the lock here costs nothing
+                # graftlint: disable=callback-under-lock -- _lock keeps
+                # token order when a finish races the drain. write_nowait
+                # never waits (a credit check, then a send that never
+                # parks); a failed send runs the server socket's subscribers
+                # here (the stream's close, the server's _forget), none of
+                # which takes this lock; batcher.cancel runs after _push
+                # returns.
                 if not self.stream.write_nowait(self._pending[0]):
                     break               # out of credits
                 self._pending.popleft()

@@ -224,9 +224,11 @@ class Recorder:
             if not self._active:
                 self.written = self.written_bytes = 0
                 self.dropped_queue = 0
-                # dropped_budget's bump in sample_request is lock-free
-                # (a racy int, observability only); this only restarts
-                # the gauge
+                # graftlint: disable=guarded-by -- dropped_budget is
+                # approximate accounting: its bump in sample_request is
+                # deliberately lock-free (a racy int on the dispatch path,
+                # observability only), so no guard is inferred; this locked
+                # reset only restarts the gauge.
                 self.dropped_budget = 0
                 self.rotations = self.deleted_files = 0
             self._active = True

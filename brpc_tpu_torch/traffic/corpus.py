@@ -19,6 +19,12 @@ reader have one owner at a time: the capture writer thread while
 recording, a tool otherwise.
 """
 
+# graftlint: disable-file=guarded-by -- CorpusWriter and CorpusReader
+# are single-owner: the capture writer thread opens, fills, rotates and
+# closes the recorder's writer (Recorder._open_writer and _write_batch
+# run on that thread only); an offline tool (rpc_press --save, merge)
+# owns its own on one thread. No second thread touches a live writer.
+
 from __future__ import annotations
 
 import json

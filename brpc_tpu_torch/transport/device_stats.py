@@ -413,6 +413,9 @@ _thread_labels: Dict[int, str] = {}
 
 
 def stamp_device_thread(label: str, tid: Optional[int] = None) -> None:
+    # graftlint: disable=guarded-by -- each thread stamps and unstamps only
+    # its own key (its ident), and a dict item store or pop is atomic under
+    # the GIL; the flight recorder only reads. A lock would buy nothing.
     _thread_labels[tid if tid is not None
                    else threading.get_ident()] = label
 

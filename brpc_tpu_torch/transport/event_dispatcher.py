@@ -220,6 +220,10 @@ class EventDispatcher:
 
     def post(self, cb: Callable[[], None]) -> None:
         """Run ``cb`` on the dispatcher thread, after what it is running."""
+        # graftlint: disable=guarded-by -- the deque IS the hand-off: post()
+        # appends from any thread and only the dispatcher thread pops, and
+        # deque append and popleft are atomic; the wakeup after the append
+        # makes the loop look again.
         self._posted.append(cb)
         if self._thread is None or not self._thread.is_alive():
             with self._lock:

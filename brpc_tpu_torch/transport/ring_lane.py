@@ -269,6 +269,10 @@ class RingDispatcher:
             self._handlers.pop(fd, None)
             self._ring.unregister_fd(fd)
             self._tick_dead.add(fd)
+            # graftlint: disable=guarded-by -- _pending_writes is
+            # ring-thread owned (defer and settle on the tick); this one
+            # teardown pop from another thread holds _lock while the native
+            # generation guard stales any in-flight completion for fd.
             pend = self._pending_writes.pop(fd, None)
         if pend is not None:
             # a uring gather was still in flight: its completion is now
@@ -283,6 +287,10 @@ class RingDispatcher:
 
     def post(self, cb: Callable[[], None]) -> None:
         """Run ``cb`` on the ring thread, after the tick in flight."""
+        # graftlint: disable=guarded-by -- the deque IS the hand-off, as
+        # EventDispatcher.post's: appended from any thread, popped by the
+        # ring thread only, each operation atomic; the wakeup after the
+        # append makes the tick look again.
         self._posted.append(cb)
         if self._thread is None or not self._thread.is_alive():
             with self._lock:

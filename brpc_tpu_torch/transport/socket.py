@@ -436,6 +436,10 @@ class Socket:
         sz = data.size if isinstance(data, IOBuf) else len(data)
         nwrites.add(1)
         self.last_active_ns = time.monotonic_ns()
+        # graftlint: disable=guarded-by -- wq_bytes is approximate
+        # accounting beside the wait-free write queue: a lock here would sit
+        # on every write of every thread, and drift only skews a gauge
+        # (write_backlog, the census), never the queue itself.
         self.wq_bytes += sz
         nwqueue_bytes.add(sz)
         if not self._wq.push((data, on_done)):
@@ -1035,6 +1039,10 @@ class Socket:
             self._finish_input_cycle(pending)
         return False
 
+    # graftlint: disable=judge-defer -- the defer exit here is re-injection,
+    # not a return: frames the native scan cannot judge go back into
+    # input_portal and through _pluck_process, the classic machinery, before
+    # pluck_until returns pred().
     def pluck_until(self, pred, deadline_s: float, fast=None,
                     preclaimed: bool = False) -> bool:
         """The sync pluck lane: the calling thread (not a fiber worker)

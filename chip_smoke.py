@@ -445,12 +445,28 @@ outputs; every lane's counter moves; the answers equal the CPU plain
 path's; flash_decode's launches equal the child's steps plus its
 warm-up.
 
+Phase lint (graftlint on the card's machine), after sanitize, each part
+in a child process: (a) ``python3 -m brpc_tpu_torch.analysis
+brpc_tpu_torch --format=json`` exits 0 with no active finding and
+checks more than 0 native walker cases (its waived findings by rule,
+the files read and its wall time are printed); (b) a Generate server on
+cuda:0 under ``BRPC_TPU_TORCH_LOCK_DEBUG=strict`` (seed 7) takes phase
+3's burst as streams and then as unary calls: no lock-order violation
+(each one's two holders printed), instrumented ranked acquisitions above
+0, answers equal to the CPU plain path's, flash_decode launches equal
+to the child's steps plus its warm-up; the same child with the variable
+unset gives the bursts' wall, tokens/s and p50 to compare; (c) ``python3
+-m brpc_tpu_torch.analysis.racelane --smoke``: the seeded inversion is
+detected the same way twice, the positive control races, the guarded
+counter and the fiber pool's teardown hold, the batcher storm raises
+nothing.
+
 ``python3 chip_smoke.py --phase streaming`` (or ``--phase
 observability``, ``--phase device_lane``, ``--phase combo``, ``--phase
 cluster``, ``--phase incident``, ``--phase native``, ``--phase
 shards``, ``--phase ring``, ``--phase replay``, ``--phase h2``,
 ``--phase protocols``, ``--phase legacy``, ``--phase media``, ``--phase
-sanitize``) runs that phase alone (after the card line), so that two trees' serving can be compared in one call: run each
+sanitize``, ``--phase lint``) runs that phase alone (after the card line), so that two trees' serving can be compared in one call: run each
 tree's script in turns.
 
 The last lines are the card line, the kernels line and the result line
@@ -1381,6 +1397,8 @@ def client_main(kind: str, port: int, traced: bool = False) -> int:
         return _cuda_control()
     if kind == "sanitize":
         return _sanitize_child()
+    if kind == "lint_serve":
+        return _lint_serve_child()
     backend = os.environ.get("CHIP_SMOKE_RING_BACKEND")
     if backend:
         _install_ring(int(backend))
@@ -9262,6 +9280,189 @@ def phase_sanitize(dev):
     return out
 
 
+# -------------------------------------------------------------- phase lint
+
+LINT_SEED = 7                   # the racelane's schedule in (b) and (c)
+LINT_CHILD_S = 300              # each child's time limit
+_LOCK_ENV = ("BRPC_TPU_TORCH_LOCK_DEBUG", "BRPC_TPU_TORCH_LOCK_SEED")
+
+
+def _lint_serve_child() -> int:
+    """``--client lint_serve``: a Generate server on cuda:0 and its
+    clients in this process, phase 3's burst as streams and then as
+    unary calls (32 tokens a request); one JSON line with each burst's
+    wall, tokens/s and p50, the flash_decode launches and the steps, and,
+    when ``BRPC_TPU_TORCH_LOCK_DEBUG`` armed the racelane at the
+    package's import, its violations and its instrumented locks'
+    stats."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import brpc_tpu_torch  # noqa: F401  (the env hook arms here)
+    from brpc_tpu_torch.analysis import racelane
+    from brpc_tpu_torch.rpc import Server
+    from brpc_tpu_torch.serving import (TinyDecoder, TinyDecoderConfig,
+                                        add_generate_service)
+    import torch
+    armed = racelane.installed()
+    fa = _fa_module()
+    prompts = _prompts()
+    cpu_model = TinyDecoder(TinyDecoderConfig(), device="cpu")
+    oracle = {p: cpu_model.generate(list(p.encode()), MAX_TOKENS)
+              for p in prompts}
+    fa.reset_launches()
+    server = Server()
+    gs = add_generate_service(server)
+    check(str(gs.device) == "cuda:0", f"service device {gs.device}")
+    port = server.start("tcp://127.0.0.1:0").port
+    out = {"armed": armed}
+    try:
+        res, errs, wall, ttft, _ = _stream_burst(port, prompts, MAX_TOKENS)
+        _check_burst("lint: the stream burst", res, errs, oracle)
+        out["stream"] = {"wall_s": wall, "ttft_p50_ms": _median(ttft),
+                         "tokens_per_s": N_REQUESTS * MAX_TOKENS / wall}
+        res, errs, wall, lat, _ = _burst(port, prompts, MAX_TOKENS)
+        _check_burst("lint: the unary burst", res, errs, oracle)
+        out["unary"] = {"wall_s": wall, "p50_ms": _median(lat),
+                        "tokens_per_s": N_REQUESTS * MAX_TOKENS / wall}
+    finally:
+        server.stop()
+        server.join(10)
+    torch.cuda.synchronize()
+    out["launches"] = dict(fa.launches)
+    out["steps"] = gs.batcher.decode_steps
+    out["warmup_steps"] = gs.engine.warmup_steps
+    out["violations"] = racelane.violations()
+    out["stats"] = racelane.stats() if armed else None
+    emit(out)
+    return 0
+
+
+def _lint_child(args, env: dict, what: str) -> dict:
+    """A child of the phase, with the racelane's variables as ``env``
+    says and no other: its last stdout line as JSON."""
+    full = {k: v for k, v in os.environ.items() if k not in _LOCK_ENV}
+    full.update(env)
+    t0 = time.monotonic()
+    proc = subprocess.run(args, capture_output=True, text=True,
+                          timeout=LINT_CHILD_S, env=full,
+                          cwd=str(Path(__file__).resolve().parent))
+    wall = time.monotonic() - t0
+    check(proc.returncode == 0 and proc.stdout.strip(),
+          f"lint {what}: exit {proc.returncode}: {proc.stderr[-3000:]}")
+    try:
+        doc = json.loads(proc.stdout)       # the racelane's indented report
+    except ValueError:
+        doc = json.loads(proc.stdout.strip().splitlines()[-1])
+    doc["child_s"] = wall
+    return doc
+
+
+def phase_lint(dev):
+    """graftlint on the card's machine, each part in a child process:
+    (a) ``python3 -m brpc_tpu_torch.analysis brpc_tpu_torch
+    --format=json`` exits 0 with no active finding (its waived findings
+    by rule, files and walker cases, wall); (b) Generate on cuda:0 under
+    ``BRPC_TPU_TORCH_LOCK_DEBUG=strict`` with seed LINT_SEED (phase 3's
+    burst as streams, then unary), no lock-order violation (each one's
+    two holders printed), ranked acquisitions above 0, and flash_decode
+    launches equal to the child's steps plus its warm-up; the same child
+    with the variable unset beside it; (c) ``python3 -m
+    brpc_tpu_torch.analysis.racelane --smoke``: the positive control
+    races, the fixed pairs hold, the batcher storm raises nothing."""
+    from collections import Counter
+    from brpc_tpu_torch.ops import _build
+    phase_t0 = time.monotonic()
+    out = {"phase": "lint"}
+    progress("lint: (a) the checker")
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "brpc_tpu_torch.analysis", "brpc_tpu_torch",
+         "--format=json"], capture_output=True, text=True,
+        timeout=LINT_CHILD_S, cwd=str(Path(__file__).resolve().parent),
+        env={k: v for k, v in os.environ.items() if k not in _LOCK_ENV})
+    wall = time.monotonic() - t0
+    check(proc.stdout.strip() != "",
+          f"lint (a): no report, exit {proc.returncode}: "
+          f"{proc.stderr[-3000:]}")
+    rep = json.loads(proc.stdout.strip().splitlines()[-1])
+    for f in rep["active"][:20]:
+        print(f"lint (a): {f['path']}:{f['line']}: [{f['rule']}] "
+              f"{f['message']}", file=sys.stderr)
+    check(proc.returncode == 0 and not rep["active"],
+          f"lint (a): exit {proc.returncode}, {len(rep['active'])} active "
+          f"findings")
+    out["a"] = {"rc": proc.returncode, "active": len(rep["active"]),
+                "waived": len(rep["waived"]),
+                "waived_by_rule": dict(sorted(Counter(
+                    f["rule"] for f in rep["waived"]).items())),
+                "files": rep["files"], "walker_cases": rep["walker_cases"],
+                "wall_s": wall}
+    check(rep["walker_cases"] > 0,
+          f"lint (a): judge-defer checked no walker case: {out['a']}")
+    emit({"phase": "lint", "part": "a", "a": out["a"]})
+    progress("lint: (b) Generate under the lock-order assert")
+    # built here, so that neither child's first burst pays a build
+    from brpc_tpu_torch.native import build as native_build
+    _build.build("flash_decode")
+    native_build.build()
+    native_build.build_fastcore()
+    serve = [sys.executable, str(Path(__file__).resolve()), "--client",
+             "lint_serve", "0"]
+    runs = {"strict": _lint_child(
+        serve, {"BRPC_TPU_TORCH_LOCK_DEBUG": "strict",
+                "BRPC_TPU_TORCH_LOCK_SEED": str(LINT_SEED)}, "(b)")}
+    runs["unset"] = _lint_child(serve, {}, "(b)")
+    strict = runs["strict"]
+    for v in strict["violations"]:
+        print(f"lint (b): acquiring {v['acquiring']} (rank "
+              f"{v['acquiring_rank']}) while holding {v['holding']} (rank "
+              f"{v['holding_rank']}) on {v['thread']}", file=sys.stderr)
+    check(strict["armed"] and not runs["unset"]["armed"],
+          f"lint (b): armed strict={strict['armed']} "
+          f"unset={runs['unset']['armed']}")
+    check(not strict["violations"],
+          f"lint (b): {len(strict['violations'])} lock-order violations")
+    check(strict["stats"]["ranked_acquires"] > 0,
+          f"lint (b): no ranked acquisition: {strict['stats']}")
+    for mode, d in runs.items():
+        n = d["launches"].get("flash_decode", 0)
+        check(n == d["steps"] + d["warmup_steps"] > 0
+              and sum(d["launches"].values()) == n,
+              f"lint (b) {mode}: launched {d['launches']}, {d['steps']} "
+              f"steps + {d['warmup_steps']} warm-up")
+    out["b"] = runs
+    emit({"phase": "lint", "part": "b", "b": runs})
+    progress("lint: (c) the racelane smoke")
+    smoke = _lint_child(
+        [sys.executable, "-m", "brpc_tpu_torch.analysis.racelane",
+         "--smoke"], {"BRPC_TPU_TORCH_LOCK_DEBUG": "1",
+                      "BRPC_TPU_TORCH_LOCK_SEED": str(LINT_SEED)}, "(c)")
+    pairs = smoke["field_races"]["pairs"]
+    check(pairs["unguarded-counter"]["raced"],
+          f"lint (c): the positive control did not race: "
+          f"{pairs['unguarded-counter']}")
+    for name in ("guarded-counter", "taskcontrol-stop-vs-start"):
+        check(not pairs[name]["raced"] and pairs[name]["completed"],
+              f"lint (c): {name} broke: {pairs[name]}")
+    check(smoke["real_code_clean"],
+          f"lint (c): the batcher storm: {smoke['real_code']}")
+    check(smoke["ok"] and smoke["inversion_detected"]
+          and smoke["inversion_deterministic"],
+          f"lint (c): the smoke: {json.dumps(smoke)[:2000]}")
+    out["c"] = {"ok": smoke["ok"], "child_s": smoke["child_s"],
+                "inversion": smoke["seeded_inversion"][0]["first"],
+                "real_code": smoke["real_code"]["stats"],
+                "pairs": {k: {f: v[f] for f in ("raced", "completed",
+                                                 "site_yields", "ok",
+                                                 "evidence")}
+                          for k, v in pairs.items()}}
+    out["launches"] = {"flash_decode": sum(
+        d["launches"].get("flash_decode", 0) for d in runs.values())}
+    out["phase_s"] = time.monotonic() - phase_t0
+    emit({"phase": "lint", "part": "c", "c": out["c"],
+          "phase_s": out["phase_s"]})
+    return out
+
+
 def phase_paths(dev, split_inputs):
     """The port's two other paths, each driven through its public entry
     point with every count zeroed just before and read just after:
@@ -9571,6 +9772,10 @@ def main(only: str = "") -> int:
             # the phase builds what its children load
             phase_sanitize(dev)
             return 0
+        if only == "lint":
+            # the phase builds flash_decode before its serving children
+            phase_lint(dev)
+            return 0
         if only:
             {"streaming": phase_streaming,
              "observability": phase_observability}[only]()
@@ -9611,6 +9816,8 @@ def main(only: str = "") -> int:
         media = phase_media(dev)
         progress("phase sanitize")
         sanitize = phase_sanitize(dev)
+        progress("phase lint")
+        lint = phase_lint(dev)
         progress("phase paths")
         paths = phase_paths(dev, split_inputs)
         progress("phase times")
@@ -9648,6 +9855,7 @@ def main(only: str = "") -> int:
     by_path["legacy"] = sum(legacy["launches"].values())
     by_path["media"] = sum(media["launches"].values())
     by_path["sanitize"] = sanitize["launches"]["flash_decode"]
+    by_path["lint"] = lint["launches"]["flash_decode"]
     by_path["long_cache_decode"] = paths["long_cache_decode"]["flash_decode"]
     fwd_by_path = {
         "long_context": paths["long_context"]["flash_attn_fwd"],
@@ -9672,7 +9880,9 @@ def main(only: str = "") -> int:
              "nshead+mcpack beside mongo and esp; media: Generate beside "
              "an RTMP relay on one port, and on a server that refuses "
              "RTMP; sanitize: Generate over tpu_std and HTTP/1.1 in a "
-             "child under ASan and UBSan; the long-cache decode",
+             "child under ASan and UBSan; lint: Generate streamed and "
+             "unary in a child under the strict lock-order assert and in "
+             "one without it; the long-cache decode",
              sum(by_path.values()), sl["flash_decode"],
              sl["flash_decode"] / steps, errs["serving_decode"],
              times["decode"], launches_by_path=by_path,
@@ -9725,7 +9935,7 @@ if __name__ == "__main__":
                                  ["incident"], ["native"], ["shards"],
                                  ["ring"], ["replay"], ["h2"],
                                  ["protocols"], ["legacy"], ["media"],
-                                 ["sanitize"]):
+                                 ["sanitize"], ["lint"]):
             sys.exit(f"chip_smoke: unknown phase {sys.argv[2:]}")
         sys.exit(main(only=sys.argv[2]))
     sys.exit(main())

@@ -13,6 +13,9 @@ brpc_tpu's, on the CPU.
   twin (``BRPC_TPU_TORCH_NO_NATIVE``'s lane) give brpc_tpu's classic
   loop's statuses, events, bytes left and state on the golden heads of
   tests/test_http_native.py and 500 seeded fuzzed ones.
+- A progressive chunk whose send fails returns, and the next write is
+  refused (the socket's failure runs the attachment's subscriber under
+  the lock the write holds).
 - Generate's chunked body through ``on_chunk`` equals the plain model's
   tokens; calls from fibers through ``request_async``; a server with an
   Authenticator refuses the client without ``Authorization`` and
@@ -54,7 +57,7 @@ from brpc_tpu_torch.serving import (TinyDecoder, TinyDecoderConfig,
                                     add_generate_service)
 
 from test_http_native import GOLDEN_RESPONSES, _random_response
-from test_torch_cluster import _run_cases
+from test_torch_cluster import _run_cases, _wait_for
 
 ROOT = Path(__file__).resolve().parent.parent
 CLIENTS = {"port": port_hc, "ref": ref_hc}
@@ -392,6 +395,62 @@ def case_press_and_parallel_http():
         _stop(server)
 
 
+class _ResetConn:
+    """A connection whose peer has reset: every send raises."""
+
+    def __init__(self, inner):
+        self._inner = inner
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+    def write(self, data):
+        raise ConnectionResetError(104, "Connection reset by peer")
+
+    writev = write
+
+
+def case_progressive_send_fails():
+    """A chunk whose send fails: the socket's failure runs the
+    attachment's own subscriber where the send failed, under the lock
+    the write holds. The write returns, the next one is refused, and
+    the body counts as finished."""
+    server = Server(ServerOptions())
+    svc = Service("EchoService")
+    got, bound = {}, threading.Event()
+
+    def Stream(cntl, request):
+        pa = cntl.create_progressive_attachment("text/plain")
+        got["pa"] = pa
+
+        def feed():
+            _wait_for(lambda: pa._conn is not None, 5.0)
+            bound.set()
+        threading.Thread(target=feed, daemon=True).start()
+        return None
+    svc.method()(Stream)
+    server.add_service(svc)
+    ep = server.start("tcp://127.0.0.1:0")
+    c = pysocket.create_connection(("127.0.0.1", ep.port))
+    try:
+        c.sendall(b"GET /EchoService/Stream HTTP/1.1\r\nHost: x\r\n\r\n")
+        assert bound.wait(5.0)
+        pa = got["pa"]
+        pa._conn.conn = _ResetConn(pa._conn.conn)
+        writer = threading.Thread(
+            target=lambda: got.setdefault("first", pa.write(b"chunk")),
+            daemon=True)
+        writer.start()
+        writer.join(5.0)
+        assert "first" in got, "the write hung on its own failure"
+        assert pa._conn.failed
+        assert pa.write(b"more") is False
+        assert pa._finished.is_set()
+    finally:
+        c.close()
+        _stop(server)
+
+
 CASES = [
     *[(f"{kind} client -> {srv} server: {name}", fn, (kind, srv))
       for kind, srv in (("port", "port"), ("ref", "port"), ("port", "ref"))
@@ -401,6 +460,7 @@ CASES = [
     ("raw framings", case_raw_framings, ()),
     ("response head parity", case_response_head_parity, ()),
     ("Generate read progressively", case_generate_progressive, ()),
+    ("a progressive send that fails", case_progressive_send_fails, ()),
     ("request_async from fibers", case_request_async_from_fibers, ()),
     ("auth through the client", case_auth_through_the_client, ()),
     ("rpc_press --protocol http and parallel_http",

@@ -20,7 +20,8 @@ lanes on it, against brpc_tpu's, on the CPU.
   the client's chunk drain).
 - The switch and the build: ``BRPC_TPU_TORCH_NO_NATIVE=1`` in a
   subprocess gives the same bytes and tokens; four processes building
-  at once leave one good library.
+  at once leave one good library; the call registry's pool loads the
+  core with the registry's lock free.
 
 One collected test over the cases (``_run_cases`` of
 test_torch_cluster.py, which fails a case that leaves a socket, naming
@@ -865,6 +866,31 @@ def case_build_race():
                 if not f.endswith(".lock")] == []
 
 
+def case_core_loads_outside_call_registry_lock():
+    """The call registry's id pool asks for the native core, which a
+    first use builds (seconds of g++): that must run with the registry's
+    lock free, or every call's registration on every thread waits out
+    the build (and the build's imports nest under the lock)."""
+    saved_pool, saved_get = client_dispatch._call_pool, fastcore.get
+    seen = []
+
+    def get():
+        free = client_dispatch._lock.acquire(blocking=False)
+        if free:
+            client_dispatch._lock.release()
+        seen.append(free)
+        return saved_get()
+    client_dispatch._call_pool = None
+    fastcore.get = get
+    try:
+        pool = client_dispatch._pool()
+        assert pool is not None and client_dispatch._pool() is pool
+    finally:
+        fastcore.get = saved_get
+        client_dispatch._call_pool = saved_pool
+    assert seen == [True], seen
+
+
 CASES = [(name, fn, ()) for name, fn in [
     ("pack bytes", case_pack_bytes),
     ("head probe", case_head_probe),
@@ -878,6 +904,8 @@ CASES = [(name, fn, ()) for name, fn in [
     ("chunk lanes on mem://", case_chunk_lanes),
     ("switch in a subprocess", case_switch_subprocess),
     ("four builds at once", case_build_race),
+    ("the core loads outside the call registry's lock",
+     case_core_loads_outside_call_registry_lock),
 ]]
 
 

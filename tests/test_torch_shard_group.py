@@ -10,6 +10,10 @@ the CPU.
   for every module the port has.
 - A forked child rebuilds the scheduler, timer, dispatcher, span store
   and census lock, leaves its parent's untouched, and serves an RPC.
+  A module that caches an ``InputMessenger``, a ``global_control()`` or
+  a dispatcher registers a reset (``rpc/channel.py``'s client messenger
+  among them), and a child forked after its parent's burst gets every
+  one of its own 400 calls on the pure-Python lane.
 - The merges (``merge_var_values``, ``_merge_stat_dict``, pooled
   percentiles, torn and missing dumps, ``merge_timeline_states``,
   ``merge_dump_states``, ``merge_device_payloads``) give brpc_tpu's
@@ -288,6 +292,32 @@ def _register_calls(path: Path):
     return out
 
 
+_PROCESS_STATE_CALLS = {"InputMessenger", "global_control",
+                        "global_dispatcher", "global_ring_dispatcher"}
+
+
+def _cached_process_state(tree) -> set:
+    """Module globals a function stores an ``InputMessenger``, a
+    ``global_control()`` or a dispatcher in: state that holds the
+    threads of the process that made it."""
+    out = set()
+    for fn in ast.walk(tree):
+        if not isinstance(fn, ast.FunctionDef):
+            continue
+        names = {n for g in ast.walk(fn) if isinstance(g, ast.Global)
+                 for n in g.names}
+        for node in ast.walk(fn):
+            if isinstance(node, ast.Assign) and \
+                    isinstance(node.value, ast.Call):
+                f = node.value.func
+                callee = getattr(f, "id", None) or getattr(f, "attr", None)
+                for t in node.targets:
+                    if isinstance(t, ast.Name) and t.id in names and \
+                            callee in _PROCESS_STATE_CALLS:
+                        out.add(t.id)
+    return out
+
+
 def case_every_module_registered():
     port_names = {}
     for path in sorted(PORT_PKG.rglob("*.py")):
@@ -298,6 +328,9 @@ def case_every_module_registered():
         regs = _register_calls(path)
         missing = resets - set(regs.values())
         assert not missing, f"{path}: {missing} not registered"
+        cached = _cached_process_state(tree)
+        assert not cached or regs, \
+            f"{path}: caches {sorted(cached)} with no postfork reset"
         for name in regs:
             assert name not in port_names, f"{name} twice"
             port_names[name] = path
@@ -308,6 +341,8 @@ def case_every_module_registered():
         for name in _register_calls(path):
             ref_regs[name] = path
     assert len(ref_regs) >= 28, sorted(ref_regs)
+    # the client messenger's cache holds its maker's TaskControl
+    assert port_names.get("rpc.channel") == PORT_PKG / "rpc" / "channel.py"
     for name, path in ref_regs.items():
         if not (PORT_PKG / path.relative_to(REF_PKG)).exists():
             continue                # brpc_tpu's module not ported yet
@@ -389,6 +424,61 @@ print(json.dumps({"first": first, "child": child,
                   "parent_generation": postfork.generation(),
                   "served_after": serve_one()}))
 """
+
+
+# A child forked after its parent used a Channel: the client messenger
+# the parent cached holds the parent's TaskControl, whose workers do not
+# exist in the child, so the responses a burst spills past the inline
+# budget would queue where nothing runs them (the pure-Python lane)
+_FORK_BURST_SCRIPT = r"""
+import json, os, sys, threading
+from brpc_tpu_torch.rpc import Channel, ChannelOptions, Server, Service
+assert "jax" not in sys.modules
+CALLS = 400
+
+def burst():
+    srv = Server()
+    svc = Service("Svc")
+    svc.register_method("Echo", lambda cntl, req: bytes(req))
+    srv.add_service(svc)
+    ep = srv.start("tcp://127.0.0.1:0")
+    ch = Channel(str(ep), ChannelOptions(timeout_ms=3000, max_retry=0,
+                                         share_connections=False))
+    try:
+        cntls = [ch.call("Svc", "Echo", b"%d" % i) for i in range(CALLS)]
+        ok = 0
+        for i, c in enumerate(cntls):
+            c.join()
+            ok += (not c.failed()) and bytes(c.response) == b"%d" % i
+        return ok
+    finally:
+        ch.close()
+        srv.stop()
+        srv.join(5)
+
+parent_ok = burst()
+r, w = os.pipe()
+pid = os.fork()
+if pid == 0:
+    try:
+        doc = {"ok": burst()}
+    except BaseException as e:
+        doc = {"exc": repr(e)}
+    os.write(w, json.dumps(doc).encode())
+    os._exit(0)
+os.close(w)
+child = json.loads(os.read(r, 1 << 20))
+os.close(r)
+os.waitpid(pid, 0)
+print(json.dumps({"parent": parent_ok, "child": child}))
+"""
+
+
+def case_forked_child_keeps_its_calls():
+    doc, _ = _py(_FORK_BURST_SCRIPT, timeout=90,
+                 env=_env(BRPC_TPU_TORCH_NO_NATIVE="1"))
+    assert doc["parent"] == 400, doc
+    assert doc["child"] == {"ok": 400}, doc
 
 
 def case_forked_child_rebuilds():
@@ -1055,6 +1145,8 @@ def test_shard_groups():
              case_registry_against_reference, ()),
             ("every module registered", case_every_module_registered, ()),
             ("a forked child rebuilds", case_forked_child_rebuilds, ()),
+            ("a forked child keeps its calls",
+             case_forked_child_keeps_its_calls, ()),
             ("merges against brpc_tpu's",
              case_merges_against_reference, ()),
             ("a port dump read by brpc_tpu",

@@ -510,6 +510,31 @@ def test_failure_subscriptions_fire_once():
     assert isinstance(done[0], ConnectionError)
 
 
+def test_a_failed_send_may_close_its_stream_in_place():
+    """Socket.write runs the socket's on_failed subscribers where a send
+    fails, under the stream's send lock: one that closes the stream right
+    there (a call's done callback) re-enters the lock instead of waiting
+    on itself."""
+    from brpc_tpu_torch.rpc.stream import Stream
+    st = Stream()
+
+    class _FailingConn:
+        supports_device_lane = False
+        writes = 0
+
+        def write(self, data):
+            self.writes += 1
+            if self.writes == 1:
+                st.close()      # what such a subscriber does, in place
+            return False
+    st.conn, st.peer_id = _FailingConn(), 7
+    t = threading.Thread(target=lambda: st.write_nowait(b"x"), daemon=True)
+    t.start()
+    t.join(5.0)
+    assert not t.is_alive(), "the failed send waited on its own lock"
+    assert st.closed and st.conn.writes == 2
+
+
 @pytest.mark.parametrize("first", [b"XXXX", b"\x00\x01\x02\x03", b"SSH-"])
 def test_unknown_protocol_closes_the_connection(first):
     """Once 28 bytes are in (nshead's magic sits at offset 24, so a

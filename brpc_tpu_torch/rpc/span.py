@@ -215,7 +215,16 @@ class SpanStore:
     rpcz_db_max_bytes (current + one aged file ≈ the leveldb SpanDB's
     bounded footprint). finish_span runs for EVERY rpc, so writes buffer
     in memory and hit disk in batches (every _FLUSH_EVERY lines or
-    _FLUSH_S seconds), never a per-RPC syscall."""
+    _FLUSH_S seconds), never a per-RPC syscall.
+
+    Several processes may share one directory (a shard group's
+    supervisor and shards inherit one ``rpcz_dir``). So a batch goes to
+    the file the path names now: a handle on a file that another store
+    rotated away is reopened first. A rotation runs under an ``flock`` of
+    the directory and checks the path's size again there, so that two
+    stores never rotate one file twice, which would move a fresh file
+    over the aged one. brpc_tpu's store rotates on its own handle's
+    offset and loses spans that way."""
 
     FILE = "rpcz_spans.jsonl"
     _FLUSH_EVERY = 32
@@ -231,8 +240,19 @@ class SpanStore:
     def _path(self, old: bool = False) -> str:
         return os.path.join(self._dir, self.FILE + (".1" if old else ""))
 
+    def _names_open_file(self) -> bool:
+        """Whether the path still names the file this store has open
+        (another process sharing the directory may have rotated it)."""
+        try:
+            here = os.stat(self._path())
+        except FileNotFoundError:
+            return False
+        mine = os.fstat(self._fh.fileno())
+        return (here.st_ino, here.st_dev) == (mine.st_ino, mine.st_dev)
+
     def _ensure_open(self, dirpath: str):
-        if self._fh is not None and self._dir == dirpath:
+        if self._fh is not None and self._dir == dirpath \
+                and self._names_open_file():
             return
         if self._fh is not None:
             self._fh.close()
@@ -240,16 +260,33 @@ class SpanStore:
         os.makedirs(dirpath, exist_ok=True)
         self._fh = open(self._path(), "a", encoding="utf-8")
 
+    def _rotate(self, cap: int) -> None:
+        """Age the current file if it is still at or over ``cap`` under
+        the directory's lock: a store that shares the directory may have
+        rotated it already."""
+        import fcntl
+        self._fh.close()
+        self._fh = None
+        dfd = os.open(self._dir, os.O_RDONLY)
+        try:
+            fcntl.flock(dfd, fcntl.LOCK_EX)
+            try:
+                if os.stat(self._path()).st_size >= cap:
+                    os.replace(self._path(), self._path(old=True))
+            except FileNotFoundError:
+                pass
+        finally:
+            os.close(dfd)       # releases the lock
+
     def _flush_locked(self, dirpath: str) -> None:
         self._ensure_open(dirpath)
         self._fh.write("".join(self._buf))
         self._fh.flush()
         self._buf.clear()
         self._last_flush = time.monotonic()
-        if self._fh.tell() >= int(flag("rpcz_db_max_bytes")):
-            self._fh.close()
-            self._fh = None
-            os.replace(self._path(), self._path(old=True))
+        cap = int(flag("rpcz_db_max_bytes"))
+        if self._fh.tell() >= cap:
+            self._rotate(cap)
 
     def write(self, span: "Span") -> None:
         dirpath = flag("rpcz_dir")

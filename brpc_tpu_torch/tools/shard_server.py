@@ -13,8 +13,8 @@ shards do not all come up within ``READY_TIMEOUT_S``, or that fails
 (``ShardGroup.failed``), is stopped and the tool exits 1. ``--shards 1``
 is a plain server unless ``--group`` puts the one shard under a
 supervisor too, as a larger group's shards run. Every shard
-serves the ``Bench`` service: ``Echo`` (a ``native="echo"`` method),
-``PyEcho`` (a plain Python handler) and ``Pid``, which answers the pid
+serves the ``Bench`` service: ``Echo`` and ``PyEcho`` as
+``tools.bench_echo_server`` defines them, and ``Pid``, which answers the pid
 of the shard the kernel routed the connection to. ``--generate`` adds
 ``GenerateService`` (``serving.add_generate_service``) on ``--device``,
 ``cuda:0`` by default: each shard builds its own engine there, and this
@@ -37,17 +37,11 @@ def make_template_server(generate: bool = False, device=None):
     """The Server every shard starts from: the Bench service, and with
     ``generate`` the serving lane on ``device``."""
     from brpc_tpu_torch.rpc import Server, Service
+    from brpc_tpu_torch.tools.bench_echo_server import add_echo_methods
 
     server = Server()
     svc = Service("Bench")
-
-    @svc.method(native="echo")
-    async def Echo(cntl, request):
-        return request
-
-    @svc.method()
-    def PyEcho(cntl, request):
-        return bytes(request)
+    add_echo_methods(svc)
 
     @svc.method()
     def Pid(cntl, request):

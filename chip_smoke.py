@@ -461,13 +461,34 @@ detected the same way twice, the positive control races, the guarded
 counter and the fiber pool's teardown hold, the batcher storm raises
 nothing.
 
+Phase tools (the trace, load and cluster tools), after lint, each tool
+run as ``python3 -m brpc_tpu_torch.tools.<tool>`` in a child: (a) a
+2-shard Generate group (``shard_server --shards 2 --generate``) with
+rpcz on in every process and this process as the traced client: phase
+3's burst streamed and unary, then ``trace`` over the client's store and
+the group's: one tree a call (the client span here, the server and
+serving spans in one shard's pid, both shards seen), its Perfetto
+export valid, each critical path within its caller's wall, each shard's
+flash_decode launches equal to its steps plus its warm-up; (b) client
+-> A -> B over two ``chain_server`` children, 16 four-span trees over
+three pids, then ``trace --smoke``; (c) ``qps_client`` workers and
+``run_pipelined`` against ``bench_echo_server``, ``soak --seconds 30``
+and ``soak --idle-conns 2000``; (d) ``cluster_top --smoke`` with its
+overhead gate, then two Generate servers behind a ClusterChannel of
+this process, scraped by ``cluster_top --once --json``: the merged rows
+count the burst's calls, the serving rows its tokens, the timeline
+trends are there; (e) ``fiber_stacks`` over HTTP against one of them
+mid-burst names a suspended fiber, and by SIGUSR2 puts a report on the
+other's stderr; both servers' launches equal their steps plus warm-up.
+
 ``python3 chip_smoke.py --phase streaming`` (or ``--phase
 observability``, ``--phase device_lane``, ``--phase combo``, ``--phase
 cluster``, ``--phase incident``, ``--phase native``, ``--phase
 shards``, ``--phase ring``, ``--phase replay``, ``--phase h2``,
 ``--phase protocols``, ``--phase legacy``, ``--phase media``, ``--phase
-sanitize``, ``--phase lint``) runs that phase alone (after the card line), so that two trees' serving can be compared in one call: run each
-tree's script in turns.
+sanitize``, ``--phase lint``, ``--phase tools``) runs that phase alone
+(after the card line), so that two trees' serving can be compared in
+one call: run each tree's script in turns.
 
 The last lines are the card line, the kernels line and the result line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without the
@@ -5428,28 +5449,64 @@ class _ShardGroup:
         return {"rc": rc, "gone_s": time.monotonic() - t0, "left": left}
 
 
-def _shard_generate(ch, prompt: str):
-    c = ch.call_sync("GenerateService", "Generate", json.dumps(
-        {"prompt": prompt, "max_tokens": MAX_TOKENS}).encode())
+def _shard_generate(ch, prompt: str, streamed: bool = False, call=None):
+    """One Generate of MAX_TOKENS on ``ch``: (tokens or None, errno,
+    text). ``streamed``: the tokens come back as stream frames, then the
+    ``d`` verdict. ``call``: a dict that gets the call's trace id (hex)
+    and the caller's wall in us."""
+    from brpc_tpu_torch.rpc import StreamOptions
+    body = json.dumps({"prompt": prompt, "max_tokens": MAX_TOKENS}).encode()
+    t0 = time.perf_counter()
+    if streamed:
+        toks, verdict, done = [], [], threading.Event()
+
+        def on_received(stream, msg):
+            if msg.payload[:1] == b"t":
+                toks.append(msg.payload[1])
+            else:
+                verdict.append(msg.payload)
+                done.set()
+        c = ch.call_sync("GenerateService", "Generate", body,
+                         stream_options=StreamOptions(
+                             on_received=on_received))
+        if not c.failed():
+            try:
+                ended = done.wait(120)
+            finally:
+                c.stream.close()
+    else:
+        c = ch.call_sync("GenerateService", "Generate", body)
+    if call is not None:
+        call.update(trace_id=f"{c.trace_id:016x}",
+                    wall_us=(time.perf_counter() - t0) * 1e6)
     if c.failed():
         return None, c.error_code, c.error_text
-    return json.loads(c.response)["tokens"], 0, ""
+    if not streamed:
+        return json.loads(c.response)["tokens"], 0, ""
+    if not ended or verdict != [b'd{"n": %d, "status": "completed"}'
+                                % MAX_TOKENS]:
+        return None, "verdict", verdict
+    return toks, 0, ""
 
 
-def _shard_burst(chans, prompts):
+def _shard_burst(chans, prompts, streamed: bool = False, calls=None):
     """One thread a channel, the prompts dealt round-robin: ({prompt:
-    tokens}, [(channel index, errno, text)], wall s); ``served`` gets a
-    1 a call answered."""
+    tokens}, [(channel index, errno, text)], wall s). ``streamed``: every
+    call streams its tokens; ``calls``: a list that gets each answered
+    call's trace id, caller's wall and ``streamed``."""
     results, errors = {}, []
 
     def client(i):
         for p in prompts[i::len(chans)]:
-            toks, code, text = _shard_generate(chans[i], p)
+            call = {"streamed": streamed}
+            toks, code, text = _shard_generate(chans[i], p, streamed, call)
             if toks is None:
                 errors.append((i, code, text))
             elif results.setdefault(p, toks) != toks:
                 errors.append((i, -1, f"{p!r}: tokens differ between "
                                       f"two answers"))
+            elif calls is not None:
+                calls.append(call)
     threads = [threading.Thread(target=client, args=(i,))
                for i in range(len(chans))]
     t0 = time.monotonic()
@@ -6785,15 +6842,32 @@ def _write_corpus(path: str, records) -> None:
     w.close()
 
 
+def _module_child(argv, what: str, timeout_s: float = 120, env=None,
+                  want_rc=0) -> dict:
+    """``python3 -m argv...`` from the directory holding the package: its
+    exit code (``want_rc`` checked unless None), stdout, stderr and
+    wall."""
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", *argv], capture_output=True, text=True,
+        timeout=timeout_s, cwd=str(Path(__file__).resolve().parent),
+        env=None if env is None else dict(os.environ, **env))
+    wall = time.monotonic() - t0
+    check(want_rc is None or proc.returncode == want_rc,
+          f"{what}: {argv[0]} exited {proc.returncode}: "
+          f"{(proc.stdout + proc.stderr)[-2000:]}")
+    return {"rc": proc.returncode, "stdout": proc.stdout,
+            "stderr": proc.stderr, "wall_s": wall}
+
+
+def _last_json(text: str) -> dict:
+    return json.loads(text.strip().splitlines()[-1])
+
+
 def _tool(argv, timeout_s: float = 120) -> dict:
     """``python3 -m brpc_tpu_torch.tools.<tool> ... --json`` from the
     directory holding the package; its last line."""
-    out = subprocess.run([sys.executable, "-m", *argv], capture_output=True,
-                         text=True, timeout=timeout_s,
-                         cwd=str(Path(__file__).resolve().parent))
-    check(out.returncode == 0, f"{argv[0]} exited {out.returncode}: "
-                               f"{(out.stdout + out.stderr)[-2000:]}")
-    return json.loads(out.stdout.strip().splitlines()[-1])
+    return _last_json(_module_child(argv, argv[0], timeout_s)["stdout"])
 
 
 def _replay_capture(port: int, oracle: dict, work: str) -> dict:
@@ -9463,6 +9537,513 @@ def phase_lint(dev):
     return out
 
 
+TOOLS_CHILD_S = 240             # each tool child's time limit
+TOOLS_CHAIN_CALLS = 16          # (b): client -> A -> B calls
+TOOLS_QPS_PROCS = 4             # (c): qps_client's worker processes
+TOOLS_QPS_S = 3.0               # (c): their window
+TOOLS_QPS_CONNS = 2             # (c): connections a worker
+TOOLS_PIPELINED_CALLS = 2000    # (c): run_pipelined's Echo calls
+TOOLS_PIPELINED_INFLIGHT = 8
+TOOLS_SOAK_S = 30               # (c): the mixed soak's window
+TOOLS_IDLE_CONNS = 2000         # (c): the idle-connection soak
+TOOLS_STACK_TRIES = 20          # (e): fiber_stacks reads mid-burst at most
+
+
+class _Rpcz:
+    """rpcz on in this process, its spans stored under ``dirpath``, for
+    the ``with`` block; the flags as they were after it, the store
+    flushed."""
+
+    def __init__(self, dirpath: str):
+        self.dir = dirpath
+
+    def __enter__(self):
+        from brpc_tpu_torch.butil.flags import flag, set_flag
+        self.before = {f: flag(f) for f in ("rpcz_enabled", "rpcz_dir")}
+        check(set_flag("rpcz_enabled", True) and
+              set_flag("rpcz_dir", self.dir), "cannot turn rpcz on")
+        return self
+
+    def __exit__(self, *exc):
+        from brpc_tpu_torch.butil.flags import set_flag
+        from brpc_tpu_torch.rpc.span import global_store
+        global_store.flush()
+        for f, v in self.before.items():
+            set_flag(f, v)
+
+
+def _chain_of(node) -> list:
+    """The spans from ``node`` down, each node having one child at most
+    (else SmokeFailure)."""
+    chain = []
+    while True:
+        chain.append(node.span)
+        if not node.children:
+            return chain
+        check(len(node.children) == 1,
+              f"tools: a branch under {node.span['side']} "
+              f"{node.span['service']}.{node.span['method']}")
+        node = node.children[0]
+
+
+def _tools_shard_trace(here: Path, work: str, oracle: dict) -> dict:
+    """(a): Generate through a traced 2-shard group: every call one tree
+    whose root is this process's client span, its server and serving
+    spans in a shard's pid; then ``trace --perfetto`` and ``--top``."""
+    from brpc_tpu_torch.tools import trace
+    group_dir = os.path.join(work, "group-rpcz")
+    client_dir = os.path.join(work, "client-rpcz")
+    t0 = time.monotonic()
+    g = _ShardGroup(2, str(here), work, env={
+        "BRPC_TPU_FLAG_RPCZ_ENABLED": "1",
+        "BRPC_TPU_FLAG_RPCZ_DIR": group_dir})
+    out = {"up_s": g.up_s}
+    calls = []
+    try:
+        by_pid = g.spread(N_CLIENTS // g.shards)
+        chans = [c for v in by_pid.values() for c in v]
+        bursts = {}
+        with _Rpcz(client_dir):
+            for streamed in (True, False):
+                kind = "stream" if streamed else "unary"
+                res, errs, wall = _shard_burst(chans, _prompts(), streamed,
+                                               calls)
+                _check_burst(f"tools a: the {kind} burst", res, errs, oracle)
+                bursts[kind] = {"wall_s": wall, "tokens_per_s":
+                                N_REQUESTS * MAX_TOKENS / wall}
+        out["bursts"] = bursts
+        tokens = 2 * N_REQUESTS * MAX_TOKENS
+
+        def counts():
+            per = [_shard_counts(g, i) for i in range(g.shards)]
+            return per if sum(s["tokens_out"] for s in per) == tokens \
+                else None
+        per = _settled(counts)
+        check(per is not None, f"tools a: the shards' tokens_out != {tokens}")
+        for s in per:
+            check(s["flash_decode"] == s["decode_steps"] + s["warmup_steps"]
+                  and s["decode_steps"] > 0,
+                  f"tools a: shard {s['pid']}: {s['flash_decode']} "
+                  f"flash_decode launches != {s['decode_steps']} steps + "
+                  f"{s['warmup_steps']} warm-up")
+        out["shards"] = per
+        shard_pids = {s["pid"] for s in per}
+        check(shard_pids == set(by_pid), f"tools a: {shard_pids} against "
+                                         f"the pids served {set(by_pid)}")
+    finally:
+        stopped = g.stop()
+    check(stopped["rc"] == 0 and not stopped["left"],
+          f"tools a: SIGTERM to the group: {stopped}")
+    out["group_s"] = time.monotonic() - t0
+    # the tool over both stores, in children
+    perfetto = os.path.join(work, "shard_trace.json")
+    pf = _module_child(["brpc_tpu_torch.tools.trace", client_dir, group_dir,
+                        "--perfetto", perfetto], "tools a: --perfetto")
+    top = _module_child(["brpc_tpu_torch.tools.trace", client_dir, group_dir,
+                         "--top", "5"], "tools a: --top")
+    with open(perfetto) as f:
+        slices = trace.validate_perfetto(json.load(f))
+    spans = trace.load_spans([client_dir, group_dir])
+    forest = trace.assemble(spans)
+    me = os.getpid()
+    seen_pids, slowest = set(), None
+    for c in calls:
+        roots = forest.get(c["trace_id"], [])
+        check(len(roots) == 1, f"tools a: trace {c['trace_id']}: "
+                               f"{len(roots)} roots")
+        chain = _chain_of(roots[0])
+        sides = [s["side"] for s in chain]
+        check(sides == ["client", "server", "serving"],
+              f"tools a: trace {c['trace_id']}: {sides}")
+        check(chain[0]["pid"] == me and chain[1]["pid"] == chain[2]["pid"]
+              and chain[1]["pid"] in shard_pids,
+              f"tools a: trace {c['trace_id']}: pids "
+              f"{[s['pid'] for s in chain]}, shards {shard_pids}")
+        seen_pids.add(chain[1]["pid"])
+        total, path = trace.critical_path(roots)
+        check(0 < total <= c["wall_us"],
+              f"tools a: trace {c['trace_id']}: critical path {total} us "
+              f"over the caller's wall {c['wall_us']:.0f} us")
+        if slowest is None or total > slowest["critical_path_us"]:
+            slowest = {"trace_id": c["trace_id"], "streamed": c["streamed"],
+                       "critical_path_us": total, "caller_wall_us":
+                       c["wall_us"], "hops": [
+                           {"side": n.span["side"], "pid": n.span["pid"],
+                            "self_us": self_us} for n, self_us in path],
+                       **trace.stage_attribution(path)}
+    check(seen_pids == shard_pids,
+          f"tools a: spans from {seen_pids}, shards {shard_pids}")
+    check(slices >= len(spans), f"tools a: {slices} slices, "
+                                f"{len(spans)} spans")
+    head = pf["stdout"].strip().splitlines()[-1]
+    check(head.startswith("wrote ") and f"({len(spans)} spans)" in head,
+          f"tools a: --perfetto said {head!r}")
+    top_lines = [ln for ln in top["stdout"].splitlines()
+                 if ln.startswith("trace ")]
+    check(len(top_lines) == 5, f"tools a: --top 5 gave {top_lines}")
+    out.update(calls=len(calls), spans=len(spans), traces=len(forest),
+               pids=len({s["pid"] for s in spans}),
+               perfetto_slices=slices, slowest=slowest,
+               top=top_lines, trace_s=pf["wall_s"] + top["wall_s"],
+               launches=sum(s["flash_decode"] for s in per))
+    return out
+
+
+def _tools_chain(here: Path, work: str) -> dict:
+    """(b): client -> A -> B over two chain_server children: one
+    four-span tree a call, strictly nested, over three pids; then
+    ``trace --smoke``."""
+    import shutil
+
+    from brpc_tpu_torch.rpc import Channel, ChannelOptions
+    from brpc_tpu_torch.tools import trace
+    from brpc_tpu_torch.tools.spawn_util import spawn_port_server
+    t0 = time.monotonic()
+    dirs = [os.path.join(work, f"chain-{n}") for n in "abc"]
+    procs, ch = [], None
+    try:
+        port = None
+        for d in (dirs[1], dirs[0]):         # B first, then A -> B
+            argv = ["-m", "brpc_tpu_torch.tools.chain_server", "0",
+                    "--rpcz-dir", d]
+            if port is not None:
+                argv += ["--next", f"tcp://127.0.0.1:{port}"]
+            proc, port = spawn_port_server(argv, 60, cwd=str(here))
+            check(port is not None, "tools b: a chain server never came up")
+            procs.append(proc)
+        traces = []
+        with _Rpcz(dirs[2]):
+            ch = Channel(f"tcp://127.0.0.1:{port}",
+                         ChannelOptions(timeout_ms=10000))
+            for i in range(TOOLS_CHAIN_CALLS):
+                c = ch.call_sync("Chain", "Hop", b"ping%d" % i)
+                check(not c.failed() and c.response == b"hop:leaf:ping%d" % i,
+                      f"tools b: Hop {i}: {c.error_text} {c.response!r}")
+                traces.append(f"{c.trace_id:016x}")
+            ch.close()
+            ch = None
+        for p in procs:
+            p.terminate()
+        rcs = [p.wait(30) for p in procs]
+        check(rcs == [0, 0], f"tools b: the chain servers exited {rcs}")
+    finally:
+        if ch is not None:
+            ch.close()
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(10)
+            p.stdout.close()
+    spans = trace.load_spans(dirs)
+    forest = trace.assemble(spans)
+    for tid in traces:
+        roots = forest.get(tid, [])
+        check(len(roots) == 1, f"tools b: trace {tid}: {len(roots)} roots")
+        chain = _chain_of(roots[0])
+        check(len(chain) == 4 and len({s["pid"] for s in chain}) == 3,
+              f"tools b: trace {tid}: "
+              f"{[(s['side'], s['pid']) for s in chain]}")
+        for parent, child in zip(chain, chain[1:]):
+            check(child["parent_span_id"] == parent["span_id"],
+                  f"tools b: trace {tid}: a parent link broken")
+    out = {"calls": len(traces), "spans": len(spans),
+           "chain_s": time.monotonic() - t0}
+    smoke = _module_child(["brpc_tpu_torch.tools.trace", "--smoke"],
+                          "tools b: --smoke")
+    rep = _last_json(smoke["stdout"])
+    check(rep.get("ok") is True and rep["chain_depth"] == 4,
+          f"tools b: trace --smoke: {rep}")
+    shutil.rmtree(rep["rpcz_dir"], ignore_errors=True)
+    out["smoke"] = {k: v for k, v in rep.items() if k != "rpcz_dir"}
+    out["smoke"]["wall_s"] = smoke["wall_s"]
+    return out
+
+
+def _tools_load(here: Path) -> dict:
+    """(c): qps_client's workers and run_pipelined against a
+    bench_echo_server child, then the soak and its idle mode."""
+    from brpc_tpu_torch.rpc import Channel, ChannelOptions
+    from brpc_tpu_torch.tools.pipeline_runner import run_pipelined
+    from brpc_tpu_torch.tools.qps_client import drive_multiproc
+    from brpc_tpu_torch.tools.spawn_util import spawn_port_server
+    out = {}
+    proc, port = spawn_port_server(
+        ["-m", "brpc_tpu_torch.tools.bench_echo_server"], 60, cwd=str(here))
+    check(port is not None, "tools c: bench_echo_server never came up")
+    try:
+        t0 = time.monotonic()
+        q = drive_multiproc(port, nprocs=TOOLS_QPS_PROCS,
+                            seconds=TOOLS_QPS_S, conns=TOOLS_QPS_CONNS)
+        check(q["calls"] > 0 and q["failures"] == 0
+              and q["dead_workers"] == 0, f"tools c: qps_client {q}")
+        out["qps_client"] = dict(q, wall_s=time.monotonic() - t0)
+        ch = Channel(f"tcp://127.0.0.1:{port}",
+                     ChannelOptions(timeout_ms=5000,
+                                    share_connections=False))
+        try:
+            check(ch.call_sync("Bench", "Echo", b"warm").response == b"warm",
+                  "tools c: the warm Echo")
+
+            def issue(on_done):
+                def done(c):
+                    on_done(RuntimeError(c.error_text) if c.failed()
+                            or c.response != b"pipe" else None)
+                ch.call("Bench", "Echo", b"pipe", done=done)
+            try:
+                wall = run_pipelined(TOOLS_PIPELINED_CALLS,
+                                     TOOLS_PIPELINED_INFLIGHT, issue, 60.0)
+            except RuntimeError as e:
+                raise SmokeFailure(f"tools c: run_pipelined: {e}")
+        finally:
+            ch.close()
+        out["pipelined"] = {"calls": TOOLS_PIPELINED_CALLS,
+                            "inflight": TOOLS_PIPELINED_INFLIGHT,
+                            "wall_s": wall,
+                            "qps": TOOLS_PIPELINED_CALLS / wall}
+    finally:
+        proc.terminate()
+        proc.wait(10)
+        proc.stdout.close()
+    soak = _module_child(["brpc_tpu_torch.tools.soak", "--seconds",
+                          str(TOOLS_SOAK_S)], "tools c: soak",
+                         timeout_s=TOOLS_SOAK_S + 120, want_rc=None)
+    rep = _last_json(soak["stdout"])
+    check(rep.get("ok") is True and soak["rc"] == 0
+          and all(n > 0 for n in rep["calls"].values()),
+          f"tools c: soak: {rep}")
+    out["soak"] = dict(rep, wall_s=soak["wall_s"])
+    idle = _module_child(["brpc_tpu_torch.tools.soak", "--idle-conns",
+                          str(TOOLS_IDLE_CONNS)], "tools c: soak --idle-conns",
+                         timeout_s=TOOLS_CHILD_S, want_rc=None)
+    rep = _last_json(idle["stdout"])
+    check(rep.get("ok") is True and idle["rc"] == 0,
+          f"tools c: soak --idle-conns: {rep}")
+    out["idle"] = dict(rep, wall_s=idle["wall_s"])
+    return out
+
+
+def _generate_server(here: Path, err):
+    """``shard_server --shards 1 --generate``: one Generate server on
+    cuda:0 with its builtin pages, in a child; (process, port)."""
+    from brpc_tpu_torch.tools.spawn_util import spawn_announcing_server
+    proc, got = spawn_announcing_server(
+        ["-m", "brpc_tpu_torch.tools.shard_server", "--shards", "1",
+         "--generate"], 240, env=dict(os.environ, PYTHONPATH=str(here)),
+        stderr=err, cwd=str(here))
+    check(got is not None, "tools d: a Generate server never came up")
+    return proc, got["PORT"]
+
+
+def _server_launches(port: int) -> dict:
+    status, body = _http_page(port, "/vars?prefix=flash_decode_launches")
+    check(status == 200, f"tools: /vars {status}")
+    launches = int(body.decode().partition(" : ")[2].split()[0])
+    s = json.loads(_http_page(port, "/serving")[1])
+    return {"flash_decode": launches, "decode_steps": s["decode_steps"],
+            "warmup_steps": s["engine"]["warmup_steps"],
+            "tokens_out": s["tokens_out"]}
+
+
+def _tools_cluster_and_stacks(here: Path, work: str, oracle: dict) -> dict:
+    """(d) cluster_top --smoke, then two Generate servers behind a
+    ClusterChannel from this process, scraped by cluster_top; (e)
+    fiber_stacks against one mid-burst and by SIGUSR2 against the
+    other."""
+    from brpc_tpu_torch.rpc import (ChannelOptions, ClusterChannel, Server,
+                                    ServerOptions)
+    from brpc_tpu_torch.rpc import backend_stats
+    out = {}
+    smoke = _module_child(["brpc_tpu_torch.tools.cluster_top", "--smoke"],
+                          "tools d: --smoke", timeout_s=TOOLS_CHILD_S,
+                          want_rc=None)
+    rep = _last_json(smoke["stdout"])
+    print(f"chip_smoke: tools d: cluster_top --smoke {json.dumps(rep)}",
+          file=sys.stderr, flush=True)
+    check(rep.get("ok") is True and smoke["rc"] == 0,
+          f"tools d: cluster_top --smoke: {rep}")
+    out["smoke"] = dict(rep, wall_s=smoke["wall_s"])
+    errs = [open(os.path.join(work, f"gen{i}.stderr"), "w+")
+            for i in range(2)]
+    servers = [None, None]
+
+    def start(i):
+        try:
+            servers[i] = _generate_server(here, errs[i])
+        except SmokeFailure as e:
+            servers[i] = e
+    t0 = time.monotonic()
+    starters = [threading.Thread(target=start, args=(i,)) for i in range(2)]
+    for t in starters:
+        t.start()
+    for t in starters:
+        t.join(300)
+    admin, ch = None, None
+    try:
+        for s in servers:
+            check(isinstance(s, tuple), f"tools d: {s}")
+        out["servers_up_s"] = time.monotonic() - t0
+        ports = [p for _, p in servers]
+        addrs = [f"tcp://127.0.0.1:{p}" for p in ports]
+        admin = Server(ServerOptions(enable_builtin_services=True))
+        admin_port = admin.start("tcp://127.0.0.1:0").port
+        page = backend_stats.backends_page_payload()
+        before = sum(row["completed"] for ch_ in page["channels"].values()
+                     for k, row in ch_["backends"].items() if k in addrs)
+        ch = ClusterChannel("list://" + ",".join(addrs), "rr",
+                            ChannelOptions(timeout_ms=120000, max_retry=2,
+                                           name="tools_cluster"))
+        res, errors, wall, _, _ = _cluster_burst(ch, _prompts(), N_CLIENTS)
+        _check_burst("tools d: the burst through the ClusterChannel", res,
+                     errors, oracle)
+        out["burst"] = {"wall_s": wall,
+                        "tokens_per_s": N_REQUESTS * MAX_TOKENS / wall}
+        nodes = [f"127.0.0.1:{p}" for p in [admin_port] + ports]
+        top = _module_child(["brpc_tpu_torch.tools.cluster_top", *nodes,
+                             "--once", "--json"], "tools d: --once --json")
+        view = _last_json(top["stdout"])
+        rows = {k: v for k, v in view["backends"].items() if k in addrs}
+        check(view["nodes_up"] == 3 and len(rows) == 2 and
+              sum(r["completed"] for r in rows.values()) - before ==
+              N_REQUESTS, f"tools d: the merged rows {rows} "
+                          f"(before: {before})")
+        serving = {n: view["serving"].get(n) for n in nodes[1:]}
+        check(all(serving.values()) and sum(
+            s["tokens_out"] for s in serving.values()) ==
+            N_REQUESTS * MAX_TOKENS, f"tools d: serving rows {serving}")
+        check(all("qps" in (view["timeline"].get(n) or {})
+                  for n in nodes[1:]),
+              f"tools d: timeline trends {list(view['timeline'])}")
+        out["view"] = {"rows": rows, "serving": serving,
+                       "timeline": {n: {k: len(v) if isinstance(v, list)
+                                        else v for k, v in tl.items()}
+                                    for n, tl in view["timeline"].items()},
+                       "wall_s": top["wall_s"]}
+        # (e) the http:// mode while bursts run through the channel
+        stop, mid = threading.Event(), []
+
+        def bursts():
+            while not stop.is_set():
+                res, errors, _, _, _ = _cluster_burst(ch, _prompts(),
+                                                      N_CLIENTS)
+                mid.append((res, errors))
+        t = threading.Thread(target=bursts, daemon=True)
+        t.start()
+        try:
+            report = ""
+            for tries in range(1, TOOLS_STACK_TRIES + 1):
+                st = _module_child(["brpc_tpu_torch.tools.fiber_stacks",
+                                    f"http://127.0.0.1:{ports[0]}"],
+                                   "tools e: the http:// mode")
+                report = st["stdout"]
+                if "[SUSPENDED]" in report:
+                    break
+        finally:
+            stop.set()
+            t.join(300)
+        check("[SUSPENDED]" in report, f"tools e: no suspended fiber in "
+                                       f"{tries} reports: {report[-1500:]}")
+        for res, errors in mid:
+            _check_burst("tools e: a burst beside fiber_stacks", res,
+                         errors, oracle)
+        out["stacks_http"] = {"tries": tries, "bursts": len(mid),
+                              "wall_s": st["wall_s"],
+                              "fibers": report.splitlines()[0],
+                              "suspended": report.count("[SUSPENDED]")}
+        pid = servers[1][0].pid
+        st = _module_child(["brpc_tpu_torch.tools.fiber_stacks", str(pid)],
+                           "tools e: the PID mode")
+
+        def reported():
+            errs[1].seek(0)
+            return "live fibers" in errs[1].read() or None
+        check(_settled(reported) is not None,
+              "tools e: no report on the server's stderr after SIGUSR2")
+        out["stacks_pid"] = {"wall_s": st["wall_s"],
+                             "said": st["stdout"].strip()[:80]}
+        per = [_server_launches(p) for p in ports]
+        for s in per:
+            check(s["flash_decode"] == s["decode_steps"] + s["warmup_steps"]
+                  and s["decode_steps"] > 0,
+                  f"tools d: {s['flash_decode']} flash_decode launches != "
+                  f"{s['decode_steps']} steps + {s['warmup_steps']} warm-up")
+        out["servers"] = per
+        out["launches"] = sum(s["flash_decode"] for s in per)
+    finally:
+        if ch is not None:
+            ch.close()
+        if admin is not None:
+            admin.stop()
+            admin.join(5)
+        for s in servers:
+            if isinstance(s, tuple):
+                s[0].terminate()
+        for s in servers:
+            if isinstance(s, tuple):
+                try:
+                    s[0].wait(60)
+                finally:
+                    if s[0].poll() is None:
+                        s[0].kill()
+                        s[0].wait(10)
+                    s[0].stdout.close()
+        for f in errs:
+            f.close()
+    return out
+
+
+def phase_tools(dev):
+    """The trace, load and cluster tools on the card's machine, each run
+    as ``python3 -m brpc_tpu_torch.tools.<tool>`` in a child: (a) phase
+    3's burst, streamed and unary, through a 2-shard Generate group with
+    rpcz on in every process, assembled by ``trace`` into one tree a
+    call (this process's client span, the shard's server and serving
+    spans), its Perfetto export validated, each critical path within its
+    caller's wall, flash_decode launches equal to each shard's steps
+    plus its warm-up; (b) client -> A -> B over two ``chain_server``
+    children, and ``trace --smoke``; (c) ``qps_client`` workers and
+    ``run_pipelined`` against ``bench_echo_server``, ``soak`` and its
+    idle-connection mode; (d) ``cluster_top --smoke`` with the overhead
+    gate, then two Generate servers behind a ClusterChannel of this
+    process, scraped: the merged rows count the burst's calls and the
+    serving rows its tokens; (e) ``fiber_stacks`` over HTTP mid-burst
+    and by SIGUSR2."""
+    import shutil
+    import tempfile
+
+    from brpc_tpu_torch.ops import _build
+    from brpc_tpu_torch.serving import TinyDecoder, TinyDecoderConfig
+    phase_t0 = time.monotonic()
+    here = Path(__file__).resolve().parent
+    _build.build("flash_decode")     # before the group's supervisor forks
+    cpu_model = TinyDecoder(TinyDecoderConfig(), device="cpu")
+    oracle = {p: cpu_model.generate(list(p.encode()), MAX_TOKENS)
+              for p in _prompts()}
+    work = tempfile.mkdtemp(prefix="chip-smoke-tools-")
+    out = {"phase": "tools"}
+    try:
+        parts = (("a", "the shard trace",
+                  lambda: _tools_shard_trace(here, work, oracle)),
+                 ("b", "the chain and trace --smoke",
+                  lambda: _tools_chain(here, work)),
+                 ("c", "the load tools", lambda: _tools_load(here)),
+                 ("d", "cluster_top and (e) fiber_stacks",
+                  lambda: _tools_cluster_and_stacks(here, work, oracle)))
+        for key, what, fn in parts:
+            progress(f"tools: ({key}) {what}")
+            t0 = time.monotonic()
+            out[key] = fn()
+            out[key]["part_s"] = time.monotonic() - t0
+            emit({"phase": "tools", "part": key, key: out[key]})
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["launches"] = {"flash_decode": out["a"]["launches"]
+                       + out["d"]["launches"]}
+    out["phase_s"] = time.monotonic() - phase_t0
+    emit({"phase": "tools", "launches": out["launches"],
+          "phase_s": out["phase_s"]})
+    return out
+
+
 def phase_paths(dev, split_inputs):
     """The port's two other paths, each driven through its public entry
     point with every count zeroed just before and read just after:
@@ -9776,6 +10357,10 @@ def main(only: str = "") -> int:
             # the phase builds flash_decode before its serving children
             phase_lint(dev)
             return 0
+        if only == "tools":
+            # the phase builds flash_decode before the group forks
+            phase_tools(dev)
+            return 0
         if only:
             {"streaming": phase_streaming,
              "observability": phase_observability}[only]()
@@ -9818,6 +10403,8 @@ def main(only: str = "") -> int:
         sanitize = phase_sanitize(dev)
         progress("phase lint")
         lint = phase_lint(dev)
+        progress("phase tools")
+        tools = phase_tools(dev)
         progress("phase paths")
         paths = phase_paths(dev, split_inputs)
         progress("phase times")
@@ -9856,6 +10443,7 @@ def main(only: str = "") -> int:
     by_path["media"] = sum(media["launches"].values())
     by_path["sanitize"] = sanitize["launches"]["flash_decode"]
     by_path["lint"] = lint["launches"]["flash_decode"]
+    by_path["tools"] = tools["launches"]["flash_decode"]
     by_path["long_cache_decode"] = paths["long_cache_decode"]["flash_decode"]
     fwd_by_path = {
         "long_context": paths["long_context"]["flash_attn_fwd"],
@@ -9882,7 +10470,9 @@ def main(only: str = "") -> int:
              "RTMP; sanitize: Generate over tpu_std and HTTP/1.1 in a "
              "child under ASan and UBSan; lint: Generate streamed and "
              "unary in a child under the strict lock-order assert and in "
-             "one without it; the long-cache decode",
+             "one without it; tools: Generate through a 2-shard group traced "
+             "into one tree a call, and behind cluster_top's ClusterChannel "
+             "with fiber_stacks mid-burst; the long-cache decode",
              sum(by_path.values()), sl["flash_decode"],
              sl["flash_decode"] / steps, errs["serving_decode"],
              times["decode"], launches_by_path=by_path,
@@ -9935,7 +10525,7 @@ if __name__ == "__main__":
                                  ["incident"], ["native"], ["shards"],
                                  ["ring"], ["replay"], ["h2"],
                                  ["protocols"], ["legacy"], ["media"],
-                                 ["sanitize"], ["lint"]):
+                                 ["sanitize"], ["lint"], ["tools"]):
             sys.exit(f"chip_smoke: unknown phase {sys.argv[2:]}")
         sys.exit(main(only=sys.argv[2]))
     sys.exit(main())

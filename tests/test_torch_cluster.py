@@ -106,6 +106,33 @@ def _port_loop_threads():
     return sorted(out)
 
 
+def _child_processes():
+    """The live (not zombie) processes descended from this one, as "pid
+    command line": a spawned server or a load tool's worker left
+    running."""
+    parents, cmds = {}, {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+            with open(f"/proc/{d}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(
+                    "utf-8", "replace").strip()
+        except OSError:
+            continue
+        if fields[0] != "Z":
+            parents[int(d)] = int(fields[1])
+            cmds[int(d)] = cmd
+    mine, frontier = set(), {os.getpid()}
+    while frontier:
+        frontier = {p for p, pp in parents.items()
+                    if pp in frontier and p not in mine}
+        mine |= frontier
+    return sorted(f"{p} {cmds[p][:200]}" for p in mine)
+
+
 def _running_loops():
     """The port's fibers, timers, threads and leases that live until
     stopped or returned: naming services, health-check probes,
@@ -115,7 +142,8 @@ def _running_loops():
     flight; h2 sessions, gRPC channels, HTTP client connections and the
     sockets of pipelined clients (thrift, redis, memcache, nshead), esp
     clients and RTMP clients left open, and an RTMP relay's entries
-    whose socket has closed."""
+    whose socket has closed; and the child processes of this one (a
+    spawned server, a load tool's worker)."""
     return {"naming threads": port_naming.live_naming_threads(),
             "health checks": port_hc.live_checks(),
             "PeriodicTasks": port_periodic.live_tasks(),
@@ -130,7 +158,19 @@ def _running_loops():
             "esp client sockets": port_esp.live_sockets(),
             "RTMP client sockets": port_rtmp.live_sockets(),
             "RTMP relay entries of closed sockets":
-                port_rtmp.stale_entries()}
+                port_rtmp.stale_entries(),
+            "child processes": _child_processes()}
+
+
+def _settled(before) -> bool:
+    """``_running_loops()`` is back to ``before``, but for a child process
+    that was there before and has ended since (an earlier test's server
+    on its way out): only one that was not there may not be left."""
+    now = _running_loops()
+    pids = [{c.split()[0] for c in d.pop("child processes")}
+            for d in (now, dict(before))]
+    return now == {k: v for k, v in before.items()
+                   if k != "child processes"} and pids[0] <= pids[1]
 
 
 def _run_cases(cases, limit_s=CASE_LIMIT_S):
@@ -151,7 +191,7 @@ def _run_cases(cases, limit_s=CASE_LIMIT_S):
                 fn(*args)
                 assert _wait_for(lambda: set(d._handlers) <= before), \
                     f"fds left registered: {set(d._handlers) - before}"
-                assert _wait_for(lambda: _running_loops() == loops), \
+                assert _wait_for(lambda: _settled(loops)), \
                     f"left running: {_running_loops()}, before: {loops}"
             except Exception:
                 box.append(traceback.format_exc())

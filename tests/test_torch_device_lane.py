@@ -574,7 +574,9 @@ def _concurrent(addr):
 def case_callback_through_channel():
     """Handlers that call back through the same mem:// channel. A handler
     never runs in the writer's context nor under its ``lane_lock``: the
-    peer learns of the bytes through the dispatcher. The callback is
+    peer learns of the bytes through the dispatcher. Each handler takes
+    the channel socket's ``lane_lock`` (5 s at most) and lets it go, which
+    fails if it ran under that lock. The callback is
     issued while the handler runs and completes once it returned (a
     connection's next request waits for the last one's handler: a
     handler that waited on it would wait on itself, as in the
@@ -592,8 +594,14 @@ def case_callback_through_channel():
         return b"dev"
 
     def _note(cntl):
-        seen.append((threading.current_thread().name,
-                     holder["ch"]._socket.lane_lock.locked()))
+        # a handler that ran under the writer's lane_lock, held by its
+        # own thread or by a writer waiting on this handler, cannot take
+        # it; one the dispatcher runs takes it once the writer let go
+        lock = holder["ch"]._socket.lane_lock
+        took = lock.acquire(timeout=5)
+        if took:
+            lock.release()
+        seen.append((threading.current_thread().name, took))
         arrays = [t + 1 for t in cntl.request_device_arrays]
 
         def call():
@@ -635,9 +643,7 @@ def case_callback_through_channel():
             assert not r.failed(), r.error_text
             assert torch.equal(r.response_device_arrays[0], (x + 1) * 2)
         assert all(thread != me for thread, _ in seen), seen
-        # the first handler ran with no callback in flight: nobody held
-        # the lane (later ones may see a callback's own write holding it)
-        assert not seen[0][1], seen
+        assert all(took for _, took in seen), seen
         ch.close()
     finally:
         _stop(srv)

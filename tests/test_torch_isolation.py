@@ -137,6 +137,38 @@ def test_chaos_cli_leaves_jax_and_brpc_tpu_out():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+# the trace, load and cluster tools: those with a parser print their
+# help, the others are imported
+TOOLS = {"trace": True, "chain_server": True, "bench_echo_server": False,
+         "pipeline_runner": False, "qps_client": False, "soak": True,
+         "fiber_stacks": False, "cluster_top": True}
+
+
+@pytest.mark.parametrize("tool", sorted(TOOLS))
+def test_tool_leaves_jax_and_brpc_tpu_out(tool):
+    """``brpc_tpu_torch.tools.<tool>`` imports none of them, its parser
+    included."""
+    code = (
+        "import importlib, sys\n"
+        f"m = importlib.import_module('brpc_tpu_torch.tools.{tool}')\n"
+        f"if {TOOLS[tool]!r}:\n"
+        f"    sys.argv = [{tool!r}, '--help']\n"
+        "    try:\n"
+        "        m.main()\n"
+        "    except SystemExit as e:\n"
+        "        assert e.code == 0, e.code\n"
+        f"forbidden = {FORBIDDEN_MODULES!r}\n"
+        "bad = sorted(n for n in sys.modules if any(\n"
+        "    n == f or n.startswith(f + '.') for f in forbidden))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 NATIVE_SRC = ROOT / "brpc_tpu_torch" / "native" / "src"
 
 

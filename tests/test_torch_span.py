@@ -184,6 +184,74 @@ def test_span_store_read_back(rpcz, tmp_path):
     assert out["trace"] == [f"{i:016x}" for i in (2, 5, 8)]
 
 
+# Two stores on one rpcz_dir, as the processes of a shard group share
+# theirs: (store, spans) batches, each batch written and then flushed.
+# "deterministic": B writes, A writes past the cap and rotates, then both
+# write again, B's handle still on the renamed file. "alternating": the
+# stores take turns every 32 spans.
+SHARED_DIR_SEQUENCES = {
+    "deterministic": [("B", 32)] + [("A", 32)] * 62 + [("A", 16), ("A", 32),
+                                                       ("B", 32)],
+    "alternating": [("AB"[i % 2], 32) for i in range(250)],
+}
+
+
+def _store_lines(d):
+    n = 0
+    for name in ("rpcz_spans.jsonl.1", "rpcz_spans.jsonl"):
+        path = d / name
+        if path.exists():
+            for line in path.read_text().splitlines():
+                try:
+                    json.loads(line)
+                except ValueError:
+                    continue
+                n += 1
+    return n
+
+
+@pytest.mark.parametrize("sequence", sorted(SHARED_DIR_SEQUENCES))
+def test_span_store_shared_dir_keeps_what_one_store_keeps(tmp_path,
+                                                          sequence):
+    """Two SpanStores on one directory keep what one store keeps given
+    the same batches (within one batch of 32): a store whose handle names
+    a file that another one rotated away must neither append to it nor
+    rotate the other's fresh file over the aged one."""
+    from brpc_tpu_torch.butil.flags import flag, set_flag
+    from brpc_tpu_torch.rpc import span as sp
+
+    batches = SHARED_DIR_SEQUENCES[sequence]
+    before = {f: flag(f) for f in ("rpcz_dir", "rpcz_db_max_bytes")}
+    assert set_flag("rpcz_db_max_bytes", 1 << 20)
+    kept = {}
+    try:
+        for how in ("one", "two"):
+            d = tmp_path / how
+            assert set_flag("rpcz_dir", str(d))
+            one = sp.SpanStore()
+            stores = {"A": one, "B": one if how == "one" else sp.SpanStore()}
+            sid = 0
+            for who, n in batches:
+                for _ in range(n):
+                    sid += 1
+                    stores[who].write(sp.Span(
+                        trace_id=sid, span_id=sid, parent_span_id=sid >> 1,
+                        side="client", service="GenerateService",
+                        method="Generate", start_us=sid, end_us=sid + 900,
+                        remote_side="tcp://127.0.0.1:54321"))
+                stores[who].flush()
+            kept[how] = _store_lines(d)
+    finally:
+        for f, v in before.items():
+            set_flag(f, v)
+    total = sum(n for _, n in batches)
+    if sequence == "deterministic":
+        assert kept == {"one": total, "two": total}, kept
+    else:
+        assert kept["one"] < total
+        assert abs(kept["two"] - kept["one"]) <= 32, kept
+
+
 # ---------------------------------------------------------- RpcMeta 8-10
 
 @pytest.mark.parametrize("trace,span,parent", [

@@ -53,7 +53,10 @@ class DeviceRecvPool:
     def __init__(self, capacity_bytes: int = 256 << 20):
         self.capacity = capacity_bytes
         self._used = 0
-        self._lock = threading.Lock()
+        # reentrant: a collection that runs while this thread holds the
+        # lock (any allocation under it may start one) fires the
+        # finalizers of tensors it frees, and each calls ``release``
+        self._lock = threading.RLock()
         self._freed = threading.Condition(self._lock)
         # reservations by class index (the last: oversized)
         self.reserved_blocks: List[int] = [0] * (len(BLOCK_CLASSES) + 1)

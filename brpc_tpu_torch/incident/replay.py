@@ -136,6 +136,53 @@ def _tile(records: List[CapturedRequest],
     return out[:max(n, len(records))]
 
 
+def _run_calm(records: List[CapturedRequest], address: str,
+              pace: PaceSpec, default_timeout_ms: float) -> dict:
+    """The fix-forward pass: each record on ``pace``'s schedule, but
+    issued only once the last one answered (wait, then sleep to the
+    next slot), on one private connection. A stall of this process
+    that passes a slot delays the next issue instead of stacking two
+    calls on a server with ``max_concurrency`` 1. Report keys as
+    ``run_open_loop``'s that the replay report reads."""
+    from brpc_tpu_torch.rpc import Channel, ChannelOptions
+    from brpc_tpu_torch.rpc.controller import Controller
+    from brpc_tpu_torch.traffic.replay import _holding
+
+    sched = pace.schedule_s(records)
+    per_method: Dict[str, dict] = {}
+    ok = fail = 0
+    ch = Channel(address, ChannelOptions(share_connections=False,
+                                         name="incident_fix_forward"))
+    with _holding([ch]):
+        # pay the connection's setup with a call no handler counts
+        ch.call_sync("__traffic_warm__", "Ping", b"")
+        t0 = time.perf_counter()
+        for rec, t_s in zip(records, sched):
+            wait = t_s - (time.perf_counter() - t0)
+            if wait > 0:
+                time.sleep(wait)
+            cntl = Controller()
+            cntl.timeout_ms = (rec.timeout_ms if rec.timeout_ms > 0
+                               else default_timeout_ms)
+            if rec.priority:
+                cntl.request_priority = rec.priority
+            if rec.attachment:
+                cntl.request_attachment.append(rec.attachment)
+            ch.call_sync(rec.service, rec.method, rec.payload, cntl=cntl)
+            row = per_method.setdefault(rec.method_key,
+                                        {"ok": 0, "fail": 0})
+            if cntl.failed():
+                fail += 1
+                row["fail"] += 1
+            else:
+                ok += 1
+                row["ok"] += 1
+        elapsed = time.perf_counter() - t0
+    return {"records": len(records), "issued": len(records), "ok": ok,
+            "fail": fail, "elapsed_s": round(elapsed, 3),
+            "per_method": per_method, "pace": pace.to_dict()}
+
+
 def replay_incident(artifact_path: str, use_plan: bool = True,
                     seed: int = 7, warmup_ticks: int = 3,
                     press_factor: float = 4.0,
@@ -260,18 +307,22 @@ def replay_incident(artifact_path: str, use_plan: bool = True,
                             seed=seed)
         elif shape["press"]:
             # fix-forward: same corpus, offered rate deterministically
-            # UNDER capacity (evenly spaced issues at calm_factor of
-            # the service rate never overlap on a drained server)
+            # UNDER capacity, closed-loop on one connection so issues
+            # never overlap on a drained server, even after a stall of
+            # this process
             replay_records = records
             pace = PaceSpec("qps", qps=calm_factor * capacity_qps,
                             seed=seed)
         else:
             replay_records = records
             pace = PaceSpec("recorded", warp=1.0, seed=seed)
-        rep = run_open_loop(
-            replay_records, address, pace, conns=conns,
-            default_timeout_ms=max(500.0, 20 * work_ms),
-            drain_s=5.0)
+        timeout_ms = max(500.0, 20 * work_ms)
+        if shape["press"] and not use_plan:
+            rep = _run_calm(replay_records, address, pace, timeout_ms)
+        else:
+            rep = run_open_loop(
+                replay_records, address, pace, conns=conns,
+                default_timeout_ms=timeout_ms, drain_s=5.0)
         report["replay"] = {
             "records": rep.get("records"), "issued": rep.get("issued"),
             "ok": rep.get("ok"), "fail": rep.get("fail"),

@@ -18,11 +18,11 @@ percentiles, as the shard aggregator merges its shards.
 a ClusterChannel at them from this process and checks that the
 ``/backends`` scraped over HTTP equals the channel's own cells (every
 attempt on a backend row, none left in flight), that the merge across
-nodes gives the channel's totals, and, unless ``BRPC_TPU_PERF_SMOKE=0``,
-that the stat cells cost at most 5% of qps (``BRPC_TPU_BACKEND_STATS``
-on against off, averaged over rounds in which the on and the off load run
-at once, each at a pair of backends of its own, so that the box's drift
-falls on both). One JSON line.
+nodes gives the channel's totals, and, unless
+``BRPC_TPU_TORCH_PERF_SMOKE=0``, that the stat cells cost at most 5% of
+qps (``BRPC_TPU_BACKEND_STATS`` on against off, averaged over rounds in
+which the on and the off load run at once, each at a pair of backends of
+its own, so that the box's drift falls on both). One JSON line.
 """
 
 from __future__ import annotations
@@ -359,6 +359,7 @@ def run_smoke(out: dict) -> None:
     from brpc_tpu_torch.rpc import (ChannelOptions, ClusterChannel, Server,
                                     ServerOptions)
     from brpc_tpu_torch.rpc import backend_stats as bs
+    from brpc_tpu_torch.tools.smoke_util import perf_off
     from brpc_tpu_torch.tools.spawn_util import (http_get_local,
                                                  spawn_port_server)
 
@@ -442,7 +443,7 @@ def run_smoke(out: dict) -> None:
         # backend the checks scraped has started its fiber workers and
         # serves a few percent slower), the two pairs trading sides from
         # one round to the next.
-        skip_perf = os.environ.get("BRPC_TPU_PERF_SMOKE", "1") == "0"
+        skip_perf = perf_off()
         if not skip_perf:
             cost_ports = backends(4)
             if cost_ports is None:

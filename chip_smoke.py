@@ -272,13 +272,13 @@ a client process: the client's stream frames through
 parse; (d) phase 3's burst (a deadline in every request: the classic
 lane on the server) and (b)'s deadline-less one, each against a server
 child with the native lanes and one with ``BRPC_TPU_TORCH_NO_NATIVE=1``
-(the client process likewise), N P P N, three rounds, then the two
+(the client process likewise), N P P N, one round, then the two
 mixed pairings: medians of p50 (and of a channel's first and later
 calls), p99, tokens/s, server CPU ms and syscalls a call; (e) a ``native="echo"`` method at 4 B, 64 B, 1 KiB and
-4 KiB, 2,000 pipelined calls each, against the same handler without the
+4 KiB, 1,000 pipelined calls each, against the same handler without the
 native kind, in turns: p50, calls/s and the calls ``serve_drain``
 served; (f) phase device_lane's 4 MiB ``cudad://`` echo in child
-processes with and without ``mallopt`` (T U U T). Launch counts
+processes with and without ``mallopt`` (T U). Launch counts
 zeroed before each decoding part and read after it, ``flash_decode``'s
 equal to the decode steps and warm-ups; every token list equal to the
 CPU plain path's.
@@ -472,7 +472,7 @@ export valid, each critical path within its caller's wall, each shard's
 flash_decode launches equal to its steps plus its warm-up; (b) client
 -> A -> B over two ``chain_server`` children, 16 four-span trees over
 three pids, then ``trace --smoke``; (c) ``qps_client`` workers and
-``run_pipelined`` against ``bench_echo_server``, ``soak --seconds 30``
+``run_pipelined`` against ``bench_echo_server``, ``soak --seconds 20``
 and ``soak --idle-conns 2000``; (d) ``cluster_top --smoke`` with its
 overhead gate, then two Generate servers behind a ClusterChannel of
 this process, scraped by ``cluster_top --once --json``: the merged rows
@@ -481,12 +481,29 @@ trends are there; (e) ``fiber_stacks`` over HTTP against one of them
 mid-burst names a suspended fiber, and by SIGUSR2 puts a report on the
 other's stderr; both servers' launches equal their steps plus warm-up.
 
+Phase smokes (the port's smokes and ``tools.preflight``), after tools:
+(a) a Generate server on cuda:0 (``shard_server --shards 1
+--generate``, its pidfile in a directory of its own) and a decoy stray
+named by a pidfile in the directory ``python3 -m
+brpc_tpu_torch.tools.preflight`` reads: the preflight's default mode
+kills the stray alone and names the server among the processes that
+hold the card; (b) through ``tools.preflight``'s gate functions,
+``gate_serving_smoke`` (a 2-shard Generate group under a mixed client
+set: every request completed, evicted or shed, TTFT below the full
+generation's, the merged ``/serving`` accounting for the set),
+``gate_serving_obs``, ``gate_device_obs`` and ``gate_device_perf``
+(against the card-measured floors), then ``tools.ici_smoke``: its
+two-process pass on the card over cuda-ipc and its CPU pass; (c) each
+shard's flash_decode launches, from its own dump, equal to its steps
+plus its warm-up. The host-only smokes run in ``preflight --gate``.
+
 ``python3 chip_smoke.py --phase streaming`` (or ``--phase
 observability``, ``--phase device_lane``, ``--phase combo``, ``--phase
 cluster``, ``--phase incident``, ``--phase native``, ``--phase
 shards``, ``--phase ring``, ``--phase replay``, ``--phase h2``,
 ``--phase protocols``, ``--phase legacy``, ``--phase media``, ``--phase
-sanitize``, ``--phase lint``, ``--phase tools``) runs that phase alone
+sanitize``, ``--phase lint``, ``--phase tools``, ``--phase smokes``)
+runs that phase alone
 (after the card line), so that two trees' serving can be compared in
 one call: run each tree's script in turns.
 
@@ -4798,9 +4815,9 @@ def phase_incident(dev):
 
 # ------------------------------------------------------------ phase native
 
-NATIVE_ROUNDS = 3
+NATIVE_ROUNDS = 1
 ECHO_SIZES = (4, 64, 1024, 4096)
-ECHO_CALLS = 2000
+ECHO_CALLS = 1000
 ECHO_WINDOW = 64
 MALLOC_ECHO_BYTES = 4 << 20
 MALLOC_ECHO_CALLS = 30
@@ -5214,11 +5231,11 @@ def _malloc_turn() -> int:
 
 def _malloc_turns() -> dict:
     """The malloc A/B: the 4 MiB cudad:// echo with mallopt (T) and with
-    glibc's defaults (U), T U U T (a turn is a process of its own,
+    glibc's defaults (U), T U (a turn is a process of its own,
     about 13 s, most of it the process's start)."""
     envs = {"tuned": None, "untuned": {"BRPC_TPU_TORCH_NO_MALLOPT": "1"}}
     runs = {k: [] for k in envs}
-    for k in ("tuned", "untuned", "untuned", "tuned"):
+    for k in ("tuned", "untuned"):
         doc = _client_process(["malloc_turn", "0"], env=envs[k])
         check(doc["mallopt"] == (k == "tuned"),
               f"{k} turn ran with mallopt={doc['mallopt']}")
@@ -5306,7 +5323,7 @@ def phase_native(dev):
 SHARD_COUNTS = (1, 2, 4)
 SHARD_CLIENT_PROCESSES = (1, 4)
 SHARD_TURN_CALLS = 256          # Generate calls in a timed turn, all clients
-SHARD_ROUNDS = 3                # turns a cell; the order flips each round
+SHARD_ROUNDS = 2                # turns a cell; the order flips each round
 # parts a-c: the hang check's timeout, which part c waits out. It must
 # outlast a shard's way to its first dump (its CUDA context and warm-up;
 # ``ready_s`` in /shards): 0.8-1.5 s at 1, 2 and 4 shards on an NVIDIA
@@ -6071,7 +6088,7 @@ def phase_shards(dev):
 RING_ENV = {"BRPC_TPU_FLAG_EVENT_RING_LANE": "1"}
 SELECTOR_ENV = {"BRPC_TPU_FLAG_EVENT_RING_LANE": "0"}
 RING_TURN_CALLS = 256           # (c)-(e): Generate calls in a timed turn
-RING_ROUNDS = 3                 # (c)-(e): timed turns a case; the order flips
+RING_ROUNDS = 2                 # (c)-(e): timed turns a case; the order flips
 RING_SSL_CPU_RATIO = 10         # (e): most server CPU a TLS call may take,
                                 # against a tcp call on its lane's server
 RING_ECHO_CONNS = 8             # (c): tools/ring_smoke.py's echo shape
@@ -9544,7 +9561,7 @@ TOOLS_QPS_S = 3.0               # (c): their window
 TOOLS_QPS_CONNS = 2             # (c): connections a worker
 TOOLS_PIPELINED_CALLS = 2000    # (c): run_pipelined's Echo calls
 TOOLS_PIPELINED_INFLIGHT = 8
-TOOLS_SOAK_S = 30               # (c): the mixed soak's window
+TOOLS_SOAK_S = 20               # (c): the mixed soak's window
 TOOLS_IDLE_CONNS = 2000         # (c): the idle-connection soak
 TOOLS_STACK_TRIES = 20          # (e): fiber_stacks reads mid-burst at most
 
@@ -10044,6 +10061,170 @@ def phase_tools(dev):
     return out
 
 
+SMOKES_STRAY_S = 600            # (a): the decoy stray's sleep
+SMOKES_ICI_S = 600              # (b): ici_smoke's two passes
+
+
+def _smokes_preflight(here: Path, work: str) -> dict:
+    """(a) A Generate server on the card (its pidfile in a directory of
+    its own) and a decoy stray named by a pidfile in the directory the
+    preflight reads; ``tools.preflight``'s default mode in a child must
+    kill the stray alone and name the server among the card's holders."""
+    from brpc_tpu_torch.butil.pidfile import cmdline
+    pid_dir = os.path.join(work, "pids")
+    own_dir = os.path.join(work, "server_pids")
+    os.makedirs(pid_dir)
+    err = open(os.path.join(work, "smokes_server.err"), "w")
+    from brpc_tpu_torch.tools.spawn_util import spawn_announcing_server
+    server, got = spawn_announcing_server(
+        ["-m", "brpc_tpu_torch.tools.shard_server", "--shards", "1",
+         "--generate"], 240,
+        env=dict(os.environ, PYTHONPATH=str(here),
+                 BRPC_TPU_TORCH_PID_DIR=own_dir),
+        stderr=err, cwd=str(here))
+    check(got is not None, "smokes a: the Generate server never came up")
+    stray = subprocess.Popen([sys.executable, "-c",
+                              f"import time; time.sleep({SMOKES_STRAY_S})"])
+    # reaped the moment it exits: a zombie child would look alive to the
+    # preflight's /proc poll, which would then keep its pidfile
+    reaper = threading.Thread(target=stray.wait, daemon=True)
+    reaper.start()
+    try:
+        # the server holds the card once it has served a call
+        from brpc_tpu_torch.rpc import Channel, ChannelOptions
+        ch = Channel(f"tcp://127.0.0.1:{got['PORT']}",
+                     ChannelOptions(timeout_ms=60000))
+        try:
+            toks, code, text = _shard_generate(ch, _prompts()[0])
+        finally:
+            ch.close()
+        check(toks is not None, f"smokes a: Generate {code} {text}")
+        with open(os.path.join(pid_dir, f"stray.{stray.pid}.pid"),
+                  "w") as f:
+            f.write(f"{stray.pid}\n{cmdline(stray.pid)}\n")
+        run = _module_child(["brpc_tpu_torch.tools.preflight"],
+                            "smokes a", env={"BRPC_TPU_TORCH_PID_DIR":
+                                             pid_dir})
+        report = json.loads(run["stdout"])
+        killed = {a["pid"] for a in report["killed"]}
+        holders = {h["pid"]: h for h in report["card_holders"]}
+        check(killed == {stray.pid},
+              f"smokes a: killed {report['killed']}, not the stray alone")
+        reaper.join(10)
+        check(stray.returncode is not None, "smokes a: the stray lives on")
+        check(server.poll() is None, "smokes a: the server was killed")
+        check(server.pid in holders,
+              f"smokes a: {server.pid} not among the card's holders "
+              f"{sorted(holders)}")
+        check(not os.listdir(pid_dir), "smokes a: the stray's pidfile "
+                                       "was left")
+        return {"killed": report["killed"], "server_pid": server.pid,
+                "server": holders[server.pid],
+                "holders": len(holders), "preflight_s": run["wall_s"]}
+    finally:
+        if stray.poll() is None:
+            stray.kill()
+            stray.wait(10)
+        server.terminate()
+        server.wait(30)
+        err.close()
+
+
+def _smokes_gates() -> dict:
+    """(b) The port's gate functions on the card: the serving smoke's
+    2-shard group, the serving and device observatories, the device
+    lane's ratios against the card-measured floors."""
+    from brpc_tpu_torch.tools import preflight
+    out = {}
+    for name, fn in (("serving_smoke", preflight.gate_serving_smoke),
+                     ("serving_obs", preflight.gate_serving_obs),
+                     ("device_obs", preflight.gate_device_obs),
+                     ("device_perf", preflight.gate_device_perf)):
+        progress(f"smokes: (b) {name}")
+        t0 = time.monotonic()
+        got = fn()
+        got["gate_s"] = time.monotonic() - t0
+        out[name] = got
+        emit({"phase": "smokes", "gate": name, name: got})
+        check(got.get("ok") and not got.get("skipped"),
+              f"smokes b: gate {name}: {got}")
+    sv = out["serving_smoke"]
+    check(sum(sv["outcomes"].values()) == 24,
+          f"smokes b: verdicts {sv['outcomes']}")
+    check(sv["ttft_p50_ms"] < sv["full_gen_p50_ms"],
+          f"smokes b: TTFT {sv['ttft_p50_ms']} ms against "
+          f"{sv['full_gen_p50_ms']} ms")
+    m = sv["merged_serving"]
+    check(m["completed"] + m["evicted"] + m["canceled"]
+          >= sv["outcomes"]["completed"] + sv["outcomes"]["evicted"] - 1,
+          f"smokes b: merged /serving {m}")
+    return out
+
+
+def _smokes_ici(work: str) -> dict:
+    """(b) ``tools.ici_smoke``: the two-process pass on the card over
+    cuda-ipc (the reference's pass against the TPU), and the CPU one."""
+    path = os.path.join(work, "ici_smoke.json")
+    run = _module_child(["brpc_tpu_torch.tools.ici_smoke", "--out", path],
+                        "smokes b: ici_smoke", SMOKES_ICI_S)
+    doc = json.load(open(path))
+    check(doc["ok"] and doc["card"]["ok"]
+          and doc["card"]["lane_kind"] == "cuda-ipc"
+          and doc["cpu_fabric"]["lane_kind"] == "staged",
+          f"smokes b: ici_smoke {doc}")
+    doc["wall_s"] = run["wall_s"]
+    return doc
+
+
+def phase_smokes(dev):
+    """The port's smokes and preflight on the card: (a) the preflight's
+    default mode beside a Generate server on the card and a decoy stray
+    named by a pidfile; (b) ``gate_serving_smoke`` (a 2-shard Generate
+    group, each shard's flash_decode in its own process),
+    ``gate_serving_obs``, ``gate_device_obs`` and ``gate_device_perf``
+    through ``tools.preflight``'s own parsing, and ``ici_smoke``'s
+    two-process pass over cuda-ipc; (c) each shard's flash_decode
+    launches, from its own dump, equal to its steps plus its warm-up.
+    The host-only smokes run in ``preflight --gate``, not here."""
+    import shutil
+    import tempfile
+
+    from brpc_tpu_torch.ops import _build
+    phase_t0 = time.monotonic()
+    here = Path(__file__).resolve().parent
+    _build.build("flash_decode")     # before the group's supervisor forks
+    work = tempfile.mkdtemp(prefix="chip-smoke-smokes-")
+    out = {"phase": "smokes"}
+    try:
+        progress("smokes: (a) the preflight beside a Generate server")
+        t0 = time.monotonic()
+        out["a"] = _smokes_preflight(here, work)
+        out["a"]["part_s"] = time.monotonic() - t0
+        emit({"phase": "smokes", "part": "a", "a": out["a"]})
+        t0 = time.monotonic()
+        out["b"] = _smokes_gates()
+        progress("smokes: (b) ici_smoke")
+        out["b"]["ici_smoke"] = _smokes_ici(work)
+        out["b"]["part_s"] = time.monotonic() - t0
+        emit({"phase": "smokes", "part": "b",
+              "ici_smoke": out["b"]["ici_smoke"]})
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    shards = out["b"]["serving_smoke"]["shards"]
+    for i, sh in enumerate(shards):
+        check(sh["flash_decode"] == sh["decode_steps"] + sh["warmup_steps"],
+              f"smokes c: shard {i} launched flash_decode "
+              f"{sh['flash_decode']} times for {sh['decode_steps']} steps "
+              f"+ {sh['warmup_steps']} warm-up")
+    out["c"] = {"shards": shards}
+    out["launches"] = {"flash_decode": sum(sh["flash_decode"]
+                                           for sh in shards)}
+    out["phase_s"] = time.monotonic() - phase_t0
+    emit({"phase": "smokes", "c": out["c"], "launches": out["launches"],
+          "phase_s": out["phase_s"]})
+    return out
+
+
 def phase_paths(dev, split_inputs):
     """The port's two other paths, each driven through its public entry
     point with every count zeroed just before and read just after:
@@ -10361,6 +10542,10 @@ def main(only: str = "") -> int:
             # the phase builds flash_decode before the group forks
             phase_tools(dev)
             return 0
+        if only == "smokes":
+            # the phase builds flash_decode before the group forks
+            phase_smokes(dev)
+            return 0
         if only:
             {"streaming": phase_streaming,
              "observability": phase_observability}[only]()
@@ -10405,6 +10590,8 @@ def main(only: str = "") -> int:
         lint = phase_lint(dev)
         progress("phase tools")
         tools = phase_tools(dev)
+        progress("phase smokes")
+        smokes = phase_smokes(dev)
         progress("phase paths")
         paths = phase_paths(dev, split_inputs)
         progress("phase times")
@@ -10444,6 +10631,7 @@ def main(only: str = "") -> int:
     by_path["sanitize"] = sanitize["launches"]["flash_decode"]
     by_path["lint"] = lint["launches"]["flash_decode"]
     by_path["tools"] = tools["launches"]["flash_decode"]
+    by_path["smokes"] = smokes["launches"]["flash_decode"]
     by_path["long_cache_decode"] = paths["long_cache_decode"]["flash_decode"]
     fwd_by_path = {
         "long_context": paths["long_context"]["flash_attn_fwd"],
@@ -10472,7 +10660,9 @@ def main(only: str = "") -> int:
              "unary in a child under the strict lock-order assert and in "
              "one without it; tools: Generate through a 2-shard group traced "
              "into one tree a call, and behind cluster_top's ClusterChannel "
-             "with fiber_stacks mid-burst; the long-cache decode",
+             "with fiber_stacks mid-burst; smokes: the serving smoke's "
+             "2-shard Generate group under preflight's gate; the "
+             "long-cache decode",
              sum(by_path.values()), sl["flash_decode"],
              sl["flash_decode"] / steps, errs["serving_decode"],
              times["decode"], launches_by_path=by_path,
@@ -10525,7 +10715,8 @@ if __name__ == "__main__":
                                  ["incident"], ["native"], ["shards"],
                                  ["ring"], ["replay"], ["h2"],
                                  ["protocols"], ["legacy"], ["media"],
-                                 ["sanitize"], ["lint"], ["tools"]):
+                                 ["sanitize"], ["lint"], ["tools"],
+                                 ["smokes"]):
             sys.exit(f"chip_smoke: unknown phase {sys.argv[2:]}")
         sys.exit(main(only=sys.argv[2]))
     sys.exit(main())

@@ -889,10 +889,48 @@ def case_pinned_staging_freelist():
     assert st.land(x, torch.device("cpu")) is x and st.fallback_count == 1
 
 
+def case_finalizer_under_the_pools_lock():
+    """A collection that starts while ``reserve`` holds the pool's lock
+    (any allocation there may start one) fires a dead tensor's
+    finalizer, which calls ``release`` on the same thread: it must not
+    wait for the lock its own thread holds. (Found by the device
+    observatory's smoke, whose pipelined windows hung in ``reserve``.)"""
+    pool = port_pool.DeviceRecvPool(1 << 20)
+    t = torch.zeros(256)
+    t.cycle = t                  # freed by the cyclic collector only
+    fp = pool.reserve(1024)
+    pool.attach_finalizer(t, fp)
+    del t
+    real = pool._class_index
+    fired = []
+
+    def collecting(footprint):
+        # runs with the lock held, as an allocation's collection would
+        if not fired:
+            fired.append(1)
+            gc.collect()
+        return real(footprint)
+
+    pool._class_index = collecting
+    got = []
+    th = threading.Thread(target=lambda: got.append(pool.reserve(2048)),
+                          daemon=True)
+    th.start()
+    th.join(5)
+    assert not th.is_alive(), "reserve deadlocked on its own finalizer"
+    assert fired and got == [8 << 10], got
+    assert pool.used == 8 << 10 and pool.reserved_blocks[0] == 1, \
+        (pool.used, pool.reserved_blocks)
+    pool.release(got[0])
+    assert pool.used == 0
+
+
 CASES = [
     ("round_to_class", case_round_to_class, ()),
     ("pool against reference", case_pool_against_reference, ()),
     ("finalizer with views", case_finalizer_with_views, ()),
+    ("a finalizer under the pool's lock",
+     case_finalizer_under_the_pools_lock, ()),
     ("frame bytes", case_frame_bytes, ()),
     ("hello bytes", case_hello_bytes, ()),
     ("ipc record codec", case_ipc_record_codec, ()),

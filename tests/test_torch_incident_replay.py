@@ -256,6 +256,60 @@ def case_timeout_artifact_installs_a_plan():
         assert "plan" not in fix and fix["replay"]["ok"] == 6, fix
 
 
+class _StallOnce:
+    """A stand-in for a replay module's ``time``: its first ``sleep``
+    oversleeps by ``stall_s``, as a stall of the replaying process
+    would (the rest is the real module)."""
+
+    def __init__(self, stall_s):
+        self.stall_s, self.stalls = stall_s, 0
+
+    def sleep(self, s):
+        if not self.stalls:
+            self.stalls = 1
+            s += self.stall_s
+        time.sleep(s)
+
+    def __getattr__(self, name):
+        return getattr(time, name)
+
+
+def case_a_stall_sheds_no_fix_forward_call():
+    """An 80 ms stall of the replay's issuing loop, at a pace of one
+    call each 40 ms against a server with ``max_concurrency`` 1 and 20
+    ms of work a call, sheds no fix-forward call."""
+    from brpc_tpu_torch.traffic import replay as traffic_replay
+
+    with tempfile.TemporaryDirectory() as d:
+        path = f"{d}/incident-5.brpcinc"
+        w = port_art.ArtifactWriter(path)
+        w.put_incident_meta({"id": 5, "keys": ["server_limit_shed"],
+                             "peak_key": "server_limit_shed",
+                             "error_classes": {"ELIMIT": 9}})
+        w.put_snapshot("status", {"saturation": {"concurrency_limit": 1}})
+        for i in range(7):
+            w.put_request(CapturedRequest(
+                "IncStall.Slow", "IncStall", "Slow", b"s%d" % i, b"",
+                40_000_000 * i, 0, 0.0, 0, i, 0, 20_000.0))
+        w.close()
+        stall = _StallOnce(0.08)
+        mods = (traffic_replay, port_replay)
+        saved = [m.time for m in mods]
+        for m in mods:
+            m.time = stall
+        try:
+            fix = port_replay.replay_incident(path, use_plan=False, seed=5)
+        finally:
+            for m, t in zip(mods, saved):
+                m.time = t
+        assert stall.stalls == 1, "the replay never slept"
+        assert fix["ok"] and fix["work_ms"] == 20.0, fix
+        assert fix["replay"]["pace"]["qps"] == 25.0, fix["replay"]
+        assert fix["replay"]["fail"] == 0 and fix["replay"]["ok"] == \
+            fix["replay"]["issued"] == 7, fix["replay"]
+        assert not fix["refired"], fix
+
+
 CASES = [
     ("derive_repro and build_fault_plan against brpc_tpu's",
      case_derive_and_plan, ()),
@@ -263,6 +317,8 @@ CASES = [
      ()),
     ("a timeout artifact replays under a FaultPlan",
      case_timeout_artifact_installs_a_plan, ()),
+    ("a stall of the replay sheds no fix-forward call",
+     case_a_stall_sheds_no_fix_forward_call, ()),
 ]
 
 

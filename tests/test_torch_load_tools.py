@@ -18,7 +18,7 @@
   puts it on the target's stderr.
 - ``cluster_top``: ``merge_backends``, ``scrape`` and ``render`` give the
   same from the port and brpc_tpu over the same pages of port servers;
-  ``--smoke`` with ``BRPC_TPU_PERF_SMOKE=0``; the timeline block of
+  ``--smoke`` with ``BRPC_TPU_TORCH_PERF_SMOKE=0``; the timeline block of
   ``--json`` (tests/test_timeline.py's case).
 
 Every CLI runs in a subprocess that imports no jax, brpc_tpu or
@@ -407,7 +407,7 @@ def case_cluster_top_against_brpc_tpu():
 
 def case_cluster_top_smoke():
     out = _run_module("cluster_top", ["--smoke"], timeout_s=120,
-                      env={"BRPC_TPU_PERF_SMOKE": "0"})
+                      env={"BRPC_TPU_TORCH_PERF_SMOKE": "0"})
     assert out["forbidden"] == "[]", out["forbidden"]
     doc = json.loads(out["stdout"])
     assert out["rc"] == 0 and doc["ok"], doc

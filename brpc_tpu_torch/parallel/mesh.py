@@ -1,12 +1,20 @@
-"""RpcMesh: the devices of one process as a named grid (the port of
-brpc_tpu/parallel/mesh.py).
+"""RpcMesh and PodMesh: a named grid of devices or of rank processes (the
+port of brpc_tpu/parallel/mesh.py).
 
-The reference wraps ``jax.sharding.Mesh``: one process drives every
-device of the mesh and its collectives compile into one SPMD program.
-The port's mesh is a ``[n_replicas][n_shards]`` grid of
-``torch.device``, still driven by one process; its collectives
-(``collective.py``, ``ring.py``) are explicit per-shard tensor ops and
-``.to(device)`` hops between the shards. The two axes:
+The reference wraps ``jax.sharding.Mesh``: its devices may belong to
+many processes (after ``jax.distributed`` is up), and its collectives
+compile into one SPMD program. The port has two meshes:
+
+- ``RpcMesh``, a ``[n_replicas][n_shards]`` grid of ``torch.device``
+  driven by one process; its collectives (``collective.py``,
+  ``ring.py``) are per-shard tensor ops and ``.to(device)`` hops between
+  the shards;
+- ``PodMesh``, a grid of the ranks of a ``torch.distributed`` world, one
+  device a rank (``distributed.pod_mesh``); every rank runs the same
+  program on its own piece, and the collectives are ``torch.distributed``
+  calls over the process group of the rank's replica row.
+
+The two axes:
 
   'replica' -- interchangeable servers (SelectiveChannel's replica set;
                the data-parallel axis)
@@ -21,7 +29,7 @@ on one device is a copy.
 
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -52,6 +60,44 @@ class RpcMesh:
     def shard_devices(self, replica: int = 0) -> List[torch.device]:
         """The devices along the shard axis of one replica."""
         return self.devices[replica]
+
+
+class PodMesh:
+    """The ranks of a process group as a grid: ``ranks[r][s]`` is the rank
+    at replica r, shard s (row r holds ranks ``r * n_shards`` up to
+    ``r * n_shards + n_shards - 1``, the order of the reference's pod
+    mesh). This process is ``rank``, at ``coords``, on ``device``;
+    ``group`` is the process group of its replica row, the shard axis
+    its collectives run over. Made by ``distributed.pod_mesh``."""
+
+    def __init__(self, n_replicas: int, n_shards: int, rank: int,
+                 device: torch.device, group: Any, backend: str):
+        if not 0 <= rank < n_replicas * n_shards:
+            raise ValueError(f"rank {rank} is outside a {n_replicas}x"
+                             f"{n_shards} grid")
+        self.ranks: List[List[int]] = [
+            [r * n_shards + s for s in range(n_shards)]
+            for r in range(n_replicas)]
+        self.rank = rank
+        self.coords: Tuple[int, int] = divmod(rank, n_shards)
+        self.device = torch.device(device)
+        self.group = group
+        self.backend = backend
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return {REPLICA_AXIS: len(self.ranks),
+                SHARD_AXIS: len(self.ranks[0])}
+
+    @property
+    def row_ranks(self) -> List[int]:
+        """The ranks of this rank's replica row, in shard order."""
+        return self.ranks[self.coords[0]]
+
+    @property
+    def first_device(self) -> torch.device:
+        """Where this rank's outputs lie: its own device."""
+        return self.device
 
 
 def make_rpc_mesh(n_replicas: Optional[int] = None,
@@ -89,33 +135,43 @@ class ShardSpec(tuple):
 
 class Sharding(NamedTuple):
     """NamedSharding's counterpart: where each piece of a global tensor
-    lives on ``mesh``."""
-    mesh: RpcMesh
+    lives on ``mesh`` (an ``RpcMesh`` or a ``PodMesh``)."""
+    mesh: Any
     spec: ShardSpec
 
-    def place(self, x: torch.Tensor) -> List[List[torch.Tensor]]:
-        """The pieces of ``x`` by mesh coordinate: ``[r][s]``, each on its
-        device; a dim split over an axis is split into equal parts."""
-        def split(t, axis: str, index: int) -> torch.Tensor:
+    def piece(self, x: torch.Tensor, replica: int,
+              shard: int) -> torch.Tensor:
+        """The piece of ``x`` at mesh coordinate (replica, shard): a dim
+        split over an axis is split into equal parts."""
+        for axis, index in ((REPLICA_AXIS, replica), (SHARD_AXIS, shard)):
             for dim, name in enumerate(self.spec):
                 if name == axis:
                     n = self.mesh.shape[axis]
-                    if t.shape[dim] % n:
-                        raise ValueError(f"dim {dim} ({t.shape[dim]}) does "
+                    if x.shape[dim] % n:
+                        raise ValueError(f"dim {dim} ({x.shape[dim]}) does "
                                          f"not divide the {axis} axis "
                                          f"size {n}")
-                    t = t.chunk(n, dim)[index]
-            return t
-        return [[split(split(x, REPLICA_AXIS, r), SHARD_AXIS, s).to(dev)
-                 for s, dev in enumerate(row)]
+                    x = x.chunk(n, dim)[index]
+        return x
+
+    def place(self, x: torch.Tensor) -> List[List[torch.Tensor]]:
+        """The pieces of ``x`` by mesh coordinate: ``[r][s]``, each on its
+        device (an ``RpcMesh``)."""
+        return [[self.piece(x, r, s).to(dev) for s, dev in enumerate(row)]
                 for r, row in enumerate(self.mesh.devices)]
+
+    def local(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's piece of the global ``x``, on its device (a
+        ``PodMesh``): what ``jax.make_array_from_callback`` hands the
+        process's device."""
+        return self.piece(x, *self.mesh.coords).to(self.mesh.device)
 
 
 def shard_spec(*names: Optional[str]) -> ShardSpec:
     return ShardSpec(names)
 
 
-def sharding(mesh: RpcMesh, *names: Optional[str]) -> Sharding:
+def sharding(mesh, *names: Optional[str]) -> Sharding:
     return Sharding(mesh, ShardSpec(names))
 
 

@@ -12,8 +12,10 @@ hop of a step reads what the shards held before the step.
   ring_scan       -- n - 1 hops with a combine a step: the blockwise
                      consumer pattern of ring attention
 
-Outputs are global tensors on the mesh's first device
-(``collective.py``).
+On an ``RpcMesh`` outputs are global tensors on the mesh's first device
+(``collective.py``). On a ``PodMesh`` each rank gives its piece and gets
+its piece (``ring_allreduce``: its whole copy), and a hop is one
+``batch_isend_irecv`` between the ranks of a row.
 """
 
 from __future__ import annotations
@@ -22,8 +24,8 @@ from typing import Callable, List, Sequence
 
 import torch
 
-from .collective import _gather
-from .mesh import RpcMesh, split_shards
+from .collective import _gather, _pod_hop
+from .mesh import SHARD_AXIS, PodMesh, split_shards
 
 
 def _hop(devs: Sequence[torch.device], blocks: Sequence[torch.Tensor],
@@ -38,26 +40,40 @@ def _hop(devs: Sequence[torch.device], blocks: Sequence[torch.Tensor],
     return out
 
 
-def ring_shift(mesh: RpcMesh, x: torch.Tensor, step: int = 1
-               ) -> torch.Tensor:
+def ring_shift(mesh, x: torch.Tensor, step: int = 1) -> torch.Tensor:
     """Shift the shard blocks of ``x`` (split along dim 0) around the ring
-    by ``step`` positions."""
+    by ``step`` positions (on a ``PodMesh``, ``x`` is the rank's block:
+    it goes to shard (s + step) % n, and shard (s - step) % n's
+    comes back)."""
+    if isinstance(mesh, PodMesh):
+        return _pod_hop(mesh, [x.to(mesh.device)], step)[0]
     devs = mesh.shard_devices()
     moved = _hop(devs, split_shards(mesh, x), step)
     return torch.cat(_gather(moved, mesh.first_device), dim=0)
 
 
-def ring_allreduce(mesh: RpcMesh, x: torch.Tensor) -> torch.Tensor:
+def ring_allreduce(mesh, x: torch.Tensor) -> torch.Tensor:
     """Allreduce of ``x`` [n, chunk], which every shard holds whole (the
     reference's replicated in-spec), so the result is n times ``x``. At
     reduce-scatter step i shard r receives chunk (r - i - 1) % n from
     shard r - 1 and adds it to its own; at all-gather step i it receives
-    the finished chunk (r - i) % n and keeps it."""
-    devs = mesh.shard_devices()
-    n = len(devs)
+    the finished chunk (r - i) % n and keeps it. On a ``PodMesh`` each
+    rank gives its copy and gets the sum: 2(n - 1) hops of one chunk."""
+    n = mesh.shape[SHARD_AXIS]
     if x.shape[0] != n:
         raise ValueError(f"ring_allreduce takes [n_shards, chunk]; got "
                          f"{tuple(x.shape)} for {n} shards")
+    if isinstance(mesh, PodMesh):
+        r = mesh.coords[1]
+        acc = x.to(mesh.device, copy=True)
+        for i in range(n - 1):
+            recv, = _pod_hop(mesh, [acc[(r - i) % n]])
+            acc[(r - i - 1) % n] += recv
+        for i in range(n - 1):
+            recv, = _pod_hop(mesh, [acc[(r + 1 - i) % n]])
+            acc[(r - i) % n] = recv
+        return acc
+    devs = mesh.shard_devices()
     acc = [x.to(d, copy=True) for d in devs]
     for i in range(n - 1):
         sends = [acc[s][(s - i) % n] for s in range(n)]
@@ -70,12 +86,20 @@ def ring_allreduce(mesh: RpcMesh, x: torch.Tensor) -> torch.Tensor:
     return acc[0].to(mesh.first_device)
 
 
-def ring_scan(mesh: RpcMesh, x: torch.Tensor, combine: Callable,
+def ring_scan(mesh, x: torch.Tensor, combine: Callable,
               init=None) -> torch.Tensor:
     """Blockwise ring consumption: each shard starts from its own block
     (``combine(init, block)`` when ``init`` is given) and, over n - 1
     hops, combines every other shard's block as it arrives from its
-    neighbour (``combine(carry, block) -> carry``)."""
+    neighbour (``combine(carry, block) -> carry``). On a ``PodMesh``
+    ``x`` is the rank's block and the output its carry."""
+    if isinstance(mesh, PodMesh):
+        block = x.to(mesh.device)
+        carry = combine(init, block) if init is not None else block
+        for _ in range(mesh.shape[SHARD_AXIS] - 1):
+            block, = _pod_hop(mesh, [block])
+            carry = combine(carry, block)
+        return carry
     devs = mesh.shard_devices()
     blocks = list(split_shards(mesh, x))
     carry = [combine(init, b) if init is not None else b for b in blocks]

@@ -132,7 +132,10 @@ class ParallelChannel:
                           cntl: Controller) -> bool:
         """Try the collective; True when the call completed there. A
         lowering that fails is counted (``collective_fallbacks``) and the
-        call fans out: the lowering never changes what a call returns."""
+        call fans out: the lowering never changes what a call returns. A
+        collective whose shard row spans rank processes (a ``PodMesh``)
+        is declined and counted the same way: its peers would never join
+        it (brpc_tpu lowers it; ROADMAP.md §3)."""
         coll = self._collective
         if coll is None:
             return False
@@ -147,6 +150,11 @@ class ParallelChannel:
             # expresses only the stock scatter
             return False
         if len(self._subs) != coll.n_shards or not self._all_device_lane():
+            return False
+        if coll.spans_ranks:
+            # a row of rank processes: the collective is a call every rank
+            # must join, and this call is this process's alone
+            self.collective_fallbacks += 1
             return False
         try:
             out = coll.call(fn, arrs[0])

@@ -497,13 +497,29 @@ two-process pass on the card over cuda-ipc and its CPU pass; (c) each
 shard's flash_decode launches, from its own dump, equal to its steps
 plus its warm-up. The host-only smokes run in ``preflight --gate``.
 
+Phase pod (the pod across rank processes, ``tools/pod_smoke.py``), after
+smokes: (a) four rank processes on cuda:0 over gloo (``init_pod`` over
+``tcp://``, a ``PodMesh`` at 1x4 and 2x2) run every collective, ring hop
+and sequence-parallel attention of a pod, each rank's result held to its
+piece of the same operation on the single-process 4-shard mesh of
+cuda:0: to the bit for data movement, within FP32_TOL for the
+reductions and for attention at 8 heads x 2048 x 64 fp32; (b) in the
+same ranks a ``CollectiveChannel.call`` whose service function is
+``flash_attention`` on the rank's 8 heads of 32 x 2048 x 64 bf16,
+merged with ``all_gather``, against ``flash_attention`` on the whole
+input in this process, within the kernel check's rounding bound; each
+rank's flash_attn_fwd_tc launches (at least one) go to the kernels
+line under ``pod``; (c) a one-rank world, on which ``init_pod`` picks
+NCCL, runs (a)'s operations through NCCL; (d) each operation's median
+ms over 20 calls for both backends, one line each with the card.
+
 ``python3 chip_smoke.py --phase streaming`` (or ``--phase
 observability``, ``--phase device_lane``, ``--phase combo``, ``--phase
 cluster``, ``--phase incident``, ``--phase native``, ``--phase
 shards``, ``--phase ring``, ``--phase replay``, ``--phase h2``,
 ``--phase protocols``, ``--phase legacy``, ``--phase media``, ``--phase
-sanitize``, ``--phase lint``, ``--phase tools``, ``--phase smokes``)
-runs that phase alone
+sanitize``, ``--phase lint``, ``--phase tools``, ``--phase smokes``,
+``--phase pod``) runs that phase alone
 (after the card line), so that two trees' serving can be compared in
 one call: run each tree's script in turns.
 
@@ -10225,6 +10241,117 @@ def phase_smokes(dev):
     return out
 
 
+# ------------------------------------------------------------ phase pod
+
+POD_RANKS = 4
+POD_ITERS = 20
+POD_TIMEOUT_S = 240
+
+
+def _pod_check(run: dict, what: str, ranks: int, backend: str) -> dict:
+    """Every rank of ``run`` (a ``pod_smoke.run_pod`` report) ran on
+    ``backend``, and each operation equals the single-process mesh's: to
+    the bit for data movement, within FP32_TOL for the reductions and
+    attention. Returns the largest difference by operation."""
+    from brpc_tpu_torch.tools.pod_smoke import OPS
+    bad = [r.get("error", r) for r in run["ranks"] if not r.get("ok")]
+    check(run["ok"] and len(run["ranks"]) == ranks, f"pod {what}: {bad}")
+    errs = {}
+    for rep in run["ranks"]:
+        check(rep["backend"] == backend,
+              f"pod {what}: rank {rep['rank']} ran on {rep['backend']}")
+        for tag, shape in rep["shapes"].items():
+            check(list(shape["ops"]) == list(OPS),
+                  f"pod {what} {tag}: ran {list(shape['ops'])}")
+            for name, got in shape["ops"].items():
+                check(got["ok"] and got["max_abs_err"] <= FP32_TOL,
+                      f"pod {what} {tag} rank {rep['rank']} {name}: {got}")
+                errs[name] = max(errs.get(name, 0.0), got["max_abs_err"])
+    return errs
+
+
+def phase_pod(dev):
+    """The pod across rank processes on the card (tools/pod_smoke.py):
+    (a) four rank processes on cuda:0 over gloo (NCCL takes one card a
+    rank) run every collective of a PodMesh at 1x4 and 2x2, each held to
+    its piece of the same operation on the single-process 4-shard mesh
+    of cuda:0, attention at 8 heads x 2048 x 64 fp32; (b) in the same
+    ranks a CollectiveChannel.call whose service function is
+    flash_attention on the rank's 8 heads of 32 x 2048 x 64 bf16, merged
+    with all_gather, against flash_attention on the whole input here,
+    and each rank's flash_attn_fwd_tc launches; (c) a one-rank world on
+    which init_pod picks NCCL runs (a)'s operations through NCCL; (d)
+    each operation's median ms over POD_ITERS calls for both backends."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from brpc_tpu_torch.ops import _build
+    from brpc_tpu_torch.tools import pod_smoke
+    fa = _fa_module()
+    phase_t0 = time.monotonic()
+    _build.build("flash_attention_tc")     # before the ranks load it
+    card = card_line()
+    work = tempfile.mkdtemp(prefix="chip-smoke-pod-")
+    out = {"phase": "pod"}
+    try:
+        progress("pod: (a, b) four ranks over gloo on cuda:0")
+        gloo = pod_smoke.run_pod(POD_RANKS, device=str(dev),
+                                 backend="gloo", full=True,
+                                 iters=POD_ITERS, kernel=True,
+                                 out_dir=work, tol=FP32_TOL,
+                                 timeout_s=POD_TIMEOUT_S)
+        out["a"] = {"wall_s": gloo["wall_s"],
+                    "max_abs_err": _pod_check(gloo, "a", POD_RANKS,
+                                              "gloo"),
+                    "grids": gloo["ranks"][0]["shapes"]}
+        emit({"phase": "pod", "part": "a", "a": out["a"]})
+        q, k, v = pod_smoke.kernel_inputs(dev)
+        want = fa.flash_attention(q, k, v)
+        bound = fa._rounding_bound(want.float(), want.dtype)
+        ranks = []
+        for rep in gloo["ranks"]:
+            got = torch.load(os.path.join(work, f"kernel{rep['rank']}.pt"))
+            got = got.to(dev)
+            diff = (got.float() - want.float()).abs()
+            worst = float((diff / bound).max())
+            launched = rep["kernel"]["launches"]
+            check(got.shape == want.shape and worst <= 1.0,
+                  f"pod b: rank {rep['rank']}'s gathered flash_attention "
+                  f"is {worst} of its bound from the whole input's")
+            check(launched["flash_attn_fwd_tc"] >= 1
+                  and launched["flash_attn_fwd"] == 0
+                  and launched["flash_decode"] == 0,
+                  f"pod b: rank {rep['rank']} launched {launched}")
+            ranks.append({"rank": rep["rank"], "launches": launched,
+                          "max_abs_err": float(diff.max()),
+                          "worst_over_bound": worst})
+        out["b"] = {"ranks": ranks}
+        emit({"phase": "pod", "part": "b", "b": out["b"]})
+        progress("pod: (c) a one-rank world over NCCL")
+        nccl = pod_smoke.run_pod(1, device=str(dev), full=True,
+                                 iters=POD_ITERS, tol=FP32_TOL,
+                                 timeout_s=POD_TIMEOUT_S)
+        out["c"] = {"wall_s": nccl["wall_s"],
+                    "max_abs_err": _pod_check(nccl, "c", 1, "nccl")}
+        emit({"phase": "pod", "part": "c", "c": out["c"]})
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    g_ms, n_ms = gloo["ranks"][0]["times_ms"], nccl["ranks"][0]["times_ms"]
+    out["d"] = {name: {"gloo_4_ranks_1x4_ms": g_ms[name],
+                       "nccl_1_rank_ms": n_ms[name]} for name in g_ms}
+    for name, t in out["d"].items():
+        emit({"phase": "pod", "part": "d", "op": name, **t,
+              "iters": POD_ITERS, "card": card})
+    out["launches"] = {"flash_attn_fwd_tc": sum(
+        r["launches"]["flash_attn_fwd_tc"] for r in ranks)}
+    out["phase_s"] = time.monotonic() - phase_t0
+    emit({"phase": "pod", "launches": out["launches"],
+          "phase_s": out["phase_s"]})
+    return out
+
+
 def phase_paths(dev, split_inputs):
     """The port's two other paths, each driven through its public entry
     point with every count zeroed just before and read just after:
@@ -10546,6 +10673,10 @@ def main(only: str = "") -> int:
             # the phase builds flash_decode before the group forks
             phase_smokes(dev)
             return 0
+        if only == "pod":
+            # the phase builds flash_attn_fwd_tc before the ranks start
+            phase_pod(dev)
+            return 0
         if only:
             {"streaming": phase_streaming,
              "observability": phase_observability}[only]()
@@ -10592,6 +10723,8 @@ def main(only: str = "") -> int:
         tools = phase_tools(dev)
         progress("phase smokes")
         smokes = phase_smokes(dev)
+        progress("phase pod")
+        pod = phase_pod(dev)
         progress("phase paths")
         paths = phase_paths(dev, split_inputs)
         progress("phase times")
@@ -10633,6 +10766,9 @@ def main(only: str = "") -> int:
     by_path["tools"] = tools["launches"]["flash_decode"]
     by_path["smokes"] = smokes["launches"]["flash_decode"]
     by_path["long_cache_decode"] = paths["long_cache_decode"]["flash_decode"]
+    tc_by_path = {
+        "long_context": paths["long_context"]["flash_attn_fwd_tc"],
+        "pod": pod["launches"]["flash_attn_fwd_tc"]}
     fwd_by_path = {
         "long_context": paths["long_context"]["flash_attn_fwd"],
         "combo_sequence_parallel": cl["d_sequence_parallel"][
@@ -10672,10 +10808,13 @@ def main(only: str = "") -> int:
              split_case=dict(times["split_decode"],
                              max_abs_err=errs["split_decode"]),
              full_cache_case=times["full_decode"]),
-        _row("flash_attn_fwd_tc", "long-context attention",
-             paths["long_context"]["flash_attn_fwd_tc"],
+        _row("flash_attn_fwd_tc", "long-context attention; pod: the "
+             "service function of a CollectiveChannel.call in each of four "
+             "rank processes",
+             sum(tc_by_path.values()),
              sl["flash_attn_fwd_tc"], sl["flash_attn_fwd_tc"] / steps,
              errs["flash_attn_fwd_tc"], tc, shape="8x2048x64 bf16",
+             launches_by_path=tc_by_path,
              cases=_measured_cases(times["long"], "flash_attn_fwd_tc")),
         _row("flash_attn_fwd", "long-context attention; combo: the "
              "reference of ring and Ulysses attention",
@@ -10716,7 +10855,7 @@ if __name__ == "__main__":
                                  ["ring"], ["replay"], ["h2"],
                                  ["protocols"], ["legacy"], ["media"],
                                  ["sanitize"], ["lint"], ["tools"],
-                                 ["smokes"]):
+                                 ["smokes"], ["pod"]):
             sys.exit(f"chip_smoke: unknown phase {sys.argv[2:]}")
         sys.exit(main(only=sys.argv[2]))
     sys.exit(main())

@@ -394,31 +394,39 @@ def _First(m):
     return First()
 
 
-def _murmur_without_native():
-    """brpc_tpu's c_murmurhash ring through its pure-Python hash (no
-    native library in that process) and through its native one (this
-    process) against the port's."""
-    eps = [f"tcp://10.0.0.{i}:80" for i in range(1, 6)]
+def _ref_murmur_ring(eps, native: bool):
+    """brpc_tpu's c_murmurhash ring over ``eps`` in a fresh process: its
+    picks of KEYS, through its native hash (asserted loaded there) or
+    its pure-Python one (``BRPC_TPU_NO_NATIVE``)."""
     code = (
         "import json, sys\n"
         "from brpc_tpu.butil.endpoint import str2endpoint\n"
         "from brpc_tpu import native\n"
         "from brpc_tpu.rpc import load_balancer\n"
-        "assert native.murmur3_x64_128(b'x', 0) is None\n"
+        f"assert (native.murmur3_x64_128(b'x', 0) is not None) is {native}"
+        ", 'brpc_tpu native hash loaded: not ' + str({native})\n"
         "lb = load_balancer.new_load_balancer('c_murmurhash')\n"
         f"lb.reset_servers([str2endpoint(e) for e in {eps!r}])\n"
         "keys = [f'user-{i}'.encode() for i in range(1000)]\n"
         "print(json.dumps([str(lb.select_server(None, request_key=k))\n"
         "                  for k in keys]))\n")
-    env = dict(os.environ, BRPC_TPU_NO_NATIVE="1", JAX_PLATFORMS="cpu")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    env.pop("BRPC_TPU_NO_NATIVE", None)
+    if not native:
+        env["BRPC_TPU_NO_NATIVE"] = "1"
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=60)
     assert proc.returncode == 0, proc.stderr
-    pure = json.loads(proc.stdout.strip().splitlines()[-1])
-    from brpc_tpu import native
-    assert native.murmur3_x64_128(b"x", 0) is not None, \
-        "brpc_tpu's native hash is not loaded here"
-    native_ring = _picks(ref_lb, ref_ep, "c_murmurhash", eps, keys=KEYS)
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def _murmur_without_native():
+    """brpc_tpu's c_murmurhash ring through its pure-Python hash (no
+    native library in that process) and through its native one (in a
+    process of its own, where it must load) against the port's."""
+    eps = [f"tcp://10.0.0.{i}:80" for i in range(1, 6)]
+    pure = _ref_murmur_ring(eps, native=False)
+    native_ring = _ref_murmur_ring(eps, native=True)
     mine = _picks(port_lb, port_ep, "c_murmurhash", eps, keys=KEYS)
     assert mine == pure == native_ring
 

@@ -137,8 +137,8 @@ def test_chaos_cli_leaves_jax_and_brpc_tpu_out():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-# the trace, load and cluster tools, the smokes and the preflight: those
-# with a parser print their help, the others are imported
+# the trace, load and cluster tools, the smokes, the preflight and the
+# pod smoke: those with a parser print their help, the others are imported
 TOOLS = {"trace": True, "chain_server": True, "bench_echo_server": False,
          "pipeline_runner": False, "qps_client": False, "soak": True,
          "fiber_stacks": False, "cluster_top": True,
@@ -148,7 +148,8 @@ TOOLS = {"trace": True, "chain_server": True, "bench_echo_server": False,
          "perf_smoke": False, "fabric_smoke": False,
          "serving_obs_smoke": True, "serving_smoke": True,
          "device_obs_smoke": True, "device_perf_smoke": True,
-         "ici_smoke": True, "ring_smoke": True, "preflight": True}
+         "ici_smoke": True, "ring_smoke": True, "preflight": True,
+         "pod_smoke": True}
 
 
 @pytest.mark.parametrize("tool", sorted(TOOLS))
